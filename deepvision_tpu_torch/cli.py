@@ -1,0 +1,144 @@
+"""Command line of the port's training entry points (own copy of
+deepvision_tpu/cli.py: `build_parser`, `_run`, the synthetic data factories
+and `run_detection`).
+
+`python YOLO/torch/train.py -m yolov3 --synthetic --image-size 416` trains
+YOLO V3 on the card; `--device cpu` runs it on the CPU. The flags are the
+JAX CLI's (`-m`, `-c`, `--synthetic`, `--epochs`, `--batch-size`,
+`--eval-batch-size`, `--learning-rate`, `--steps-per-epoch`, `--seed`,
+`--workdir`), plus `--device` and `--image-size`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+from typing import Callable, Optional, Sequence, Tuple
+
+from .configs import get_config
+from .core.config import TrainConfig
+from .utils.device import resolve_device
+
+SYNTH_STEPS_DEFAULT = 8
+
+
+def build_parser(family: str, models: Sequence[str]) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description=f"Train {family} models with the PyTorch port (CUDA). "
+                    f"Models: {', '.join(models)}")
+    p.add_argument("-m", "--model", required=True, choices=list(models))
+    p.add_argument("-c", "--checkpoint", default=None,
+                   help="resume from this epoch number, or 'latest'")
+    p.add_argument("--synthetic", action="store_true",
+                   help="train on synthetic data (smoke test, no dataset "
+                        "needed; a 64 px canvas unless --image-size)")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--eval-batch-size", type=int, default=None,
+                   help="validation batch size (defaults to --batch-size)")
+    p.add_argument("--learning-rate", type=float, default=None,
+                   help="override the config's base learning rate")
+    p.add_argument("--steps-per-epoch", type=int, default=None,
+                   help="override steps per epoch (synthetic/smoke)")
+    p.add_argument("--seed", type=int, default=None,
+                   help="override the config's seed (weights and data)")
+    p.add_argument("--workdir", default=None,
+                   help="checkpoints and metrics (default runs/<config>)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--image-size", type=int, default=None,
+                   help="override the image size; the JAX CLI has no such "
+                        "flag. With --synthetic it replaces the 64 px "
+                        "canvas, so a synthetic run can train at the "
+                        "config's full size (416 for yolov3)")
+    return p
+
+
+def _config_from_args(args, synthetic_image_size: Optional[int]
+                      ) -> TrainConfig:
+    cfg = get_config(args.model)
+    if args.epochs:
+        cfg = cfg.replace(total_epochs=args.epochs)
+    if args.batch_size:
+        cfg = cfg.replace(batch_size=args.batch_size)
+    if args.eval_batch_size:
+        cfg = cfg.replace(eval_batch_size=args.eval_batch_size)
+    if args.learning_rate:
+        cfg = cfg.replace(optimizer=dataclasses.replace(
+            cfg.optimizer, learning_rate=args.learning_rate))
+    if args.seed is not None:
+        cfg = cfg.replace(seed=args.seed)
+    if args.synthetic:
+        n_batches = args.steps_per_epoch or SYNTH_STEPS_DEFAULT
+        synth = dict(dataset="synthetic",
+                     train_examples=cfg.batch_size * n_batches)
+        if synthetic_image_size:
+            synth["image_size"] = synthetic_image_size
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, **synth))
+    if args.image_size:
+        cfg = cfg.replace(data=dataclasses.replace(
+            cfg.data, image_size=args.image_size))
+    return cfg
+
+
+def _synthetic_data(cfg: TrainConfig, make_batches: Callable) -> Tuple:
+    """Train and val epoch factories over `make_batches(batch_size, steps,
+    seed)`: the train epoch draws from seed `epoch`, the val set is 2
+    batches from seed 10**6, as in the JAX package."""
+    n_batches = max(1, cfg.data.train_examples // cfg.batch_size)
+    eval_batch = cfg.eval_batch_size or cfg.batch_size
+    return (lambda epoch: make_batches(cfg.batch_size, n_batches, epoch),
+            lambda epoch: make_batches(eval_batch, 2, 10**6))
+
+
+def _detection_data(cfg: TrainConfig, args) -> Tuple:
+    from .data import detection as det
+    data = cfg.data
+    if args.synthetic or data.dataset == "synthetic":
+        return _synthetic_data(cfg, lambda batch, steps, seed:
+                               det.synthetic_batches(
+                                   batch_size=batch,
+                                   image_size=data.image_size,
+                                   num_classes=data.num_classes, steps=steps,
+                                   seed=seed))
+    if data.dataset in ("detection", "digits_detect"):
+        raise NotImplementedError(
+            f"dataset {data.dataset!r} is not ported yet (the TFRecord "
+            f"VOC/COCO pipeline and the digits_detect scenes); train with "
+            f"--synthetic")
+    raise ValueError(f"detection families read 'detection' TFRecords, not "
+                     f"dataset={data.dataset!r}")
+
+
+def _run(family: str, models: Sequence[str], trainer_factory: Callable,
+         make_data: Callable, argv: Optional[Sequence[str]] = None,
+         synthetic_image_size: Optional[int] = None):
+    """Parse → device → config overrides → trainer → data → fit. Returns
+    the (closed) trainer and fit's result, so a caller can read the trained
+    state."""
+    args = build_parser(family, models).parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = _config_from_args(args, synthetic_image_size)
+    workdir = args.workdir or os.path.join("runs", cfg.name)
+    trainer = trainer_factory(cfg, workdir, device)
+    train_fn, val_fn = make_data(cfg, args)
+    trainer.init_state()
+    if args.checkpoint:
+        trainer.resume(None if args.checkpoint == "latest"
+                       else int(args.checkpoint))
+    from .core.trainer import fit_and_close
+    result = fit_and_close(trainer, train_fn, val_fn)
+    print(f"done: best={result.get('best_metric')}", flush=True)
+    return trainer, result
+
+
+def run_detection(family: str, models: Sequence[str],
+                  argv: Optional[Sequence[str]] = None):
+    """Detection (YOLO) entry point — `python train.py -m yolov3
+    [-c latest]`. Synthetic runs use a 64 px canvas, as in the JAX
+    package, unless `--image-size` says otherwise."""
+    from .core.detection import DetectionTrainer
+    return _run(family, models,
+                lambda c, w, d: DetectionTrainer(c, device=d, workdir=w),
+                _detection_data, argv, synthetic_image_size=64)

@@ -1,11 +1,12 @@
-"""Registered configs of the port (own copy of deepvision_tpu/configs.py,
-ViT entries only). The hyperparameters equal the JAX package's;
-tests/test_torch_vit.py holds them against it.
+"""Registered configs of the port (own copy of deepvision_tpu/configs.py:
+the ViT and YOLO entries). The hyperparameters equal the JAX package's;
+tests/test_torch_vit.py and tests/test_torch_yolo.py hold them against it.
 """
 
 from __future__ import annotations
 
-from .core.config import DataConfig, TrainConfig
+from .core.config import (DataConfig, OptimizerConfig, ScheduleConfig,
+                          TrainConfig)
 from .utils.registry import CONFIGS
 
 # -- vit_tiny: the CPU-feasible smoke/parity surface — 32px / patch 8 → 17
@@ -25,6 +26,45 @@ CONFIGS.register("vit_small", TrainConfig(
                   "num_heads": 6, "mlp_dim": 1536, "dropout_rate": 0.1,
                   "attention_impl": "auto"},
     data=DataConfig(image_size=224, num_classes=1000),
+))
+
+# -- YOLO V3: 416px, batch 16 per replica in the reference (128 is the
+#    multi-chip global batch), 300 epochs, COCO 80 classes; Adam lr .01 with
+#    a plateau /10 after 10 bad epochs watching val loss. ----
+CONFIGS.register("yolov3", TrainConfig(
+    name="yolov3", model="yolov3", family="detection", batch_size=128,
+    total_epochs=300,
+    optimizer=OptimizerConfig(name="adam", learning_rate=0.01),
+    schedule=ScheduleConfig(name="plateau", plateau_patience=10,
+                            plateau_factor=0.1, plateau_mode="min"),
+    data=DataConfig(dataset="detection", image_size=416, num_classes=80,
+                    train_examples=118287, val_examples=5000),
+))
+
+# -- YOLO V3 on VOC2007 (20 classes, 2501 trainval images). ----
+CONFIGS.register("yolov3_voc", TrainConfig(
+    name="yolov3_voc", model="yolov3", family="detection", batch_size=32,
+    total_epochs=300,
+    model_kwargs={"num_classes": 20},
+    optimizer=OptimizerConfig(name="adam", learning_rate=0.01),
+    schedule=ScheduleConfig(name="plateau", plateau_patience=10,
+                            plateau_factor=0.1, plateau_mode="min"),
+    data=DataConfig(dataset="detection", image_size=416, num_classes=20,
+                    train_examples=2501, val_examples=2510),
+))
+
+# -- YOLO on scanned-digit detection scenes, Darknet-53 at a quarter width
+#    on a 128px canvas (the digits_detect input is not ported yet: this
+#    config trains on --synthetic data only). ----
+CONFIGS.register("yolov3_digits", TrainConfig(
+    name="yolov3_digits", model="yolov3", family="detection", batch_size=32,
+    total_epochs=150,
+    model_kwargs={"num_classes": 10, "width_mult": 0.25},
+    optimizer=OptimizerConfig(name="adam", learning_rate=1e-3),
+    schedule=ScheduleConfig(name="step", boundaries_epochs=(70, 90),
+                            decay_factor=0.1),
+    data=DataConfig(dataset="digits_detect", image_size=128, num_classes=10,
+                    train_examples=512, val_examples=128),
 ))
 
 

@@ -1,24 +1,57 @@
-"""Typed configs: the fields of deepvision_tpu/core/config.py that the serve
-path reads (own copy). The training fields (optimizer, schedule, epochs,
-data pipeline) arrive with the training slice.
+"""Typed configs: the fields of deepvision_tpu/core/config.py that the
+port's serve path and its detection trainer read (own copy). Defaults
+equal the JAX package's. Fields of the JAX configs that no ported path
+reads yet (mesh, EMA, accumulation, augmentation, resilience levers)
+arrive with the slice that needs them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 # Canonical ImageNet channel statistics in [0,1] units (torchvision
 # convention), the defaults of DataConfig.mean/std as in the JAX package.
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
+# The detection pipelines normalize to [-1, 1] (x/127.5 - 1): as mean/std
+# in [0,1] units that is (0.5, 0.5), the on-device input_norm their steps
+# use when the pipeline ships raw uint8.
+UNIT_RANGE_NORM = ((0.5, 0.5, 0.5), (0.5, 0.5, 0.5))
+
+
+@dataclasses.dataclass
+class OptimizerConfig:
+    name: str = "sgd"               # the port trains with adam so far
+    learning_rate: float = 0.1
+    weight_decay: float = 0.0
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    grad_clip_norm: Optional[float] = None
+
+
+@dataclasses.dataclass
+class ScheduleConfig:
+    name: str = "constant"          # constant | step | plateau (ported)
+    boundaries_epochs: Tuple[float, ...] = ()   # step schedule
+    decay_factor: float = 0.1
+    # plateau: host-driven, scales the LR after `plateau_patience` epochs
+    # without improvement of the watched metric
+    plateau_patience: int = 2
+    plateau_factor: float = 0.1
+    plateau_mode: str = "max"       # watch val top-1 ('max') or val loss ('min')
+
 
 @dataclasses.dataclass
 class DataConfig:
+    dataset: str = "synthetic"
     image_size: int = 224
     channels: int = 3               # input channels (1 for MNIST-family)
     num_classes: int = 1000
+    train_examples: int = 1281167
+    val_examples: int = 50000
     # Ship raw uint8 pixels to the device and normalize ((x/255-mean)/std)
     # there instead of on the host (core/steps.normalize_input).
     normalize_on_device: bool = False
@@ -31,9 +64,27 @@ class TrainConfig:
     name: str = "model"
     model: str = "resnet50"
     # Trainer family this config belongs to: classification | detection |
-    # pose | centernet | gan (only classification is served by the port yet).
+    # pose | centernet | gan (the port serves classification and trains
+    # detection so far).
     family: str = "classification"
     model_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    batch_size: int = 256           # global batch
+    eval_batch_size: Optional[int] = None
+    total_epochs: int = 100
+    optimizer: OptimizerConfig = dataclasses.field(
+        default_factory=OptimizerConfig)
+    schedule: ScheduleConfig = dataclasses.field(
+        default_factory=ScheduleConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     dtype: str = "bfloat16"         # compute dtype; params stay f32
     seed: int = 0
+    log_every_steps: int = 10
+    checkpoint_dir: str = "checkpoints"
+    keep_checkpoints: int = 3
+    keep_best: bool = True
+    # raise TrainingDivergedError when an epoch's mean train loss is
+    # non-finite, naming the last checkpoint to resume from
+    halt_on_nonfinite: bool = True
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)

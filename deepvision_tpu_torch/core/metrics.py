@@ -1,6 +1,6 @@
 """Metrics stream (the JSONL + console part of
 deepvision_tpu/core/metrics.py::MetricsLogger, own copy). TensorBoard
-output arrives with the training slice.
+output is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,13 +29,16 @@ class MetricsLogger:
 
     def log(self, step: int, metrics: Dict[str, float], prefix: str = "",
             echo: bool = True,
-            extra: Optional[Dict[str, str]] = None) -> None:
+            extra: Optional[Dict[str, str]] = None,
+            epoch: Optional[int] = None) -> None:
         """`extra` carries non-numeric correlation fields (request_id) onto
-        the JSONL line only."""
+        the JSONL line only; `epoch`, when given, goes on the line and into
+        the console echo."""
         metrics = {k: float(v) for k, v in metrics.items()}
         with self._lock:
             if self._jsonl is not None:
                 rec = {"step": step, "t": round(time.time() - self._t0, 3),
+                       **({"epoch": epoch} if epoch is not None else {}),
                        **(extra or {})}
                 # json.dumps would emit bare NaN/Infinity tokens (invalid
                 # JSON); serialize non-finite values as strings instead
@@ -46,7 +49,8 @@ class MetricsLogger:
                 self._jsonl.flush()
         if echo:
             body = " ".join(f"{prefix + k}={v:.4f}" for k, v in metrics.items())
-            print(f"[{self.name}] step {step}: {body}", flush=True)
+            where = f"epoch {epoch} " if epoch is not None else ""
+            print(f"[{self.name}] {where}step {step}: {body}", flush=True)
 
     def close(self) -> None:
         with self._lock:

@@ -1,7 +1,7 @@
-"""Resilience primitives the serve path uses (own copy of
+"""Resilience primitives the serve path and the trainer use (own copy of
 deepvision_tpu/core/resilience.py: `log_resilience_event` and
 `GracefulShutdown`). Retry policies, the step watchdog and divergence
-recovery arrive with the training slice.
+recovery are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +29,8 @@ def log_resilience_event(logger, step: int, metrics: dict, *,
 
 class GracefulShutdown:
     """SIGTERM/SIGINT → a polled flag, installed for the duration of a
-    serving lifetime (serve/server.py) or a smoke run (serve/cli.py).
+    serving lifetime (serve/server.py), a smoke run (serve/cli.py) or a
+    training run (core/trainer.py).
 
     A SECOND signal restores the previous handlers and re-raises, so a
     stuck shutdown stays killable with plain Ctrl-C Ctrl-C. Signal handlers

@@ -1,0 +1,315 @@
+"""The trainer core (own copy of deepvision_tpu/core/trainer.py: `Trainer`'s
+state, staged epoch loop, fit loop, checkpoint and resume, and
+`LossWatchedTrainer.evaluate`).
+
+A family subclass installs `train_step(state, *batch) -> metrics` and
+`eval_step(state, *batch) -> {"loss": ...}`, plain functions on tensors
+(core/detection.py). The loop copies each host batch to the device, runs
+the step and keeps its metrics on the device; it reads them back at the
+`log_every_steps` boundaries and once at the end of the epoch. Mesh,
+grad calibration, the epoch cache, multi-step dispatch, EMA, tracing, the
+watchdog, fault injection and divergence recovery are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+import statistics
+import time
+from typing import Callable, Dict, Iterable, List, Optional
+
+import numpy as np
+import torch
+
+from ..models import build_model
+from ..utils.device import resolve_device
+from .checkpoint import CheckpointManager
+from .config import TrainConfig
+from .metrics import MetricsLogger
+from .optim import AdamChain
+from .resilience import GracefulShutdown
+from .schedules import PlateauState, build_schedule
+from .train_state import TrainState, param_count
+
+# The port's steps update the state in place and donate nothing; jaxlint's
+# project-wide reach resolves `train_step` by name to the JAX package's
+# donating step.
+# jaxlint: disable-file=DON001
+
+
+class TrainingDivergedError(RuntimeError):
+    """An epoch's mean train loss is non-finite: the optimizer state is
+    poisoned, so training on would only waste card-hours."""
+
+
+def divergence_halt(config: TrainConfig, ckpt: CheckpointManager, epoch: int,
+                    what: str) -> None:
+    """Raise TrainingDivergedError naming the checkpoint to resume from."""
+    last = ckpt.latest_epoch()
+    resume = (f"resume from epoch {last} with `-c {last}`"
+              if last is not None else "no checkpoint committed yet")
+    raise TrainingDivergedError(
+        f"[{config.name}] epoch {epoch} {what} — training diverged. "
+        f"{resume}; consider a lower learning rate, warmup_epochs, or "
+        f"grad_clip_norm. (Set halt_on_nonfinite=False to keep going anyway.)")
+
+
+def fit_and_close(trainer: "Trainer", *args, **kwargs) -> dict:
+    """`trainer.fit(...)` then `close()`, with the entry point's divergence
+    UX: a TrainingDivergedError becomes a one-line remedy and a nonzero
+    exit instead of a traceback."""
+    try:
+        return trainer.fit(*args, **kwargs)
+    except TrainingDivergedError as e:
+        raise SystemExit(f"error: {e}")
+    finally:
+        trainer.close()
+
+
+class _StepClock:
+    """Wall time of each step without a host sync per step: CUDA events on
+    the card, read once at the end of the epoch; the host clock on the CPU,
+    where every step runs synchronously."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks: list = []
+        self.mark()
+
+    def mark(self) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def step_ms(self) -> List[float]:
+        pairs = zip(self.marks, self.marks[1:])
+        if self.cuda:
+            self.marks[-1].synchronize()
+            return [a.elapsed_time(b) for a, b in pairs]
+        return [(b - a) * 1e3 for a, b in pairs]
+
+
+class Trainer:
+    """`fit(train_data_fn, val_data_fn)` where each returns an epoch's
+    iterable of numpy batch tuples, forwarded positionally to the family's
+    train and eval steps."""
+
+    # subclass override for the watched metric, e.g. ("loss", "min"); None
+    # derives it from the plateau config (top-1 max by default)
+    default_watch = None
+
+    def __init__(self, config: TrainConfig, *, device=None,
+                 workdir: Optional[str] = None,
+                 model: Optional[torch.nn.Module] = None):
+        self.config = config
+        self.device = resolve_device(device)
+        self.workdir = workdir or config.checkpoint_dir
+        self.model = model if model is not None else build_model(config)
+        self.steps_per_epoch = max(
+            1, config.data.train_examples // config.batch_size)
+        self.schedule = build_schedule(config.schedule,
+                                       config.optimizer.learning_rate,
+                                       self.steps_per_epoch)
+        sched = config.schedule
+        self.plateau = PlateauState(
+            patience=sched.plateau_patience, factor=sched.plateau_factor,
+            mode=sched.plateau_mode) if sched.name == "plateau" else None
+        self.logger = MetricsLogger(self.workdir, name=config.name)
+        self.state: Optional[TrainState] = None
+        self.start_epoch = 1
+        self.best_metric: Optional[float] = None
+        #: per-step host metrics (with `step_ms`) of the last trained epoch
+        self.last_epoch_steps: List[Dict[str, float]] = []
+        self._shutdown: Optional[GracefulShutdown] = None
+        if self.default_watch is not None:
+            self.watch_key, self.watch_mode = self.default_watch
+        elif self.plateau and sched.plateau_mode == "min":
+            self.watch_key, self.watch_mode = "loss", "min"
+        else:
+            self.watch_key, self.watch_mode = "top1", "max"
+        self.ckpt = CheckpointManager(
+            self.workdir + "/ckpt", keep=config.keep_checkpoints,
+            keep_best=config.keep_best, best_mode=self.watch_mode)
+        # installed by the family subclass
+        self.train_step: Optional[Callable[..., Dict[str, torch.Tensor]]] = None
+        self.eval_step: Optional[Callable[..., Dict[str, torch.Tensor]]] = None
+
+    # -- state ------------------------------------------------------------
+    def init_state(self) -> TrainState:
+        self.model.to(self.device)
+        optimizer = AdamChain(self.model.parameters(), self.config.optimizer,
+                              self.schedule)
+        self.state = TrainState(self.model, optimizer)
+        print(f"[{self.config.name}] model={self.config.model} "
+              f"params={param_count(self.model):,} device={self.device} "
+              f"steps/epoch={self.steps_per_epoch}", flush=True)
+        return self.state
+
+    def resume(self, epoch: Optional[int] = None) -> Optional[int]:
+        """Restore the latest (or the given) checkpoint — the `-c` UX.
+        Returns the restored epoch, or None when nothing is saved."""
+        if self.state is None:
+            raise RuntimeError("call init_state first")
+        restored = self.ckpt.restore(epoch)
+        if restored is None:
+            return None
+        got, payload = restored
+        self.state.load_state_dict(payload["state"])
+        host = payload["host"]
+        self.start_epoch = got + 1
+        self.best_metric = host.get("best_metric")
+        if self.plateau and "plateau" in host:
+            p = host["plateau"]
+            self.plateau.best = p.get("best")
+            self.plateau.num_bad_epochs = p.get("num_bad_epochs", 0)
+            self.plateau.scale = p.get("scale", 1.0)
+            self.state.optimizer.set_lr_scale(self.plateau.scale)
+        print(f"[{self.config.name}] resumed from epoch {got}", flush=True)
+        return got
+
+    def _to_device(self, batch) -> tuple:
+        return tuple(torch.as_tensor(np.asarray(a)).to(self.device,
+                                                       non_blocking=True)
+                     for a in batch)
+
+    def _preempted(self) -> bool:
+        return self._shutdown is not None and self._shutdown.requested
+
+    # -- loops ------------------------------------------------------------
+    def train_epoch(self, epoch: int, data: Iterable) -> dict:
+        """The staged per-batch loop: host batch → device → step. Returns
+        the epoch's mean metrics, `images_per_sec` over the whole epoch and
+        `step_ms`, the median step time after the first (which also pays
+        for the first use of every kernel)."""
+        t0 = time.time()
+        log_every = self.config.log_every_steps
+        device_metrics: List[Dict[str, torch.Tensor]] = []
+        n_img = 0
+        clock = _StepClock(self.device)
+        for batch in data:
+            if self._preempted():
+                break  # the last step has finished; fit() saves
+            batch = self._to_device(batch)
+            metrics = self.train_step(self.state, *batch)
+            clock.mark()
+            device_metrics.append(metrics)
+            n_img += len(batch[0])
+            if self.state.step % log_every == 0:
+                self.logger.log(self.state.step, metrics, prefix="train_",
+                                epoch=epoch)
+        out: Dict[str, float] = {}
+        self.last_epoch_steps = []
+        if device_metrics:
+            keys = list(device_metrics[0])
+            stacked = torch.stack([torch.stack([m[k].float() for k in keys])
+                                   for m in device_metrics]).cpu()
+            step_ms = clock.step_ms()
+            self.last_epoch_steps = [
+                {**dict(zip(keys, row.tolist())), "step_ms": ms}
+                for row, ms in zip(stacked, step_ms)]
+            out = dict(zip(keys, stacked.mean(dim=0).tolist()))
+            if len(step_ms) > 1:
+                out["step_ms"] = statistics.median(step_ms[1:])
+        dt = time.time() - t0
+        out["images_per_sec"] = n_img / dt if dt > 0 else 0.0
+        if self.config.halt_on_nonfinite and not math.isfinite(
+                out.get("loss", 0.0)):
+            self.logger.log(self.state.step, out, prefix="epoch_train_",
+                            epoch=epoch)
+            divergence_halt(self.config, self.ckpt, epoch,
+                            f"mean train loss is {out['loss']}")
+        return out
+
+    def evaluate(self, data: Iterable) -> dict:
+        raise NotImplementedError(
+            f"{type(self).__name__} has no evaluation ported yet")
+
+    def fit(self, train_data_fn: Callable[[int], Iterable],
+            val_data_fn: Optional[Callable[[int], Iterable]] = None,
+            resume: bool = False,
+            total_epochs: Optional[int] = None) -> dict:
+        """Per epoch: train, evaluate, watch the metric, step the plateau,
+        save. SIGTERM/SIGINT finish the step in flight, save the epoch and
+        return with `preempted_at_epoch` set."""
+        cfg = self.config
+        total_epochs = total_epochs or cfg.total_epochs
+        if self.state is None:
+            self.init_state()
+        if resume:
+            self.resume()
+        last_val: dict = {}
+        result: dict = {}
+        with GracefulShutdown(what="finishing the step, saving a "
+                                   "checkpoint, then exiting 0") as shutdown:
+            self._shutdown = shutdown
+            try:
+                for epoch in range(self.start_epoch, total_epochs + 1):
+                    train_metrics = self.train_epoch(epoch,
+                                                     train_data_fn(epoch))
+                    self.logger.log(self.state.step, train_metrics,
+                                    prefix="epoch_train_", epoch=epoch)
+                    if self._preempted():
+                        self._save_epoch(epoch, metric=None)
+                        print(f"[{cfg.name}] graceful preemption: checkpoint "
+                              f"committed at epoch {epoch} — relaunch with "
+                              f"-c latest to continue", flush=True)
+                        result["preempted_at_epoch"] = epoch
+                        break
+                    if val_data_fn is not None:
+                        last_val = self.evaluate(val_data_fn(epoch))
+                        self.logger.log(self.state.step, last_val,
+                                        prefix="val_", epoch=epoch)
+                        # an empty eval must not count as a perfect 0.0
+                        # loss in min mode
+                        metric = last_val.get(
+                            self.watch_key, 0.0 if self.watch_mode == "max"
+                            else math.inf)
+                    else:
+                        metric = train_metrics.get(
+                            self.watch_key, 0.0 if self.watch_mode == "max"
+                            else math.inf)
+                    if self.best_metric is None or (
+                            metric > self.best_metric
+                            if self.watch_mode == "max"
+                            else metric < self.best_metric):
+                        self.best_metric = metric
+                    if self.plateau:
+                        self.state.optimizer.set_lr_scale(
+                            self.plateau.update(metric))
+                    self._save_epoch(epoch, metric=metric)
+            finally:
+                self._shutdown = None
+        return {"best_metric": self.best_metric, **last_val, **result}
+
+    def _save_epoch(self, epoch: int, metric: Optional[float]) -> None:
+        host = {"best_metric": self.best_metric}
+        if self.plateau:
+            host["plateau"] = {"best": self.plateau.best,
+                               "num_bad_epochs": self.plateau.num_bad_epochs,
+                               "scale": self.plateau.scale}
+        self.ckpt.save(epoch, {"state": self.state.state_dict(),
+                               "host": host}, metric=metric)
+
+    def close(self) -> None:
+        self.logger.close()
+
+
+class LossWatchedTrainer(Trainer):
+    """Base for the families that validate on loss only: watches ("loss",
+    "min") for the best checkpoint and the plateau, and averages the finite
+    per-batch validation losses."""
+
+    default_watch = ("loss", "min")
+
+    def evaluate(self, data: Iterable) -> dict:
+        total, n = 0.0, 0
+        for batch in data:
+            loss = float(self.eval_step(self.state,
+                                        *self._to_device(batch))["loss"])
+            if math.isfinite(loss):
+                total += loss
+                n += 1
+        return {"loss": total / n, "count": float(n)} if n else {}

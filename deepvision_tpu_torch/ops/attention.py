@@ -113,6 +113,15 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"empty attention input {tuple(q.shape)}")
 
 
+def _needs_backward(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> bool:
+    """Whether autograd would record this call: the kernel writes a fresh
+    tensor with no grad_fn, so a backward through it would silently give
+    every input before the attention a zero gradient."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+
+
 _launches_lock = threading.Lock()
 
 
@@ -135,8 +144,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     On a CUDA tensor this launches the kernel on the current stream and
     counts the launch in `flash_attention.launches`; the output is
     allocated as a (B, N, H, D) tensor and returned as its (B, H, N, D)
-    view, so merging the heads back is free. On a CPU tensor it returns
-    `flash_attention_reference`. Any other device raises."""
+    view, so merging the heads back is free. The kernel has no backward
+    yet: a CUDA input that requires a gradient, with grad mode on, raises.
+    On a CPU tensor it returns `flash_attention_reference`, which autograd
+    differentiates. Any other device raises."""
     _check(q, k, v)
     scale = _default_scale(q, scale)
     if q.device.type == "cpu":
@@ -144,6 +155,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, got "
                          f"{q.device}")
+    if _needs_backward(q, k, v):
+        raise RuntimeError(
+            "flash_attention has no backward kernel yet (it is still to "
+            "port, with ViT training): call it under torch.no_grad() or "
+            "torch.inference_mode(), or on inputs that do not require a "
+            "gradient")
     b, h, n, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype,
                       device=q.device).permute(0, 2, 1, 3)

@@ -101,3 +101,23 @@ def test_unknown_impl_raises():
     q = torch.zeros(1, 1, 2, 4)
     with pytest.raises(ValueError, match="unknown attention impl"):
         port.attention(q, q, q, impl="interpret")
+
+
+def test_grad_guard_predicate_and_the_cpu_path_still_backpropagates():
+    """The kernel has no backward yet, so the CUDA branch refuses a call
+    that autograd would record (`_needs_backward`); the CPU path is the
+    plain version, which autograd differentiates like naive attention."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv((1, 2, 9, 16), seed=3))
+    assert not port._needs_backward(q, k, v)
+    q.requires_grad_(True)
+    assert port._needs_backward(q, k, v)
+    with torch.no_grad():
+        assert not port._needs_backward(q, k, v)
+    with torch.inference_mode():
+        assert not port._needs_backward(q, k, v)
+    out = port.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    q2 = q.detach().clone().requires_grad_(True)
+    port.naive_attention(q2, k, v).square().sum().backward()
+    torch.testing.assert_close(q.grad, q2.grad, rtol=2e-5, atol=2e-5)

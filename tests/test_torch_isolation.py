@@ -1,6 +1,7 @@
-"""The port stands alone: no module of deepvision_tpu_torch/ (nor
-chip_smoke.py, which runs where JAX is not installed) imports jax, flax,
-optax, orbax or anything of the JAX package deepvision_tpu."""
+"""The port stands alone: no module of deepvision_tpu_torch/ (nor its entry
+points YOLO/torch/train.py and chip_smoke.py, which run where JAX is not
+installed) imports jax, flax, optax, orbax or anything of the JAX package
+deepvision_tpu."""
 
 import ast
 import os
@@ -12,6 +13,9 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "deepvision_tpu_torch")
 BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "deepvision_tpu"}
+ENTRY_POINTS = [os.path.join(REPO, "chip_smoke.py"),
+                os.path.join(REPO, "YOLO", "torch", "train.py"),
+                os.path.join(REPO, "YOLO", "torch", "profile_step.py")]
 
 
 def _sources():
@@ -19,7 +23,7 @@ def _sources():
         for f in sorted(files):
             if f.endswith(".py"):
                 yield os.path.join(root, f)
-    yield os.path.join(REPO, "chip_smoke.py")
+    yield from ENTRY_POINTS
 
 
 @pytest.mark.parametrize("path", list(_sources()),
@@ -49,9 +53,12 @@ names = [pkg.__name__] + [m.name for m in pkgutil.walk_packages(
     pkg.__path__, pkg.__name__ + ".")]
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
+import runpy
+for path in {ENTRY_POINTS[1:]!r}:
+    runpy.run_path(path, run_name="not_main")
 print(len(names))
 """
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.split()[-1]) >= 15
+    assert int(proc.stdout.split()[-1]) >= 36
