@@ -6,18 +6,28 @@ JAX and nothing of the JAX package. Phases, one line each or more:
 
 1. the card (`nvidia-smi` name and power limit) and the torch/CUDA versions;
 2. build every kernel of the port from csrc/ (one nvcc per source, all
-   started together) and print the build seconds and nvcc's resource report;
+   started together) and print the build seconds, ptxas's registers, shared
+   memory and spills per kernel function, and the count of tensor-core
+   instructions (`HMMA`) in each function's SASS (`cuobjdump -sass`) — the
+   bf16 flash-attention kernels must have some;
 3. each kernel against its plain PyTorch version on the card at the shapes
-   the main paths give it (and ragged ones), with its time, the plain
-   version's, the library call's (`library_ms`, a yardstick the port never
-   calls; none exists for best_iou) and the least time the card could take
-   (`bound_ms`);
+   the main paths give it (vit_small's attention both contiguous and in
+   the model's strided head-split layout) and at ragged and misaligned
+   ones, with two times: `ms`, the host loop of 50 wrapper calls between
+   CUDA events (Python dispatch included), and `device_ms`, 50 launches
+   captured in one CUDA graph and replayed between CUDA events; beside
+   them the plain version's time, the library call's (`library_ms` and
+   `library_device_ms`, a yardstick the port never calls; none exists for
+   best_iou) and the least time the card could take (`bound_ms`);
 4. slice 1: `vit_small` at full width served by the port's own
    `serve.cli.build_server` on `cuda` — synthetic `_smoke` load, then
    `POST /predict` over 127.0.0.1 — with every answer held against
    `engine.reference()`, a small input held against the same weights on
    the CPU, and the flash-attention launch count, zeroed just before,
-   showing that every dispatch went through the kernel;
+   showing that every dispatch went through the kernel; then
+   `torch.profiler` over 5 dispatches of bucket 32 (after 3 warm-up ones)
+   splits a dispatch's device time into the flash-attention kernel, GEMMs,
+   copies and the rest, beside its wall time;
 5. slice 2: `yolov3` at full width (416 px, 80 classes, batch 16) trained
    by the port's own `cli.run_detection` on `cuda` for 3 synthetic steps,
    2 validation batches and one checkpoint — every step's losses finite,
@@ -33,6 +43,7 @@ last is `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import shutil
 import statistics
@@ -60,6 +71,10 @@ from deepvision_tpu_torch.ops.attention import (flash_attention,
 from deepvision_tpu_torch.ops.best_iou import best_iou, best_iou_reference
 from deepvision_tpu_torch.serve.cli import _smoke, build_parser, build_server
 from deepvision_tpu_torch.serve.server import InferenceServer
+from deepvision_tpu_torch.tools.build_report import (demangle,
+                                                     hmma_by_function,
+                                                     ptxas_by_function)
+from deepvision_tpu_torch.utils.timing import graph_ms
 
 MODEL = "vit_small"
 BUCKETS = (1, 8, 32)
@@ -101,7 +116,9 @@ def phase(msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 50) -> float:
-    """Mean device time of `fn` over `iters` launches, by CUDA events."""
+    """Mean time of one call of `fn` over a host loop of `iters` calls,
+    between CUDA events: where the device outruns the host, this reads the
+    host's dispatch cost (Python, wrapper, launch), not the device's."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -115,6 +132,39 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+# the bf16 flash-attention kernels, (DMAX, 16-byte copies), as their
+# Itanium-mangled template arguments spell them
+TC_KERNELS = {(dmax, vec): f"flash_attention_fwd_tcILi{dmax}ELb{int(vec)}EE"
+              for dmax in (64, 128) for vec in (True, False)}
+
+
+def check_tensor_cores(hmma: dict) -> None:
+    """Fails unless the SASS's {mangled kernel: HMMA count} lists every
+    bf16 flash-attention kernel once, each with tensor-core instructions."""
+    for key, tag in TC_KERNELS.items():
+        counts = [n for raw, n in hmma.items() if tag in raw]
+        if len(counts) != 1 or counts[0] < 1:
+            raise AssertionError(
+                f"bf16 flash-attention kernel (DMAX, 16-byte) {key}: HMMA "
+                f"counts in the SASS {counts}, want one kernel with at "
+                f"least one")
+
+
+def report_build(names) -> None:
+    """Per kernel function: ptxas's resources and the SASS's HMMA count;
+    the bf16 attention kernels must use the tensor cores."""
+    for lib in names:
+        ptxas = ptxas_by_function(_build.BUILD_INFO.get(lib, {})
+                                  .get("ptxas", ""))
+        hmma = hmma_by_function(str(_build._target(lib)))
+        mangled = sorted(set(ptxas) | set(hmma))
+        for raw, name in zip(mangled, demangle(mangled)):
+            phase(f"{lib}: {name}: {ptxas.get(raw, 'cached build')}; "
+                  f"HMMA in SASS: {hmma.get(raw, 'not found')}")
+        if lib == "flash_attention":
+            check_tensor_cores(hmma)
+
+
 def attention_bound(shape, dtype):
     """Least time for softmax(QK^T)V on `shape`: Q, K, V read once and O
     written once, against 2 products of 2*B*H*N*N*D operations."""
@@ -126,9 +176,24 @@ def attention_bound(shape, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_attention(shape, dtype, gen, timed: bool) -> dict:
-    q, k, v = (torch.randn(shape, generator=gen).to("cuda", dtype)
-               for _ in range(3))
+def make_qkv(shape, dtype, gen, layout: str = "contiguous"):
+    """q, k, v of (B, H, N, D) on the card: `contiguous`; `strided`, the
+    model's (B, N, H*D) projections viewed as (B, H, N, D); `offset_1`,
+    rows off 16 bytes (the kernel's scalar-copy variant)."""
+    b, h, n, d = shape
+    if layout == "strided":
+        return [torch.randn((b, n, h * d), generator=gen).to("cuda", dtype)
+                .view(b, n, h, d).permute(0, 2, 1, 3) for _ in range(3)]
+    if layout == "offset_1":
+        return [torch.randn(b * h * n * d + 1, generator=gen)
+                .to("cuda", dtype)[1:].view(shape) for _ in range(3)]
+    return [torch.randn(shape, generator=gen).to("cuda", dtype)
+            for _ in range(3)]
+
+
+def check_attention(shape, dtype, gen, timed: bool,
+                    layout: str = "contiguous") -> dict:
+    q, k, v = make_qkv(shape, dtype, gen, layout)
     out = flash_attention(q, k, v)
     ref = flash_attention_reference(q, k, v)
     torch.cuda.synchronize()
@@ -137,21 +202,28 @@ def check_attention(shape, dtype, gen, timed: bool) -> dict:
                              f"{out.dtype} for {tuple(shape)} {dtype}")
     err = (out.float() - ref.float()).abs().max().item()
     rec = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-           "max_abs_err": err}
-    line = f"flash_attention {rec['dtype']} {tuple(shape)}: max_abs_err={err:.3g}"
+           "layout": layout, "max_abs_err": err}
+    line = (f"flash_attention {rec['dtype']} {tuple(shape)} {layout}: "
+            f"max_abs_err={err:.3g}")
     if err > TOL[dtype] or not torch.isfinite(out.float()).all():
         raise AssertionError(f"{line} exceeds {TOL[dtype]:g}")
     if timed:
         bound, bound_by = attention_bound(shape, dtype)
+        kernel = functools.partial(flash_attention, q, k, v)
+        library = functools.partial(F.scaled_dot_product_attention, q, k, v)
         rec.update(
-            ms=time_ms(lambda: flash_attention(q, k, v)),
+            ms=time_ms(kernel), device_ms=graph_ms(kernel),
             plain_ms=time_ms(lambda: flash_attention_reference(q, k, v), 10),
-            library_ms=time_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v)),
+            library_ms=time_ms(library), library_device_ms=graph_ms(library),
             bound_ms=bound, bound_by=bound_by)
-        line += (f" ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+        line += (f" ms={rec['ms']:.4f} device_ms={rec['device_ms']:.4f} "
+                 f"plain_ms={rec['plain_ms']:.4f} "
                  f"library_ms={rec['library_ms']:.4f} "
-                 f"bound_ms={bound:.4f} ({bound_by})")
+                 f"library_device_ms={rec['library_device_ms']:.4f} "
+                 f"bound_ms={bound:.5f} ({bound_by}) "
+                 f"device_ms/bound={rec['device_ms'] / bound:.2f} "
+                 f"device_ms/library_device_ms="
+                 f"{rec['device_ms'] / rec['library_device_ms']:.2f}")
     phase(line)
     return rec
 
@@ -190,10 +262,13 @@ def check_best_iou(b: int, n: int, m: int, gen, timed: bool) -> dict:
         raise AssertionError(f"{line} exceeds {IOU_TOL:g}")
     if timed:
         bound, bound_by = best_iou_bound(b, n, m)
-        rec.update(ms=time_ms(lambda: best_iou(pred, gt)),
+        kernel = functools.partial(best_iou, pred, gt)
+        rec.update(ms=time_ms(kernel), device_ms=graph_ms(kernel),
                    plain_ms=time_ms(lambda: best_iou_reference(pred, gt), 10),
-                   library_ms=None, bound_ms=bound, bound_by=bound_by)
-        line += (f" ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+                   library_ms=None, library_device_ms=None, bound_ms=bound,
+                   bound_by=bound_by)
+        line += (f" ms={rec['ms']:.4f} device_ms={rec['device_ms']:.4f} "
+                 f"plain_ms={rec['plain_ms']:.4f} "
                  f"bound_ms={bound:.5f} ({bound_by})")
     phase(line)
     return rec
@@ -292,6 +367,49 @@ def check_yolo_slice() -> dict:
     return {"launches": launches, "step_ms": step_ms}
 
 
+GEMM_KEYS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
+
+
+def profile_dispatches(engine, bucket: int, warmup: int = 3,
+                       iters: int = 5) -> dict:
+    """Device ms per dispatch of `bucket` by kernel family, from
+    `torch.profiler` over `iters` `engine.predict` calls after `warmup`
+    ones, beside the wall ms per dispatch (host clock, synchronized)."""
+    x = np.random.RandomState(2).randn(
+        bucket, *engine.example_shape).astype(np.float32)
+    for _ in range(warmup):
+        engine.predict(x)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            engine.predict(x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    fam = {"flash_attention": 0.0, "gemm": 0.0, "copy": 0.0, "rest": 0.0}
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3 / iters
+        low = e.name.lower()
+        key = ("flash_attention" if "flash_attention" in low
+               else "gemm" if any(g in low for g in GEMM_KEYS)
+               else "copy" if "memcpy" in low or "memset" in low
+               else "rest")
+        fam[key] += ms
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    busy = sum(fam.values())
+    if busy <= 0 or fam["flash_attention"] <= 0:
+        raise AssertionError(f"the profile holds no device time for the "
+                             f"attention kernel: {fam}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall_ms, "busy_ms": busy, "family_ms": fam,
+            "top": [(name[:90], ms) for name, ms in top]}
+
+
 def post(url: str, x: np.ndarray) -> np.ndarray:
     req = urllib.request.Request(
         url, data=json.dumps({"instances": x.tolist()}).encode(),
@@ -318,12 +436,12 @@ def main() -> int:
 
     # 2. build every kernel, in parallel
     t0 = time.perf_counter()
-    _build.build(["flash_attention", "best_iou"])
+    libraries = ["flash_attention", "best_iou"]
+    _build.build(libraries)
     phase(f"kernels built in {time.perf_counter() - t0:.1f}s")
     for name, info in _build.BUILD_INFO.items():
-        ptxas = " | ".join(ln.strip() for ln in info["ptxas"].splitlines()
-                           if "registers" in ln or "spill" in ln)
-        phase(f"{name}: {info['seconds']:.1f}s; {ptxas}")
+        phase(f"{name}: nvcc {info['seconds']:.1f}s")
+    report_build(libraries)
 
     # 3. kernel against its plain version on the card
     gen = torch.Generator().manual_seed(0)
@@ -331,10 +449,17 @@ def main() -> int:
     heads = cfg.model_kwargs["num_heads"]
     d = cfg.model_kwargs["embed_dim"] // heads
     n = (cfg.data.image_size // cfg.model_kwargs["patch_size"]) ** 2 + 1
-    main_path = [check_attention((b, heads, n, d), torch.bfloat16, gen, True)
-                 for b in BUCKETS]
+    main_path = [check_attention((b, heads, n, d), torch.bfloat16, gen, True,
+                                 layout)
+                 for b in BUCKETS for layout in ("contiguous", "strided")]
     ragged = [check_attention((2, heads, nr, d), dt, gen, False)
-              for nr in (5, 17, 300) for dt in (torch.float32, torch.bfloat16)]
+              for nr in (1, 5, 17, 65, 300)
+              for dt in (torch.float32, torch.bfloat16)]
+    ragged += [check_attention((2, 3, 77, dr), torch.bfloat16, gen, False)
+               for dr in (8, 40, 128)]
+    ragged += [check_attention((2, 3, 33, 64), torch.bfloat16, gen, False,
+                               "offset_1"),
+               check_attention((2, 3, 33, 12), torch.bfloat16, gen, False)]
     max_err = max(r["max_abs_err"] for r in main_path + ragged)
     # best_iou at the three yolov3 scales (416 px, batch 16, MAX_BOXES GT)
     # and ragged shapes (one box; 3 GT; more GT than one shared-memory chunk)
@@ -414,33 +539,51 @@ def main() -> int:
           f"p99_ms={snap.get('p99_ms', float('nan')):.3f} "
           f"images_per_sec={snap['images_per_sec']:.1f}; HTTP: {len(sent)} "
           f"requests")
+    prof = profile_dispatches(engine, BUCKETS[-1])
+    fam = prof["family_ms"]
+    phase(f"profile, bucket {BUCKETS[-1]}, device ms per dispatch: "
+          + " ".join(f"{k}={v:.4f}" for k, v in fam.items())
+          + f"; busy {prof['busy_ms']:.4f} of wall {prof['wall_ms']:.4f} "
+          f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f}% busy); "
+          f"flash_attention {100 * fam['flash_attention'] / prof['busy_ms']:.2f}"
+          f"% of device time")
+    for name, ms in prof["top"]:
+        phase(f"profile top kernel: {ms:.4f} ms/dispatch {name}")
 
     # 5. slice 2: yolov3 training
     yolo = check_yolo_slice()
-    k2_ms = sum(r["ms"] for r in iou_main)
+    k2_ms = sum(r["device_ms"] for r in iou_main)
     phase(f"where a yolov3 train step goes: best_iou {k2_ms:.4f} ms of "
           f"{yolo['step_ms']:.3f} ms ({100 * k2_ms / yolo['step_ms']:.3f}%, "
-          f"the three scales' kernel times from phase 3)")
+          f"the three scales' device times from phase 3)")
 
-    b32 = main_path[-1]
+    timed_keys = ("shape", "layout", "ms", "device_ms", "plain_ms",
+                  "library_ms", "library_device_ms", "bound_ms")
+    b32 = main_path[-1]                  # bucket 32, the model's layout
     finest = iou_main[0]
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "deepvision_tpu_torch/csrc/flash_attention.cu",
         "replaces": "deepvision_tpu/ops/attention.py:73",
         "launches": launches, "max_abs_err": max_err,
-        "ms": b32["ms"], "plain_ms": b32["plain_ms"],
-        "bound_ms": b32["bound_ms"], "bound_by": b32["bound_by"],
-        "library_ms": b32["library_ms"], "shape": b32["shape"],
-        "dtype": b32["dtype"]}, {
+        "ms": b32["ms"], "device_ms": b32["device_ms"],
+        "plain_ms": b32["plain_ms"], "bound_ms": b32["bound_ms"],
+        "bound_by": b32["bound_by"], "library_ms": b32["library_ms"],
+        "library_device_ms": b32["library_device_ms"],
+        "shape": b32["shape"], "layout": b32["layout"], "dtype": b32["dtype"],
+        "dispatch_profile": prof,
+        "shapes": [{k: r[k] for k in timed_keys} for r in main_path]}, {
         "name": "best_iou", "route": "cuda",
         "source": "deepvision_tpu_torch/csrc/best_iou.cu",
         "replaces": "deepvision_tpu/ops/pallas_kernels.py:33",
         "launches": yolo["launches"], "max_abs_err": iou_err,
-        "ms": finest["ms"], "plain_ms": finest["plain_ms"],
-        "bound_ms": finest["bound_ms"], "bound_by": finest["bound_by"],
-        "library_ms": None, "shape": finest["shape"], "dtype": "float32",
-        "scales": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}
+        "ms": finest["ms"], "device_ms": finest["device_ms"],
+        "plain_ms": finest["plain_ms"], "bound_ms": finest["bound_ms"],
+        "bound_by": finest["bound_by"], "library_ms": None,
+        "library_device_ms": None, "shape": finest["shape"],
+        "dtype": "float32",
+        "scales": [{k: r[k] for k in ("shape", "ms", "device_ms", "plain_ms",
+                                      "bound_ms")}
                    for r in iou_main]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,10 @@ package's attention on the CPU.
 
 The same numpy inputs (seeded) go through both: the port's
 `flash_attention_reference` — the plain version of the CUDA kernel, same
-key-tile loop, running max/sum and -inf masking — against JAX
-`attention(impl="interpret")` (the Pallas kernel under the interpreter),
-and the port's `naive_attention` against JAX `impl="naive"`. Bounds are the
+key-tile loop, running max/sum and -inf masking, and in bf16 the tensor-core
+path's roundings — against JAX `attention(impl="interpret")` (the Pallas
+kernel under the interpreter) and `impl="naive"`, and the port's
+`naive_attention` against JAX `impl="naive"`. Bounds are the
 JAX package's own fused-vs-naive ones (tests/test_vit.py): 2e-5 in f32,
 where only the summation order differs, and 2e-2 in bf16, one rounding of
 a unit-scale output.
@@ -48,6 +49,51 @@ def test_flash_reference_matches_jax_interpret(shape, dtype):
     got = port.flash_attention_reference(*tx)
     assert got.dtype == getattr(torch, dtype) and got.shape == shape
     assert np.abs(got.float().numpy() - want).max() <= BOUND[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_flash_reference_matches_jax_naive(shape, dtype):
+    jx, tx = _both(_qkv(shape, seed=shape[2] + 2), dtype)
+    want = np.asarray(jax_attention(*jx, impl="naive").astype(jnp.float32))
+    got = port.flash_attention_reference(*tx)
+    assert got.dtype == getattr(torch, dtype) and got.shape == shape
+    assert np.abs(got.float().numpy() - want).max() <= BOUND[dtype]
+
+
+def test_bf16_reference_rounds_p_and_scales_after_the_product():
+    """The bf16 branch repeats the tensor-core kernel's roundings: one key
+    tile, so it equals softmax(f32(Q K^T) · scale) rounded to bf16 before
+    P V in f32 — up to the normalization by the f32 sum, applied last."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv((1, 2, 9, 16)))
+    s = (q.float() @ k.float().transpose(-1, -2)) * 0.25
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    want = (p.bfloat16().float() @ v.float()) / p.sum(-1, keepdim=True)
+    got = port.flash_attention_reference(q, k, v)
+    torch.testing.assert_close(got, want.bfloat16(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case,vec16", [
+    ("contiguous", True), ("head_split_view", True), ("offset_1", False),
+    ("head_dim_12", False), ("row_stride_4", False), ("batch_1_any_stride",
+                                                       True)])
+def test_vector_copy_selection(case, vec16):
+    """16-byte copies need every row on 16 bytes (data_ptr, b/h/n strides
+    in multiples of 8 elements, D % 8 == 0); everything else takes the
+    same kernel with scalar copies. Strides of size-1 dims do not count."""
+    bf = torch.bfloat16
+    t = {
+        "contiguous": lambda: torch.zeros(2, 3, 33, 64, dtype=bf),
+        "head_split_view": lambda: torch.zeros(2, 33, 6 * 64, dtype=bf)
+        .view(2, 33, 6, 64).permute(0, 2, 1, 3),
+        "offset_1": lambda: torch.zeros(2 * 3 * 33 * 64 + 1, dtype=bf)[1:]
+        .view(2, 3, 33, 64),
+        "head_dim_12": lambda: torch.zeros(2, 3, 33, 12, dtype=bf),
+        "row_stride_4": lambda: torch.zeros(2, 3, 33, 68, dtype=bf)[..., :64],
+        "batch_1_any_stride": lambda: torch.zeros(1, 3, 33, 64, dtype=bf)
+        .as_strided((1, 3, 33, 64), (5, 33 * 64, 64, 1)),
+    }[case]()
+    assert port._vector_copies_ok(t, t, t) is vec16
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

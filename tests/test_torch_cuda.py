@@ -8,8 +8,9 @@ the port is installed:
 
 Bounds for flash_attention: 2e-5 in f32 (only the summation order
 differs; TF32 is switched off for the plain version's matmuls), 2e-2 in
-bf16 (f32 accumulation on both sides, one bf16 rounding of a unit-scale
-output). For best_iou: rtol and atol 1e-6, the JAX package's bound — the
+bf16 (tensor-core products with f32 accumulation against the plain
+version's exact f32 products of the same bf16 values, P rounded to bf16 on
+both sides, one bf16 rounding of a unit-scale output). For best_iou: rtol and atol 1e-6, the JAX package's bound — the
 kernel runs the plain version's f32 operations in the same order.
 """
 
@@ -58,6 +59,52 @@ def test_kernel_matches_plain_version(card, shape, dtype):
     ref = port.flash_attention_reference(q, k, v)
     assert out.shape == shape and out.dtype == dtype
     assert (out.float() - ref.float()).abs().max().item() <= BOUND[dtype]
+
+
+def _matches_plain_with_one_launch(q, k, v, dtype):
+    before = port.flash_attention.launches
+    out = port.flash_attention(q, k, v)
+    assert port.flash_attention.launches == before + 1
+    ref = port.flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == dtype
+    assert (out.float() - ref.float()).abs().max().item() <= BOUND[dtype]
+
+
+@pytest.mark.parametrize("n", [1, 5, 17, 63, 64, 65, 197, 300])
+def test_bf16_kernel_ragged_n(card, n):
+    """Key tiles of 64 and query tiles of 64: N below, at and past both."""
+    _matches_plain_with_one_launch(*_qkv((2, 3, n, 64), torch.bfloat16,
+                                         seed=n), torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [8, 16, 40, 64, 128])
+def test_bf16_kernel_head_dims(card, d):
+    """D zero-padded to 64 or 128 in shared memory."""
+    _matches_plain_with_one_launch(*_qkv((2, 3, 77, d), torch.bfloat16,
+                                         seed=d), torch.bfloat16)
+
+
+def test_bf16_kernel_vit_small_bucket_32_strided(card):
+    """What vit_small's bucket 32 hands the kernel: (B, N, H*D) projections
+    viewed as (B, H, N, D), 16-byte copies."""
+    q, k, v = (x.view(32, 197, 6, 64).permute(0, 2, 1, 3)
+               for x in _qkv((32, 197, 384), torch.bfloat16, seed=32))
+    assert port._vector_copies_ok(q, k, v)
+    _matches_plain_with_one_launch(q, k, v, torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["offset_1", "head_dim_12"])
+def test_bf16_kernel_misaligned_takes_scalar_copies(card, case):
+    """Rows off 16 bytes take the same kernel with scalar copies: it still
+    launches, and it still agrees with the plain version."""
+    if case == "offset_1":
+        flat = _qkv((2 * 3 * 33 * 64 + 1,), torch.bfloat16, seed=1)
+        q, k, v = (x[1:].view(2, 3, 33, 64) for x in flat)
+    else:
+        q, k, v = _qkv((2, 3, 33, 12), torch.bfloat16, seed=12)
+    assert not port._vector_copies_ok(q, k, v)
+    _matches_plain_with_one_launch(q, k, v, torch.bfloat16)
 
 
 def test_kernel_takes_strided_head_split_views(card):
