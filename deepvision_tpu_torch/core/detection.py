@@ -4,7 +4,7 @@ deepvision_tpu/core/detection.py: `yolo_grid_sizes`, `make_yolo_train_step`,
 
 Each step is a plain function on device tensors: the labels are encoded on
 the device, then forward, `yolo_loss` (whose ignore mask runs the best-IoU
-kernel once per scale), the batch mean, and — in training — backward and
+kernel once for all three scales), the batch mean, and — in training — backward and
 the Adam update. Nothing in a step waits for the device. `make_predict_step`,
 NMS and mAP evaluation are not ported yet.
 """

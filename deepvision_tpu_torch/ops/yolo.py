@@ -6,7 +6,8 @@ Label encoding runs on the device inside the train step, over a fixed
 Python. The JAX package vmaps a per-example scatter; here the batch is a
 dimension written out. The ignore mask takes IoU against the padded
 ground-truth list through `ops/best_iou.best_iou` (the CUDA kernel on the
-card). BCE terms work on logits.
+card): `yolo_loss` decodes the boxes of all scales first and makes one
+call for them all, one launch per loss. BCE terms work on logits.
 """
 
 from __future__ import annotations
@@ -137,16 +138,35 @@ def encode_labels(classes_onehot: torch.Tensor, boxes: torch.Tensor,
                  for i, g in enumerate(grid_sizes))
 
 
+def _flat_pred_corners(y_pred: torch.Tensor, anchors_wh,
+                       num_classes: int) -> torch.Tensor:
+    """(B, g*g*3, 4) f32 corner boxes decoded from one scale's raw head,
+    detached: the ignore mask's input, which has no gradient."""
+    with torch.no_grad():
+        box_abs, _, _ = decode_boxes(y_pred.float(), anchors_wh, num_classes)
+        return xywh_to_x1y1x2y2(box_abs).reshape(y_pred.shape[0], -1, 4)
+
+
+def _masked_gt(gt_boxes: torch.Tensor, gt_valid: torch.Tensor
+               ) -> torch.Tensor:
+    """Padded GT rows zeroed (zero area → IoU 0)."""
+    return gt_boxes.float() * gt_valid[..., None].float()
+
+
 def yolo_loss_one_scale(y_true: torch.Tensor, y_pred: torch.Tensor,
                         gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
-                        scale_anchors_wh, num_classes: int
+                        scale_anchors_wh, num_classes: int,
+                        best: Optional[torch.Tensor] = None
                         ) -> Dict[str, torch.Tensor]:
     """Per-example YOLO loss of one scale, in f32 whatever the heads' dtype.
 
     y_true: (B, g, g, 3, 5 + C) dense targets (absolute xywh, obj, one-hot);
     y_pred: (B, g, g, 3, 5 + C) raw logits; gt_boxes (B, N, 4) corner
-    ground truth and gt_valid (B, N) for the ignore mask. Returns (B,)
-    components: xy, wh, class, obj, total."""
+    ground truth and gt_valid (B, N) for the ignore mask; best, this
+    scale's (B, g*g*3) best IoU of each predicted box against the masked
+    ground truth where the caller computed it (`yolo_loss` does, for all
+    scales in one call), else computed here. Returns (B,) components: xy,
+    wh, class, obj, total."""
     anchors = torch.as_tensor(scale_anchors_wh, dtype=torch.float32,
                               device=y_pred.device)
     y_pred = y_pred.float()
@@ -154,8 +174,6 @@ def yolo_loss_one_scale(y_true: torch.Tensor, y_pred: torch.Tensor,
 
     pred_xy_rel = torch.sigmoid(y_pred[..., 0:2])
     pred_wh_rel = y_pred[..., 2:4]
-    pred_box_abs, _, _ = decode_boxes(y_pred, anchors, num_classes)
-    pred_box_corners = xywh_to_x1y1x2y2(pred_box_abs)
 
     true_obj = y_true[..., 4:5]
     true_class = y_true[..., 5:]
@@ -183,9 +201,10 @@ def yolo_loss_one_scale(y_true: torch.Tensor, y_pred: torch.Tensor,
     # so it has no gradient: best_iou takes detached inputs (the JAX
     # package's stop_gradient).
     b, g = y_pred.shape[0], y_pred.shape[1]
-    flat_pred = pred_box_corners.detach().reshape(b, -1, 4)
-    masked_gt = gt_boxes.float() * gt_valid[..., None].float()
-    best = best_iou(flat_pred, masked_gt).reshape(b, g, g, 3)
+    if best is None:
+        best = best_iou(_flat_pred_corners(y_pred, anchors, num_classes),
+                        _masked_gt(gt_boxes, gt_valid))
+    best = best.reshape(b, g, g, 3)
     ignore_mask = (best < IGNORE_THRESH).float()[..., None]
 
     obj_bce = F.binary_cross_entropy_with_logits(
@@ -206,11 +225,21 @@ def yolo_loss(y_trues: Sequence[torch.Tensor], y_preds: Sequence[torch.Tensor],
               anchors_wh: Optional[torch.Tensor] = None
               ) -> Dict[str, torch.Tensor]:
     """Sum of the per-scale losses over the 3 scales, finest (anchors 0-2)
-    first. Returns (B,) per-example components."""
+    first. Returns (B,) per-example components.
+
+    The ignore mask's best IoU of every scale comes from one `best_iou`
+    call (one kernel launch on the card), the scales' decoded boxes as its
+    segments against one masked GT list; the JAX package calls its kernel
+    per scale. The values are the same: a launch layout, not other math."""
     anchors = ANCHORS_WH if anchors_wh is None else torch.as_tensor(anchors_wh)
+    scale_anchors = [anchors[3 * i:3 * i + 3] for i in range(len(y_preds))]
+    corners = [_flat_pred_corners(y_pred, a, num_classes)
+               for y_pred, a in zip(y_preds, scale_anchors)]
+    bests = best_iou(corners, _masked_gt(gt_boxes, gt_valid))
     out: Optional[Dict[str, torch.Tensor]] = None
-    for i, (y_true, y_pred) in enumerate(zip(y_trues, y_preds)):
-        part = yolo_loss_one_scale(y_true, y_pred, gt_boxes, gt_valid,
-                                   anchors[3 * i:3 * i + 3], num_classes)
+    for y_true, y_pred, a, best in zip(y_trues, y_preds, scale_anchors,
+                                       bests):
+        part = yolo_loss_one_scale(y_true, y_pred, gt_boxes, gt_valid, a,
+                                   num_classes, best=best)
         out = part if out is None else {k: out[k] + part[k] for k in out}
     return out

@@ -112,3 +112,84 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(pred_shape, gt_shape,
     with pytest.raises(error):
         port.best_iou(torch.zeros(pred_shape, dtype=dtype),
                       torch.zeros(gt_shape, dtype=dtype))
+
+
+# -- segments: the YOLO scales in one call ---------------------------------
+
+def _jax_kernel(pred, gt):
+    return np.asarray(jax_best_iou(jnp.asarray(pred), jnp.asarray(gt),
+                                   interpret=True))
+
+
+@pytest.mark.parametrize("m,padding", [(1, "none"), (3, "rows"),
+                                       (100, "rows"), (300, "rows"),
+                                       (100, "all")])
+def test_segmented_reference_matches_the_pallas_kernel(m, padding):
+    """Ragged segments (N_s = 1, 130, 507) against one GT list, segment by
+    segment against the Pallas kernel under the interpreter; `rows` zeroes
+    GT rows past a per-image count, `all` zeroes every GT row (all
+    padding), so every IoU is 0."""
+    rs = np.random.RandomState(m)
+    preds = [_boxes(rs, 2, n) for n in (1, 130, 507)]
+    gt = _boxes(rs, 2, m)
+    if padding == "rows":
+        gt[0, max(1, m // 2):] = 0.0
+        gt[1, max(1, m // 3):] = 0.0
+    elif padding == "all":
+        gt[:] = 0.0
+    got = port.best_iou_reference([torch.from_numpy(p) for p in preds],
+                                  torch.from_numpy(gt))
+    assert isinstance(got, list) and len(got) == 3
+    for p, g in zip(preds, got):
+        assert g.shape == (2, p.shape[1]) and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), _jax_kernel(p, gt), **BOUND)
+        np.testing.assert_array_equal(g.numpy(), _port(p, gt))
+    if padding == "all":
+        assert all(np.all(g.numpy() == 0.0) for g in got)
+
+
+def test_cpu_segments_take_the_plain_version_without_a_launch():
+    rs = np.random.RandomState(6)
+    preds = [torch.from_numpy(_boxes(rs, 2, n)) for n in (9, 1, 40)]
+    gt = torch.from_numpy(_boxes(rs, 2, 5))
+    before = port.best_iou.launches
+    got = port.best_iou(preds, gt)
+    assert port.best_iou.launches == before
+    want = port.best_iou_reference(preds, gt)
+    assert len(got) == 3
+    for g, w, p in zip(got, want, preds):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+        torch.testing.assert_close(g, port.best_iou(p, gt), rtol=0, atol=0)
+    # a tuple is a sequence too; one segment still gives a list
+    assert len(port.best_iou(tuple(preds), gt)) == 3
+    assert isinstance(port.best_iou(preds[:1], gt), list)
+
+
+@pytest.mark.parametrize("segments,gt_shape,error", [
+    ((), (2, 3, 4), ValueError),                          # no segment
+    (((2, 5, 4),) * (port.MAX_SEGMENTS + 1), (2, 3, 4), ValueError),
+    (((2, 5, 4), (1, 5, 4)), (2, 3, 4), ValueError),      # batch differs
+    (((2, 5, 4), (2, 0, 4)), (2, 3, 4), ValueError),      # empty segment
+    (((2, 5, 4), (2, 5, 3)), (2, 3, 4), ValueError),
+], ids=["none", "too-many", "batch", "empty", "not-boxes"])
+def test_wrapper_refuses_bad_segments(segments, gt_shape, error):
+    with pytest.raises(error):
+        port.best_iou([torch.zeros(s) for s in segments],
+                      torch.zeros(gt_shape))
+
+
+def test_zero_overlap_division_identity_in_f32():
+    """csrc/best_iou.cu divides 2^-24 instead of a zero overlap (which
+    would leave __fdiv_rn's fast path) and scales the quotient by 0. In
+    IEEE f32 that equals 0 / union for every union: +-0 where it is +-0,
+    NaN where it is NaN (0, NaN), never inf * 0 (denormals, huge)."""
+    f32 = np.finfo(np.float32)
+    uni = torch.tensor([1.0, -1.0, 1e-7, 3.0e38, -3.4e38, f32.tiny,
+                        f32.smallest_subnormal, -f32.smallest_subnormal,
+                        0.0, -0.0, float("inf"), float("-inf"),
+                        float("nan")], dtype=torch.float32)
+    want = torch.zeros_like(uni) / uni
+    got = 0.0 * (torch.full_like(uni, 2.0 ** -24) / uni)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isnan(want).sum() == 3
+    assert torch.equal(got[~torch.isnan(want)], want[~torch.isnan(want)])

@@ -11,14 +11,20 @@ differs; TF32 is switched off for the plain version's matmuls), 2e-2 in
 bf16 (tensor-core products with f32 accumulation against the plain
 version's exact f32 products of the same bf16 values, P rounded to bf16 on
 both sides, one bf16 rounding of a unit-scale output). For best_iou: rtol and atol 1e-6, the JAX package's bound — the
-kernel runs the plain version's f32 operations in the same order.
+kernel runs the plain version's f32 operations in the same order — and
+bit for bit for the fused segments (NaN where the plain version has NaN,
+equal values elsewhere; +0 and -0 compare equal).
 """
+
+import os
+import sys
 
 import pytest
 import torch
 
 from deepvision_tpu_torch.configs import get_config
-from deepvision_tpu_torch.core.detection import make_yolo_train_step
+from deepvision_tpu_torch.core.detection import (make_yolo_eval_step,
+                                                 make_yolo_train_step)
 from deepvision_tpu_torch.core.optim import AdamChain
 from deepvision_tpu_torch.core.schedules import build_schedule
 from deepvision_tpu_torch.core.train_state import TrainState
@@ -26,6 +32,11 @@ from deepvision_tpu_torch.data.detection import synthetic_batches
 from deepvision_tpu_torch.models import build_model
 from deepvision_tpu_torch.ops import attention as port
 from deepvision_tpu_torch.ops import best_iou as k2
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from chip_smoke import (padded_gt, ragged_gt, ragged_preds,  # noqa: E402
+                        random_boxes, same)
 
 pytestmark = pytest.mark.cuda
 BOUND = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -146,20 +157,14 @@ def test_kernel_refuses_an_input_that_needs_a_gradient(card):
     assert out.grad_fn is None and port.flash_attention.launches == before + 1
 
 
-def _boxes(b, n, gen):
-    xy = torch.rand(b, n, 2, generator=gen) * 0.9
-    wh = torch.rand(b, n, 2, generator=gen) * 0.35
-    return torch.cat([xy, xy + wh], dim=-1)
-
-
 @pytest.mark.parametrize("b,n,m", [(16, 8112, 100), (16, 2028, 100),
                                    (16, 507, 100), (16, 1, 100), (3, 130, 3),
                                    (2, 64, 1), (2, 70, 300), (1, 1, 1)],
                          ids=str)
 def test_best_iou_matches_plain_version(card, b, n, m):
     gen = torch.Generator().manual_seed(n + m)
-    pred = _boxes(b, n, gen).cuda()
-    gt = _boxes(b, m, gen)
+    pred = random_boxes(b, n, gen).cuda()
+    gt = random_boxes(b, m, gen)
     gt[:, m // 2 + 1:] = 0.0                    # zero-GT padding rows
     gt = gt.cuda()
     before = k2.best_iou.launches
@@ -191,16 +196,82 @@ def test_best_iou_refuses_bfloat16_and_bad_shapes(card):
         k2.best_iou(pred[..., :3], gt)
 
 
-def test_yolo_train_step_on_the_card_launches_once_per_scale(card):
+@pytest.mark.parametrize("b,segments,m", [
+    (16, (8112, 2028, 507), 100),      # yolov3 at 416 px
+    (1, (8112, 2028, 507), 100),       # batch 1
+    (3, (1, 130, 507), 3),
+    (2, (507, 1), 1),
+    (2, (130, 1, 507), 300),           # more GT than one shared-memory chunk
+    (2, (33,) * 8, 7),                 # the most segments one launch takes
+], ids=str)
+def test_best_iou_fused_segments_are_bit_for_bit(card, b, segments, m):
+    gen = torch.Generator().manual_seed(sum(segments) + m)
+    preds = [random_boxes(b, n, gen).cuda() for n in segments]
+    gt = padded_gt(b, m, gen).cuda()
+    before = k2.best_iou.launches
+    outs = k2.best_iou(preds, gt)
+    assert k2.best_iou.launches == before + 1
+    refs = k2.best_iou_reference(preds, gt)
+    assert [tuple(o.shape) for o in outs] == [(b, n) for n in segments]
+    assert all(same(o, r) for o, r in zip(outs, refs))
+
+
+def test_best_iou_fused_nan_inf_and_inverted_boxes(card):
+    gen = torch.Generator().manual_seed(11)
+    preds = [p.cuda() for p in ragged_preds(gen)]
+    gt = ragged_gt(gen).cuda()
+    outs = k2.best_iou(preds, gt)
+    refs = k2.best_iou_reference(preds, gt)
+    assert torch.isnan(refs[1][1, 0])     # the zero union
+    assert any(torch.isnan(r).any() for r in refs)
+    assert any((r > 0).any() for r in refs)
+    assert all(same(o, r) for o, r in zip(outs, refs))
+
+
+def test_best_iou_fused_captures_into_a_cuda_graph(card):
+    gen = torch.Generator().manual_seed(12)
+    preds = [random_boxes(16, n, gen).cuda() for n in (8112, 2028, 507)]
+    gt = padded_gt(16, 100, gen).cuda()
+    want = k2.best_iou(preds, gt)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k2.best_iou(preds, gt)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = k2.best_iou(preds, gt)
+    for out in got:
+        out.fill_(-1.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_best_iou_refuses_no_segment_or_too_many(card):
+    gt = torch.rand(2, 3, 4, device="cuda")
+    with pytest.raises(ValueError):
+        k2.best_iou([], gt)
+    with pytest.raises(ValueError):
+        k2.best_iou([torch.rand(2, 5, 4, device="cuda")]
+                    * (k2.MAX_SEGMENTS + 1), gt)
+
+
+def test_yolo_train_step_on_the_card_launches_once_per_step(card):
     cfg = get_config("yolov3_digits")
     model = build_model(cfg).to("cuda")
     opt = AdamChain(model.parameters(), cfg.optimizer,
                     build_schedule(cfg.schedule, 1e-3, 10))
     state = TrainState(model, opt)
-    step = make_yolo_train_step(num_classes=10, grid_sizes=(8, 4, 2))
-    batch = next(synthetic_batches(batch_size=2, image_size=64,
-                                   num_classes=10, steps=1))
+    kw = dict(num_classes=10, grid_sizes=(8, 4, 2))
+    step = make_yolo_train_step(**kw)
+    eval_step = make_yolo_eval_step(**kw)
+    batch = [torch.from_numpy(a).cuda() for a in next(synthetic_batches(
+        batch_size=2, image_size=64, num_classes=10, steps=1))]
     before = k2.best_iou.launches
-    metrics = step(state, *(torch.from_numpy(a).cuda() for a in batch))
-    assert k2.best_iou.launches - before == 3
+    metrics = eval_step(state, *batch)
+    assert k2.best_iou.launches - before == 1
+    assert torch.isfinite(metrics["loss"])
+    metrics = step(state, *batch)
+    assert k2.best_iou.launches - before == 2
     assert all(torch.isfinite(v) for v in metrics.values())

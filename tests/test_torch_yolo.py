@@ -37,6 +37,7 @@ from deepvision_tpu.ops import boxes as jax_boxes
 from deepvision_tpu.ops import yolo as jax_yolo
 from deepvision_tpu_torch.configs import get_config
 from deepvision_tpu_torch.models.yolo import Conv, YoloV3, upsample2x
+from deepvision_tpu_torch.ops import best_iou as port_best_iou
 from deepvision_tpu_torch.ops import boxes as port_boxes
 from deepvision_tpu_torch.ops import yolo as port_yolo
 from deepvision_tpu_torch.utils.flax_convert import params_to_state_dict
@@ -209,6 +210,71 @@ def test_yolo_loss_components_match_jax():
     for k in want:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    rtol=1e-5, atol=1e-5)
+
+
+def _loss_inputs(seed=4):
+    rs = np.random.RandomState(seed)
+    boxes = _boxes(rs, 2, 100)
+    classes = rs.randint(0, 4, (2, 100))
+    valid = np.zeros((2, 100), np.float32)
+    valid[:, :5] = 1.0
+    want_t, got_t = _encode_both(boxes, classes, valid)
+    preds = [(rs.randn(2, g, g, 3, 9) * 0.5).astype(np.float32)
+             for g in GRIDS]
+    return boxes, valid, want_t, got_t, preds
+
+
+def test_yolo_loss_makes_one_best_iou_call_for_all_scales(monkeypatch):
+    """One call of the plain path (one launch on the card) per loss, with
+    the three scales as its segments, and the same components as one call
+    per scale."""
+    boxes, valid, _, got_t, preds = _loss_inputs()
+    calls = []
+    plain = port_best_iou.best_iou_reference
+
+    def counted(pred_boxes, gt_boxes):
+        calls.append(pred_boxes)
+        return plain(pred_boxes, gt_boxes)
+
+    monkeypatch.setattr(port_best_iou, "best_iou_reference", counted)
+    args = ([torch.from_numpy(t) for t in got_t],
+            [torch.from_numpy(p) for p in preds], torch.from_numpy(boxes),
+            torch.from_numpy(valid), 4)
+    got = port_yolo.yolo_loss(*args)
+    assert len(calls) == 1
+    assert [tuple(c.shape) for c in calls[0]] == [(2, 3 * g * g, 4)
+                                                  for g in GRIDS]
+    per_scale = [port_yolo.yolo_loss_one_scale(
+        t, p, args[2], args[3], port_yolo.ANCHORS_WH[3 * i:3 * i + 3], 4)
+        for i, (t, p) in enumerate(zip(args[0], args[1]))]
+    assert len(calls) == 4               # one more per scale called alone
+    for k in got:
+        torch.testing.assert_close(got[k], sum(p[k] for p in per_scale),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("scale", [0, 1, 2])
+def test_yolo_loss_one_scale_alone_matches_jax(scale):
+    boxes, valid, want_t, got_t, preds = _loss_inputs(seed=5)
+    anchors = np.asarray(jax_yolo.ANCHORS_WH)[3 * scale:3 * scale + 3]
+    want = jax_yolo.yolo_loss_one_scale(
+        jnp.asarray(want_t[scale]), jnp.asarray(preds[scale]),
+        jnp.asarray(boxes), jnp.asarray(valid), anchors, 4)
+    args = (torch.from_numpy(got_t[scale]), torch.from_numpy(preds[scale]),
+            torch.from_numpy(boxes), torch.from_numpy(valid),
+            port_yolo.ANCHORS_WH[3 * scale:3 * scale + 3], 4)
+    got = port_yolo.yolo_loss_one_scale(*args)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-5, atol=1e-5)
+    # the best IoU given by the caller, as yolo_loss passes it, changes
+    # nothing
+    corners = port_yolo._flat_pred_corners(args[1], args[4], 4)
+    best = port_best_iou.best_iou(corners,
+                                  port_yolo._masked_gt(args[2], args[3]))
+    given = port_yolo.yolo_loss_one_scale(*args, best=best)
+    for k in got:
+        torch.testing.assert_close(given[k], got[k], rtol=0, atol=0)
 
 
 # -- the model ------------------------------------------------------------
