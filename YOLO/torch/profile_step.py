@@ -6,10 +6,11 @@
 Builds the port's DetectionTrainer for `yolov3` at full width on `cuda`,
 runs warm-up steps on synthetic batches, then traces `--steps` steps with
 `torch.profiler` and prints, per step, the device time of each kernel
-family (convolution and GEMM, BatchNorm, elementwise, reductions, the Adam
-update, best_iou, copies, other), the device's busy and idle share of the
-wall time, and the 15 kernels with the most device time. Exits non-zero
-without a card or when the trace holds no device time.
+family (deepvision_tpu_torch/tools/step_profile.py: convolution and GEMM,
+BatchNorm, elementwise, reductions, the optimizer, best_iou, copies,
+other), the device's busy and idle share of the wall time, and the 15
+kernels with the most device time. Exits non-zero without a card or when
+the trace holds no device time.
 """
 import argparse
 import dataclasses
@@ -17,7 +18,6 @@ import os
 import shutil
 import sys
 import tempfile
-import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 
@@ -26,27 +26,8 @@ import torch  # noqa: E402
 from deepvision_tpu_torch.configs import get_config  # noqa: E402
 from deepvision_tpu_torch.core.detection import DetectionTrainer  # noqa: E402
 from deepvision_tpu_torch.data.detection import synthetic_batches  # noqa: E402
-
-# kernel-name fragments, checked in order; the first match names the family
-FAMILIES = (
-    ("best_iou", ("best_iou",)),
-    ("adam", ("adam", "multi_tensor_apply")),
-    ("batch_norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "welford")),
-    ("conv_gemm", ("conv", "cudnn", "gemm", "xmma", "sm90", "implicit",
-                   "wgrad", "dgrad", "cutlass", "nchwtonhwc", "nhwctonchw")),
-    ("reduce", ("reduce",)),
-    ("copy", ("memcpy", "memset", "copy")),
-    ("elementwise", ("elementwise", "vectorized", "unrolled", "index",
-                     "scatter", "gather", "cat", "upsample", "pad")),
-)
-
-
-def family(name: str) -> str:
-    low = name.lower()
-    for fam, keys in FAMILIES:
-        if any(k in low for k in keys):
-            return fam
-    return "other"
+from deepvision_tpu_torch.tools.step_profile import (  # noqa: E402
+    print_report, profile_steps)
 
 
 def main() -> int:
@@ -75,43 +56,15 @@ def profile(cfg, args, workdir: str) -> int:
     batches = [trainer._to_device(b) for b in synthetic_batches(
         batch_size=args.batch_size, image_size=args.image_size,
         num_classes=cfg.data.num_classes, steps=args.warmup + args.steps)]
-    for b in batches[:args.warmup]:
-        trainer.train_step(state, *b)
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for b in batches[args.warmup:]:
-            trainer.train_step(state, *b)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    stats = profile_steps(lambda i: trainer.train_step(state, *batches[i]),
+                          args.warmup, args.steps)
     trainer.close()
-
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    totals, by_name = {}, {}
-    for e in events:
-        us = e.time_range.elapsed_us()      # the kernel's own duration
-        totals[family(e.name)] = totals.get(family(e.name), 0.0) + us
-        by_name[e.name] = by_name.get(e.name, 0.0) + us
-    busy_ms = sum(totals.values()) / 1e3 / args.steps
-    if busy_ms <= 0:
+    if stats["busy_ms"] <= 0:
         print("profile_step: the trace holds no device time", file=sys.stderr)
         return 1
-    print(f"yolov3 train step, batch {args.batch_size}, {args.image_size} px, "
-          f"{torch.cuda.get_device_name(0)}: wall {wall_ms:.3f} ms/step "
-          f"(profiled), device busy {busy_ms:.3f} ms/step "
-          f"({100 * busy_ms / wall_ms:.1f}%), idle "
-          f"{100 * (1 - busy_ms / wall_ms):.1f}%; "
-          f"{len(events) / args.steps:.0f} kernels/step")
-    for fam, us in sorted(totals.items(), key=lambda kv: -kv[1]):
-        ms = us / 1e3 / args.steps
-        print(f"  {fam:12s} {ms:9.3f} ms/step  {100 * ms / busy_ms:5.1f}% "
-              f"of device time")
-    print("top kernels (ms/step):")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
-        print(f"  {us / 1e3 / args.steps:9.3f}  [{family(name)}] {name[:110]}")
+    print_report(f"yolov3 train step, batch {args.batch_size}, "
+                 f"{args.image_size} px, {torch.cuda.get_device_name(0)}",
+                 stats)
     return 0
 
 

@@ -40,7 +40,19 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    the best-IoU launch count, zeroed just before, equal to 1 per train step
    and per eval batch, the checkpoint restored into a fresh trainer with
    equal weights, and the loss components of a small input held against
-   the same weights on the CPU.
+   the same weights on the CPU;
+6. slice 5: `vit_small` at full width (batch 256, adam with clip and
+   warmup, label smoothing 0.1, dropout 0.1) trained by the port's own
+   `cli.run_classification` on `cuda` for 3 synthetic steps, 2 validation
+   batches and one checkpoint — every step's loss finite, the
+   flash-attention launch count, zeroed just before, equal to 8 per train
+   step and per eval batch (the backward, the naive VJP, launches none),
+   the checkpoint restored into a fresh trainer with equal weights and
+   optimizer state, the loss and gradients of one f32 step on 2 images
+   (dropout 0) held against the same weights on the CPU, and the gradient
+   through the kernel held against plain autograd through
+   `naive_attention` at (32, 6, 197, 64) in the model's strided layout;
+   then the kernel's times at the training shape (256, 6, 197, 64) bf16.
 
 The line before the last is a JSON object with one record per kernel; the
 last is `{"ok": true, "device": {...}}`.
@@ -64,16 +76,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deepvision_tpu_torch.cli import run_detection
+from deepvision_tpu_torch.cli import run_classification, run_detection
 from deepvision_tpu_torch.configs import get_config
 from deepvision_tpu_torch.core.detection import (DetectionTrainer,
                                                  yolo_grid_sizes)
+from deepvision_tpu_torch.core.optim import build_optimizer
+from deepvision_tpu_torch.core.steps import make_classification_train_step
+from deepvision_tpu_torch.core.train_state import TrainState
+from deepvision_tpu_torch.core.trainer import Trainer
 from deepvision_tpu_torch.data.detection import synthetic_batches
+from deepvision_tpu_torch.data.synthetic import SyntheticClassification
 from deepvision_tpu_torch.models import build_model
 from deepvision_tpu_torch.ops import _build
 from deepvision_tpu_torch.ops import yolo as yolo_ops
 from deepvision_tpu_torch.ops.attention import (flash_attention,
-                                                flash_attention_reference)
+                                                flash_attention_reference,
+                                                naive_attention)
 from deepvision_tpu_torch.ops.best_iou import best_iou, best_iou_reference
 from deepvision_tpu_torch.serve.cli import _smoke, build_parser, build_server
 from deepvision_tpu_torch.serve.server import InferenceServer
@@ -81,7 +99,7 @@ from deepvision_tpu_torch.tools.build_report import (count_opcodes,
                                                      demangle, loop_report,
                                                      ptxas_by_function,
                                                      sass_by_function)
-from deepvision_tpu_torch.utils.timing import graph_ms
+from deepvision_tpu_torch.utils.timing import graph_ms, loop_ms
 
 MODEL = "vit_small"
 BUCKETS = (1, 8, 32)
@@ -100,6 +118,16 @@ IOU_TOL = 1e-6
 # mode renormalizes every layer, so the difference stays near f32 rounding
 # grown over 75 conv layers
 YOLO_CPU_RTOL = 1e-3
+VIT_BATCH = 256
+VIT_STEPS = 3
+VIT_EVAL_BATCHES = 2           # the synthetic validation set
+# vit_small loss and gradients of one f32 step, card (flash kernel
+# forward, naive VJP, cuBLAS with TF32 off) vs CPU (the kernel's plain
+# version, the same VJP) on the same weights, relative to each tensor's
+# largest gradient (the key biases, whose gradient is 0, to the model's
+# largest): only summation orders differ, over 8 blocks in f32
+VIT_CPU_RTOL = 1e-3
+VIT_GRAD_SHAPE = (32, 6, 197, 64)
 # published peaks of one H100 SXM at its full 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -190,23 +218,6 @@ def abs_err(out: torch.Tensor, ref: torch.Tensor) -> float:
 
 def phase(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
-
-
-def time_ms(fn, iters: int = 50) -> float:
-    """Mean time of one call of `fn` over a host loop of `iters` calls,
-    between CUDA events: where the device outruns the host, this reads the
-    host's dispatch cost (Python, wrapper, launch), not the device's."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 # the bf16 flash-attention kernels, (DMAX, 16-byte copies), as their
@@ -316,9 +327,9 @@ def check_attention(shape, dtype, gen, timed: bool,
         kernel = functools.partial(flash_attention, q, k, v)
         library = functools.partial(F.scaled_dot_product_attention, q, k, v)
         rec.update(
-            ms=time_ms(kernel), device_ms=graph_ms(kernel),
-            plain_ms=time_ms(lambda: flash_attention_reference(q, k, v), 10),
-            library_ms=time_ms(library), library_device_ms=graph_ms(library),
+            ms=loop_ms(kernel), device_ms=graph_ms(kernel),
+            plain_ms=loop_ms(lambda: flash_attention_reference(q, k, v), 10),
+            library_ms=loop_ms(library), library_device_ms=graph_ms(library),
             bound_ms=bound, bound_by=bound_by)
         line += (f" ms={rec['ms']:.4f} device_ms={rec['device_ms']:.4f} "
                  f"plain_ms={rec['plain_ms']:.4f} "
@@ -375,8 +386,8 @@ def check_best_iou(preds, gt, timed: bool) -> dict:
     if timed:
         bound, bound_by = best_iou_bound(b, n, m)
         kernel = functools.partial(best_iou, arg, gt)
-        rec.update(ms=time_ms(kernel), device_ms=graph_ms(kernel),
-                   plain_ms=time_ms(lambda: best_iou_reference(arg, gt), 10),
+        rec.update(ms=loop_ms(kernel), device_ms=graph_ms(kernel),
+                   plain_ms=loop_ms(lambda: best_iou_reference(arg, gt), 10),
                    library_ms=None, library_device_ms=None, bound_ms=bound,
                    bound_by=bound_by)
         line += (f" ms={rec['ms']:.4f} device_ms={rec['device_ms']:.5f} "
@@ -479,6 +490,153 @@ def check_yolo_slice() -> dict:
             or rel > YOLO_CPU_RTOL:
         raise AssertionError(f"card and CPU loss differ by {rel:g}")
     return {"launches": launches, "step_ms": step_ms}
+
+
+def check_attention_grad(shape, dtype, gen) -> float:
+    """q, k, v gradients of sum(out * w) through `flash_attention` (one
+    launch; the backward is the naive VJP) against plain autograd through
+    `naive_attention`, in the model's strided layout: the largest
+    difference, within TOL."""
+    q, k, v = (t.requires_grad_(True)
+               for t in make_qkv(shape, dtype, gen, "strided"))
+    w = torch.randn(shape, generator=gen).cuda()
+    before = flash_attention.launches
+    (flash_attention(q, k, v).float() * w).sum().backward()
+    launched = flash_attention.launches - before
+    plain = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    (naive_attention(*plain).float() * w).sum().backward()
+    torch.cuda.synchronize()
+    err = max((t.grad.float() - p.grad.float()).abs().max().item()
+              for t, p in zip((q, k, v), plain))
+    layout = all(t.grad.stride() == t.stride() for t in (q, k, v))
+    line = (f"flash_attention gradients {str(dtype).split('.')[-1]} "
+            f"{tuple(shape)} strided vs naive_attention autograd: "
+            f"max_abs_err={err:.3g} (bound {TOL[dtype]:g}), launches="
+            f"{launched}, input strides kept={layout}")
+    phase(line)
+    if launched != 1 or not err <= TOL[dtype] or not layout:
+        raise AssertionError(line)
+    return err
+
+
+def same_tree(a, b) -> bool:
+    """Equal nested dicts / lists of tensors and plain values."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(same_tree(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def vit_step(model, batch, device) -> tuple:
+    """Loss and gradients of one vit_small train step (its optimizer and
+    label smoothing, f32 compute) through a copy of `model` on `device`;
+    the gradients as the step leaves them (clipped)."""
+    cfg = get_config(MODEL)
+    m = copy.deepcopy(model).to(device)
+    state = TrainState(m, build_optimizer(m.parameters(), cfg.optimizer,
+                                          cfg.schedule, 1, 1))
+    step = make_classification_train_step(
+        label_smoothing=cfg.label_smoothing, compute_dtype=torch.float32)
+    loss = step(state, *(torch.from_numpy(a).to(device) for a in batch))
+    return (float(loss["loss"]),
+            {n: p.grad.cpu() for n, p in m.named_parameters()})
+
+
+def vit_grad_rel(card: dict, cpu: dict) -> float:
+    """Largest |card - cpu| over each tensor's largest |cpu| (the key
+    biases, whose gradient is 0 up to rounding, over the model's largest)."""
+    top = max(g.abs().max().item() for g in cpu.values())
+    return max((card[n] - g).abs().max().item()
+               / (top if n.endswith("attn.key.bias") else g.abs().max().item())
+               for n, g in cpu.items())
+
+
+def check_vit_training() -> dict:
+    """Slice 5: vit_small training through the port's own entry point."""
+    cfg = get_config(MODEL)
+    depth = cfg.model_kwargs["depth"]
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_vit_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0     # counts of the main path only
+        t0 = time.perf_counter()
+        trainer, result = run_classification("ViT", [MODEL], [
+            "-m", MODEL, "--synthetic", "--batch-size", str(VIT_BATCH),
+            "--steps-per-epoch", str(VIT_STEPS), "--epochs", "1",
+            "--device", "cuda", "--workdir", workdir])
+        wall = time.perf_counter() - t0
+        launches = flash_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        ran = trainer.config
+        if (ran.data.image_size, ran.data.num_classes, ran.batch_size,
+                ran.label_smoothing, ran.optimizer.name,
+                ran.schedule.name) != (224, 1000, VIT_BATCH, 0.1, "adam",
+                                       "cosine"):
+            raise AssertionError(f"vit_small ran as {ran}")
+        steps = trainer.last_epoch_steps
+        for i, s in enumerate(steps):
+            phase(f"vit_small step {i + 1}: " + " ".join(
+                f"{k}={v:.4f}" for k, v in s.items()))
+        if len(steps) != VIT_STEPS or not all(
+                np.isfinite(v) for s in steps for v in s.values()):
+            raise AssertionError(f"vit_small steps not all finite: {steps}")
+        if result.get("count") != VIT_EVAL_BATCHES * VIT_BATCH or not all(
+                np.isfinite(result.get(k, np.nan))
+                for k in ("loss", "top1", "top5")):
+            raise AssertionError(f"vit_small validation: {result}")
+        dispatches = VIT_STEPS + VIT_EVAL_BATCHES
+        phase(f"main path: {VIT_STEPS} train steps + {VIT_EVAL_BATCHES} "
+              f"eval batches of {VIT_BATCH}, {launches} flash_attention "
+              f"launches (depth {depth}); val loss={result['loss']:.4f} "
+              f"top1={result['top1']:.4f}; run_classification {wall:.1f}s")
+        if launches != depth * dispatches:
+            raise AssertionError(f"flash_attention ran {launches} times for "
+                                 f"{dispatches} forward passes of depth "
+                                 f"{depth}")
+        step_ms = statistics.median(s["step_ms"] for s in steps[1:])
+        phase(f"vit_small train step (batch {VIT_BATCH}, 224 px, bf16): "
+              f"step_ms={step_ms:.3f} (median after the first; first "
+              f"{steps[0]['step_ms']:.3f}) images_per_sec="
+              f"{VIT_BATCH / step_ms * 1e3:.2f} peak_memory_allocated="
+              f"{peak / 2**30:.3f} GiB")
+
+        fresh = Trainer(ran, device="cuda", workdir=workdir)
+        fresh.init_state()
+        if fresh.resume() != 1:
+            raise AssertionError("the epoch-1 checkpoint did not restore")
+        want, got = trainer.state.state_dict(), fresh.state.state_dict()
+        equal = same_tree(want, got)
+        fresh.close()
+        phase(f"checkpoint round trip: {len(want['model'])} tensors and the "
+              f"optimizer state (count {got['optimizer']['count']}), step "
+              f"{got['step']}, equal={equal}")
+        if not equal:
+            raise AssertionError("the restored state differs from the "
+                                 "trained")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    model = build_model(cfg.replace(dtype="float32", model_kwargs={
+        **cfg.model_kwargs, "dropout_rate": 0.0}))
+    batch = next(iter(SyntheticClassification(2, 224, 3, 1000, 1, seed=7)))
+    card_loss, card_grads = vit_step(model, batch, torch.device("cuda"))
+    cpu_loss, cpu_grads = vit_step(model, batch, torch.device("cpu"))
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    grad_rel = vit_grad_rel(card_grads, cpu_grads)
+    phase(f"vit_small card vs CPU plain path, one f32 step on 2 images, "
+          f"dropout 0: loss {card_loss:.6f} vs {cpu_loss:.6f} (relative "
+          f"{loss_rel:.3g}); gradients, largest relative difference "
+          f"{grad_rel:.3g} (bound {VIT_CPU_RTOL:g})")
+    if not (np.isfinite(cpu_loss) and loss_rel <= VIT_CPU_RTOL
+            and grad_rel <= VIT_CPU_RTOL):
+        raise AssertionError(f"card and CPU differ: loss {loss_rel:g}, "
+                             f"gradients {grad_rel:g}")
+    return {"launches": launches, "step_ms": step_ms, "peak_bytes": peak}
 
 
 GEMM_KEYS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
@@ -683,6 +841,17 @@ def main() -> int:
           f"{yolo['step_ms']:.3f} ms ({100 * k2_ms / yolo['step_ms']:.4f}%, "
           f"one fused launch, its device time from phase 3)")
 
+    # 6. slice 5: vit_small training, K1 under autograd
+    vit = check_vit_training()
+    grad_err = {str(dt).split(".")[-1]: check_attention_grad(
+        VIT_GRAD_SHAPE, dt, gen) for dt in (torch.float32, torch.bfloat16)}
+    train_k1 = check_attention((VIT_BATCH, heads, n, d), torch.bfloat16, gen,
+                               True, "strided")
+    phase(f"where a vit_small train step goes: K1 forward {depth} x "
+          f"{train_k1['device_ms']:.4f} ms of {vit['step_ms']:.3f} ms "
+          f"({100 * depth * train_k1['device_ms'] / vit['step_ms']:.2f}%, "
+          f"its device time at the training shape)")
+
     timed_keys = ("shape", "layout", "ms", "device_ms", "plain_ms",
                   "library_ms", "library_device_ms", "bound_ms")
     b32 = main_path[-1]                  # bucket 32, the model's layout
@@ -690,14 +859,21 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "deepvision_tpu_torch/csrc/flash_attention.cu",
         "replaces": "deepvision_tpu/ops/attention.py:73",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches,
+        "max_abs_err": max(max_err, train_k1["max_abs_err"]),
         "ms": b32["ms"], "device_ms": b32["device_ms"],
         "plain_ms": b32["plain_ms"], "bound_ms": b32["bound_ms"],
         "bound_by": b32["bound_by"], "library_ms": b32["library_ms"],
         "library_device_ms": b32["library_device_ms"],
         "shape": b32["shape"], "layout": b32["layout"], "dtype": b32["dtype"],
         "dispatch_profile": prof,
-        "shapes": [{k: r[k] for k in timed_keys} for r in main_path]}, {
+        "shapes": [{k: r[k] for k in timed_keys}
+                   for r in main_path + [train_k1]],
+        "train_launches": vit["launches"],
+        "train_shape": {k: train_k1[k] for k in timed_keys},
+        "backward": "the VJP of naive_attention (autograd), as the JAX "
+                    "package's _fused_bwd: no backward kernel",
+        "grad_max_abs_err": grad_err}, {
         "name": "best_iou", "route": "cuda",
         "source": "deepvision_tpu_torch/csrc/best_iou.cu",
         "replaces": "deepvision_tpu/ops/pallas_kernels.py:33",

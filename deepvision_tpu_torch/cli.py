@@ -1,12 +1,14 @@
 """Command line of the port's training entry points (own copy of
-deepvision_tpu/cli.py: `build_parser`, `_run`, the synthetic data factories
-and `run_detection`).
+deepvision_tpu/cli.py: `build_parser`, `_run`, the synthetic data factories,
+`run_classification` and `run_detection`).
 
-`python YOLO/torch/train.py -m yolov3 --synthetic --image-size 416` trains
-YOLO V3 on the card; `--device cpu` runs it on the CPU. The flags are the
-JAX CLI's (`-m`, `-c`, `--synthetic`, `--epochs`, `--batch-size`,
-`--eval-batch-size`, `--learning-rate`, `--steps-per-epoch`, `--seed`,
-`--workdir`), plus `--device` and `--image-size`.
+`python ViT/torch/train.py -m vit_small --synthetic` trains ViT-Small/16 on
+the card and `python YOLO/torch/train.py -m yolov3 --synthetic --image-size
+416` YOLO V3; `--device cpu` runs either on the CPU. The flags are the JAX
+CLI's (`-m`, `-c`, `--synthetic`, `--epochs`, `--batch-size`,
+`--eval-batch-size`, `--learning-rate`, `--accum-steps`,
+`--no-decay-bn-bias`, `--steps-per-epoch`, `--seed`, `--workdir`), plus
+`--device` and `--image-size`.
 """
 
 from __future__ import annotations
@@ -23,6 +25,13 @@ from .utils.device import resolve_device
 SYNTH_STEPS_DEFAULT = 8
 
 
+def _positive_int(s: str) -> int:
+    v = int(s)
+    if v < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {v}")
+    return v
+
+
 def build_parser(family: str, models: Sequence[str]) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description=f"Train {family} models with the PyTorch port (CUDA). "
@@ -32,13 +41,22 @@ def build_parser(family: str, models: Sequence[str]) -> argparse.ArgumentParser:
                    help="resume from this epoch number, or 'latest'")
     p.add_argument("--synthetic", action="store_true",
                    help="train on synthetic data (smoke test, no dataset "
-                        "needed; a 64 px canvas unless --image-size)")
+                        "needed; detection trains on a 64 px canvas unless "
+                        "--image-size)")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--eval-batch-size", type=int, default=None,
                    help="validation batch size (defaults to --batch-size)")
     p.add_argument("--learning-rate", type=float, default=None,
-                   help="override the config's base learning rate")
+                   help="override the config's base learning rate (taken "
+                        "as it is: no linear scaling by batch)")
+    p.add_argument("--accum-steps", type=_positive_int, default=None,
+                   help="gradient accumulation: average grads over k "
+                        "micro-batches per optimizer update (effective "
+                        "batch = batch-size * k)")
+    p.add_argument("--no-decay-bn-bias", action="store_true",
+                   help="exclude 1-D params (norm scales, biases) from "
+                        "weight decay")
     p.add_argument("--steps-per-epoch", type=int, default=None,
                    help="override steps per epoch (synthetic/smoke)")
     p.add_argument("--seed", type=int, default=None,
@@ -66,7 +84,14 @@ def _config_from_args(args, synthetic_image_size: Optional[int]
         cfg = cfg.replace(eval_batch_size=args.eval_batch_size)
     if args.learning_rate:
         cfg = cfg.replace(optimizer=dataclasses.replace(
-            cfg.optimizer, learning_rate=args.learning_rate))
+            cfg.optimizer, learning_rate=args.learning_rate,
+            base_batch_size=None))
+    if args.accum_steps:
+        cfg = cfg.replace(optimizer=dataclasses.replace(
+            cfg.optimizer, accum_steps=args.accum_steps))
+    if args.no_decay_bn_bias:
+        cfg = cfg.replace(optimizer=dataclasses.replace(
+            cfg.optimizer, no_decay_bn_bias=True))
     if args.seed is not None:
         cfg = cfg.replace(seed=args.seed)
     if args.synthetic:
@@ -90,6 +115,22 @@ def _synthetic_data(cfg: TrainConfig, make_batches: Callable) -> Tuple:
     eval_batch = cfg.eval_batch_size or cfg.batch_size
     return (lambda epoch: make_batches(cfg.batch_size, n_batches, epoch),
             lambda epoch: make_batches(eval_batch, 2, 10**6))
+
+
+def _classification_data(cfg: TrainConfig, args) -> Tuple:
+    data = cfg.data
+    if args.synthetic or data.dataset == "synthetic":
+        from .data.synthetic import SyntheticClassification
+        return _synthetic_data(cfg, lambda batch, steps, seed:
+                               SyntheticClassification(
+                                   batch, data.image_size, data.channels,
+                                   data.num_classes, steps, seed=seed))
+    if data.dataset in ("imagenet", "imagenet_flat", "mnist", "digits"):
+        raise NotImplementedError(
+            f"dataset {data.dataset!r} is not ported yet (the ImageNet "
+            f"TFRecord and flattened-directory loaders, MNIST and digits); "
+            f"train with --synthetic")
+    raise ValueError(f"unknown dataset {data.dataset!r}")
 
 
 def _detection_data(cfg: TrainConfig, args) -> Tuple:
@@ -131,6 +172,17 @@ def _run(family: str, models: Sequence[str], trainer_factory: Callable,
     result = fit_and_close(trainer, train_fn, val_fn)
     print(f"done: best={result.get('best_metric')}", flush=True)
     return trainer, result
+
+
+def run_classification(family: str, models: Sequence[str],
+                       argv: Optional[Sequence[str]] = None):
+    """Classification entry point — `python train.py -m vit_small
+    [-c latest]`. Synthetic runs keep the config's image size, as in the
+    JAX package."""
+    from .core.trainer import Trainer
+    return _run(family, models,
+                lambda c, w, d: Trainer(c, device=d, workdir=w),
+                _classification_data, argv)
 
 
 def run_detection(family: str, models: Sequence[str],

@@ -1,6 +1,7 @@
 """Registered configs of the port (own copy of deepvision_tpu/configs.py:
-the ViT and YOLO entries). The hyperparameters equal the JAX package's;
-tests/test_torch_vit.py and tests/test_torch_yolo.py hold them against it.
+the ViT and YOLO entries). Every field the port's dataclasses carry equals
+the JAX package's; tests/test_torch_vit.py and tests/test_torch_yolo.py
+hold them against it.
 """
 
 from __future__ import annotations
@@ -12,20 +13,31 @@ from .utils.registry import CONFIGS
 # -- vit_tiny: the CPU-feasible smoke/parity surface — 32px / patch 8 → 17
 #    tokens, d=192, 3 heads of 64. ----
 CONFIGS.register("vit_tiny", TrainConfig(
-    name="vit_tiny", model="vit",
+    name="vit_tiny", model="vit", batch_size=32, total_epochs=4,
     model_kwargs={"patch_size": 8, "embed_dim": 192, "depth": 4,
                   "num_heads": 3, "mlp_dim": 768, "attention_impl": "auto"},
-    data=DataConfig(image_size=32, channels=3, num_classes=10),
+    optimizer=OptimizerConfig(name="adam", learning_rate=1e-3),
+    schedule=ScheduleConfig(name="constant"),
+    data=DataConfig(dataset="synthetic", image_size=32, channels=3,
+                    num_classes=10, train_examples=512, val_examples=128),
 ))
 
 # -- ViT-Small/16 — 224px / patch 16 → 197 tokens, d=384, 6 heads of 64,
-#    depth 8, MLP 1536, 1000 classes, bf16 compute with an f32 head. ----
+#    depth 8, MLP 1536, 1000 classes, bf16 compute with an f32 head; adam
+#    with a clip at 1.0 (its weight_decay is ignored: see core/optim.py),
+#    cosine decay after 5 warmup epochs, label smoothing 0.1, on the
+#    flattened-directory ImageNet loader. ----
 CONFIGS.register("vit_small", TrainConfig(
-    name="vit_small", model="vit",
+    name="vit_small", model="vit", batch_size=256, total_epochs=90,
     model_kwargs={"patch_size": 16, "embed_dim": 384, "depth": 8,
                   "num_heads": 6, "mlp_dim": 1536, "dropout_rate": 0.1,
                   "attention_impl": "auto"},
-    data=DataConfig(image_size=224, num_classes=1000),
+    optimizer=OptimizerConfig(name="adam", learning_rate=1e-3,
+                              weight_decay=5e-2, grad_clip_norm=1.0),
+    schedule=ScheduleConfig(name="cosine", warmup_epochs=5),
+    label_smoothing=0.1,
+    data=DataConfig(dataset="imagenet_flat", image_size=224, num_classes=1000,
+                    train_examples=1281167, val_examples=50000),
 ))
 
 # -- YOLO V3: 416px, batch 16 per replica in the reference (128 is the

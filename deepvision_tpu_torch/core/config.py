@@ -1,7 +1,7 @@
 """Typed configs: the fields of deepvision_tpu/core/config.py that the
-port's serve path and its detection trainer read (own copy). Defaults
-equal the JAX package's. Fields of the JAX configs that no ported path
-reads yet (mesh, EMA, accumulation, augmentation, resilience levers)
+port's serve path and its detection and classification trainers read (own
+copy). Defaults equal the JAX package's. Fields of the JAX configs that no
+ported path reads yet (mesh, EMA, mixup, augmentation, resilience levers)
 arrive with the slice that needs them.
 """
 
@@ -23,18 +23,31 @@ UNIT_RANGE_NORM = ((0.5, 0.5, 0.5), (0.5, 0.5, 0.5))
 
 @dataclasses.dataclass
 class OptimizerConfig:
-    name: str = "sgd"               # the port trains with adam so far
+    name: str = "sgd"               # sgd | momentum | rmsprop | adam | adamw
     learning_rate: float = 0.1
-    weight_decay: float = 0.0
+    momentum: float = 0.9
+    nesterov: bool = False
+    weight_decay: float = 0.0       # L2-coupled (sgd), added after the
+                                    # scaling (rmsprop, adamw); adam ignores it
     beta1: float = 0.9
     beta2: float = 0.999
     eps: float = 1e-8
+    rmsprop_decay: float = 0.9
     grad_clip_norm: Optional[float] = None
+    # linear LR scaling: learning_rate * effective batch / base_batch_size;
+    # None keeps the configured LR
+    base_batch_size: Optional[int] = None
+    # gradient accumulation: one update per `accum_steps` micro-batches, on
+    # their mean gradient; the schedule counts applied updates
+    accum_steps: int = 1
+    # decay only tensors of rank > 1 (no decay of biases and norm scales)
+    no_decay_bn_bias: bool = False
 
 
 @dataclasses.dataclass
 class ScheduleConfig:
-    name: str = "constant"          # constant | step | plateau (ported)
+    name: str = "constant"          # constant | step | cosine | plateau | linear_decay
+    warmup_epochs: float = 0.0
     boundaries_epochs: Tuple[float, ...] = ()   # step schedule
     decay_factor: float = 0.1
     # plateau: host-driven, scales the LR after `plateau_patience` epochs
@@ -42,6 +55,8 @@ class ScheduleConfig:
     plateau_patience: int = 2
     plateau_factor: float = 0.1
     plateau_mode: str = "max"       # watch val top-1 ('max') or val loss ('min')
+    min_lr: float = 0.0             # cosine: the floor, as alpha = min_lr / lr
+    decay_start_epoch: int = 100    # linear_decay: constant until this epoch
 
 
 @dataclasses.dataclass
@@ -64,8 +79,8 @@ class TrainConfig:
     name: str = "model"
     model: str = "resnet50"
     # Trainer family this config belongs to: classification | detection |
-    # pose | centernet | gan (the port serves classification and trains
-    # detection so far).
+    # pose | centernet | gan (the port trains classification and detection
+    # so far).
     family: str = "classification"
     model_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
     batch_size: int = 256           # global batch
@@ -76,6 +91,9 @@ class TrainConfig:
     schedule: ScheduleConfig = dataclasses.field(
         default_factory=ScheduleConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    loss: str = "softmax_xent"
+    label_smoothing: float = 0.0
+    aux_loss_weight: float = 0.3    # weight of auxiliary heads' losses
     dtype: str = "bfloat16"         # compute dtype; params stay f32
     seed: int = 0
     log_every_steps: int = 10

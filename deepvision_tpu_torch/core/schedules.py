@@ -1,16 +1,18 @@
-"""LR schedules (own copy of deepvision_tpu/core/schedules.py: the
-`constant`, `step` and `plateau` schedules the YOLO configs use; warmup,
-cosine and linear decay are not ported yet).
+"""LR schedules (own copy of deepvision_tpu/core/schedules.py).
 
 A schedule is a function of the optimizer's update count, as an optax
-schedule is. Plateau is host-driven: `PlateauState` reacts to the watched
-validation metric between epochs, and its scale multiplies the (constant)
-base schedule through the optimizer's `lr_scale`.
+schedule is: `constant`, `step`, `cosine` (optax's cosine_decay_schedule
+with alpha = min_lr / base_lr), `linear_decay` (constant until
+`decay_start_epoch`, then linear to 0) and `plateau`, each optionally under
+a multiplicative linear warmup. Plateau is host-driven: `PlateauState`
+reacts to the watched validation metric between epochs, and its scale
+multiplies the (constant) base schedule through the optimizer's `lr_scale`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Optional
 
 from .config import ScheduleConfig
@@ -19,10 +21,14 @@ Schedule = Callable[[int], float]
 
 
 def build_schedule(cfg: ScheduleConfig, base_lr: float,
-                   steps_per_epoch: float) -> Schedule:
-    """The LR at update `count` (0-based). `step` multiplies by
+                   steps_per_epoch: float, total_epochs: int) -> Schedule:
+    """The LR at update `count` (0-based). `steps_per_epoch` may be
+    fractional (updates per epoch under gradient accumulation): every epoch
+    is multiplied into steps first, then truncated. `step` multiplies by
     `decay_factor` from each boundary epoch on (boundaries that land on one
     update compound)."""
+    warmup_steps = int(cfg.warmup_epochs * steps_per_epoch)
+    total_steps = max(1, int(total_epochs * steps_per_epoch))
     if cfg.name in ("constant", "plateau"):
         def base(count: int) -> float:
             return base_lr
@@ -38,9 +44,30 @@ def build_schedule(cfg: ScheduleConfig, base_lr: float,
                 if count >= k:
                     lr *= factor
             return lr
+    elif cfg.name == "cosine":
+        alpha = cfg.min_lr / base_lr if base_lr else 0.0
+
+        def base(count: int) -> float:
+            t = min(count, total_steps)
+            decay = 0.5 * (1 + math.cos(math.pi * t / total_steps))
+            return base_lr * ((1 - alpha) * decay + alpha)
+    elif cfg.name == "linear_decay":
+        decay_start = int(cfg.decay_start_epoch * steps_per_epoch)
+        span = max(1, total_steps - decay_start)
+
+        def base(count: int) -> float:
+            if count < decay_start:
+                return base_lr
+            return base_lr * (1 - min(count - decay_start, span) / span)
     else:
-        raise ValueError(f"schedule {cfg.name!r} is not ported yet "
-                         f"(constant, step, plateau)")
+        raise ValueError(f"unknown schedule {cfg.name!r}")
+
+    if warmup_steps > 0:
+        # multiplicative, so the base schedule's boundaries stay at their
+        # absolute steps
+        def warmed(count: int) -> float:
+            return base(count) * min(1.0, (count + 1) / warmup_steps)
+        return warmed
     return base
 
 

@@ -1,11 +1,24 @@
-"""Input normalization shared by every predict path (own copy of
-deepvision_tpu/core/steps.py::_normalize_input)."""
+"""Classification train and eval steps, and the input normalization shared
+by every step and predict path (own copy of deepvision_tpu/core/steps.py:
+`_normalize_input`, `make_classification_train_step`,
+`make_classification_eval_step`).
+
+A step is a plain function on device tensors that updates the state in
+place; nothing in it waits for the device. The mesh, remat, mixup/cutmix,
+device augmentation and the grad correction of the JAX steps are not
+ported yet.
+"""
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+
+from . import losses
+from .train_state import TrainState
+
+Step = Callable[..., Dict[str, torch.Tensor]]
 
 
 def normalize_input(images: torch.Tensor,
@@ -24,3 +37,51 @@ def normalize_input(images: torch.Tensor,
     std = torch.as_tensor(std, dtype=torch.float32, device=images.device)
     images = images.to(torch.float32) / 255.0
     return ((images - mean) / std).to(compute_dtype)
+
+
+def make_classification_train_step(
+        *, label_smoothing: float = 0.0, aux_weight: float = 0.3,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        input_norm=None) -> Step:
+    """(state, images, labels) -> {loss, top1, top5}, device scalars,
+    updating `state` in place: forward in train mode with this step's
+    dropout generator, the (smoothed) loss, backward, one optimizer step
+    (or one micro-batch of an accumulation). Top-k is of the main head."""
+
+    def step(state: TrainState, images, labels):
+        images = normalize_input(images, input_norm, compute_dtype)
+        state.model.train()
+        outputs = state.model(images, generator=state.dropout_generator())
+        loss = losses.classification_loss(outputs, labels, label_smoothing,
+                                          aux_weight)
+        state.optimizer.zero_grad()
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        with torch.no_grad():
+            return {"loss": loss.detach(),
+                    **losses.topk_accuracies(outputs, labels)}
+
+    return step
+
+
+def make_classification_eval_step(
+        *, compute_dtype: torch.dtype = torch.bfloat16,
+        input_norm=None) -> Step:
+    """(state, images, labels, mask) -> masked SUMS of the unsmoothed loss,
+    top1 and top5, and `count` = sum(mask): a padded row (mask 0) adds
+    nothing. The host divides by `count`."""
+
+    @torch.no_grad()
+    def step(state: TrainState, images, labels, mask):
+        images = normalize_input(images, input_norm, compute_dtype)
+        state.model.eval()
+        outputs = state.model(images)
+        main = outputs[0] if isinstance(outputs, (tuple, list)) else outputs
+        xent = losses.per_example_xent(main, labels)
+        correct = losses.topk_correct(outputs, labels)
+        return {"loss": (xent * mask).sum(),
+                **{k: (v * mask).sum() for k, v in correct.items()},
+                "count": mask.sum()}
+
+    return step

@@ -1,9 +1,11 @@
-"""The trainer core (own copy of deepvision_tpu/core/trainer.py: `Trainer`'s
-state, staged epoch loop, fit loop, checkpoint and resume, and
-`LossWatchedTrainer.evaluate`).
+"""The trainers (own copy of deepvision_tpu/core/trainer.py: `Trainer`,
+the classification trainer with its state, optimizer, staged epoch loop,
+masked evaluation, fit loop, checkpoint and resume; and
+`LossWatchedTrainer`).
 
-A family subclass installs `train_step(state, *batch) -> metrics` and
-`eval_step(state, *batch) -> {"loss": ...}`, plain functions on tensors
+`Trainer` installs the classification steps (core/steps.py); a family
+subclass installs its own `train_step(state, *batch) -> metrics` and
+`eval_step(state, *batch)`, plain functions on tensors
 (core/detection.py). The loop copies each host batch to the device, runs
 the step and keeps its metrics on the device; it reads them back at the
 `log_every_steps` boundaries and once at the end of the epoch. Mesh,
@@ -13,6 +15,7 @@ watchdog, fault injection and divergence recovery are not ported yet.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import statistics
 import time
@@ -26,9 +29,11 @@ from ..utils.device import resolve_device
 from .checkpoint import CheckpointManager
 from .config import TrainConfig
 from .metrics import MetricsLogger
-from .optim import AdamChain
+from .optim import build_optimizer
 from .resilience import GracefulShutdown
-from .schedules import PlateauState, build_schedule
+from .schedules import PlateauState
+from .steps import (make_classification_eval_step,
+                    make_classification_train_step)
 from .train_state import TrainState, param_count
 
 # The port's steps update the state in place and donate nothing; jaxlint's
@@ -95,7 +100,7 @@ class _StepClock:
 class Trainer:
     """`fit(train_data_fn, val_data_fn)` where each returns an epoch's
     iterable of numpy batch tuples, forwarded positionally to the family's
-    train and eval steps."""
+    train and eval steps: (images, labels) for classification."""
 
     # subclass override for the watched metric, e.g. ("loss", "min"); None
     # derives it from the plateau config (top-1 max by default)
@@ -110,9 +115,23 @@ class Trainer:
         self.model = model if model is not None else build_model(config)
         self.steps_per_epoch = max(
             1, config.data.train_examples // config.batch_size)
-        self.schedule = build_schedule(config.schedule,
-                                       config.optimizer.learning_rate,
-                                       self.steps_per_epoch)
+        # one update sees batch_size * accum_steps examples: linear LR
+        # scaling uses that effective batch
+        opt_cfg = config.optimizer
+        effective_batch = config.batch_size * opt_cfg.accum_steps
+        if opt_cfg.accum_steps > 1:
+            print(f"[{config.name}] gradient accumulation: "
+                  f"{opt_cfg.accum_steps} micro-steps -> effective batch "
+                  f"{effective_batch}", flush=True)
+        if (opt_cfg.base_batch_size
+                and effective_batch != opt_cfg.base_batch_size):
+            scaled = (opt_cfg.learning_rate * effective_batch
+                      / opt_cfg.base_batch_size)
+            print(f"[{config.name}] linear LR scaling: "
+                  f"{opt_cfg.learning_rate} -> {scaled:g} (batch "
+                  f"{effective_batch}/{opt_cfg.base_batch_size})", flush=True)
+            opt_cfg = dataclasses.replace(opt_cfg, learning_rate=scaled)
+        self.opt_cfg = opt_cfg
         sched = config.schedule
         self.plateau = PlateauState(
             patience=sched.plateau_patience, factor=sched.plateau_factor,
@@ -133,16 +152,27 @@ class Trainer:
         self.ckpt = CheckpointManager(
             self.workdir + "/ckpt", keep=config.keep_checkpoints,
             keep_best=config.keep_best, best_mode=self.watch_mode)
-        # installed by the family subclass
-        self.train_step: Optional[Callable[..., Dict[str, torch.Tensor]]] = None
-        self.eval_step: Optional[Callable[..., Dict[str, torch.Tensor]]] = None
+        # the classification steps; a family subclass installs its own
+        compute_dtype = getattr(torch, config.dtype)
+        input_norm = ((config.data.mean, config.data.std)
+                      if config.data.normalize_on_device else None)
+        self.train_step: Callable[..., Dict[str, torch.Tensor]] = \
+            make_classification_train_step(
+                label_smoothing=config.label_smoothing,
+                aux_weight=config.aux_loss_weight,
+                compute_dtype=compute_dtype, input_norm=input_norm)
+        self.eval_step: Callable[..., Dict[str, torch.Tensor]] = \
+            make_classification_eval_step(compute_dtype=compute_dtype,
+                                          input_norm=input_norm)
 
     # -- state ------------------------------------------------------------
     def init_state(self) -> TrainState:
         self.model.to(self.device)
-        optimizer = AdamChain(self.model.parameters(), self.config.optimizer,
-                              self.schedule)
-        self.state = TrainState(self.model, optimizer)
+        optimizer = build_optimizer(self.model.parameters(), self.opt_cfg,
+                                    self.config.schedule,
+                                    self.steps_per_epoch,
+                                    self.config.total_epochs)
+        self.state = TrainState(self.model, optimizer, seed=self.config.seed)
         print(f"[{self.config.name}] model={self.config.model} "
               f"params={param_count(self.model):,} device={self.device} "
               f"steps/epoch={self.steps_per_epoch}", flush=True)
@@ -224,8 +254,34 @@ class Trainer:
         return out
 
     def evaluate(self, data: Iterable) -> dict:
-        raise NotImplementedError(
-            f"{type(self).__name__} has no evaluation ported yet")
+        """Masked evaluation: a partial batch is zero-padded up to the
+        largest batch seen so far in this pass (a running maximum, so the
+        usual full-then-partial stream keeps one shape), its padded rows
+        carrying mask 0. Returns the metric sums over `count`, with
+        `count`; {} when nothing was evaluated."""
+        sums: Dict[str, torch.Tensor] = {}
+        target = 0
+        for images, labels in data:
+            n = len(labels)
+            target = max(target, n)
+            mask = np.zeros((target,), np.float32)
+            mask[:n] = 1.0
+            if target != n:
+                pad = [(0, target - n)]
+                images = np.pad(np.asarray(images),
+                                pad + [(0, 0)] * (np.ndim(images) - 1))
+                labels = np.pad(np.asarray(labels), pad)
+            m = self.eval_step(self.state,
+                               *self._to_device((images, labels, mask)))
+            for k, v in m.items():     # summed in f64, read once at the end
+                sums[k] = sums[k] + v.double() if k in sums else v.double()
+        host = {k: float(v) for k, v in sums.items()}
+        count = host.pop("count", 0.0)
+        if count == 0:
+            return {}
+        out = {k: v / count for k, v in host.items()}
+        out["count"] = count
+        return out
 
     def fit(self, train_data_fn: Callable[[int], Iterable],
             val_data_fn: Optional[Callable[[int], Iterable]] = None,

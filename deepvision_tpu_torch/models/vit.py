@@ -14,6 +14,13 @@ differs from torch's defaults: LayerNorm eps 1e-6 with its statistics in
 f32 even under bf16, tanh-approximate GELU, and projections that cast
 their weights to the activation dtype (Flax's `dtype=` policy) while the
 head stays f32. The public input is NHWC, as in the JAX package.
+
+Dropout sits where the JAX model has it (after the embeddings, after the
+attention and after the MLP of every block) and runs only in train mode
+with a rate above 0, its masks drawn from the `generator` that the train
+step passes to `forward` (never from the global RNG). In training the
+weights stay f32 and each projection casts them per call;
+`cast_compute_weights_` is a serving step.
 """
 
 from __future__ import annotations
@@ -28,6 +35,29 @@ from ..ops.attention import attention
 from ..utils.registry import MODELS
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default (torch's is 1e-5)
+
+
+class Dropout(nn.Module):
+    """flax.linen.Dropout: in train mode, keep each element with
+    probability 1 - rate, scaled by 1 / (1 - rate), the mask drawn from
+    `generator`; the identity in eval mode or at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        if not self.training or self.rate == 0:
+            return x
+        if generator is None:
+            raise ValueError("train-mode dropout needs the step's generator "
+                             "(forward(x, generator=...))")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
 
 
 class Dense(nn.Linear):
@@ -100,12 +130,13 @@ class EncoderBlock(nn.Module):
         self.ln_mlp = LayerNorm(dim)
         self.mlp_in = Dense(dim, mlp_dim)
         self.mlp_out = Dense(mlp_dim, dim)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.dropout(self.attn(self.ln_attn(x)))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = x + self.dropout(self.attn(self.ln_attn(x)), generator)
         y = F.gelu(self.mlp_in(self.ln_mlp(x)), approximate="tanh")
-        return x + self.dropout(self.mlp_out(y))
+        return x + self.dropout(self.mlp_out(y), generator)
 
 
 @MODELS.register("vit")
@@ -127,7 +158,7 @@ class ViT(nn.Module):
         tokens = (image_size // patch_size) ** 2 + 1
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, tokens, embed_dim))
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         self.blocks = nn.ModuleList(
             EncoderBlock(embed_dim, num_heads, mlp_dim, dropout_rate,
                          attention_impl) for _ in range(depth))
@@ -169,15 +200,17 @@ class ViT(nn.Module):
         self.pos_embed.data = self.pos_embed.data.to(self.dtype)
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, H, W, C) images → (B, num_classes) f32 logits."""
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x: (B, H, W, C) images → (B, num_classes) f32 logits; in train
+        mode with dropout, `generator` draws the masks."""
         x = self.patch_embed(x.to(self.dtype).permute(0, 3, 1, 2))
         x = x.flatten(2).transpose(1, 2)        # (b, h*w, d), (h, w) row-major
         b = x.shape[0]
         cls = self.cls_token.to(self.dtype).expand(b, -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(self.dtype)
-        x = self.dropout(x)
+        x = self.dropout(x, generator)
         for block in self.blocks:
-            x = block(x)
+            x = block(x, generator)
         x = self.norm(x)
         return self.head(x[:, 0].float())

@@ -13,7 +13,11 @@ Port of deepvision_tpu/ops/attention.py. Three versions of one function:
   (csrc/flash_attention.cu, which replaces the Pallas kernel
   deepvision_tpu/ops/attention.py:73). A CUDA tensor launches the kernel
   or raises; only a CPU tensor takes the plain version. There is no
-  fallback and no switch that takes the kernel off the path.
+  fallback and no switch that takes the kernel off the path. Under
+  autograd it is a `torch.autograd.Function` whose backward is the VJP of
+  `naive_attention`, recomputed from the saved q, k and v, as the JAX
+  package's `fused_attention` custom_vjp does (`_fused_bwd`): the JAX
+  package has no backward kernel, so the port has none either.
 
 `attention(impl="auto")` — what the ViT calls — goes to `flash_attention`.
 """
@@ -126,15 +130,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"empty attention input {tuple(q.shape)}")
 
 
-def _needs_backward(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> bool:
-    """Whether autograd would record this call: the kernel writes a fresh
-    tensor with no grad_fn, so a backward through it would silently give
-    every input before the attention a zero gradient."""
-    return torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, k, v))
-
-
 def _vector_copies_ok(*tensors: torch.Tensor) -> bool:
     """Whether the bf16 kernel may copy rows with 16-byte `cp.async`: every
     tensor starts on 16 bytes, its b/h/n strides are multiples of 8
@@ -163,32 +158,11 @@ def _kernel():
     return fn
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """Flash-attention forward on (B, H, N, D) f32 or bf16 tensors.
-
-    On a CUDA tensor this launches the kernel on the current stream and
-    counts the launch in `flash_attention.launches`; the output is
-    allocated as a (B, N, H, D) tensor and returned as its (B, H, N, D)
-    view, so merging the heads back is free. bf16 copies rows with 16-byte
-    `cp.async` where `_vector_copies_ok` allows it, else with scalar copies
-    in the same kernel. The kernel has no backward yet: a CUDA input that
-    requires a gradient, with grad mode on, raises. On a CPU tensor it
-    returns `flash_attention_reference`, which autograd differentiates. Any
-    other device raises."""
-    _check(q, k, v)
-    scale = _default_scale(q, scale)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, got "
-                         f"{q.device}")
-    if _needs_backward(q, k, v):
-        raise RuntimeError(
-            "flash_attention has no backward kernel yet (it is still to "
-            "port, with ViT training): call it under torch.no_grad() or "
-            "torch.inference_mode(), or on inputs that do not require a "
-            "gradient")
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            scale: float) -> torch.Tensor:
+    """One launch of the kernel on the current stream, counted in
+    `flash_attention.launches`; the output is allocated as a (B, N, H, D)
+    tensor and returned as its (B, H, N, D) view."""
     b, h, n, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype,
                       device=q.device).permute(0, 2, 1, 3)
@@ -209,6 +183,61 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with _launches_lock:
         flash_attention.launches += 1
     return out
+
+
+def _like(t: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+    """`grad` laid out with `t`'s strides, so the model's head-split views
+    pass their gradients back without another copy."""
+    if grad.stride() == t.stride():
+        return grad
+    return torch.empty_like(t).copy_(grad)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the kernel on a CUDA tensor, its plain version on a CPU
+    tensor. Backward: the VJP of `naive_attention` at the saved q, k, v
+    (the scores recomputed, contractions at the operand dtype, only the
+    softmax in f32), as the JAX package's `_fused_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        if q.device.type == "cpu":
+            return flash_attention_reference(q, k, v, scale=scale)
+        return _launch(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(need) for t, need
+                  in zip(saved, ctx.needs_input_grad[:3])]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = naive_attention(*inputs, scale=ctx.scale)
+            grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        return (*(_like(t, next(grads)) if t.requires_grad else None
+                  for t in inputs), None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Flash-attention forward on (B, H, N, D) f32 or bf16 tensors, with
+    the naive VJP as its backward.
+
+    On a CUDA tensor this launches the kernel on the current stream and
+    counts the launch in `flash_attention.launches`; the output is a
+    (B, N, H, D) tensor returned as its (B, H, N, D) view, so merging the
+    heads back is free. bf16 copies rows with 16-byte `cp.async` where
+    `_vector_copies_ok` allows it, else with scalar copies in the same
+    kernel. On a CPU tensor it returns `flash_attention_reference`. Any
+    other device raises. The backward is the naive VJP and launches no
+    kernel of its own."""
+    _check(q, k, v)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on cuda or cpu, got "
+                         f"{q.device}")
+    return _FlashAttention.apply(q, k, v, _default_scale(q, scale))
 
 
 flash_attention.launches = 0

@@ -1,10 +1,10 @@
-"""Device time of a kernel call, with no host dispatch cost in it.
+"""Time of a call on the card, between CUDA events.
 
-A host loop of wrapper calls between CUDA events reads the host's cost
-(Python, the wrapper's checks, the launch) whenever the device finishes a
-call faster than the host can issue the next one, as a small kernel does.
+`loop_ms` times a host loop of calls: where the device finishes a call
+faster than the host can issue the next one, as a small kernel does, it
+reads the host's cost (Python, the wrapper's checks, the launch).
 `graph_ms` captures the calls in one CUDA graph and times a replay, so
-the launches run back to back on the device.
+the launches run back to back on the device, with no host dispatch cost.
 """
 
 from __future__ import annotations
@@ -12,6 +12,23 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+
+def loop_ms(fn: Callable[[], object], iters: int = 50,
+            warmup: int = 3) -> float:
+    """Mean ms of one call of `fn` over a host loop of `iters` calls
+    between CUDA events, after `warmup` calls and a synchronize."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def graph_ms(fn: Callable[[], object], iters: int = 50) -> float:

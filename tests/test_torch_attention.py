@@ -12,6 +12,7 @@ where only the summation order differs, and 2e-2 in bf16, one rounding of
 a unit-scale output.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -149,21 +150,48 @@ def test_unknown_impl_raises():
         port.attention(q, q, q, impl="interpret")
 
 
-def test_grad_guard_predicate_and_the_cpu_path_still_backpropagates():
-    """The kernel has no backward yet, so the CUDA branch refuses a call
-    that autograd would record (`_needs_backward`); the CPU path is the
-    plain version, which autograd differentiates like naive attention."""
-    q, k, v = (torch.from_numpy(a) for a in _qkv((1, 2, 9, 16), seed=3))
-    assert not port._needs_backward(q, k, v)
-    q.requires_grad_(True)
-    assert port._needs_backward(q, k, v)
-    with torch.no_grad():
-        assert not port._needs_backward(q, k, v)
-    with torch.inference_mode():
-        assert not port._needs_backward(q, k, v)
-    out = port.flash_attention(q, k, v)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 3, 5, 16), (2, 3, 33, 16),
+                                   (1, 2, 65, 64), (1, 6, 197, 64)], ids=str)
+def test_gradients_match_jax_grad_through_interpret(shape, dtype):
+    """`flash_attention` under autograd: its backward is the VJP of
+    `naive_attention`, as the JAX custom_vjp's `_fused_bwd` is, so the q, k
+    and v gradients of sum(sin(out)) match `jax.grad` through
+    `attention(impl="interpret")` at ragged N within the forward's bounds;
+    the CPU launches no kernel."""
+    jx, tx = _both(_qkv(shape, seed=shape[2] + 4), dtype)
+
+    def loss(q, k, v):
+        return jnp.sum(jnp.sin(jax_attention(q, k, v, impl="interpret")
+                               .astype(jnp.float32)))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*jx)
+    tx = [t.requires_grad_(True) for t in tx]
+    before = port.flash_attention.launches
+    out = port.flash_attention(*tx)
     assert out.grad_fn is not None
-    out.square().sum().backward()
-    q2 = q.detach().clone().requires_grad_(True)
-    port.naive_attention(q2, k, v).square().sum().backward()
-    torch.testing.assert_close(q.grad, q2.grad, rtol=2e-5, atol=2e-5)
+    torch.sin(out.float()).sum().backward()
+    assert port.flash_attention.launches == before
+    for name, t, w in zip("qkv", tx, want):
+        assert t.grad.dtype == t.dtype and t.grad.shape == shape, name
+        err = np.abs(t.grad.float().numpy()
+                     - np.asarray(w.astype(jnp.float32))).max()
+        assert err <= BOUND[dtype], (name, err)
+
+
+def test_gradients_keep_the_head_split_layout():
+    """The model's q/k/v are (B, N, H, D) projections viewed as
+    (B, H, N, D), and the output's gradient arrives as a strided view: the
+    backward takes it and hands back gradients with the inputs' own strides,
+    equal to those of plain autograd through `naive_attention`."""
+    x = torch.from_numpy(_qkv((2, 17, 3 * 16), seed=9)[0])
+    views = [(x * s).view(2, 17, 3, 16).permute(0, 2, 1, 3)
+             .requires_grad_(True) for s in (1.0, 0.5, 2.0)]
+    g = torch.from_numpy(_qkv((2, 17, 3, 16), seed=10)[0]).permute(0, 2, 1, 3)
+    assert not g.is_contiguous()
+    port.flash_attention(*views).backward(g)
+    plain = [v.detach().clone().requires_grad_(True) for v in views]
+    port.naive_attention(*plain).backward(g)
+    for v, p in zip(views, plain):
+        assert v.grad.stride() == v.stride()
+        torch.testing.assert_close(v.grad, p.grad, rtol=2e-5, atol=2e-5)

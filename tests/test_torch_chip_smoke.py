@@ -126,3 +126,39 @@ def test_best_iou_bound_counts_16_operations_per_pair():
     assert t == pytest.approx(16 * 16 * 10647 * 100 / 67e12 * 1e3)
     t, by = chip_smoke.best_iou_bound(16, 10647, 1)
     assert by == "bytes"
+
+
+# -- phase 6's comparisons ----------------------------------------------------
+
+def test_same_tree_compares_nested_state_exactly():
+    t = chip_smoke.torch.arange(4.0)
+    a = {"model": {"w": t}, "optimizer": {"inner": {"state": {0: {
+        "exp_avg": t * 2}}, "param_groups": [{"lr": 1e-3,
+                                              "betas": (0.9, 0.999)}]},
+        "count": 3, "acc_grads": None}, "step": 3}
+    b = {"model": {"w": t.clone()}, "optimizer": {"inner": {"state": {0: {
+        "exp_avg": t * 2}}, "param_groups": [{"lr": 1e-3,
+                                              "betas": (0.9, 0.999)}]},
+        "count": 3, "acc_grads": None}, "step": 3}
+    assert chip_smoke.same_tree(a, b)
+    b["optimizer"]["inner"]["state"][0]["exp_avg"][1] += 1e-6
+    assert not chip_smoke.same_tree(a, b)
+    b["optimizer"]["inner"]["state"][0]["exp_avg"] = t * 2
+    b["optimizer"]["count"] = 4
+    assert not chip_smoke.same_tree(a, b)
+    b["optimizer"]["count"] = 3
+    del b["step"]
+    assert not chip_smoke.same_tree(a, b)
+
+
+def test_vit_grad_rel_scales_each_tensor_and_the_zero_key_bias():
+    """Each gradient's difference over its own largest value; the key
+    biases' (0 up to rounding) over the model's largest."""
+    torch = chip_smoke.torch
+    cpu = {"blocks.0.attn.query.weight": torch.tensor([2.0, -4.0]),
+           "blocks.0.attn.key.bias": torch.tensor([1e-9, -1e-9])}
+    card = {"blocks.0.attn.query.weight": torch.tensor([2.0, -4.004]),
+            "blocks.0.attn.key.bias": torch.tensor([3e-9, 0.0])}
+    assert chip_smoke.vit_grad_rel(card, cpu) == pytest.approx(1e-3, rel=1e-4)
+    card["blocks.0.attn.key.bias"] = torch.tensor([0.04, 0.0])
+    assert chip_smoke.vit_grad_rel(card, cpu) == pytest.approx(1e-2, rel=1e-4)

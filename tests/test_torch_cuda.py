@@ -25,8 +25,9 @@ import torch
 from deepvision_tpu_torch.configs import get_config
 from deepvision_tpu_torch.core.detection import (make_yolo_eval_step,
                                                  make_yolo_train_step)
-from deepvision_tpu_torch.core.optim import AdamChain
-from deepvision_tpu_torch.core.schedules import build_schedule
+from deepvision_tpu_torch.core.optim import build_optimizer
+from deepvision_tpu_torch.core.steps import (make_classification_eval_step,
+                                             make_classification_train_step)
 from deepvision_tpu_torch.core.train_state import TrainState
 from deepvision_tpu_torch.data.detection import synthetic_batches
 from deepvision_tpu_torch.models import build_model
@@ -39,6 +40,11 @@ from chip_smoke import (padded_gt, ragged_gt, ragged_preds,  # noqa: E402
                         random_boxes, same)
 
 pytestmark = pytest.mark.cuda
+
+# The port's steps update their state in place and donate nothing; jaxlint
+# resolves `make_classification_train_step` by name to the JAX package's
+# donating one.
+# jaxlint: disable-file=DON001
 BOUND = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -134,6 +140,44 @@ def test_kernel_refuses_float16(card):
         port.flash_attention(q, k, v)
 
 
+def test_vit_train_and_eval_steps_on_the_card_launch_once_per_block(card):
+    """A vit_tiny train step with dropout on the card: one kernel launch
+    per block in the forward, none in the backward, a finite loss, every
+    parameter updated; the masks come from a CUDA generator and repeat for
+    the same (seed, step). Eval launches once per block too."""
+    cfg = get_config("vit_tiny")
+    cfg = cfg.replace(model_kwargs={**cfg.model_kwargs,
+                                    "dropout_rate": 0.1})
+    model = build_model(cfg).to("cuda")
+    before_w = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt = build_optimizer(model.parameters(), cfg.optimizer, cfg.schedule,
+                          16, cfg.total_epochs)
+    state = TrainState(model, opt, seed=3)
+    step = make_classification_train_step(label_smoothing=0.1)
+    eval_step = make_classification_eval_step()
+    g = torch.Generator().manual_seed(0)
+    images = torch.randn(4, 32, 32, 3, generator=g).cuda()
+    labels = torch.randint(0, 10, (4,), generator=g).cuda()
+    depth = cfg.model_kwargs["depth"]
+    before = port.flash_attention.launches
+    metrics = step(state, images, labels)
+    assert port.flash_attention.launches - before == depth
+    assert all(torch.isfinite(v) for v in metrics.values())
+    assert state.dropout_generator().device.type == "cuda"
+    for n, p in model.named_parameters():
+        if not n.endswith("attn.key.bias"):     # its gradient is 0
+            assert not torch.equal(p.detach(), before_w[n]), n
+    sums = eval_step(state, images, labels, torch.ones(4, device="cuda"))
+    assert port.flash_attention.launches - before == 2 * depth
+    assert float(sums["count"]) == 4.0 and torch.isfinite(sums["loss"])
+    state.step = 0
+    with torch.no_grad():
+        model.train()
+        a = model(images, generator=state.dropout_generator())
+        b = model(images, generator=state.dropout_generator())
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 def test_vit_forward_on_the_card_launches_once_per_block(card):
     cfg = get_config("vit_tiny")
     model = build_model(cfg).eval().to("cuda").cast_compute_weights_()
@@ -145,16 +189,35 @@ def test_vit_forward_on_the_card_launches_once_per_block(card):
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
 
 
-def test_kernel_refuses_an_input_that_needs_a_gradient(card):
-    q, k, v = _qkv((1, 2, 9, 16), torch.float32)
-    q.requires_grad_(True)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", [(2, 3, 9, 16), (4, 6, 197, 64)], ids=str)
+def test_kernel_gradients_match_naive_attention(card, shape, dtype):
+    """Under autograd the kernel runs the forward (one launch per call)
+    and the naive VJP the backward: q, k and v gradients, in the model's
+    strided head-split layout, equal plain autograd through
+    `naive_attention` within the forward's bounds. Under inference_mode
+    the kernel still serves, with no graph."""
+    b, h, n, d = shape
+    g = torch.Generator().manual_seed(n)
+    qkv = [torch.randn((b, n, h * d), generator=g).to("cuda", dtype)
+           .view(b, n, h, d).permute(0, 2, 1, 3).requires_grad_(True)
+           for _ in range(3)]
+    w = torch.randn(shape, generator=g).to("cuda")
     before = port.flash_attention.launches
-    with pytest.raises(RuntimeError, match="backward"):
-        port.flash_attention(q, k, v)
-    assert port.flash_attention.launches == before
-    with torch.no_grad():
-        out = port.flash_attention(q, k, v)
-    assert out.grad_fn is None and port.flash_attention.launches == before + 1
+    out = port.flash_attention(*qkv)
+    assert port.flash_attention.launches == before + 1
+    (out.float() * w).sum().backward()
+    assert port.flash_attention.launches == before + 1
+    plain = [t.detach().clone().requires_grad_(True) for t in qkv]
+    (port.naive_attention(*plain).float() * w).sum().backward()
+    for t, p in zip(qkv, plain):
+        assert t.grad.stride() == t.stride() and t.grad.dtype == dtype
+        assert (t.grad.float() - p.grad.float()).abs().max().item() \
+            <= BOUND[dtype]
+    with torch.inference_mode():
+        served = port.flash_attention(*(t.detach() for t in qkv))
+    assert port.flash_attention.launches == before + 2
+    assert served.grad_fn is None and torch.isfinite(served.float()).all()
 
 
 @pytest.mark.parametrize("b,n,m", [(16, 8112, 100), (16, 2028, 100),
@@ -260,8 +323,8 @@ def test_best_iou_refuses_no_segment_or_too_many(card):
 def test_yolo_train_step_on_the_card_launches_once_per_step(card):
     cfg = get_config("yolov3_digits")
     model = build_model(cfg).to("cuda")
-    opt = AdamChain(model.parameters(), cfg.optimizer,
-                    build_schedule(cfg.schedule, 1e-3, 10))
+    opt = build_optimizer(model.parameters(), cfg.optimizer, cfg.schedule,
+                          10, cfg.total_epochs)
     state = TrainState(model, opt)
     kw = dict(num_classes=10, grid_sizes=(8, 4, 2))
     step = make_yolo_train_step(**kw)

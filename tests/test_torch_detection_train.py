@@ -46,7 +46,8 @@ from deepvision_tpu_torch.cli import run_detection
 from deepvision_tpu_torch.core.checkpoint import CheckpointManager
 from deepvision_tpu_torch.core.config import OptimizerConfig, ScheduleConfig
 from deepvision_tpu_torch.core.detection import make_yolo_train_step
-from deepvision_tpu_torch.core.optim import AdamChain, clip_by_global_norm_
+from deepvision_tpu_torch.core.optim import build_optimizer as port_optimizer
+from deepvision_tpu_torch.core.optim import clip_by_global_norm_
 from deepvision_tpu_torch.core.schedules import PlateauState, build_schedule
 from deepvision_tpu_torch.core.train_state import TrainState
 from deepvision_tpu_torch.data.detection import synthetic_batches
@@ -91,9 +92,9 @@ def one_step():
     model = YoloV3(**TINY, dtype=torch.float32)
     before = params_to_state_dict(params, model, stats)
     model.load_state_dict(before)
-    opt = AdamChain(model.parameters(),
-                    OptimizerConfig(name="adam", learning_rate=LR),
-                    build_schedule(ScheduleConfig(), LR, 10))
+    opt = port_optimizer(model.parameters(),
+                         OptimizerConfig(name="adam", learning_rate=LR),
+                         ScheduleConfig(), 10, 1)
     port_state = TrainState(model, opt)
     port_step = make_yolo_train_step(num_classes=4, grid_sizes=GRIDS,
                                      compute_dtype=torch.float32)
@@ -179,9 +180,9 @@ def test_adam_chain_on_jax_gradients_gives_jax_parameters(one_step):
     params, stats = flax_yolo_variables(JaxYoloV3(**TINY, dtype=jnp.float32),
                                         batch[0], seed=0)
     fresh.load_state_dict(params_to_state_dict(params, fresh, stats))
-    opt = AdamChain(fresh.parameters(),
-                    OptimizerConfig(name="adam", learning_rate=LR),
-                    build_schedule(ScheduleConfig(), LR, 10))
+    opt = port_optimizer(fresh.parameters(),
+                         OptimizerConfig(name="adam", learning_rate=LR),
+                         ScheduleConfig(), 10, 1)
     grads = _jax_grads(one_step)
     for name, p in fresh.named_parameters():
         p.grad = grads[name].clone()
@@ -211,7 +212,7 @@ def test_plateau_matches_jax():
 ])
 def test_schedules_match_optax(name, kw):
     ref = jax_schedule(JaxScheduleConfig(name=name, **kw), 0.01, 4, 10)
-    port = build_schedule(ScheduleConfig(name=name, **kw), 0.01, 4)
+    port = build_schedule(ScheduleConfig(name=name, **kw), 0.01, 4, 10)
     for count in range(20):
         assert port(count) == pytest.approx(float(ref(count)), rel=1e-6)
 

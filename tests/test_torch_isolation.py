@@ -1,7 +1,7 @@
 """The port stands alone: no module of deepvision_tpu_torch/ (nor its entry
-points YOLO/torch/train.py and chip_smoke.py, which run where JAX is not
-installed) imports jax, flax, optax, orbax or anything of the JAX package
-deepvision_tpu."""
+points ViT/torch/*.py, YOLO/torch/*.py and chip_smoke.py, which run where
+JAX is not installed) imports jax, flax, optax, orbax or anything of the
+JAX package deepvision_tpu."""
 
 import ast
 import os
@@ -13,9 +13,10 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "deepvision_tpu_torch")
 BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "deepvision_tpu"}
-ENTRY_POINTS = [os.path.join(REPO, "chip_smoke.py"),
-                os.path.join(REPO, "YOLO", "torch", "train.py"),
-                os.path.join(REPO, "YOLO", "torch", "profile_step.py")]
+ENTRY_POINTS = [os.path.join(REPO, "chip_smoke.py")] + [
+    os.path.join(REPO, family, "torch", script)
+    for family in ("ViT", "YOLO") for script in ("train.py",
+                                                 "profile_step.py")]
 
 
 def _sources():
@@ -61,4 +62,4 @@ print(len(names))
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.split()[-1]) >= 36
+    assert int(proc.stdout.split()[-1]) >= 40
