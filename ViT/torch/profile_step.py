@@ -126,7 +126,7 @@ def profile(cfg, args, workdir: str) -> int:
         return 1
     print_report(f"vit_small train step, batch {args.batch_size}, "
                  f"{torch.cuda.get_device_name(0)}", stats)
-    bwd = sum(stats["attention_backward_ms"].values())
+    bwd = sum(stats["ranges_ms"]["attention_backward"].values())
     print(f"attention backward (naive VJP) in the trace: {bwd:.3f} ms/step, "
           f"{100 * bwd / stats['busy_ms']:.1f}% of device time; K1 forward "
           f"{fam['flash_attention']:.3f} ms/step", flush=True)

@@ -52,7 +52,25 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    (dropout 0) held against the same weights on the CPU, and the gradient
    through the kernel held against plain autograd through
    `naive_attention` at (32, 6, 197, 64) in the model's strided layout;
-   then the kernel's times at the training shape (256, 6, 197, 64) bf16.
+   then the kernel's times at the training shape (256, 6, 197, 64) bf16;
+7. slice 6: `lenet5` (f32, batch 256, 32 px) trained by the port's own
+   `cli.run_classification` on `cuda` for 3 synthetic steps and 2
+   validation batches — every step's loss finite, and the loss of one step
+   on the same seeded weights and batch equal on the card and on the CPU
+   within 1e-5 relative (no kernel is on this path);
+8. slice 6: `resnet50_tpu` at full width (Bottleneck ResNet-50, 224 px,
+   1000 classes, batch 256, momentum SGD without decay on 1-D tensors,
+   label smoothing 0.1, EMA 0.9999) trained by `cli.run_classification`
+   with `--device-augment` (uint8 at 256 px staged by the prefetch thread,
+   cropped, flipped, jittered and normalized on the card) for 3 synthetic
+   steps and 2 validation batches — every step's loss finite, `step_ms`,
+   the prefetcher's bytes per batch and overlap, peak memory; the
+   checkpoint restored into a fresh trainer with equal weights, BatchNorm
+   statistics, momentum and EMA; the loss of one f32 step on 2 images held
+   against the CPU within 1e-3 relative, its gradients within 1e-2 of the
+   largest; and the device augment on the card against the CPU on the
+   same draws. No kernel is on this path: convs, BatchNorm and the head
+   run on cuDNN and cuBLAS.
 
 The line before the last is a JSON object with one record per kernel; the
 last is `{"ok": true, "device": {...}}`.
@@ -82,8 +100,10 @@ from deepvision_tpu_torch.core.detection import (DetectionTrainer,
                                                  yolo_grid_sizes)
 from deepvision_tpu_torch.core.optim import build_optimizer
 from deepvision_tpu_torch.core.steps import make_classification_train_step
+from deepvision_tpu_torch.core.config import decode_image_size
 from deepvision_tpu_torch.core.train_state import TrainState
 from deepvision_tpu_torch.core.trainer import Trainer
+from deepvision_tpu_torch.data import device_augment as daug
 from deepvision_tpu_torch.data.detection import synthetic_batches
 from deepvision_tpu_torch.data.synthetic import SyntheticClassification
 from deepvision_tpu_torch.models import build_model
@@ -128,6 +148,27 @@ VIT_EVAL_BATCHES = 2           # the synthetic validation set
 # largest): only summation orders differ, over 8 blocks in f32
 VIT_CPU_RTOL = 1e-3
 VIT_GRAD_SHAPE = (32, 6, 197, 64)
+LENET_MODEL = "lenet5"
+LENET_STEPS = 3
+# lenet5's loss, card (f32, cuDNN with TF32 off) vs CPU on the same weights
+# and batch: 5 small layers in f32
+LENET_CPU_RTOL = 1e-5
+RESNET_MODEL = "resnet50_tpu"
+RESNET_BATCH = 256
+RESNET_STEPS = 3
+RESNET_EVAL_BATCHES = 2
+# resnet50 loss of one f32 step on 2 images, card vs CPU, relative; and
+# its gradients, relative to the model's largest gradient. Per tensor they
+# are ill-conditioned: BatchNorm's backward in train mode leaves each conv
+# a gradient orthogonal to its own output, a small remainder of large
+# terms, so the CPU alone moves the last stage's conv gradients by up to
+# 22% of their largest value, and by 1.5e-3 of the model's largest
+# gradient, between 1 and 8 threads (summation order only)
+RESNET_CPU_RTOL = 1e-3
+RESNET_GRAD_RTOL = 1e-2
+# the device augment, card vs CPU on the same draws, in f32: the contrast
+# and saturation means sum in another order
+AUGMENT_TOL = 1e-4
 # published peaks of one H100 SXM at its full 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -532,11 +573,11 @@ def same_tree(a, b) -> bool:
     return a == b
 
 
-def vit_step(model, batch, device) -> tuple:
-    """Loss and gradients of one vit_small train step (its optimizer and
+def train_step_grads(cfg, model, batch, device) -> tuple:
+    """Loss and gradients of one train step of `cfg` (its optimizer and
     label smoothing, f32 compute) through a copy of `model` on `device`;
-    the gradients as the step leaves them (clipped)."""
-    cfg = get_config(MODEL)
+    the gradients as the step leaves them (clipped, where the optimizer
+    clips)."""
     m = copy.deepcopy(model).to(device)
     state = TrainState(m, build_optimizer(m.parameters(), cfg.optimizer,
                                           cfg.schedule, 1, 1))
@@ -624,8 +665,10 @@ def check_vit_training() -> dict:
     model = build_model(cfg.replace(dtype="float32", model_kwargs={
         **cfg.model_kwargs, "dropout_rate": 0.0}))
     batch = next(iter(SyntheticClassification(2, 224, 3, 1000, 1, seed=7)))
-    card_loss, card_grads = vit_step(model, batch, torch.device("cuda"))
-    cpu_loss, cpu_grads = vit_step(model, batch, torch.device("cpu"))
+    card_loss, card_grads = train_step_grads(cfg, model, batch,
+                                             torch.device("cuda"))
+    cpu_loss, cpu_grads = train_step_grads(cfg, model, batch,
+                                           torch.device("cpu"))
     loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
     grad_rel = vit_grad_rel(card_grads, cpu_grads)
     phase(f"vit_small card vs CPU plain path, one f32 step on 2 images, "
@@ -637,6 +680,179 @@ def check_vit_training() -> dict:
         raise AssertionError(f"card and CPU differ: loss {loss_rel:g}, "
                              f"gradients {grad_rel:g}")
     return {"launches": launches, "step_ms": step_ms, "peak_bytes": peak}
+
+
+def check_lenet_training() -> dict:
+    """Slice 6: lenet5 training through the port's own entry point, and
+    its loss on the card against the CPU."""
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_lenet_")
+    try:
+        trainer, result = run_classification("LeNet", [LENET_MODEL], [
+            "-m", LENET_MODEL, "--synthetic", "--steps-per-epoch",
+            str(LENET_STEPS), "--epochs", "1", "--device", "cuda",
+            "--workdir", workdir])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    cfg = trainer.config
+    steps = trainer.last_epoch_steps
+    for i, s in enumerate(steps):
+        phase(f"lenet5 step {i + 1}: " + " ".join(
+            f"{k}={v:.4f}" for k, v in s.items()))
+    if len(steps) != LENET_STEPS or not all(
+            np.isfinite(v) for s in steps for v in s.values()):
+        raise AssertionError(f"lenet5 steps not all finite: {steps}")
+    if result.get("count") != 2 * cfg.batch_size or not np.isfinite(
+            result.get("loss", np.nan)):
+        raise AssertionError(f"lenet5 validation: {result}")
+    model = build_model(cfg)
+    batch = next(iter(SyntheticClassification(
+        cfg.batch_size, cfg.data.image_size, cfg.data.channels,
+        cfg.data.num_classes, 1, seed=7)))
+    card, _ = train_step_grads(cfg, model, batch, torch.device("cuda"))
+    cpu, _ = train_step_grads(cfg, model, batch, torch.device("cpu"))
+    rel = abs(card - cpu) / abs(cpu)
+    phase(f"lenet5 (batch {cfg.batch_size}, 32 px, f32): val loss="
+          f"{result['loss']:.4f}; card vs CPU loss of one step {card:.7f} vs "
+          f"{cpu:.7f} (relative {rel:.3g}, bound {LENET_CPU_RTOL:g})")
+    if not (np.isfinite(cpu) and rel <= LENET_CPU_RTOL):
+        raise AssertionError(f"lenet5 card and CPU loss differ by {rel:g}")
+    return {"steps": steps}
+
+
+def grad_rel(card: dict, cpu: dict) -> tuple:
+    """(largest |card - cpu| over the largest |cpu| of all tensors, the
+    tensor where it is)."""
+    top = max(g.abs().max().item() for g in cpu.values())
+    err, name = max(((card[n] - g).abs().max().item(), n)
+                    for n, g in cpu.items())
+    return err / top, name
+
+
+def check_augment(cfg, gen) -> float:
+    """The train and eval device augments of `cfg` on the card against
+    the CPU on the same uint8 images and the same draws, in f32."""
+    size = cfg.data.image_size
+    d = decode_image_size(size)
+    images = torch.randint(0, 256, (16, d, d, 3), generator=gen,
+                           dtype=torch.uint8)
+    draws = daug.draw_train_params(16, d, d, size, gen)
+    kw = dict(mean=cfg.data.mean, std=cfg.data.std,
+              compute_dtype=torch.float32)
+    err = 0.0
+    for fn in (lambda x, dr: daug.apply_train_augment(x, dr, size, **kw),
+               lambda x, dr: daug.make_eval_augment(size, **kw)(x)):
+        card = fn(images.cuda(), draws.to("cuda")).cpu()
+        cpu = fn(images, draws)
+        if card.shape != (16, size, size, 3):
+            raise AssertionError(f"augment gave {tuple(card.shape)}")
+        err = max(err, (card - cpu).abs().max().item())
+    phase(f"device augment (train and eval), card vs CPU on the same draws, "
+          f"16 images {d} -> {size} px, f32: max_abs_err={err:.3g} (bound "
+          f"{AUGMENT_TOL:g})")
+    if not err <= AUGMENT_TOL:
+        raise AssertionError(f"device augment differs by {err:g}")
+    return err
+
+
+def check_resnet_training(gen) -> dict:
+    """Slice 6: resnet50_tpu training through the port's own entry point,
+    with the prefetch thread, the device augment and EMA weights."""
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_resnet_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer, result = run_classification("ResNet", [RESNET_MODEL], [
+            "-m", RESNET_MODEL, "--synthetic", "--device-augment",
+            "--batch-size", str(RESNET_BATCH), "--steps-per-epoch",
+            str(RESNET_STEPS), "--epochs", "1", "--device", "cuda",
+            "--workdir", workdir])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        ran = trainer.config
+        if (ran.data.image_size, ran.data.num_classes, ran.batch_size,
+                ran.label_smoothing, ran.optimizer.name,
+                ran.optimizer.no_decay_bn_bias, ran.ema_decay,
+                ran.device_augment) != (224, 1000, RESNET_BATCH, 0.1,
+                                        "momentum", True, 0.9999, True):
+            raise AssertionError(f"resnet50_tpu ran as {ran}")
+        steps = trainer.last_epoch_steps
+        for i, s in enumerate(steps):
+            phase(f"resnet50_tpu step {i + 1}: " + " ".join(
+                f"{k}={v:.4f}" for k, v in s.items()))
+        if len(steps) != RESNET_STEPS or not all(
+                np.isfinite(v) for s in steps for v in s.values()):
+            raise AssertionError(f"resnet50_tpu steps not all finite: "
+                                 f"{steps}")
+        if result.get("count") != RESNET_EVAL_BATCHES * RESNET_BATCH \
+                or not all(np.isfinite(result.get(k, np.nan))
+                           for k in ("loss", "top1", "top5")):
+            raise AssertionError(f"resnet50_tpu validation: {result}")
+        step_ms = statistics.median(s["step_ms"] for s in steps[1:])
+        ledger = trainer.last_prefetch_ledger
+        per_batch = ledger["bytes_staged_total"] / ledger[
+            "batches_staged_total"]
+        d = decode_image_size(ran.data.image_size)
+        want_bytes = RESNET_BATCH * (d * d * 3 + 4)     # uint8 + int32 labels
+        f32_bytes = RESNET_BATCH * ran.data.image_size ** 2 * 3 * 4
+        phase(f"main path: {RESNET_STEPS} train steps + "
+              f"{RESNET_EVAL_BATCHES} eval batches of {RESNET_BATCH}; val "
+              f"loss={result['loss']:.4f} top1={result['top1']:.4f} (EMA "
+              f"weights); run_classification {wall:.1f}s")
+        phase(f"resnet50_tpu train loop (batch {RESNET_BATCH}, "
+              f"{ran.data.image_size} px, bf16, device augment, EMA): step_ms={step_ms:.3f} (median "
+              f"after the first; first {steps[0]['step_ms']:.3f}) "
+              f"images_per_sec={RESNET_BATCH / step_ms * 1e3:.2f} "
+              f"peak_memory_allocated={peak / 2**30:.3f} GiB")
+        phase(f"prefetcher: {per_batch / 1e6:.1f} MB staged per batch "
+              f"(uint8 at {d} px; f32 at {ran.data.image_size} px would be "
+              f"{f32_bytes / 1e6:.1f} MB), last stage "
+              f"{1e3 * ledger['last_stage_secs']:.3f} ms, "
+              f"{ledger['bytes_per_sec'] / 1e9:.2f} GB/s, consumer waited "
+              f"{ledger['wait_secs_total']:.3f} s (first "
+              f"{ledger['first_wait_secs']:.3f} s), overlapped_fraction="
+              f"{ledger['overlapped_fraction']:.3f}")
+        if per_batch != want_bytes:
+            raise AssertionError(f"staged {per_batch} bytes per batch, want "
+                                 f"{want_bytes} (uint8 at {d} px)")
+
+        fresh = Trainer(ran, device="cuda", workdir=workdir)
+        fresh.init_state()
+        if fresh.resume() != 1:
+            raise AssertionError("the epoch-1 checkpoint did not restore")
+        want, got = trainer.state.state_dict(), fresh.state.state_dict()
+        equal = same_tree(want, got) and got["ema"] is not None
+        fresh.close()
+        phase(f"checkpoint round trip: {len(want['model'])} tensors "
+              f"(parameters and BatchNorm statistics), the momentum "
+              f"(count {got['optimizer']['count']}) and {len(got['ema'])} "
+              f"EMA tensors, step {got['step']}, equal={equal}")
+        if not equal:
+            raise AssertionError("the restored state differs from the "
+                                 "trained")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    cfg = get_config(RESNET_MODEL)
+    model = build_model(cfg.replace(dtype="float32"))
+    batch = next(iter(SyntheticClassification(2, 224, 3, 1000, 1, seed=7)))
+    card_loss, card_grads = train_step_grads(cfg, model, batch,
+                                             torch.device("cuda"))
+    cpu_loss, cpu_grads = train_step_grads(cfg, model, batch,
+                                           torch.device("cpu"))
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    rel, worst = grad_rel(card_grads, cpu_grads)
+    phase(f"resnet50 card vs CPU plain path, one f32 step on 2 images: loss "
+          f"{card_loss:.6f} vs {cpu_loss:.6f} (relative {loss_rel:.3g}, "
+          f"bound {RESNET_CPU_RTOL:g}); gradients, largest difference "
+          f"{rel:.3g} of the largest gradient (in {worst}; bound "
+          f"{RESNET_GRAD_RTOL:g})")
+    if not (np.isfinite(cpu_loss) and loss_rel <= RESNET_CPU_RTOL
+            and rel <= RESNET_GRAD_RTOL):
+        raise AssertionError(f"card and CPU differ: loss {loss_rel:g}, "
+                             f"gradients {rel:g}")
+    augment_err = check_augment(cfg, gen)
+    return {"step_ms": step_ms, "peak_bytes": peak, "ledger": ledger,
+            "augment_err": augment_err}
 
 
 GEMM_KEYS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
@@ -851,6 +1067,11 @@ def main() -> int:
           f"{train_k1['device_ms']:.4f} ms of {vit['step_ms']:.3f} ms "
           f"({100 * depth * train_k1['device_ms'] / vit['step_ms']:.2f}%, "
           f"its device time at the training shape)")
+
+    # 7-8. slice 6: lenet5 and resnet50_tpu training (no kernel on these
+    # paths: every launch count below stays as phases 4-6 left it)
+    check_lenet_training()
+    check_resnet_training(gen)
 
     timed_keys = ("shape", "layout", "ms", "device_ms", "plain_ms",
                   "library_ms", "library_device_ms", "bound_ms")

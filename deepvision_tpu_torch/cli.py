@@ -1,14 +1,17 @@
 """Command line of the port's training entry points (own copy of
-deepvision_tpu/cli.py: `build_parser`, `_run`, the synthetic data factories,
+deepvision_tpu/cli.py: `build_parser`, `_run`, the data factories,
 `run_classification` and `run_detection`).
 
-`python ViT/torch/train.py -m vit_small --synthetic` trains ViT-Small/16 on
-the card and `python YOLO/torch/train.py -m yolov3 --synthetic --image-size
-416` YOLO V3; `--device cpu` runs either on the CPU. The flags are the JAX
-CLI's (`-m`, `-c`, `--synthetic`, `--epochs`, `--batch-size`,
-`--eval-batch-size`, `--learning-rate`, `--accum-steps`,
-`--no-decay-bn-bias`, `--steps-per-epoch`, `--seed`, `--workdir`), plus
-`--device` and `--image-size`.
+`python ResNet/torch/train.py -m resnet50_tpu --synthetic --device-augment`
+trains ResNet-50 on the card, `python LeNet/torch/train.py -m
+lenet5_digits --device cpu` LeNet-5 on the bundled digits on the CPU,
+`python ViT/torch/train.py -m vit_small --synthetic` ViT-Small/16 and
+`python YOLO/torch/train.py -m yolov3 --synthetic --image-size 416`
+YOLO V3. The flags are the JAX CLI's (`-m`, `-c`, `--data-dir`,
+`--synthetic`, `--epochs`, `--batch-size`, `--eval-batch-size`,
+`--learning-rate`, `--accum-steps`, `--no-decay-bn-bias`, `--ema-decay`,
+`--device-augment`, `--prefetch-batches`, `--steps-per-epoch`, `--seed`,
+`--workdir`), plus `--device` and `--image-size`.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ def build_parser(family: str, models: Sequence[str]) -> argparse.ArgumentParser:
     p.add_argument("-m", "--model", required=True, choices=list(models))
     p.add_argument("-c", "--checkpoint", default=None,
                    help="resume from this epoch number, or 'latest'")
+    p.add_argument("--data-dir", default=None,
+                   help="dataset root (idx files for MNIST)")
     p.add_argument("--synthetic", action="store_true",
                    help="train on synthetic data (smoke test, no dataset "
                         "needed; detection trains on a 64 px canvas unless "
@@ -57,6 +62,20 @@ def build_parser(family: str, models: Sequence[str]) -> argparse.ArgumentParser:
     p.add_argument("--no-decay-bn-bias", action="store_true",
                    help="exclude 1-D params (norm scales, biases) from "
                         "weight decay")
+    p.add_argument("--ema-decay", type=float, default=None,
+                   help="Polyak averaging: validate and pick the best "
+                        "checkpoint with the EMA of the weights (typical "
+                        "0.999-0.9999)")
+    p.add_argument("--device-augment", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="classification: ship uint8 at the padded decode "
+                        "size and crop/flip/jitter/normalize on the device "
+                        "(a quarter of the host->device bytes; synthetic "
+                        "data)")
+    p.add_argument("--prefetch-batches", type=_positive_int, default=None,
+                   help="stage this many training batches ahead on the "
+                        "device from a producer thread (default 2; 1 "
+                        "stages inline)")
     p.add_argument("--steps-per-epoch", type=int, default=None,
                    help="override steps per epoch (synthetic/smoke)")
     p.add_argument("--seed", type=int, default=None,
@@ -92,6 +111,15 @@ def _config_from_args(args, synthetic_image_size: Optional[int]
     if args.no_decay_bn_bias:
         cfg = cfg.replace(optimizer=dataclasses.replace(
             cfg.optimizer, no_decay_bn_bias=True))
+    if args.ema_decay is not None:
+        if not 0.0 < args.ema_decay < 1.0:
+            raise SystemExit(f"--ema-decay must be in (0, 1), got "
+                             f"{args.ema_decay}")
+        cfg = cfg.replace(ema_decay=args.ema_decay)
+    if args.device_augment is not None:
+        cfg = cfg.replace(device_augment=args.device_augment)
+    if args.prefetch_batches:
+        cfg = cfg.replace(prefetch_batches=args.prefetch_batches)
     if args.seed is not None:
         cfg = cfg.replace(seed=args.seed)
     if args.synthetic:
@@ -117,19 +145,62 @@ def _synthetic_data(cfg: TrainConfig, make_batches: Callable) -> Tuple:
             lambda epoch: make_batches(eval_batch, 2, 10**6))
 
 
+def _array_pair_fns(cfg: TrainConfig, train_xy, test_xy) -> Tuple:
+    """Train and val epoch factories over in-memory (images, labels)
+    arrays, the shape of the mnist and digits pipelines: the train epoch
+    shuffled from seed `epoch` with the last partial batch dropped, the
+    val set in order with it kept."""
+    from .data.mnist import MnistBatches
+
+    def train_fn(epoch):
+        return MnistBatches(*train_xy, cfg.batch_size, shuffle=True,
+                            seed=epoch)
+
+    def val_fn(epoch):
+        return MnistBatches(*test_xy, cfg.eval_batch_size or cfg.batch_size,
+                            shuffle=False, drop_remainder=False)
+
+    return train_fn, val_fn
+
+
 def _classification_data(cfg: TrainConfig, args) -> Tuple:
     data = cfg.data
+    if (data.normalize_on_device and not cfg.device_augment
+            and data.dataset != "imagenet"):
+        raise SystemExit(
+            "--device-normalize is supported by the TFRecord ImageNet "
+            f"pipeline only (dataset={data.dataset!r} normalizes on host)")
+    if cfg.device_augment and data.dataset not in (
+            "synthetic", "imagenet", "imagenet_flat"):
+        raise SystemExit(
+            "--device-augment needs a host-decode-only pipeline: synthetic, "
+            f"imagenet (TFRecords), or imagenet_flat — dataset="
+            f"{data.dataset!r} ships pre-transformed float batches")
     if args.synthetic or data.dataset == "synthetic":
+        from .core.config import decode_image_size
         from .data.synthetic import SyntheticClassification
+        # under the device augment: uint8 at the padded decode size, the
+        # contract of the decode-only loaders
+        size = (decode_image_size(data.image_size) if cfg.device_augment
+                else data.image_size)
         return _synthetic_data(cfg, lambda batch, steps, seed:
                                SyntheticClassification(
-                                   batch, data.image_size, data.channels,
-                                   data.num_classes, steps, seed=seed))
-    if data.dataset in ("imagenet", "imagenet_flat", "mnist", "digits"):
+                                   batch, size, data.channels,
+                                   data.num_classes, steps, seed=seed,
+                                   emit_uint8=cfg.device_augment))
+    if data.dataset == "mnist":
+        from .data.mnist import load_split
+        data_dir = args.data_dir or data.data_dir or "dataset/mnist"
+        return _array_pair_fns(cfg, load_split(data_dir, "train"),
+                               load_split(data_dir, "test"))
+    if data.dataset == "digits":
+        from .data.digits import load_splits
+        return _array_pair_fns(cfg, *load_splits(data.image_size))
+    if data.dataset in ("imagenet", "imagenet_flat"):
         raise NotImplementedError(
             f"dataset {data.dataset!r} is not ported yet (the ImageNet "
-            f"TFRecord and flattened-directory loaders, MNIST and digits); "
-            f"train with --synthetic")
+            f"TFRecord and flattened-directory loaders); train with "
+            f"--synthetic")
     raise ValueError(f"unknown dataset {data.dataset!r}")
 
 
@@ -176,7 +247,7 @@ def _run(family: str, models: Sequence[str], trainer_factory: Callable,
 
 def run_classification(family: str, models: Sequence[str],
                        argv: Optional[Sequence[str]] = None):
-    """Classification entry point — `python train.py -m vit_small
+    """Classification entry point — `python train.py -m resnet50_tpu
     [-c latest]`. Synthetic runs keep the config's image size, as in the
     JAX package."""
     from .core.trainer import Trainer

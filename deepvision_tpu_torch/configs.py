@@ -1,7 +1,8 @@
 """Registered configs of the port (own copy of deepvision_tpu/configs.py:
-the ViT and YOLO entries). Every field the port's dataclasses carry equals
-the JAX package's; tests/test_torch_vit.py and tests/test_torch_yolo.py
-hold them against it.
+the LeNet, ResNet, ViT and YOLO entries). Every field the port's
+dataclasses carry equals the JAX package's; tests/test_torch_vit.py,
+tests/test_torch_yolo.py, tests/test_torch_lenet.py and
+tests/test_torch_resnet.py hold them against it.
 """
 
 from __future__ import annotations
@@ -9,6 +10,66 @@ from __future__ import annotations
 from .core.config import (DataConfig, OptimizerConfig, ScheduleConfig,
                           TrainConfig)
 from .utils.registry import CONFIGS
+
+
+def _imagenet(image_size=224, **kw):
+    return DataConfig(dataset="imagenet", image_size=image_size,
+                      num_classes=1000, train_examples=1281167,
+                      val_examples=50000, **kw)
+
+
+# -- LeNet-5 on MNIST (32 px after the 28 -> 32 pad, grayscale): adam 1e-3,
+#    plateau /10 after 2 epochs without a better val top-1, f32. ----
+CONFIGS.register("lenet5", TrainConfig(
+    name="lenet5", model="lenet5", batch_size=256, total_epochs=20,
+    optimizer=OptimizerConfig(name="adam", learning_rate=1e-3),
+    schedule=ScheduleConfig(name="plateau", plateau_patience=2,
+                            plateau_mode="max"),
+    data=DataConfig(dataset="mnist", image_size=32, channels=1,
+                    num_classes=10, train_examples=60000, val_examples=10000),
+    dtype="float32",
+))
+
+# -- LeNet-5 on scikit-learn's bundled handwritten digits (8 px scans
+#    upsampled to 32 px, data/digits.py): the offline real-data gate. ----
+CONFIGS.register("lenet5_digits", TrainConfig(
+    name="lenet5_digits", model="lenet5", batch_size=128, total_epochs=60,
+    optimizer=OptimizerConfig(name="adam", learning_rate=1e-3),
+    schedule=ScheduleConfig(name="plateau", plateau_patience=5,
+                            plateau_mode="max"),
+    data=DataConfig(dataset="digits", image_size=32, channels=1,
+                    num_classes=10, train_examples=1437, val_examples=360),
+    dtype="float32",
+))
+
+# -- ResNet: batch 256, momentum 0.9, lr 0.1 scaled linearly from a base
+#    batch of 256, weight decay 1e-4, cosine after 5 warmup epochs, label
+#    smoothing 0.1, ImageNet at 224 px. ----
+for _name in ("resnet34", "resnet50", "resnet101", "resnet152",
+              "resnet50v2"):
+    CONFIGS.register(_name, TrainConfig(
+        name=_name, model=_name, batch_size=256, total_epochs=90,
+        optimizer=OptimizerConfig(name="momentum", learning_rate=0.1,
+                                  momentum=0.9, weight_decay=1e-4,
+                                  base_batch_size=256),
+        schedule=ScheduleConfig(name="cosine", warmup_epochs=5),
+        label_smoothing=0.1,
+        data=_imagenet(),
+    ))
+
+# -- ResNet-50, the large-batch recipe: resnet50's, plus no weight decay on
+#    1-D tensors (BatchNorm scales and biases, the head's bias) and EMA
+#    weights (0.9999) for evaluation. Batch 1024 is the JAX package's
+#    8-chip global batch (128 per chip); lr 0.1 at 256 scales with it. ----
+CONFIGS.register("resnet50_tpu", TrainConfig(
+    name="resnet50_tpu", model="resnet50", batch_size=1024, total_epochs=90,
+    optimizer=OptimizerConfig(name="momentum", learning_rate=0.1,
+                              momentum=0.9, weight_decay=1e-4,
+                              base_batch_size=256, no_decay_bn_bias=True),
+    schedule=ScheduleConfig(name="cosine", warmup_epochs=5),
+    label_smoothing=0.1, ema_decay=0.9999,
+    data=_imagenet(),
+))
 
 # -- vit_tiny: the CPU-feasible smoke/parity surface — 32px / patch 8 → 17
 #    tokens, d=192, 3 heads of 64. ----

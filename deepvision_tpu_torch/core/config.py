@@ -1,8 +1,8 @@
 """Typed configs: the fields of deepvision_tpu/core/config.py that the
 port's serve path and its detection and classification trainers read (own
-copy). Defaults equal the JAX package's. Fields of the JAX configs that no
-ported path reads yet (mesh, EMA, mixup, augmentation, resilience levers)
-arrive with the slice that needs them.
+copy), and `decode_image_size`. Defaults equal the JAX package's. Fields
+of the JAX configs that no ported path reads yet (mesh, mixup, dispatch
+and resilience levers) arrive with the slice that needs them.
 """
 
 from __future__ import annotations
@@ -19,6 +19,14 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 # in [0,1] units that is (0.5, 0.5), the on-device input_norm their steps
 # use when the pipeline ships raw uint8.
 UNIT_RANGE_NORM = ((0.5, 0.5, 0.5), (0.5, 0.5, 0.5))
+
+
+def decode_image_size(image_size: int) -> int:
+    """The size the host decodes and resizes to for the device-augment path
+    (data/device_augment.py): the Rescale(256) -> crop(224) headroom ratio,
+    at least one spare pixel so the random crop has offsets to draw.
+    224 -> 256."""
+    return max(image_size + 1, (image_size * 256) // 224)
 
 
 @dataclasses.dataclass
@@ -62,6 +70,7 @@ class ScheduleConfig:
 @dataclasses.dataclass
 class DataConfig:
     dataset: str = "synthetic"
+    data_dir: str = ""              # dataset root (idx files for MNIST)
     image_size: int = 224
     channels: int = 3               # input channels (1 for MNIST-family)
     num_classes: int = 1000
@@ -100,9 +109,19 @@ class TrainConfig:
     checkpoint_dir: str = "checkpoints"
     keep_checkpoints: int = 3
     keep_best: bool = True
+    # Polyak averaging: validation and the best checkpoint use
+    # ema = d * ema + (1 - d) * params; None disables it
+    ema_decay: Optional[float] = None
+    # ship uint8 at decode_image_size(image_size) and crop, flip, jitter
+    # and normalize on the device (data/device_augment.py; classification
+    # only); the step's input_norm is then off
+    device_augment: bool = False
     # raise TrainingDivergedError when an epoch's mean train loss is
     # non-finite, naming the last checkpoint to resume from
     halt_on_nonfinite: bool = True
+    # training batches staged ahead on the device by a producer thread
+    # (parallel/prefetch.py); 1 stages inline
+    prefetch_batches: int = 2
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

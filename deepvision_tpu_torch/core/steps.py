@@ -4,9 +4,12 @@ by every step and predict path (own copy of deepvision_tpu/core/steps.py:
 `make_classification_eval_step`).
 
 A step is a plain function on device tensors that updates the state in
-place; nothing in it waits for the device. The mesh, remat, mixup/cutmix,
-device augmentation and the grad correction of the JAX steps are not
-ported yet.
+place; nothing in it waits for the device. With `augment` (the device
+augmentation of data/device_augment.py) the images arrive as uint8 at the
+decode size and the augment crops and normalizes them, drawing from the
+state's per-(seed, step) generator on its own stream; `input_norm` is then
+off. The mesh, remat, mixup/cutmix and the grad correction of the JAX
+steps are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,17 +42,29 @@ def normalize_input(images: torch.Tensor,
     return ((images - mean) / std).to(compute_dtype)
 
 
+def _check_norm(input_norm, augment) -> None:
+    if augment is not None and input_norm is not None:
+        raise ValueError("the device augment already normalizes; passing "
+                         "input_norm too would normalize twice")
+
+
 def make_classification_train_step(
         *, label_smoothing: float = 0.0, aux_weight: float = 0.3,
         compute_dtype: torch.dtype = torch.bfloat16,
-        input_norm=None) -> Step:
+        input_norm=None, augment: Optional[Callable] = None) -> Step:
     """(state, images, labels) -> {loss, top1, top5}, device scalars,
-    updating `state` in place: forward in train mode with this step's
-    dropout generator, the (smoothed) loss, backward, one optimizer step
-    (or one micro-batch of an accumulation). Top-k is of the main head."""
+    updating `state` in place: the device augment (if any), forward in
+    train mode with this step's dropout generator, the (smoothed) loss,
+    backward, one optimizer step (or one micro-batch of an accumulation).
+    Top-k is of the main head."""
+    _check_norm(input_norm, augment)
 
     def step(state: TrainState, images, labels):
-        images = normalize_input(images, input_norm, compute_dtype)
+        if augment is not None:
+            with torch.profiler.record_function("device_augment"):
+                images = augment(images, state.step_generator("augment"))
+        else:
+            images = normalize_input(images, input_norm, compute_dtype)
         state.model.train()
         outputs = state.model(images, generator=state.dropout_generator())
         loss = losses.classification_loss(outputs, labels, label_smoothing,
@@ -67,14 +82,17 @@ def make_classification_train_step(
 
 def make_classification_eval_step(
         *, compute_dtype: torch.dtype = torch.bfloat16,
-        input_norm=None) -> Step:
+        input_norm=None, augment: Optional[Callable] = None) -> Step:
     """(state, images, labels, mask) -> masked SUMS of the unsmoothed loss,
     top1 and top5, and `count` = sum(mask): a padded row (mask 0) adds
-    nothing. The host divides by `count`."""
+    nothing. The host divides by `count`. `augment` is the eval augment
+    (centre crop and normalize)."""
+    _check_norm(input_norm, augment)
 
     @torch.no_grad()
     def step(state: TrainState, images, labels, mask):
-        images = normalize_input(images, input_norm, compute_dtype)
+        images = (augment(images) if augment is not None
+                  else normalize_input(images, input_norm, compute_dtype))
         state.model.eval()
         outputs = state.model(images)
         main = outputs[0] if isinstance(outputs, (tuple, list)) else outputs

@@ -3,14 +3,19 @@ the classification trainer with its state, optimizer, staged epoch loop,
 masked evaluation, fit loop, checkpoint and resume; and
 `LossWatchedTrainer`).
 
-`Trainer` installs the classification steps (core/steps.py); a family
+`Trainer` installs the classification steps (core/steps.py), with the
+device augmentation when `config.device_augment` is set; a family
 subclass installs its own `train_step(state, *batch) -> metrics` and
 `eval_step(state, *batch)`, plain functions on tensors
-(core/detection.py). The loop copies each host batch to the device, runs
-the step and keeps its metrics on the device; it reads them back at the
-`log_every_steps` boundaries and once at the end of the epoch. Mesh,
-grad calibration, the epoch cache, multi-step dispatch, EMA, tracing, the
-watchdog, fault injection and divergence recovery are not ported yet.
+(core/detection.py). A producer thread stages the host batches on the
+device `config.prefetch_batches` ahead (parallel/prefetch.py); the loop
+runs the step on each, updates the EMA of the parameters after each
+applied optimizer update (`config.ema_decay`), and keeps the metrics on
+the device; it reads them back at the `log_every_steps` boundaries and
+once at the end of the epoch. Evaluation, and so the best checkpoint,
+uses the EMA parameters when there are any. Mesh, grad calibration, the
+epoch cache, multi-step dispatch, tracing, the watchdog, fault injection
+and divergence recovery are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ from typing import Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from ..data import device_augment as daug
 from ..models import build_model
+from ..parallel.prefetch import prefetch_to_device
 from ..utils.device import resolve_device
 from .checkpoint import CheckpointManager
 from .config import TrainConfig
@@ -40,6 +47,17 @@ from .train_state import TrainState, param_count
 # project-wide reach resolves `train_step` by name to the JAX package's
 # donating step.
 # jaxlint: disable-file=DON001
+
+
+def _device_augments(config: TrainConfig, compute_dtype: torch.dtype):
+    """The (train, eval) device augments of a classification config, its
+    mean/std fitted to its channel count."""
+    data = config.data
+    kw = dict(mean=daug.channel_stats(data.mean, data.channels),
+              std=daug.channel_stats(data.std, data.channels),
+              compute_dtype=compute_dtype)
+    return (daug.make_train_augment(data.image_size, **kw),
+            daug.make_eval_augment(data.image_size, **kw))
 
 
 class TrainingDivergedError(RuntimeError):
@@ -142,6 +160,8 @@ class Trainer:
         self.best_metric: Optional[float] = None
         #: per-step host metrics (with `step_ms`) of the last trained epoch
         self.last_epoch_steps: List[Dict[str, float]] = []
+        #: the prefetcher's transfer ledger at the end of the last epoch
+        self.last_prefetch_ledger: Dict[str, float] = {}
         self._shutdown: Optional[GracefulShutdown] = None
         if self.default_watch is not None:
             self.watch_key, self.watch_mode = self.default_watch
@@ -156,14 +176,22 @@ class Trainer:
         compute_dtype = getattr(torch, config.dtype)
         input_norm = ((config.data.mean, config.data.std)
                       if config.data.normalize_on_device else None)
+        train_augment = eval_augment = None
+        if config.device_augment:
+            # the augment normalizes, so the steps' input_norm is off
+            train_augment, eval_augment = _device_augments(config,
+                                                           compute_dtype)
+            input_norm = None
         self.train_step: Callable[..., Dict[str, torch.Tensor]] = \
             make_classification_train_step(
                 label_smoothing=config.label_smoothing,
                 aux_weight=config.aux_loss_weight,
-                compute_dtype=compute_dtype, input_norm=input_norm)
+                compute_dtype=compute_dtype, input_norm=input_norm,
+                augment=train_augment)
         self.eval_step: Callable[..., Dict[str, torch.Tensor]] = \
             make_classification_eval_step(compute_dtype=compute_dtype,
-                                          input_norm=input_norm)
+                                          input_norm=input_norm,
+                                          augment=eval_augment)
 
     # -- state ------------------------------------------------------------
     def init_state(self) -> TrainState:
@@ -172,7 +200,8 @@ class Trainer:
                                     self.config.schedule,
                                     self.steps_per_epoch,
                                     self.config.total_epochs)
-        self.state = TrainState(self.model, optimizer, seed=self.config.seed)
+        self.state = TrainState(self.model, optimizer, seed=self.config.seed,
+                                ema_decay=self.config.ema_decay)
         print(f"[{self.config.name}] model={self.config.model} "
               f"params={param_count(self.model):,} device={self.device} "
               f"steps/epoch={self.steps_per_epoch}", flush=True)
@@ -209,27 +238,46 @@ class Trainer:
         return self._shutdown is not None and self._shutdown.requested
 
     # -- loops ------------------------------------------------------------
+    def run_step(self, batch: tuple) -> Dict[str, torch.Tensor]:
+        """The train step on a batch already on the device, then the EMA
+        update when the step applied an optimizer update (once per
+        accumulation cycle under `accum_steps`)."""
+        state = self.state
+        applied = state.optimizer.count
+        metrics = self.train_step(state, *batch)
+        if state.ema is not None and state.optimizer.count != applied:
+            with torch.profiler.record_function("ema_update"):
+                state.update_ema()
+        return metrics
+
     def train_epoch(self, epoch: int, data: Iterable) -> dict:
-        """The staged per-batch loop: host batch → device → step. Returns
-        the epoch's mean metrics, `images_per_sec` over the whole epoch and
-        `step_ms`, the median step time after the first (which also pays
-        for the first use of every kernel)."""
+        """The staged per-batch loop: host batches staged on the device by
+        the prefetcher → step → EMA. Returns the epoch's mean metrics,
+        `images_per_sec` over the whole epoch and `step_ms`, the median
+        step time after the first (which also pays for the first use of
+        every kernel)."""
         t0 = time.time()
         log_every = self.config.log_every_steps
         device_metrics: List[Dict[str, torch.Tensor]] = []
         n_img = 0
         clock = _StepClock(self.device)
-        for batch in data:
-            if self._preempted():
-                break  # the last step has finished; fit() saves
-            batch = self._to_device(batch)
-            metrics = self.train_step(self.state, *batch)
-            clock.mark()
-            device_metrics.append(metrics)
-            n_img += len(batch[0])
-            if self.state.step % log_every == 0:
-                self.logger.log(self.state.step, metrics, prefix="train_",
-                                epoch=epoch)
+        state = self.state
+        staged = prefetch_to_device(data, self.config.prefetch_batches,
+                                    self.device)
+        try:
+            for batch in staged:
+                if self._preempted():
+                    break  # the last step has finished; fit() saves
+                metrics = self.run_step(batch)
+                clock.mark()
+                device_metrics.append(metrics)
+                n_img += len(batch[0])
+                if state.step % log_every == 0:
+                    self.logger.log(state.step, metrics, prefix="train_",
+                                    epoch=epoch)
+        finally:
+            self.last_prefetch_ledger = staged.ledger()
+            staged.close()
         out: Dict[str, float] = {}
         self.last_epoch_steps = []
         if device_metrics:
@@ -254,6 +302,14 @@ class Trainer:
         return out
 
     def evaluate(self, data: Iterable) -> dict:
+        """The family's evaluation (`_evaluate`) with the EMA parameters
+        swapped in when the state keeps them, as the JAX package's
+        `eval_state` does (the BatchNorm statistics stay the current
+        ones)."""
+        with self.state.ema_weights():
+            return self._evaluate(data)
+
+    def _evaluate(self, data: Iterable) -> dict:
         """Masked evaluation: a partial batch is zero-padded up to the
         largest batch seen so far in this pass (a running maximum, so the
         usual full-then-partial stream keeps one shape), its padded rows
@@ -296,6 +352,14 @@ class Trainer:
             self.init_state()
         if resume:
             self.resume()
+        if self.state.ema is not None and cfg.ema_decay is None:
+            # restored from an EMA-trained checkpoint, but this run would
+            # re-save a frozen average: drop it, loudly
+            print(f"[{cfg.name}] checkpoint carries EMA weights but "
+                  f"ema_decay is unset: discarding them for this training "
+                  f"run (pass --ema-decay to keep updating the average)",
+                  flush=True)
+            self.state.ema = None
         last_val: dict = {}
         result: dict = {}
         with GracefulShutdown(what="finishing the step, saving a "
@@ -360,7 +424,16 @@ class LossWatchedTrainer(Trainer):
 
     default_watch = ("loss", "min")
 
-    def evaluate(self, data: Iterable) -> dict:
+    def __init__(self, config: TrainConfig, *args, **kwargs):
+        if config.device_augment:
+            # the family's steps never call the augment: they would train
+            # on the raw padded uint8
+            raise ValueError(
+                f"device_augment is classification-only; the "
+                f"{type(self).__name__} steps don't fuse it")
+        super().__init__(config, *args, **kwargs)
+
+    def _evaluate(self, data: Iterable) -> dict:
         total, n = 0.0, 0
         for batch in data:
             loss = float(self.eval_step(self.state,

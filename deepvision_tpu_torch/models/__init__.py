@@ -1,5 +1,5 @@
 """Model zoo of the port — importing this package registers its models in
-MODELS (the ViT and YOLO V3 families so far)."""
+MODELS (the ViT, YOLO V3, LeNet-5 and ResNet families so far)."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ from typing import Optional
 
 import torch
 
-from . import vit, yolo  # noqa: F401
+from . import lenet, resnet, vit, yolo  # noqa: F401
 from ..utils.registry import MODELS
 
 

@@ -8,17 +8,10 @@ reshaped to (B, g, g, 3, 5 + C). The public input is NHWC, as in the JAX
 package. Train mode returns the 3 raw heads, finest grid (stride 8) first;
 eval mode decodes them (`decode=False` keeps them raw).
 
-Numerics follow Flax where it differs from torch's defaults:
-- convs compute at the compute dtype from f32 master weights, cast per call
-  as Flax's `dtype=` policy does (no autocast); the final conv has a bias
-  and runs in f32;
-- `padding="SAME"`: a stride-2 3x3 conv on an even input pads 0 before and
-  1 after (`nn.Conv2d(padding=1)` would give the same shape from shifted
-  windows);
-- BatchNorm: eps 1e-3, in f32, Flax momentum 0.9 (torch momentum 0.1), and
-  the running variance fed the BIASED batch variance, as Flax does (torch
-  feeds the unbiased one); then leaky_relu(0.1) and a cast to the compute
-  dtype.
+Numerics follow Flax (models/common.py's `Conv` and `BatchNorm`): convs
+at the compute dtype from f32 master weights with SAME padding; BatchNorm
+with eps 1e-3 in f32, then leaky_relu(0.1) and a cast to the compute dtype.
+The final conv has a bias and runs in f32.
 
 Children carry Flax's names (`darknet53`, `tower_*`, `lateral_*`,
 `final_conv`, and the auto names `ConvBNLeaky_<i>`, `DarknetResidual_<i>`,
@@ -36,72 +29,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.yolo import ANCHORS_WH, decode_boxes
-from ..utils.flax_convert import flax_auto_names
 from ..utils.registry import MODELS
+from .common import BatchNorm, Conv, _add_children, lecun_normal_
 
 BN_EPS = 1e-3        # the reference's Keras BatchNormalization default
-BN_MOMENTUM = 0.1    # torch's convention for Flax's momentum 0.9
-
-
-def _same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
-    """XLA's SAME padding of one spatial dim: (before, after)."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + kernel - size, 0)
-    return total // 2, total - total // 2
-
-
-def _add_children(parent: nn.Module, children: Sequence[nn.Module]
-                  ) -> List[nn.Module]:
-    """Register `children` under Flax's auto names; return them as a plain
-    list (kept on a plain attribute, so nothing registers twice)."""
-    for name, child in flax_auto_names(children):
-        parent.add_module(name, child)
-    return list(children)
-
-
-class Conv(nn.Conv2d):
-    """Flax `nn.Conv` with padding="SAME" at the compute dtype `dtype`."""
-
-    def __init__(self, in_features: int, features: int, kernel: int,
-                 strides: int = 1, use_bias: bool = False,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(in_features, features, kernel, stride=strides,
-                         padding=0, bias=use_bias)
-        self.dtype = dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k, s = self.kernel_size[0], self.stride[0]
-        top, bottom = _same_pads(x.shape[-2], k, s)
-        left, right = _same_pads(x.shape[-1], k, s)
-        x = x.to(self.dtype)
-        if top or bottom or left or right:
-            x = F.pad(x, (left, right, top, bottom))
-        bias = None if self.bias is None else self.bias.to(self.dtype)
-        return F.conv2d(x, self.weight.to(self.dtype), bias, self.stride)
-
-
-class BatchNorm(nn.BatchNorm2d):
-    """Flax `nn.BatchNorm(momentum=0.9, epsilon=1e-3, dtype=float32)`:
-    normalizes in f32 with the batch statistics in training and the running
-    ones in eval."""
-
-    def __init__(self, features: int):
-        super().__init__(features, eps=BN_EPS, momentum=BN_MOMENTUM)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
-        if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                         self.eps)
-        # the running statistics take the biased batch variance, as Flax's
-        # do (torch's own update would fold in var * n / (n - 1))
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-        return y
 
 
 class ConvBNLeaky(nn.Module):
@@ -113,7 +44,7 @@ class ConvBNLeaky(nn.Module):
         self.dtype = dtype
         self.layers = _add_children(self, [
             Conv(in_features, features, kernel, strides, dtype=dtype),
-            BatchNorm(features)])
+            BatchNorm(features, eps=BN_EPS)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv, bn = self.layers
@@ -233,12 +164,7 @@ class YoloV3(nn.Module):
         scales, running mean 0 and variance 1."""
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
-                fan_in = m.weight[0].numel()
-                # flax variance_scaling("truncated_normal") divides by the
-                # std of a unit normal truncated to [-2, 2]
-                std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std,
-                                      b=2 * std, generator=generator)
+                lecun_normal_(m.weight, generator)
                 if m.bias is not None:
                     nn.init.zeros_(m.bias)
             elif isinstance(m, nn.BatchNorm2d):

@@ -2,12 +2,16 @@
 
 `profile_steps` runs warm-up steps, then traces steps with `torch.profiler`
 and sums each device kernel's own duration into the first family of
-`FAMILIES` whose fragment its name contains. Kernels launched from the
-backward of the flash-attention `autograd.Function` — the naive VJP, which
-the autograd engine runs inside a range named after its node — are
-counted apart, as `attention_backward`, split by the same families.
-`print_report` prints a step's split, the device's busy and idle share of
-the wall time, and the kernels with the most device time.
+`FAMILIES` whose fragment its name contains (casts are the `direct_copy`
+kernels; BatchNorm's separate `var_mean` pass for the running statistics,
+a Welford reduction, is `bn_var_mean`). Kernels launched inside one of the
+host ranges of `RANGES` are also counted apart, split by the same
+families: the backward of the flash-attention `autograd.Function` (the
+naive VJP, which the autograd engine runs inside a range named after its
+node), the EMA update and the device augmentation (the trainer's and the
+step's `record_function` ranges). `print_report` prints a step's split,
+the device's busy and idle share of the wall time, and the kernels with
+the most device time.
 """
 
 from __future__ import annotations
@@ -23,18 +27,23 @@ FAMILIES = (
     ("best_iou", ("best_iou",)),
     ("optimizer", ("adam", "multi_tensor_apply", "sgd")),
     ("layer_norm", ("layer_norm", "layernorm", "gammabeta")),
-    ("batch_norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "welford")),
+    ("bn_var_mean", ("welford",)),
+    ("batch_norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
     ("softmax", ("softmax",)),
     ("conv_gemm", ("conv", "cudnn", "gemm", "xmma", "sm90", "nvjet",
                    "implicit", "wgrad", "dgrad", "cutlass", "nchwtonhwc",
                    "nhwctonchw")),
     ("reduce", ("reduce",)),
+    ("cast", ("direct_copy", "bfloat16_copy")),
     ("copy", ("memcpy", "memset", "copy")),
     ("elementwise", ("elementwise", "vectorized", "unrolled", "index",
                      "scatter", "gather", "cat", "upsample", "pad")),
 )
-#: the autograd engine's range around the attention backward
-ATTENTION_BACKWARD = "_FlashAttentionBackward"
+#: host ranges whose kernels are counted apart: the autograd engine's
+#: range around the attention backward, the trainer's around the EMA
+#: update, the train step's around the device augmentation
+RANGES = {"attention_backward": "_FlashAttentionBackward",
+          "ema": "ema_update", "augment": "device_augment"}
 
 
 def family(name: str) -> str:
@@ -57,9 +66,9 @@ def profile_steps(run_step: Callable[[int], object], warmup: int,
                   steps: int) -> Dict[str, object]:
     """`run_step(i)` for i < warmup, then `steps` more under the profiler.
     Per step: `wall_ms` (host clock, synchronized, profiler included),
-    `busy_ms` (device kernels), `family_ms`, `attention_backward_ms` (by
-    family, also counted in `family_ms`' totals), `kernels`, and `top`, the
-    15 kernels with the most device time."""
+    `busy_ms` (device kernels), `family_ms`, `ranges_ms` (per range of
+    `RANGES`, by family, also counted in `family_ms`' totals), `kernels`,
+    and `top`, the 15 kernels with the most device time."""
     for i in range(warmup):
         run_step(i)
     torch.cuda.synchronize()
@@ -77,7 +86,8 @@ def profile_steps(run_step: Callable[[int], object], warmup: int,
     n_kernels = 0
     for e in events:
         # a range of record_function on the device's timeline (the
-        # optimizer's `Optimizer.step#...`) spans kernels counted anyway
+        # optimizer's `Optimizer.step#...`, the EMA's) spans kernels
+        # counted anyway
         if (e.device_type != torch.autograd.DeviceType.CUDA
                 or getattr(e, "is_user_annotation", False)):
             continue
@@ -85,43 +95,47 @@ def profile_steps(run_step: Callable[[int], object], warmup: int,
         totals[family(e.name)] = totals.get(family(e.name), 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
         n_kernels += 1
-    backward: Dict[str, float] = {}
+    ranges: Dict[str, Dict[str, float]] = {name: {} for name in RANGES}
     for e in events:
-        if (e.device_type == torch.autograd.DeviceType.CPU and e.kernels
-                and _under(e, ATTENTION_BACKWARD)):
-            for k in e.kernels:
-                backward[family(k.name)] = (backward.get(family(k.name), 0.0)
-                                            + k.duration)
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        for name, fragment in RANGES.items():
+            if _under(e, fragment):
+                for k in e.kernels:
+                    fam = family(k.name)
+                    ranges[name][fam] = ranges[name].get(fam, 0.0) + k.duration
+                break
     per_step = 1e3 * steps
     return {"wall_ms": wall_ms,
             "busy_ms": sum(totals.values()) / per_step,
             "family_ms": {k: v / per_step for k, v in totals.items()},
-            "attention_backward_ms": {k: v / per_step
-                                      for k, v in backward.items()},
+            "ranges_ms": {name: {k: v / per_step for k, v in fams.items()}
+                          for name, fams in ranges.items()},
             "kernels": n_kernels / steps,
             "top": [(name, us / per_step) for name, us in
                     sorted(by_name.items(), key=lambda kv: -kv[1])[:15]]}
 
 
 def print_report(title: str, stats: Dict[str, object]) -> None:
-    """The split of one step: family by family (the attention backward
+    """The split of one step: family by family (each range of `RANGES`
     apart from the rest), then the top kernels."""
     wall, busy = stats["wall_ms"], stats["busy_ms"]
-    bwd = stats["attention_backward_ms"]
-    bwd_ms = sum(bwd.values())
+    ranges = {name: fams for name, fams in stats["ranges_ms"].items() if fams}
     print(f"{title}: wall {wall:.3f} ms/step (profiled), device busy "
           f"{busy:.3f} ms/step ({100 * busy / wall:.1f}%), idle "
           f"{100 * (1 - busy / wall):.1f}%; {stats['kernels']:.0f} "
           f"kernels/step", flush=True)
-    rest = {k: v - bwd.get(k, 0.0) for k, v in stats["family_ms"].items()}
-    if bwd_ms:
-        rest["attention_backward"] = bwd_ms
+    rest = dict(stats["family_ms"])
+    for name, fams in ranges.items():
+        for fam, ms in fams.items():
+            rest[fam] -= ms
+        rest[name] = sum(fams.values())
     for fam, ms in sorted(rest.items(), key=lambda kv: -kv[1]):
         print(f"  {fam:18s} {ms:9.3f} ms/step  {100 * ms / busy:5.1f}% of "
               f"device time", flush=True)
-    for fam, ms in sorted(bwd.items(), key=lambda kv: -kv[1]):
-        print(f"    attention_backward/{fam:12s} {ms:9.3f} ms/step",
-              flush=True)
+    for name, fams in ranges.items():
+        for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
+            print(f"    {name}/{fam:12s} {ms:9.3f} ms/step", flush=True)
     print("top kernels (ms/step):", flush=True)
     for name, ms in stats["top"]:
         print(f"  {ms:9.3f}  [{family(name)}] {name[:110]}", flush=True)

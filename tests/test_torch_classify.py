@@ -359,7 +359,7 @@ def test_trainer_scales_the_lr_by_the_effective_batch(tmp_path):
 
 def test_datasets_not_ported_raise():
     args = argparse.Namespace(synthetic=False)
-    for dataset in ("imagenet", "imagenet_flat", "mnist", "digits"):
+    for dataset in ("imagenet", "imagenet_flat"):
         cfg = get_config("vit_small")
         cfg = cfg.replace(data=dataclasses.replace(cfg.data, dataset=dataset))
         with pytest.raises(NotImplementedError, match="not ported yet"):

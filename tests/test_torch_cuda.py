@@ -14,11 +14,20 @@ both sides, one bf16 rounding of a unit-scale output). For best_iou: rtol and at
 kernel runs the plain version's f32 operations in the same order — and
 bit for bit for the fused segments (NaN where the plain version has NaN,
 equal values elsewhere; +0 and -0 compare equal).
+
+The ResNet slice has no kernel: its card tests hold the prefetcher, the
+device augment and a reduced ResNet's forward and train step on the card
+against the CPU, in f32 (cuDNN and cuBLAS with TF32 off): 1e-5 relative to
+the largest logit or gradient for the forward, 1e-4 for the gradients of a
+train step (BatchNorm in train mode over few values amplifies summation
+order), 1e-4 absolute for the augment (its means sum in another order).
 """
 
 import os
 import sys
+import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -29,8 +38,11 @@ from deepvision_tpu_torch.core.optim import build_optimizer
 from deepvision_tpu_torch.core.steps import (make_classification_eval_step,
                                              make_classification_train_step)
 from deepvision_tpu_torch.core.train_state import TrainState
+from deepvision_tpu_torch.data import device_augment as daug
 from deepvision_tpu_torch.data.detection import synthetic_batches
 from deepvision_tpu_torch.models import build_model
+from deepvision_tpu_torch.models.resnet import BottleneckBlock, ResNet
+from deepvision_tpu_torch.parallel.prefetch import prefetch_to_device
 from deepvision_tpu_torch.ops import attention as port
 from deepvision_tpu_torch.ops import best_iou as k2
 
@@ -52,10 +64,13 @@ BOUND = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    old = torch.backends.cuda.matmul.allow_tf32
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     yield torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = old
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
 
 
 def _qkv(shape, dtype, seed=0):
@@ -338,3 +353,119 @@ def test_yolo_train_step_on_the_card_launches_once_per_step(card):
     metrics = step(state, *batch)
     assert k2.best_iou.launches - before == 2
     assert all(torch.isfinite(v) for v in metrics.values())
+
+
+# -- the ResNet slice: prefetcher, device augment, reduced ResNet ------------
+
+def _host_batches(n, seed=0):
+    rs = np.random.RandomState(seed)
+    return [(rs.randint(0, 256, (4, 36, 36, 3)).astype(np.uint8),
+             rs.randint(0, 10, 4).astype(np.int32)) for _ in range(n)]
+
+
+@pytest.mark.parametrize("size", [1, 3])
+def test_prefetcher_stages_pinned_on_a_side_stream(card, size):
+    host = _host_batches(5)
+    staged = prefetch_to_device(iter(host), size, card)
+    got = []
+    for batch in staged:
+        assert all(t.device.type == "cuda" for t in batch)
+        got.append([t.cpu().numpy() for t in batch])
+    staged.close()
+    assert staged._stream is not None
+    assert staged._stream != torch.cuda.current_stream()
+    buffers = [buf for free in staged._pool._free.values()
+               for buf, _ in free]
+    assert buffers and all(buf.is_pinned() for buf in buffers)
+    for g, w in zip(got, host):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
+    assert len(got) == len(host)
+    assert staged.bytes_staged_total == sum(a.nbytes + b.nbytes
+                                            for a, b in host)
+
+
+def test_prefetcher_reuses_no_buffer_early_under_a_slow_consumer(card):
+    """The consumer reads each batch only after the producer has staged
+    the next ones (from the same pinned shapes): every batch still holds
+    its own host values."""
+    host = _host_batches(8, seed=1)
+    staged = prefetch_to_device(iter(host), 4, card)
+    kept = []
+    for batch in staged:
+        time.sleep(0.05)
+        kept.append(batch)
+    staged.close()
+    for batch, (images, labels) in zip(kept, host):
+        np.testing.assert_array_equal(batch[0].cpu().numpy(), images)
+        np.testing.assert_array_equal(batch[1].cpu().numpy(), labels)
+
+
+def test_device_augment_on_the_card_matches_the_cpu(card):
+    gen = torch.Generator().manual_seed(0)
+    images = torch.randint(0, 256, (8, 40, 40, 3), generator=gen,
+                           dtype=torch.uint8)
+    draws = daug.draw_train_params(8, 40, 40, 32, gen)
+    kw = dict(compute_dtype=torch.float32)
+    card_out = daug.apply_train_augment(images.cuda(), draws.to("cuda"), 32,
+                                        **kw).cpu()
+    cpu_out = daug.apply_train_augment(images, draws, 32, **kw)
+    assert (card_out - cpu_out).abs().max().item() <= 1e-4
+    evaluate = daug.make_eval_augment(32, **kw)
+    assert (evaluate(images.cuda()).cpu() - evaluate(images)).abs().max() \
+        .item() <= 1e-4
+    # draws on a card generator stay on the card and in their ranges
+    g = torch.Generator(device="cuda").manual_seed(1)
+    d = daug.draw_train_params(8, 40, 40, 32, g)
+    assert d.tops.device.type == "cuda"
+    assert int(d.tops.max()) <= 8 and int(d.lefts.max()) <= 8
+
+
+def _reduced_resnet():
+    model = ResNet((1, 1, 1, 1), BottleneckBlock, num_classes=10, width=8,
+                   dtype=torch.float32,
+                   generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():     # every gradient flows: no zero BN scale
+        for name, p in model.named_parameters():
+            if "BatchNorm" in name and name.endswith("weight"):
+                p.uniform_(0.5, 1.5,
+                           generator=torch.Generator().manual_seed(1))
+    return model
+
+
+def test_reduced_resnet_forward_on_the_card_matches_the_cpu(card):
+    model = _reduced_resnet().eval()
+    x = torch.randn(4, 32, 32, 3, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        want = model(x)
+        got = model.to("cuda")(x.cuda()).cpu()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_reduced_resnet_train_step_on_the_card_matches_the_cpu(card):
+    cfg = get_config("resnet50_tpu")
+    images, labels = (np.random.RandomState(3).randn(8, 32, 32, 3)
+                      .astype(np.float32),
+                      np.arange(8, dtype=np.int32))
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = _reduced_resnet().to(device)
+        opt = build_optimizer(model.parameters(), cfg.optimizer,
+                              cfg.schedule, 10, 1)
+        state = TrainState(model, opt, ema_decay=0.9)
+        step = make_classification_train_step(
+            label_smoothing=0.1, compute_dtype=torch.float32)
+        m = step(state, torch.from_numpy(images).to(device),
+                 torch.from_numpy(labels).to(device))
+        state.update_ema()
+        out[device] = (float(m["loss"]),
+                       {n: p.grad.cpu() for n, p in model.named_parameters()},
+                       [e.cpu() for e in state.ema])
+    (cpu_loss, cpu_grads, cpu_ema), (loss, grads, ema) = out["cpu"], \
+        out["cuda"]
+    assert loss == pytest.approx(cpu_loss, rel=1e-5)
+    for name, g in cpu_grads.items():
+        assert (grads[name] - g).abs().max().item() \
+            <= 1e-4 * g.abs().max().item(), name
+    for e, w in zip(ema, cpu_ema):
+        assert (e - w).abs().max().item() <= 1e-5 * max(w.abs().max(), 1)

@@ -1,9 +1,11 @@
 """The port stands alone: no module of deepvision_tpu_torch/ (nor its entry
-points ViT/torch/*.py, YOLO/torch/*.py and chip_smoke.py, which run where
-JAX is not installed) imports jax, flax, optax, orbax or anything of the
-JAX package deepvision_tpu."""
+points LeNet/torch/*.py, ResNet/torch/*.py, ViT/torch/*.py,
+YOLO/torch/*.py and chip_smoke.py, which run where JAX is not installed)
+imports jax, flax, optax, orbax or anything of the JAX package
+deepvision_tpu."""
 
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -13,10 +15,10 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "deepvision_tpu_torch")
 BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "deepvision_tpu"}
-ENTRY_POINTS = [os.path.join(REPO, "chip_smoke.py")] + [
-    os.path.join(REPO, family, "torch", script)
-    for family in ("ViT", "YOLO") for script in ("train.py",
-                                                 "profile_step.py")]
+FAMILIES = ("LeNet", "ResNet", "ViT", "YOLO")
+ENTRY_POINTS = [os.path.join(REPO, "chip_smoke.py")] + sorted(
+    path for family in FAMILIES
+    for path in glob.glob(os.path.join(REPO, family, "torch", "*.py")))
 
 
 def _sources():
@@ -62,4 +64,11 @@ print(len(names))
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.split()[-1]) >= 40
+    assert int(proc.stdout.split()[-1]) >= 51
+
+
+def test_every_family_has_its_entry_points():
+    names = {os.path.relpath(p, REPO) for p in ENTRY_POINTS}
+    for family in FAMILIES:
+        assert os.path.join(family, "torch", "train.py") in names, family
+    assert os.path.join("ResNet", "torch", "profile_step.py") in names

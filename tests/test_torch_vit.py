@@ -96,24 +96,25 @@ def test_bridge_raises_on_a_missing_extra_or_misshapen_leaf(fault):
         params_to_state_dict(params, ViT(**SMALL, image_size=32))
 
 
-# fields of the JAX configs that no ported path reads yet (mesh, EMA,
-# mixup/cutmix, device augmentation, dispatch and resilience levers; the
-# on-disk input pipelines' settings)
+# fields of the JAX configs that no ported path reads yet (mesh,
+# mixup/cutmix, dispatch and resilience levers; the on-disk input
+# pipelines' settings)
 NOT_CARRIED = {
-    "TrainConfig": {"cutmix_alpha", "device_augment", "ema_decay",
-                    "epoch_on_device", "epoch_shuffle", "graceful_shutdown",
-                    "log_grad_norm", "mixup_alpha", "model_parallel",
-                    "prefetch_batches", "recover_on_divergence",
+    "TrainConfig": {"cutmix_alpha", "epoch_on_device", "epoch_shuffle",
+                    "graceful_shutdown", "log_grad_norm", "mixup_alpha",
+                    "model_parallel", "recover_on_divergence",
                     "recovery_lr_factor", "remat", "resume_verify",
                     "spatial_backend", "spatial_parallel",
                     "steps_per_dispatch", "watchdog_secs"},
     "OptimizerConfig": set(), "ScheduleConfig": set(),
-    "DataConfig": {"cache_val", "data_dir", "num_parallel_calls",
-                   "shuffle_buffer"},
+    "DataConfig": {"cache_val", "num_parallel_calls", "shuffle_buffer"},
 }
 
 
-@pytest.mark.parametrize("name", ["vit_tiny", "vit_small"])
+@pytest.mark.parametrize("name", ["vit_tiny", "vit_small", "lenet5",
+                                  "lenet5_digits", "resnet34", "resnet50",
+                                  "resnet101", "resnet152", "resnet50v2",
+                                  "resnet50_tpu"])
 def test_configs_equal_the_jax_package(name):
     """Every field the port's dataclasses carry equals the JAX config's —
     the optimizer, schedule and data configs field by field — and the JAX
