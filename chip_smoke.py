@@ -70,7 +70,26 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    against the CPU within 1e-3 relative, its gradients within 1e-2 of the
    largest; and the device augment on the card against the CPU on the
    same draws. No kernel is on this path: convs, BatchNorm and the head
-   run on cuDNN and cuBLAS.
+   run on cuDNN and cuBLAS;
+9. slice 7: the classification zoo — `alexnet1` (227 px), `alexnet2`,
+   `vgg16`, `vgg19`, `inception_v1`, `mobilenet_v1`, `shufflenet_v1`
+   (224 px) and `inception_v3` (299 px), each at full width and its own
+   resolution, trained by `cli.run_classification` through its family's
+   `MODELS` on `cuda` for 2 synthetic steps at batch 64 and 2 validation
+   batches of 32 — every step's loss finite, the parameter count equal to
+   the JAX model's, `step_ms` and peak memory; for `mobilenet_v1` and
+   `inception_v3` one step on 2 images (dropout off) on the card in f64
+   and in f32, each against the same step in f64 on the CPU: in f64
+   within 1e-12 (loss) and 1e-9 of the largest gradient, in f32 within
+   2e-4 and 1e-1 (f32 gradients are ill-conditioned here: see
+   ZOO_GRAD_RTOL);
+10. slice 7: `mobilenet_v1` and `inception_v3` served in-process by the
+   engine at buckets {1, 8, 32}: every answer held against
+   `engine.reference()`, the card against an engine on the CPU on the same
+   seeded weights, `measure_batch_ms` per bucket, and the device ms of a
+   bucket-32 dispatch by kernel family from the same profiler split as
+   phase 4. No kernel is on the paths of phases 9-10: the K1 and K2 launch
+   counts, zeroed before them, stay 0.
 
 The line before the last is a JSON object with one record per kernel; the
 last is `{"ok": true, "device": {...}}`.
@@ -107,6 +126,7 @@ from deepvision_tpu_torch.data import device_augment as daug
 from deepvision_tpu_torch.data.detection import synthetic_batches
 from deepvision_tpu_torch.data.synthetic import SyntheticClassification
 from deepvision_tpu_torch.models import build_model
+from deepvision_tpu_torch.models.common import Dropout
 from deepvision_tpu_torch.ops import _build
 from deepvision_tpu_torch.ops import yolo as yolo_ops
 from deepvision_tpu_torch.ops.attention import (flash_attention,
@@ -114,6 +134,7 @@ from deepvision_tpu_torch.ops.attention import (flash_attention,
                                                 naive_attention)
 from deepvision_tpu_torch.ops.best_iou import best_iou, best_iou_reference
 from deepvision_tpu_torch.serve.cli import _smoke, build_parser, build_server
+from deepvision_tpu_torch.serve.engine import PredictEngine
 from deepvision_tpu_torch.serve.server import InferenceServer
 from deepvision_tpu_torch.tools.build_report import (count_opcodes,
                                                      demangle, loop_report,
@@ -166,6 +187,37 @@ RESNET_EVAL_BATCHES = 2
 # gradient, between 1 and 8 threads (summation order only)
 RESNET_CPU_RTOL = 1e-3
 RESNET_GRAD_RTOL = 1e-2
+# the zoo: config -> (family entry point, parameters of the JAX model at
+# 1000 classes in train mode, aux heads included)
+ZOO = {"alexnet1": ("AlexNet", 62_378_344), "alexnet2": ("AlexNet",
+                                                         61_838_248),
+       "vgg16": ("VGG", 138_357_544), "vgg19": ("VGG", 143_667_240),
+       "inception_v1": ("Inception", 13_385_816),
+       "inception_v3": ("Inception", 27_161_264),
+       "mobilenet_v1": ("MobileNet", 4_231_976),
+       "shufflenet_v1": ("ShuffleNet", 1_865_728)}
+ZOO_MODELS = {"AlexNet": ["alexnet1", "alexnet2"], "VGG": ["vgg16", "vgg19"],
+              "Inception": ["inception_v1", "inception_v3"],
+              "MobileNet": ["mobilenet_v1"], "ShuffleNet": ["shufflenet_v1"]}
+# the configs' batches are 128-512; 64 keeps eight trainings' synthetic
+# input (numpy on the host) within the time limit
+ZOO_BATCH = 64
+ZOO_STEPS = 2
+ZOO_EVAL_BATCH = 32            # 2 validation batches: one batch of 64
+ZOO_SERVED = ("mobilenet_v1", "inception_v3")
+# one step of the zoo's BASELINE pair on 2 images, dropout off. In f64 the
+# card computes the CPU's function: loss within 1e-12, gradients within
+# 1e-9 of the largest. In f32 the gradients are ill-conditioned (random
+# weights, train-mode BatchNorm over 2 images: the first convs' weight
+# gradients are small remainders of large terms), so the CPU's f32
+# gradients already lie about 1e-2 of the largest gradient from the f64
+# ones (phase 9 prints it) and phase 8's card-vs-CPU bound cannot hold:
+# the card's f32 step is held to the CPU's f64 one, its loss within 2e-4,
+# its gradients within 1e-1 of the largest
+ZOO_F64_LOSS_RTOL = 1e-12
+ZOO_F64_GRAD_RTOL = 1e-9
+ZOO_LOSS_RTOL = 2e-4
+ZOO_GRAD_RTOL = 1e-1
 # the device augment, card vs CPU on the same draws, in f32: the contrast
 # and saturation means sum in another order
 AUGMENT_TOL = 1e-4
@@ -573,16 +625,31 @@ def same_tree(a, b) -> bool:
     return a == b
 
 
-def train_step_grads(cfg, model, batch, device) -> tuple:
-    """Loss and gradients of one train step of `cfg` (its optimizer and
-    label smoothing, f32 compute) through a copy of `model` on `device`;
-    the gradients as the step leaves them (clipped, where the optimizer
-    clips)."""
-    m = copy.deepcopy(model).to(device)
+def float64_copy(model):
+    """A copy of `model` that computes in f64 (its weights, and every
+    module's compute `dtype`; BatchNorm normalizes an f64 input in f64):
+    the reference that f32 gradients are held against where they are
+    ill-conditioned."""
+    m = copy.deepcopy(model).double()
+    for mod in m.modules():
+        if isinstance(getattr(mod, "dtype", None), torch.dtype):
+            mod.dtype = torch.float64
+    return m
+
+
+def train_step_grads(cfg, model, batch, device,
+                     dtype: torch.dtype = torch.float32) -> tuple:
+    """Loss and gradients of one train step of `cfg` (its optimizer, label
+    smoothing and aux weight; f32 compute, or f64 for a reference) through
+    a copy of `model` on `device`; the gradients as the step leaves them
+    (clipped, where the optimizer clips)."""
+    m = (float64_copy(model) if dtype == torch.float64
+         else copy.deepcopy(model)).to(device)
     state = TrainState(m, build_optimizer(m.parameters(), cfg.optimizer,
                                           cfg.schedule, 1, 1))
     step = make_classification_train_step(
-        label_smoothing=cfg.label_smoothing, compute_dtype=torch.float32)
+        label_smoothing=cfg.label_smoothing, aux_weight=cfg.aux_loss_weight,
+        compute_dtype=dtype)
     loss = step(state, *(torch.from_numpy(a).to(device) for a in batch))
     return (float(loss["loss"]),
             {n: p.grad.cpu() for n, p in m.named_parameters()})
@@ -855,14 +922,169 @@ def check_resnet_training(gen) -> dict:
             "augment_err": augment_err}
 
 
+def no_dropout(model):
+    """`model` with every dropout rate 0: the card's masks and the CPU's
+    come from different generators."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+    return model
+
+
+def check_step_against_f64(cfg, model, batch, name: str, what: str) -> dict:
+    """One train step of `cfg` on `batch` through `model` on the card in
+    f64 and in f32, each against the same step in f64 on the CPU (and the
+    CPU's own f32 step beside them); fails past the ZOO_* bounds."""
+    cpu, card = torch.device("cpu"), torch.device("cuda")
+    ref_loss, ref = train_step_grads(cfg, model, batch, cpu, torch.float64)
+    loss64, grads64 = train_step_grads(cfg, model, batch, card,
+                                       torch.float64)
+    loss32, grads32 = train_step_grads(cfg, model, batch, card)
+    cpu_loss32, cpu_grads32 = train_step_grads(cfg, model, batch, cpu)
+    rec = {"f64_loss": abs(loss64 - ref_loss) / abs(ref_loss),
+           "f64_grad": grad_rel(grads64, ref)[0],
+           "f32_loss": abs(loss32 - ref_loss) / abs(ref_loss),
+           "cpu_f32_loss": abs(cpu_loss32 - ref_loss) / abs(ref_loss),
+           "cpu_f32_grad": grad_rel(cpu_grads32, ref)[0]}
+    rec["f32_grad"], worst = grad_rel(grads32, ref)
+    phase(f"{name} one train step on {what}, dropout off, against the same "
+          f"step in f64 on the CPU (loss {ref_loss:.6f}); errors of the "
+          f"loss (relative) and of the gradients (over the largest): card "
+          f"f64 {rec['f64_loss']:.3g} / {rec['f64_grad']:.3g} (bounds "
+          f"{ZOO_F64_LOSS_RTOL:g} / {ZOO_F64_GRAD_RTOL:g}); card f32 "
+          f"{rec['f32_loss']:.3g} / {rec['f32_grad']:.3g} in {worst} "
+          f"(bounds {ZOO_LOSS_RTOL:g} / {ZOO_GRAD_RTOL:g}); CPU f32 "
+          f"{rec['cpu_f32_loss']:.3g} / {rec['cpu_f32_grad']:.3g}")
+    if not (np.isfinite(ref_loss)
+            and rec["f64_loss"] <= ZOO_F64_LOSS_RTOL
+            and rec["f64_grad"] <= ZOO_F64_GRAD_RTOL
+            and rec["f32_loss"] <= ZOO_LOSS_RTOL
+            and rec["f32_grad"] <= ZOO_GRAD_RTOL):
+        raise AssertionError(f"{name}: the card's step is off the CPU's f64 "
+                             f"one: {rec}")
+    return rec
+
+
+def check_zoo_training() -> dict:
+    """Slice 7: each zoo config trained through its family's entry point
+    at full width and its own resolution; for the BASELINE pair, one f32
+    step on the card against the CPU."""
+    out = {}
+    for name, (family, count) in ZOO.items():
+        workdir = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer, result = run_classification(family, ZOO_MODELS[family], [
+                "-m", name, "--synthetic", "--batch-size", str(ZOO_BATCH),
+                "--eval-batch-size", str(ZOO_EVAL_BATCH), "--steps-per-epoch",
+                str(ZOO_STEPS), "--epochs", "1", "--device", "cuda",
+                "--workdir", workdir])
+            wall = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        peak = torch.cuda.max_memory_allocated()
+        ran = trainer.config
+        size = get_config(name).data.image_size
+        params = sum(p.numel() for p in trainer.state.model.parameters())
+        steps = trainer.last_epoch_steps
+        losses = [s["loss"] for s in steps]
+        step_ms = steps[-1]["step_ms"]
+        phase(f"{name} ({family}, {size} px, batch {ZOO_BATCH}, "
+              f"{ran.optimizer.name}, bf16): params={params:,} losses="
+              f"{[round(v, 4) for v in losses]} val loss="
+              f"{result.get('loss', float('nan')):.4f} step_ms={step_ms:.3f} "
+              f"(step 2; step 1 {steps[0]['step_ms']:.3f}) images_per_sec="
+              f"{ZOO_BATCH / step_ms * 1e3:.2f} peak_memory_allocated="
+              f"{peak / 2**30:.3f} GiB; run_classification {wall:.1f}s")
+        if (ran.data.image_size, ran.data.num_classes, ran.batch_size) != (
+                size, 1000, ZOO_BATCH):
+            raise AssertionError(f"{name} ran at {ran.data}")
+        if params != count:
+            raise AssertionError(f"{name} has {params:,} parameters, the "
+                                 f"JAX model {count:,}")
+        if len(steps) != ZOO_STEPS or not all(
+                np.isfinite(v) for s in steps for v in s.values()):
+            raise AssertionError(f"{name} steps not all finite: {steps}")
+        if result.get("count") != 2 * ZOO_EVAL_BATCH or not all(
+                np.isfinite(result.get(k, np.nan))
+                for k in ("loss", "top1", "top5")):
+            raise AssertionError(f"{name} validation: {result}")
+        out[name] = {"step_ms": step_ms, "peak_bytes": peak,
+                     "params": params, "losses": losses}
+
+    for name in ZOO_SERVED:
+        cfg = get_config(name)
+        size = cfg.data.image_size
+        model = no_dropout(build_model(cfg.replace(dtype="float32")))
+        batch = next(iter(SyntheticClassification(2, size, 3, 1000, 1,
+                                                  seed=7)))
+        out[name].update(check_step_against_f64(
+            cfg, model, batch, name, f"2 images at {size} px"))
+    return out
+
+
+def check_zoo_serving() -> dict:
+    """Slice 7: the BASELINE pair served by the engine on the card."""
+    out = {}
+    rs = np.random.RandomState(3)
+    for name in ZOO_SERVED:
+        engine = PredictEngine.from_config(name, device="cuda",
+                                           buckets=BUCKETS, verbose=False)
+        engine.warmup()
+        engine.dispatches = 0
+        err = 0.0
+        for n in (1, 3, 8, 20, 32):
+            x = rs.randn(n, *engine.example_shape).astype(np.float32)
+            got, ref = engine.predict(x), engine.reference(x)
+            if got.shape != (n, 1000) or not np.isfinite(got).all():
+                raise AssertionError(f"{name} answered {got.shape}")
+            err = max(err, float(np.abs(got - ref).max()
+                                 / max(np.abs(ref).max(), 1e-30)))
+        cpu = PredictEngine.from_config(name, device="cpu", buckets=(2,),
+                                        verbose=False)
+        x = rs.randn(2, *engine.example_shape).astype(np.float32)
+        want = cpu.reference(x)
+        cpu_err = float(np.abs(engine.reference(x) - want).max()
+                        / max(np.abs(want).max(), 1e-30))
+        phase(f"{name} served at buckets {engine.buckets}: "
+              f"{engine.dispatches} dispatches; answers vs "
+              f"engine.reference(), relative to the largest logit: "
+              f"{err:.3g} (bound {SERVE_TOL:g}); card vs CPU engine on the "
+              f"same seeded weights, 2 images: {cpu_err:.3g} (logit scale "
+              f"{np.abs(want).max():.3g}; bound {CPU_RTOL:g})")
+        if not err <= SERVE_TOL or not np.isfinite(want).all() \
+                or not cpu_err <= CPU_RTOL:
+            raise AssertionError(f"{name} served answers differ: {err:g}, "
+                                 f"card vs CPU {cpu_err:g}")
+        batch_ms = {b: engine.measure_batch_ms(b, 20) for b in engine.buckets}
+        phase(f"{name} measure_batch_ms (host input to host output): "
+              + " ".join(f"bucket {b}: {ms:.3f}" for b, ms in
+                         batch_ms.items()))
+        prof = profile_dispatches(engine, BUCKETS[-1], need="gemm")
+        fam = prof["family_ms"]
+        phase(f"{name} profile, bucket {BUCKETS[-1]}, device ms per "
+              f"dispatch: " + " ".join(f"{k}={v:.4f}" for k, v in fam.items())
+              + f"; busy {prof['busy_ms']:.4f} of wall {prof['wall_ms']:.4f} "
+              f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f}% busy)")
+        for kname, ms in prof["top"][:4]:
+            phase(f"{name} profile top kernel: {ms:.4f} ms/dispatch {kname}")
+        out[name] = {"served_err": err, "cpu_err": cpu_err,
+                     "batch_ms": batch_ms, "profile": prof}
+    return out
+
+
 GEMM_KEYS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
 
 
 def profile_dispatches(engine, bucket: int, warmup: int = 3,
-                       iters: int = 5) -> dict:
+                       iters: int = 5, need: str = "flash_attention"
+                       ) -> dict:
     """Device ms per dispatch of `bucket` by kernel family, from
     `torch.profiler` over `iters` `engine.predict` calls after `warmup`
-    ones, beside the wall ms per dispatch (host clock, synchronized)."""
+    ones, beside the wall ms per dispatch (host clock, synchronized).
+    Fails unless the family `need` has device time (`gemm` holds cuDNN's
+    convolutions too)."""
     x = np.random.RandomState(2).randn(
         bucket, *engine.example_shape).astype(np.float32)
     for _ in range(warmup):
@@ -890,9 +1112,9 @@ def profile_dispatches(engine, bucket: int, warmup: int = 3,
         fam[key] += ms
         by_name[e.name] = by_name.get(e.name, 0.0) + ms
     busy = sum(fam.values())
-    if busy <= 0 or fam["flash_attention"] <= 0:
-        raise AssertionError(f"the profile holds no device time for the "
-                             f"attention kernel: {fam}")
+    if busy <= 0 or fam[need] <= 0:
+        raise AssertionError(f"the profile holds no device time for "
+                             f"{need}: {fam}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_ms": wall_ms, "busy_ms": busy, "family_ms": fam,
             "top": [(name[:90], ms) for name, ms in top]}
@@ -1072,6 +1294,18 @@ def main() -> int:
     # paths: every launch count below stays as phases 4-6 left it)
     check_lenet_training()
     check_resnet_training(gen)
+
+    # 9-10. slice 7: the classification zoo trained and served (no kernel
+    # on these paths: the launch counts, zeroed here, must stay 0)
+    flash_attention.launches = best_iou.launches = 0
+    check_zoo_training()
+    check_zoo_serving()
+    zoo_launches = (flash_attention.launches, best_iou.launches)
+    phase(f"launches on the zoo's paths (flash_attention, best_iou): "
+          f"{zoo_launches}")
+    if zoo_launches != (0, 0):
+        raise AssertionError(f"a kernel ran on the zoo's paths: "
+                             f"{zoo_launches}")
 
     timed_keys = ("shape", "layout", "ms", "device_ms", "plain_ms",
                   "library_ms", "library_device_ms", "bound_ms")

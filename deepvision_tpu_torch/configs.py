@@ -1,8 +1,8 @@
 """Registered configs of the port (own copy of deepvision_tpu/configs.py:
-the LeNet, ResNet, ViT and YOLO entries). Every field the port's
-dataclasses carry equals the JAX package's; tests/test_torch_vit.py,
-tests/test_torch_yolo.py, tests/test_torch_lenet.py and
-tests/test_torch_resnet.py hold them against it.
+the LeNet, AlexNet, VGG, Inception, ResNet, MobileNet, ShuffleNet, ViT and
+YOLO entries). Every field the port's dataclasses carry equals the JAX
+package's; tests/test_torch_vit.py and tests/test_torch_yolo.py hold them
+against it.
 """
 
 from __future__ import annotations
@@ -42,6 +42,62 @@ CONFIGS.register("lenet5_digits", TrainConfig(
     dtype="float32",
 ))
 
+# -- AlexNet (Krizhevsky 2012 section 5): momentum 0.9, weight decay 5e-4,
+#    lr 0.01 divided by 10 after 2 epochs without a better val top-1;
+#    alexnet1 at 227 px, alexnet2 at 224. ----
+for _name in ("alexnet1", "alexnet2"):
+    CONFIGS.register(_name, TrainConfig(
+        name=_name, model=_name, batch_size=128, total_epochs=90,
+        optimizer=OptimizerConfig(name="momentum", learning_rate=0.01,
+                                  momentum=0.9, weight_decay=5e-4),
+        schedule=ScheduleConfig(name="plateau", plateau_patience=2,
+                                plateau_factor=0.1, plateau_mode="max"),
+        data=_imagenet(227 if _name == "alexnet1" else 224),
+    ))
+
+# -- VGG (Simonyan 2014 section 3.1): batch 256, momentum 0.9, weight decay
+#    5e-4, lr 0.01 divided by 10 on a plateau of val top-1. ----
+for _name in ("vgg16", "vgg19"):
+    CONFIGS.register(_name, TrainConfig(
+        name=_name, model=_name, batch_size=256, total_epochs=74,
+        optimizer=OptimizerConfig(name="momentum", learning_rate=0.01,
+                                  momentum=0.9, weight_decay=5e-4),
+        schedule=ScheduleConfig(name="plateau", plateau_patience=2,
+                                plateau_factor=0.1, plateau_mode="max"),
+        data=_imagenet(),
+    ))
+
+# -- Inception V1 (Szegedy 2014 section 5): momentum 0.9, lr 0.05 after 2
+#    warmup epochs, x0.96 per epoch applied every 8 epochs, weight decay
+#    1e-4; the aux heads' losses weighted 0.3. ----
+CONFIGS.register("inception_v1", TrainConfig(
+    name="inception_v1", model="inception_v1", batch_size=256,
+    total_epochs=90,
+    optimizer=OptimizerConfig(name="momentum", learning_rate=0.05,
+                              momentum=0.9, weight_decay=1e-4),
+    schedule=ScheduleConfig(name="step", warmup_epochs=2,
+                            boundaries_epochs=tuple(range(8, 90, 8)),
+                            decay_factor=0.96 ** 8),
+    aux_loss_weight=0.3,
+    data=_imagenet(),
+))
+
+# -- Inception V3 (Szegedy 2015 section 8): RMSprop decay 0.9 eps 1.0, lr
+#    0.045 x0.94 every 2 epochs, gradient clip 2.0, label smoothing 0.1,
+#    aux weight 0.3, 299 px. ----
+CONFIGS.register("inception_v3", TrainConfig(
+    name="inception_v3", model="inception_v3", batch_size=256,
+    total_epochs=100,
+    optimizer=OptimizerConfig(name="rmsprop", learning_rate=0.045,
+                              rmsprop_decay=0.9, eps=1.0,
+                              grad_clip_norm=2.0),
+    schedule=ScheduleConfig(name="step",
+                            boundaries_epochs=tuple(range(2, 100, 2)),
+                            decay_factor=0.94),
+    label_smoothing=0.1, aux_loss_weight=0.3,
+    data=_imagenet(299),
+))
+
 # -- ResNet: batch 256, momentum 0.9, lr 0.1 scaled linearly from a base
 #    batch of 256, weight decay 1e-4, cosine after 5 warmup epochs, label
 #    smoothing 0.1, ImageNet at 224 px. ----
@@ -68,6 +124,32 @@ CONFIGS.register("resnet50_tpu", TrainConfig(
                               base_batch_size=256, no_decay_bn_bias=True),
     schedule=ScheduleConfig(name="cosine", warmup_epochs=5),
     label_smoothing=0.1, ema_decay=0.9999,
+    data=_imagenet(),
+))
+
+# -- MobileNet V1 (Howard 2017 section 4): RMSprop decay 0.9, lr 0.045
+#    x0.94 every 2 epochs, weight decay 4e-5. ----
+CONFIGS.register("mobilenet_v1", TrainConfig(
+    name="mobilenet_v1", model="mobilenet_v1", batch_size=256,
+    total_epochs=90,
+    optimizer=OptimizerConfig(name="rmsprop", learning_rate=0.045,
+                              rmsprop_decay=0.9, weight_decay=4e-5),
+    schedule=ScheduleConfig(name="step",
+                            boundaries_epochs=tuple(range(2, 90, 2)),
+                            decay_factor=0.94),
+    data=_imagenet(),
+))
+
+# -- ShuffleNet V1, g=3 (Zhang 2017 section 4): batch 512, momentum 0.9,
+#    lr 0.25 decaying linearly to 0 from the first epoch, weight decay
+#    4e-5, label smoothing 0.1. ----
+CONFIGS.register("shufflenet_v1", TrainConfig(
+    name="shufflenet_v1", model="shufflenet_v1", batch_size=512,
+    total_epochs=90,
+    optimizer=OptimizerConfig(name="momentum", learning_rate=0.25,
+                              momentum=0.9, weight_decay=4e-5),
+    schedule=ScheduleConfig(name="linear_decay", decay_start_epoch=0),
+    label_smoothing=0.1,
     data=_imagenet(),
 ))
 

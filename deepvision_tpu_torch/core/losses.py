@@ -1,7 +1,7 @@
 """Classification losses and top-k metrics (own copy of
 deepvision_tpu/core/losses.py).
 
-Logits go to f32 before the softmax. Label smoothing is optax's
+Logits go to f32 (f64 stays f64) before the softmax. Label smoothing is optax's
 `smooth_labels`: (1 - a) * onehot + a / K. Top-k follows the JAX package's
 `argsort(...)[::-1]`: a stable ascending sort, reversed, so among tied
 logits the larger class index comes first.
@@ -24,7 +24,8 @@ def per_example_xent(logits: torch.Tensor, labels: torch.Tensor,
     target = F.one_hot(labels.long(), num_classes).float()
     if label_smoothing:
         target = target * (1.0 - label_smoothing) + label_smoothing / num_classes
-    return -(target * torch.log_softmax(logits.float(), dim=-1)).sum(-1)
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    return -(target * torch.log_softmax(logits, dim=-1)).sum(-1)
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,

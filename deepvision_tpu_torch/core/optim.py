@@ -42,8 +42,9 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
     No host sync: the choice is a tensor op."""
     if not grads:
         return
+    wide = torch.promote_types(grads[0].dtype, torch.float32)
     norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+        torch.stack([torch.linalg.vector_norm(g.to(wide)) for g in grads]))
     trigger = norm < max_norm
     for g in grads:
         g.copy_(torch.where(trigger, g, g / norm.to(g.dtype) * max_norm))

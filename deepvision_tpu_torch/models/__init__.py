@@ -1,5 +1,6 @@
 """Model zoo of the port — importing this package registers its models in
-MODELS (the ViT, YOLO V3, LeNet-5 and ResNet families so far)."""
+MODELS (the ViT, YOLO V3, LeNet-5, ResNet, AlexNet, VGG, Inception,
+MobileNet and ShuffleNet families so far)."""
 
 from __future__ import annotations
 
@@ -8,7 +9,8 @@ from typing import Optional
 
 import torch
 
-from . import lenet, resnet, vit, yolo  # noqa: F401
+from . import (alexnet, inception, lenet, mobilenet, resnet,  # noqa: F401
+               shufflenet, vgg, vit, yolo)
 from ..utils.registry import MODELS
 
 

@@ -1,18 +1,31 @@
 """Shared building blocks of the port's model zoo (own copy of
-deepvision_tpu/models/common.py: `he_normal_fanout`, `ConvBN`; and the
-Flax-numerics `Conv` and `BatchNorm` every BN-conv model uses).
+deepvision_tpu/models/common.py: `he_normal_fanout`, `ConvBN`, `lrn`; and
+the Flax-numerics `Conv`, `Dense`, `BatchNorm`, `Dropout` and pools every
+model uses).
 
 Numerics follow Flax where they differ from torch's defaults:
-- `Conv` computes at the compute dtype from f32 master weights, cast per
-  call as Flax's `dtype=` policy does (no autocast). Its padding is Flax's:
-  "SAME" (XLA's: a stride-2 3x3 conv on an even input pads 0 before and 1
-  after, which `nn.Conv2d(padding=1)` does not), "VALID", or explicit
-  `[(lo, hi), (lo, hi)]`;
-- `BatchNorm` normalizes in f32 whatever its input, with the batch
+- `Conv` and `Dense` compute at the compute dtype from f32 master weights,
+  cast per call as Flax's `dtype=` policy does (no autocast), and below
+  f32 add the bias to the rounded product, as Flax does. Conv padding is
+  Flax's: "SAME" (XLA's: a stride-2 3x3 conv on an even input pads 0
+  before and 1 after, which `nn.Conv2d(padding=1)` does not), "VALID", or
+  explicit `[(lo, hi), (lo, hi)]`; `groups` is Flax's
+  `feature_group_count`;
+- `max_pool` and `avg_pool` are `nn.max_pool` and `nn.avg_pool` on NCHW:
+  VALID by default, SAME padded as XLA pads (asymmetric at stride 2 on an
+  even size), max with -inf, avg with zeros counted in the divisor
+  (flax's `count_include_pad=True`); `flatten_nhwc` flattens in Flax's
+  NHWC order, so the Dense after it takes a Flax kernel unchanged;
+- `BatchNorm` normalizes in f32 (in f64 for an f64 input: Flax's
+  `promote_types(float32, x.dtype)`), with the batch
   statistics in training and the running ones in eval, and returns its
   `dtype`. Its momentum is Flax's (0.9 keeps 90% of the running value;
   torch's convention is the complement), and the running variance takes
   the BIASED batch variance, as Flax's does (torch feeds the unbiased one).
+
+`ComputeWeights.cast_compute_weights_` casts, once, for serving, the
+weights of every `Conv` and `Dense` that runs below f32; BatchNorm and the
+f32 heads keep f32.
 
 Children that Flax names itself (`Conv_0`, `BatchNorm_0`, ...) carry the
 same names here through `flax_auto_names`, so `utils/flax_convert.py` maps
@@ -21,6 +34,7 @@ a Flax `params` + `batch_stats` pair onto a port module leaf for leaf.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -30,6 +44,7 @@ from torch import nn
 from ..utils.flax_convert import flax_auto_names
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
+Size2 = Union[int, Tuple[int, int]]
 
 # flax variance_scaling("truncated_normal") divides the standard deviation
 # by that of a unit normal truncated to [-2, 2]
@@ -41,6 +56,97 @@ def _same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     out = -(-size // stride)
     total = max((out - 1) * stride + kernel - size, 0)
     return total // 2, total - total // 2
+
+
+def _pair(v: Size2) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def out_size(size: int, kernel: int, stride: int = 1,
+             padding: Padding = "VALID") -> int:
+    """Length of a conv or pool output along one spatial dim under Flax's
+    padding (one (lo, hi) pair when explicit); below 1 the map is gone."""
+    if padding == "SAME":
+        return -(-size // stride)
+    lo, hi = (0, 0) if padding == "VALID" else padding
+    return (size + lo + hi - kernel) // stride + 1
+
+
+def _flax_pads(x: torch.Tensor, kernel: Tuple[int, int],
+               stride: Tuple[int, int], padding: Padding
+               ) -> Tuple[Tuple[int, int], ...]:
+    """(top, bottom), (left, right) pads of Flax's `padding` on NCHW `x`."""
+    if padding == "VALID":
+        return (0, 0), (0, 0)
+    if padding == "SAME":
+        return tuple(_same_pads(x.shape[d], kernel[i], stride[i])
+                     for i, d in enumerate((-2, -1)))
+    return tuple(tuple(p) for p in padding)
+
+
+def _pad(x: torch.Tensor, pads, value: float = 0.0) -> torch.Tensor:
+    (top, bottom), (left, right) = pads
+    if top or bottom or left or right:
+        x = F.pad(x, (left, right, top, bottom), value=value)
+    return x
+
+
+def max_pool(x: torch.Tensor, window: Size2, strides: Optional[Size2] = None,
+             padding: Padding = "VALID") -> torch.Tensor:
+    """flax `nn.max_pool` on NCHW: pads with -inf, as XLA does."""
+    window, strides = _pair(window), _pair(strides or 1)
+    x = _pad(x, _flax_pads(x, window, strides, padding), -math.inf)
+    return F.max_pool2d(x, window, strides)
+
+
+def avg_pool(x: torch.Tensor, window: Size2, strides: Optional[Size2] = None,
+             padding: Padding = "VALID") -> torch.Tensor:
+    """flax `nn.avg_pool` on NCHW (`count_include_pad=True`): the window's
+    sum over zero padding, divided by the window's size. torch sums a bf16
+    window in f32 and rounds once; XLA on the CPU rounds after every add."""
+    window, strides = _pair(window), _pair(strides or 1)
+    x = _pad(x, _flax_pads(x, window, strides, padding))
+    return F.avg_pool2d(x, window, strides)
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """`x` in f32, or in its own dtype where that is wider (f64): JAX's
+    upcast of low-precision floats for reductions and normalizations."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def global_avg_pool(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Mean over H and W of NCHW `x`, summed in f32 (as `jnp.mean` sums
+    bf16) and returned in `dtype`."""
+    return at_least_f32(x).mean(dim=(2, 3)).to(dtype)
+
+
+def flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) -> (N, H*W*C) in Flax's NHWC order."""
+    return x.permute(0, 2, 3, 1).flatten(1)
+
+
+def lrn(x: torch.Tensor, depth_radius: int = 2, bias: float = 2.0,
+        alpha: float = 1e-4, beta: float = 0.75,
+        torch_size: int = 0) -> torch.Tensor:
+    """Local response normalization across the channels of NCHW `x`
+    (`deepvision_tpu/models/common.py::lrn`). The defaults are the paper's
+    (n=5, k=2); `torch_size=n` is `torch.nn.LocalResponseNorm(n)`: k=1,
+    alpha / n, the asymmetric window of n // 2 channels before and
+    (n - 1) // 2 after. In f32 whatever the input: a sliding window sum
+    of squares by pad, cumsum and shifted subtract; the result in x's
+    dtype."""
+    if torch_size:
+        before, after = torch_size // 2, (torch_size - 1) // 2
+        bias, alpha = 1.0, alpha / torch_size
+    else:
+        before = after = depth_radius
+    n = before + after + 1
+    x32 = at_least_f32(x)
+    run = torch.cumsum(F.pad(x32 * x32, (0, 0, 0, 0, before, after)), dim=1)
+    run = F.pad(run, (0, 0, 0, 0, 1, 0))
+    win = run[:, n:] - run[:, :-n]
+    return (x32 / torch.pow(bias + alpha * win, beta)).to(x.dtype)
 
 
 def _add_children(parent: nn.Module, children: Sequence[nn.Module]
@@ -79,14 +185,14 @@ def he_normal_fanout_(weight: torch.Tensor,
 
 class Conv(nn.Conv2d):
     """Flax `nn.Conv` at the compute dtype `dtype`, padding "SAME" (the
-    default), "VALID" or `[(lo, hi), (lo, hi)]`."""
+    default), "VALID" or `[(lo, hi), (lo, hi)]`, `groups` feature groups."""
 
     def __init__(self, in_features: int, features: int,
-                 kernel: Union[int, Tuple[int, int]], strides: int = 1,
+                 kernel: Size2, strides: Size2 = 1,
                  use_bias: bool = False, dtype: torch.dtype = torch.float32,
-                 padding: Padding = "SAME"):
+                 padding: Padding = "SAME", groups: int = 1):
         super().__init__(in_features, features, kernel, stride=strides,
-                         padding=0, bias=use_bias)
+                         padding=0, bias=use_bias, groups=groups)
         if isinstance(padding, str) and padding not in ("SAME", "VALID"):
             raise ValueError(f"padding must be 'SAME', 'VALID' or "
                              f"[(lo, hi), (lo, hi)], got {padding!r}")
@@ -95,26 +201,80 @@ class Conv(nn.Conv2d):
                              else tuple(tuple(p) for p in padding))
 
     def _pads(self, x: torch.Tensor) -> Tuple[Tuple[int, int], ...]:
-        if self.flax_padding == "VALID":
-            return (0, 0), (0, 0)
-        if self.flax_padding == "SAME":
-            return tuple(_same_pads(x.shape[d], self.kernel_size[i],
-                                    self.stride[i])
-                         for i, d in enumerate((-2, -1)))
-        return self.flax_padding
+        return _flax_pads(x, self.kernel_size, self.stride,
+                          self.flax_padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        (top, bottom), (left, right) = self._pads(x)
-        x = x.to(self.dtype)
-        if top or bottom or left or right:
-            x = F.pad(x, (left, right, top, bottom))
-        bias = None if self.bias is None else self.bias.to(self.dtype)
-        return F.conv2d(x, self.weight.to(self.dtype), bias, self.stride)
+        x = _pad(x.to(self.dtype), self._pads(x))
+        weight = self.weight.to(self.dtype)
+        if self.bias is None or self.dtype == torch.float32:
+            bias = None if self.bias is None else self.bias
+            return F.conv2d(x, weight, bias, self.stride, groups=self.groups)
+        # Flax rounds the product to the compute dtype, then adds the bias
+        return (F.conv2d(x, weight, None, self.stride, groups=self.groups)
+                + self.bias.to(self.dtype)[:, None, None])
+
+
+class Dense(nn.Linear):
+    """Flax `nn.Dense` at `dtype`: input, weight and bias cast to it (an
+    f32 head promotes a bf16 input); below f32 the bias is added to the
+    rounded product, as Flax does."""
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, features)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, weight = x.to(self.dtype), self.weight.to(self.dtype)
+        if self.dtype == torch.float32:
+            return F.linear(x, weight, self.bias)
+        return F.linear(x, weight) + self.bias.to(self.dtype)
+
+
+class Dropout(nn.Module):
+    """flax.linen.Dropout: in train mode, keep each element with
+    probability 1 - rate, scaled by 1 / (1 - rate), the mask drawn from
+    `generator`; the identity in eval mode or at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        if not self.training or self.rate == 0:
+            return x
+        if generator is None:
+            raise ValueError("train-mode dropout needs the step's generator "
+                             "(forward(x, generator=...))")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
+
+
+class ComputeWeights:
+    """Mixin of the port's CNN classifiers: the engine's one cast of the
+    weights that run at the compute dtype."""
+
+    @torch.no_grad()
+    def cast_compute_weights_(self):
+        """Cast, once, the weights of every `Conv` and `Dense` computing
+        below f32 to their dtype, so no forward pays that cast again (a
+        serving step: the optimizer keeps f32 masters). BatchNorm and the
+        f32 heads keep f32, as the training forward computes them."""
+        for m in self.modules():
+            if isinstance(m, (Conv, Dense)) and m.dtype != torch.float32:
+                m.to(m.dtype)
+        return self
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Flax `nn.BatchNorm(momentum, epsilon)` on NCHW: f32 normalization,
-    output in `dtype` (f32 unless a model asks for its compute dtype)."""
+    """Flax `nn.BatchNorm(momentum, epsilon)` on NCHW: f32 normalization
+    (f64 for an f64 input), output in `dtype` (f32 unless a model asks for
+    its compute dtype)."""
 
     def __init__(self, features: int, *, eps: float, momentum: float = 0.9,
                  dtype: torch.dtype = torch.float32):
@@ -122,7 +282,7 @@ class BatchNorm(nn.BatchNorm2d):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
+        x = at_least_f32(x)
         if not self.training:
             y = F.batch_norm(x, self.running_mean, self.running_var,
                              self.weight, self.bias, False, 0.0, self.eps)
@@ -145,18 +305,19 @@ class ConvBN(nn.Module):
     the BatchNorm runs in f32 with Flax momentum 0.9, epsilon 1e-5."""
 
     def __init__(self, in_features: int, features: int,
-                 kernel: Union[int, Tuple[int, int]] = 3, strides: int = 1,
+                 kernel: Size2 = 3, strides: Size2 = 1,
                  padding: Padding = "SAME", use_bias: bool = False,
                  relu: bool = True, use_bn: bool = True,
                  dtype: torch.dtype = torch.bfloat16,
                  bn_momentum: float = 0.9, bn_epsilon: float = 1e-5, *,
+                 groups: int = 1,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.relu = relu
         self.dtype = dtype
         conv = Conv(in_features, features, kernel, strides,
                     use_bias=use_bias or not use_bn, dtype=dtype,
-                    padding=padding)
+                    padding=padding, groups=groups)
         bn = ([BatchNorm(features, eps=bn_epsilon, momentum=bn_momentum)]
               if use_bn else [])
         self.layers = _add_children(self, [conv] + bn)

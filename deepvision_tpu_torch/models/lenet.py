@@ -16,11 +16,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.registry import MODELS
-from .common import Conv, lecun_normal_
+from .common import ComputeWeights, Conv, lecun_normal_
 
 
 @MODELS.register("lenet5")
-class LeNet5(nn.Module):
+class LeNet5(ComputeWeights, nn.Module):
     """`forward(x)` on (B, 32, 32, C) images -> (B, num_classes) f32."""
 
     def __init__(self, num_classes: int = 10,

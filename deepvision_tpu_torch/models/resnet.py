@@ -38,7 +38,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.registry import MODELS
-from .common import BatchNorm, Conv, _add_children, he_normal_fanout_
+from .common import (BatchNorm, ComputeWeights, Conv, _add_children,
+                     global_avg_pool, he_normal_fanout_)
 
 BN_EPS = 1e-5
 PAD1 = ((1, 1), (1, 1))
@@ -154,11 +155,11 @@ def _init(model: nn.Module, generator: Optional[torch.Generator]) -> None:
 def _global_pool_head(model, x: torch.Tensor) -> torch.Tensor:
     """f32 mean over H, W returned in the compute dtype (jnp.mean on bf16),
     then the f32 head."""
-    x = x.float().mean(dim=(2, 3)).to(model.dtype)
+    x = global_avg_pool(x, model.dtype)
     return F.linear(x.float(), model.head.weight, model.head.bias)
 
 
-class ResNet(nn.Module):
+class ResNet(ComputeWeights, nn.Module):
     """V1 ResNet: 7x7/2 stem -> BN -> 3x3/2 max pool -> 4 stages -> global
     average pool -> f32 Dense. `forward(x)` on (B, H, W, C) images ->
     (B, num_classes) f32 logits."""
@@ -260,7 +261,7 @@ class PreActBottleneck(nn.Module):
         return (y + residual).to(self.dtype)
 
 
-class ResNetV2(nn.Module):
+class ResNetV2(ComputeWeights, nn.Module):
     """V2 ResNet: 7x7/2 stem -> max pool -> pre-activation stages ->
     BN-ReLU -> global average pool -> f32 Dense."""
 

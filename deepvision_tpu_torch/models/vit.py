@@ -33,31 +33,9 @@ from torch import nn
 
 from ..ops.attention import attention
 from ..utils.registry import MODELS
+from .common import Dropout
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default (torch's is 1e-5)
-
-
-class Dropout(nn.Module):
-    """flax.linen.Dropout: in train mode, keep each element with
-    probability 1 - rate, scaled by 1 / (1 - rate), the mask drawn from
-    `generator`; the identity in eval mode or at rate 0."""
-
-    def __init__(self, rate: float):
-        super().__init__()
-        self.rate = rate
-
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator]) -> torch.Tensor:
-        if not self.training or self.rate == 0:
-            return x
-        if generator is None:
-            raise ValueError("train-mode dropout needs the step's generator "
-                             "(forward(x, generator=...))")
-        keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=generator,
-                          device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                       device=x.device))
 
 
 class Dense(nn.Linear):

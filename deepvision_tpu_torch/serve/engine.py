@@ -49,7 +49,10 @@ class PredictEngine:
     dispatch runs under `torch.inference_mode()`.
 
     The model must carry its compute dtype as `model.dtype` and implement
-    `cast_compute_weights_()` (models/vit.py).
+    `cast_compute_weights_()` (every classification model of the port:
+    `models/common.py::ComputeWeights`, `models/vit.py`). A model that
+    returns a tuple serves its first output, the main head, as the JAX
+    engine's `take_first_output` does.
     """
 
     def __init__(self, model: torch.nn.Module, *,
@@ -83,7 +86,7 @@ class PredictEngine:
         # weights are placed and cast to the compute dtype ONCE, here: a
         # per-request cast would read the f32 copy and write a bf16 one on
         # every dispatch, more weight traffic than the dispatch itself
-        # needs. LayerNorms and the head stay f32 (the model's policy).
+        # needs. Norms and f32 heads stay f32 (the model's policy).
         self.model = model.eval().to(self.device).cast_compute_weights_()
         self.device_name = device_name(self.device)
         self._lock = threading.Lock()
@@ -126,6 +129,8 @@ class PredictEngine:
             images = torch.from_numpy(x).to(self.device)
             out = self.model(normalize_input(images, self.input_norm,
                                              self.compute_dtype))
+            if isinstance(out, (tuple, list)):
+                out = out[0]
             return out.float().cpu().numpy()
 
     def _dispatch(self, x: np.ndarray) -> np.ndarray:

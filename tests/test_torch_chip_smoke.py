@@ -162,3 +162,96 @@ def test_vit_grad_rel_scales_each_tensor_and_the_zero_key_bias():
     assert chip_smoke.vit_grad_rel(card, cpu) == pytest.approx(1e-3, rel=1e-4)
     card["blocks.0.attn.key.bias"] = torch.tensor([0.04, 0.0])
     assert chip_smoke.vit_grad_rel(card, cpu) == pytest.approx(1e-2, rel=1e-4)
+
+
+def test_zoo_phases_drive_every_zoo_config_through_its_entry_point():
+    """Phase 9 trains each zoo config through the `MODELS` list of its
+    family's `torch/train.py`, and phase 10 serves configs it trains."""
+    import runpy
+    repo = os.path.dirname(chip_smoke.__file__)
+    for family, names in chip_smoke.ZOO_MODELS.items():
+        entry = runpy.run_path(os.path.join(repo, family, "torch",
+                                            "train.py"), run_name="zoo")
+        assert entry["MODELS"] == names, family
+    assert {n for names in chip_smoke.ZOO_MODELS.values() for n in names} \
+        == set(chip_smoke.ZOO)
+    assert all(chip_smoke.ZOO[n][0] in chip_smoke.ZOO_MODELS
+               for n in chip_smoke.ZOO)
+    assert set(chip_smoke.ZOO_SERVED) <= set(chip_smoke.ZOO)
+
+
+def test_no_dropout_sets_every_rate_to_zero():
+    from deepvision_tpu_torch.models.common import Dropout
+    from deepvision_tpu_torch.models.inception import InceptionV1
+    model = chip_smoke.no_dropout(InceptionV1(10, image_size=96))
+    rates = [m.rate for m in model.modules() if isinstance(m, Dropout)]
+    assert rates == [0.0, 0.0, 0.0]          # the head's, aux1's, aux2's
+
+
+def test_step_bound_counts_convs_and_dense_layers():
+    """A 3x3/2 conv of 3 -> 8 channels on 8x8 (4*4*8 outputs of 27
+    multiply-adds), a depthwise 3x3 (4*4*8 of 9) and a dense 128 -> 10 (10
+    of 128): 5,888 MACs, 11,776 operations an image; the step bound is 3
+    forwards at the bf16 peak unless the bytes take longer."""
+    torch = chip_smoke.torch
+    from deepvision_tpu_torch.models import common
+    from deepvision_tpu_torch.models.inception import InceptionV3
+    from deepvision_tpu_torch.tools import profile_classification as pc
+
+    class Tiny(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv = common.Conv(3, 8, 3, 2)
+            self.dw = common.Conv(8, 8, 3, groups=8)
+            self.head = common.Dense(128, 10)
+
+        def forward(self, x, generator=None):
+            x = self.dw(self.conv(x.permute(0, 3, 1, 2)))
+            return self.head(common.flatten_nhwc(x))
+
+    assert pc.forward_flops(Tiny(), torch.zeros(2, 8, 8, 3)) \
+        == 2 * 2 * 5_888
+    ms, by = pc.step_bound_ms(1e15, 0, 0)
+    assert by == "operations" and ms == pytest.approx(3e15 / 989e12 * 1e3)
+    ms, by = pc.step_bound_ms(1.0, 3.35e12, 0)
+    assert by == "bytes" and ms == pytest.approx(1e3)
+    # train mode counts the aux head too
+    v3 = InceptionV3(10, image_size=107)
+    x = torch.zeros(2, 107, 107, 3)
+    aux = v3.aux
+    with_aux = pc.forward_flops(v3, x)
+    per_aux = 2 * 2 * (128 * 768 + 768 * 128 + 768 * 10)
+    assert aux.convs[1].layers[0].kernel_size == (1, 1)
+    assert with_aux - pc.forward_flops(
+        InceptionV3(10, aux=False, image_size=107), x) == per_aux
+
+
+@pytest.mark.parametrize("name", ["inception_v1", "inception_v3",
+                                  "shufflenet_v1", "alexnet2"])
+def test_float64_copy_computes_every_layer_in_f64(name):
+    """The reference step of phase 9 and the zoo's card tests: every
+    module of the f64 copy returns f64 (LRN, BatchNorm, pools, heads), in
+    train mode with the aux heads, and its loss stays f64; the model it
+    copies keeps its f32 weights."""
+    torch = chip_smoke.torch
+    from deepvision_tpu_torch.core import losses
+    from deepvision_tpu_torch.models import alexnet, inception, shufflenet
+    model = {"inception_v1": lambda: inception.InceptionV1(
+                 10, image_size=96),
+             "inception_v3": lambda: inception.InceptionV3(
+                 10, image_size=107),
+             "shufflenet_v1": lambda: shufflenet.ShuffleNetV1(10),
+             "alexnet2": lambda: alexnet.AlexNetV2(10, image_size=67)}[name]()
+    size = {"inception_v1": 96, "inception_v3": 107, "alexnet2": 67}.get(
+        name, 32)
+    ref = chip_smoke.float64_copy(chip_smoke.no_dropout(model)).train()
+    dtypes = set()
+    for m in ref.modules():
+        m.register_forward_hook(lambda m, i, o: dtypes.update(
+            t.dtype for t in (o if isinstance(o, tuple) else (o,))))
+    out = ref(torch.zeros(2, size, size, 3, dtype=torch.float64).normal_(),
+              generator=torch.Generator().manual_seed(0))
+    assert dtypes == {torch.float64}
+    loss = losses.classification_loss(out, torch.arange(2))
+    assert loss.dtype == torch.float64
+    assert all(p.dtype == torch.float32 for p in model.parameters())

@@ -21,6 +21,25 @@ against the CPU, in f32 (cuDNN and cuBLAS with TF32 off): 1e-5 relative to
 the largest logit or gradient for the forward, 1e-4 for the gradients of a
 train step (BatchNorm in train mode over few values amplifies summation
 order), 1e-4 absolute for the augment (its means sum in another order).
+
+The zoo slice has no kernel either: for each family at a reduced size
+(10 classes; AlexNet V2 at 67 px, VGG-16, MobileNet V1 at alpha 0.25 and
+ShuffleNet V1 at 32 px, Inception V1 at 96 and V3 at 107), the f32 eval
+forward on the card against the CPU within 1e-5 of the largest logit, and
+one train step of the config's recipe (dropout rates set to 0: the
+card's masks and the CPU's come from different generators) on the card in
+f64 and in f32, each against the same step in f64 on the CPU
+(chip_smoke.py's `check_step_against_f64`): in f64 within 1e-12 (loss) and
+1e-9 of the largest gradient, the same function; in f32 within 2e-4 and
+1e-1, because at random init and 4 images train-mode BatchNorm leaves the
+first convs' and the depthwise convs' weight gradients small remainders of
+large terms, whose f32 error depends on the summation order (the CPU's
+own f32 gradients lie percent of the largest gradient from the f64 ones,
+chip_smoke.py phase 9 prints it at full size), so card and CPU cannot
+agree to 1e-4 as the ResNet's do; and `mobilenet_v1` served by the engine on
+the card at its full size, padded buckets against `reference()` within
+5e-2 of the largest logit (bf16 on both sides) and against an engine on
+the CPU on the same seeded weights within 5e-2.
 """
 
 import os
@@ -41,15 +60,22 @@ from deepvision_tpu_torch.core.train_state import TrainState
 from deepvision_tpu_torch.data import device_augment as daug
 from deepvision_tpu_torch.data.detection import synthetic_batches
 from deepvision_tpu_torch.models import build_model
+from deepvision_tpu_torch.models.alexnet import AlexNetV2
+from deepvision_tpu_torch.models.common import Dropout
+from deepvision_tpu_torch.models.inception import InceptionV1, InceptionV3
+from deepvision_tpu_torch.models.mobilenet import MobileNetV1
 from deepvision_tpu_torch.models.resnet import BottleneckBlock, ResNet
+from deepvision_tpu_torch.models.shufflenet import ShuffleNetV1
+from deepvision_tpu_torch.models.vgg import DEPTHS, VGG
 from deepvision_tpu_torch.parallel.prefetch import prefetch_to_device
+from deepvision_tpu_torch.serve.engine import PredictEngine
 from deepvision_tpu_torch.ops import attention as port
 from deepvision_tpu_torch.ops import best_iou as k2
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-from chip_smoke import (padded_gt, ragged_gt, ragged_preds,  # noqa: E402
-                        random_boxes, same)
+from chip_smoke import (check_step_against_f64, padded_gt,  # noqa: E402
+                        ragged_gt, ragged_preds, random_boxes, same)
 
 pytestmark = pytest.mark.cuda
 
@@ -469,3 +495,68 @@ def test_reduced_resnet_train_step_on_the_card_matches_the_cpu(card):
             <= 1e-4 * g.abs().max().item(), name
     for e, w in zip(ema, cpu_ema):
         assert (e - w).abs().max().item() <= 1e-5 * max(w.abs().max(), 1)
+
+
+# -- the classification zoo ---------------------------------------------------
+
+# config name -> (reduced f32 model of its family, image size)
+ZOO = {
+    "alexnet2": (lambda g: AlexNetV2(10, torch.float32, image_size=67,
+                                     generator=g), 67),
+    "vgg16": (lambda g: VGG(DEPTHS["vgg16"], 10, torch.float32,
+                            image_size=32, generator=g), 32),
+    "inception_v1": (lambda g: InceptionV1(10, dtype=torch.float32,
+                                           image_size=96, generator=g), 96),
+    "inception_v3": (lambda g: InceptionV3(10, dtype=torch.float32,
+                                           image_size=107, generator=g),
+                     107),
+    "mobilenet_v1": (lambda g: MobileNetV1(10, 0.25, torch.float32,
+                                           generator=g), 32),
+    "shufflenet_v1": (lambda g: ShuffleNetV1(10, dtype=torch.float32,
+                                             generator=g), 32),
+}
+
+
+def _zoo_model(name: str):
+    ctor, size = ZOO[name]
+    model = ctor(torch.Generator().manual_seed(0))
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+    return model, size
+
+
+@pytest.mark.parametrize("name", list(ZOO))
+def test_zoo_forward_on_the_card_matches_the_cpu(card, name):
+    model, size = _zoo_model(name)
+    model.eval()
+    x = torch.randn(4, size, size, 3,
+                    generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        want = model(x)
+        got = model.to("cuda")(x.cuda()).cpu()
+    assert got.shape == want.shape == (4, 10)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("name", list(ZOO))
+def test_zoo_train_step_on_the_card_matches_the_cpu(card, name):
+    model, size = _zoo_model(name)
+    batch = (np.random.RandomState(3).randn(4, size, size, 3)
+             .astype(np.float32), np.arange(4, dtype=np.int32))
+    check_step_against_f64(get_config(name), model, batch, name,
+                           f"4 images at {size} px")
+
+
+def test_engine_serves_mobilenet_v1_on_the_card(card):
+    engine = PredictEngine.from_config("mobilenet_v1", device="cuda",
+                                       buckets=(1, 8), verbose=False)
+    cpu = PredictEngine.from_config("mobilenet_v1", device="cpu",
+                                    buckets=(3,), verbose=False)
+    x = np.random.RandomState(4).randn(3, 224, 224, 3).astype(np.float32)
+    got, ref = engine.predict(x), engine.reference(x)
+    want = cpu.reference(x)
+    scale = np.abs(want).max()
+    assert got.shape == (3, 1000) and np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= 5e-2 * np.abs(ref).max()
+    assert np.abs(ref - want).max() <= 5e-2 * scale

@@ -1,6 +1,6 @@
 """The port stands alone: no module of deepvision_tpu_torch/ (nor its entry
-points LeNet/torch/*.py, ResNet/torch/*.py, ViT/torch/*.py,
-YOLO/torch/*.py and chip_smoke.py, which run where JAX is not installed)
+points <Family>/torch/*.py for every family in FAMILIES and chip_smoke.py,
+which run where JAX is not installed)
 imports jax, flax, optax, orbax or anything of the JAX package
 deepvision_tpu."""
 
@@ -15,7 +15,8 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "deepvision_tpu_torch")
 BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "deepvision_tpu"}
-FAMILIES = ("LeNet", "ResNet", "ViT", "YOLO")
+FAMILIES = ("AlexNet", "Inception", "LeNet", "MobileNet", "ResNet",
+            "ShuffleNet", "VGG", "ViT", "YOLO")
 ENTRY_POINTS = [os.path.join(REPO, "chip_smoke.py")] + sorted(
     path for family in FAMILIES
     for path in glob.glob(os.path.join(REPO, family, "torch", "*.py")))
@@ -64,11 +65,12 @@ print(len(names))
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.split()[-1]) >= 51
+    assert int(proc.stdout.split()[-1]) >= 57
 
 
 def test_every_family_has_its_entry_points():
     names = {os.path.relpath(p, REPO) for p in ENTRY_POINTS}
     for family in FAMILIES:
         assert os.path.join(family, "torch", "train.py") in names, family
-    assert os.path.join("ResNet", "torch", "profile_step.py") in names
+    for family in ("Inception", "MobileNet", "ResNet"):
+        assert os.path.join(family, "torch", "profile_step.py") in names

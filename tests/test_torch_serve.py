@@ -5,6 +5,12 @@ the JAX package's `_normalize_input` + `ViT.apply` answer on the same
 (bridged) weights, and the HTTP front door answers the engine's own
 reference logits. The bf16 bound against JAX, 1e-1 on logits of scale ~2,
 covers bf16 activation roundings compounding over vit_tiny's 4 blocks.
+The engine serves every classification family, not only ViT: LeNet-5 and a
+reduced ResNet-50 here (tests/test_torch_zoo_oracle.py::check_engine: its
+reference equals the model's own eval forward bit for bit, and a padded
+bucket answers within 1e-3 of the largest logit), the zoo in their own
+files, and every other classification config through `from_config` at
+its full size (a padded bucket within 2e-2 of the largest logit: bf16).
 """
 
 import json
@@ -27,6 +33,8 @@ from deepvision_tpu.core.steps import _normalize_input
 from deepvision_tpu.models.vit import ViT as JaxViT
 from deepvision_tpu_torch.configs import get_config
 from deepvision_tpu_torch.core.steps import normalize_input
+from deepvision_tpu_torch.models import build_model
+from deepvision_tpu_torch.models.resnet import BottleneckBlock, ResNet
 from deepvision_tpu_torch.models.vit import ViT
 from deepvision_tpu_torch.serve.batcher import (Draining, DynamicBatcher,
                                                  result_within)
@@ -34,6 +42,7 @@ from deepvision_tpu_torch.serve.engine import PredictEngine
 from deepvision_tpu_torch.serve.metrics import ServingMetrics
 from deepvision_tpu_torch.serve.server import InferenceServer
 from deepvision_tpu_torch.utils.flax_convert import params_to_state_dict
+from test_torch_zoo_oracle import check_engine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_BF16_BOUND = 1e-1
@@ -148,6 +157,82 @@ def test_serve_cli_smoke_on_cpu_exits_0():
     assert proc.returncode == 0, proc.stderr[-2000:]
     summary = json.loads(proc.stdout.strip().splitlines()[-1])
     assert summary["serve_smoke"] == "pass" and summary["device"] == "cpu"
+
+
+def test_engine_serves_lenet5_from_its_config():
+    """from_config("lenet5") on the CPU (it used to raise: only ViT had
+    cast_compute_weights_): f32 answers equal to the model's own eval
+    forward on the same seeded weights, padding included."""
+    engine = PredictEngine.from_config("lenet5", device="cpu",
+                                       buckets=(1, 4), verbose=False)
+    assert engine.example_shape == (32, 32, 1)
+    x = np.random.RandomState(3).rand(3, 32, 32, 1).astype(np.float32)
+    own = build_model(get_config("lenet5")).eval()
+    with torch.no_grad():
+        want = own(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(engine.reference(x), want)
+    np.testing.assert_allclose(engine.predict(x), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_engine_serves_a_reduced_resnet50(dtype):
+    """The ResNet-50 block structure at stages (1, 1, 1, 1), width 8, 32
+    px: the bf16 convs' weights cast once, the BatchNorms and the head
+    kept f32."""
+    model = ResNet((1, 1, 1, 1), BottleneckBlock, num_classes=10, width=8,
+                   dtype=dtype, generator=torch.Generator().manual_seed(0))
+    check_engine(model, 32)
+    convs = [m.weight.dtype for m in model.modules()
+             if type(m).__name__ == "Conv"]
+    assert set(convs) == {dtype}
+    assert model.head.weight.dtype == torch.float32
+    assert all(p.dtype == torch.float32 for n, p in model.named_parameters()
+               if "BatchNorm" in n)
+
+
+# every classification config whose engine no other test builds at full
+# size (the zoo's files do theirs; lenet5 and vit_tiny above)
+OTHER_CLASSIFICATION = ["lenet5_digits", "resnet34", "resnet50", "resnet101",
+                        "resnet152", "resnet50v2", "resnet50_tpu",
+                        "vit_small"]
+
+
+@pytest.mark.parametrize("name", OTHER_CLASSIFICATION)
+def test_engine_serves_every_classification_config(name):
+    """from_config on the CPU at the config's own size: one image padded
+    to the bucket of 2 answers what the exact batch of 1 answers, within
+    2e-2 of the largest logit. The CPU blocks a GEMM of 197 rows (batch 1)
+    otherwise than one of 394, so vit_small's bf16 activations round
+    otherwise over its 8 blocks: 6.6e-3 of the largest logit here."""
+    engine = PredictEngine.from_config(name, device="cpu", buckets=(2,),
+                                       verbose=False)
+    x = np.random.RandomState(6).rand(1, *engine.example_shape).astype(
+        np.float32)
+    got, want = engine.predict(x), engine.reference(x)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2e-2 * np.abs(want).max())
+
+
+def test_every_classification_config_has_a_serving_test():
+    from deepvision_tpu_torch.utils.registry import CONFIGS
+    zoo = {"alexnet1", "alexnet2", "vgg16", "vgg19", "inception_v1",
+           "inception_v3", "mobilenet_v1", "shufflenet_v1"}
+    covered = zoo | {"lenet5", "vit_tiny"} | set(OTHER_CLASSIFICATION)
+    assert covered == {name for name in CONFIGS._entries
+                       if get_config(name).family == "classification"}
+
+
+def test_serve_cli_smoke_serves_lenet5_on_cpu():
+    proc = subprocess.run(
+        [sys.executable, "-m", "deepvision_tpu_torch.serve", "-m", "lenet5",
+         "--smoke", "--device", "cpu", "--duration", "1"],
+        cwd=REPO, capture_output=True, text=True, timeout=240,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert summary["serve_smoke"] == "pass" and summary["model"] == "lenet5"
 
 
 def test_engine_without_a_device_raises_when_there_is_no_card():

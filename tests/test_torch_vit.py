@@ -114,7 +114,10 @@ NOT_CARRIED = {
 @pytest.mark.parametrize("name", ["vit_tiny", "vit_small", "lenet5",
                                   "lenet5_digits", "resnet34", "resnet50",
                                   "resnet101", "resnet152", "resnet50v2",
-                                  "resnet50_tpu"])
+                                  "resnet50_tpu", "alexnet1", "alexnet2",
+                                  "vgg16", "vgg19", "inception_v1",
+                                  "inception_v3", "mobilenet_v1",
+                                  "shufflenet_v1"])
 def test_configs_equal_the_jax_package(name):
     """Every field the port's dataclasses carry equals the JAX config's —
     the optimizer, schedule and data configs field by field — and the JAX
