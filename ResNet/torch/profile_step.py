@@ -21,7 +21,9 @@ the card. Prints:
   optimizer, the EMA, the augment — the device's busy and idle share, and
   the top kernels.
 Exits non-zero without a card or when the trace holds no device time or no
-convolution.
+convolution. Under `torchrun --standalone --nproc_per_node=1` it profiles
+the step under DDP at world 1 (the global-batch BatchNorm's all-reduces
+and DDP's, the `nccl` family).
 """
 import argparse
 import os
@@ -39,8 +41,9 @@ from deepvision_tpu_torch.core.config import decode_image_size  # noqa: E402
 from deepvision_tpu_torch.core.trainer import Trainer  # noqa: E402
 from deepvision_tpu_torch.data.synthetic import \
     SyntheticClassification  # noqa: E402
+from deepvision_tpu_torch.parallel import mesh  # noqa: E402
 from deepvision_tpu_torch.tools.step_profile import (  # noqa: E402
-    print_report, profile_steps)
+    print_report, profile_steps, run_tag)
 from deepvision_tpu_torch.utils.timing import loop_ms  # noqa: E402
 
 MODEL = "resnet50_tpu"
@@ -58,9 +61,11 @@ def main() -> int:
     cfg = get_config(MODEL).replace(batch_size=args.batch_size,
                                     device_augment=True)
     workdir = tempfile.mkdtemp(prefix="profile_step_")
+    mesh.maybe_init_distributed()      # under torchrun: one rank's step
     try:
         return profile(cfg, args, workdir)
     finally:
+        mesh.destroy()
         shutil.rmtree(workdir, ignore_errors=True)
 
 
@@ -104,7 +109,8 @@ def profile(cfg, args, workdir: str) -> int:
                       warmup=args.warmup)
     peak = torch.cuda.max_memory_allocated()
     print(f"{MODEL} train step, batch {args.batch_size}, "
-          f"{torch.cuda.get_device_name(0)}: step_ms {step_ms:.3f} "
+          f"{torch.cuda.get_device_name(0)}{run_tag()}: step_ms "
+          f"{step_ms:.3f} "
           f"(CUDA events, {args.steps} steps after {args.warmup} warm-up), "
           f"images/s {args.batch_size / step_ms * 1e3:.1f}, peak memory "
           f"allocated {peak / 2**30:.3f} GiB", flush=True)
@@ -116,7 +122,7 @@ def profile(cfg, args, workdir: str) -> int:
               f"convolution: {stats['family_ms']}", file=sys.stderr)
         return 1
     print_report(f"{MODEL} train step, batch {args.batch_size}, "
-                 f"{torch.cuda.get_device_name(0)}", stats)
+                 f"{torch.cuda.get_device_name(0)}{run_tag()}", stats)
     return 0
 
 

@@ -10,7 +10,9 @@ family (deepvision_tpu_torch/tools/step_profile.py: convolution and GEMM,
 BatchNorm, elementwise, reductions, the optimizer, best_iou, copies,
 other), the device's busy and idle share of the wall time, and the 15
 kernels with the most device time. Exits non-zero without a card or when
-the trace holds no device time.
+the trace holds no device time. Under `torchrun --standalone
+--nproc_per_node=1` it profiles the step under DDP at world 1 (the
+global-batch BatchNorm's all-reduces and DDP's, the `nccl` family).
 """
 import argparse
 import dataclasses
@@ -26,8 +28,9 @@ import torch  # noqa: E402
 from deepvision_tpu_torch.configs import get_config  # noqa: E402
 from deepvision_tpu_torch.core.detection import DetectionTrainer  # noqa: E402
 from deepvision_tpu_torch.data.detection import synthetic_batches  # noqa: E402
+from deepvision_tpu_torch.parallel import mesh  # noqa: E402
 from deepvision_tpu_torch.tools.step_profile import (  # noqa: E402
-    print_report, profile_steps)
+    print_report, profile_steps, run_tag)
 
 
 def main() -> int:
@@ -44,9 +47,11 @@ def main() -> int:
     cfg = cfg.replace(batch_size=args.batch_size, data=dataclasses.replace(
         cfg.data, image_size=args.image_size, dataset="synthetic"))
     workdir = tempfile.mkdtemp(prefix="profile_step_")
+    mesh.maybe_init_distributed()      # under torchrun: one rank's step
     try:
         return profile(cfg, args, workdir)
     finally:
+        mesh.destroy()
         shutil.rmtree(workdir, ignore_errors=True)
 
 
@@ -63,8 +68,8 @@ def profile(cfg, args, workdir: str) -> int:
         print("profile_step: the trace holds no device time", file=sys.stderr)
         return 1
     print_report(f"yolov3 train step, batch {args.batch_size}, "
-                 f"{args.image_size} px, {torch.cuda.get_device_name(0)}",
-                 stats)
+                 f"{args.image_size} px, {torch.cuda.get_device_name(0)}"
+                 f"{run_tag()}", stats)
     return 0
 
 

@@ -89,7 +89,23 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    seeded weights, `measure_batch_ms` per bucket, and the device ms of a
    bucket-32 dispatch by kernel family from the same profiler split as
    phase 4. No kernel is on the paths of phases 9-10: the K1 and K2 launch
-   counts, zeroed before them, stay 0.
+   counts, zeroed before them, stay 0;
+11. slice 8: data parallelism over torch.distributed. 11a: the yolov3 and
+   resnet50_tpu entry points (`YOLO/torch/train.py`,
+   `ResNet/torch/train.py`) with phases 5 and 8's batch, steps and cuts,
+   under a torchrun launch of one process (NCCL): finite losses, the
+   best-IoU launch count (at least one per step and eval batch) and
+   `step_ms` beside phases 5 and 8's — the cost of the DDP wrap and the
+   BatchNorm all-reduces at world 1. 11b: two ranks on the one card over
+   gloo (NCCL refuses two ranks on one GPU), each the only process of its
+   "host", so both drive card 0 — not a scaling number: yolov3 at 416 px
+   (global batch 16, 2 steps, 2 eval batches; each rank's best-IoU count,
+   at least 4) and resnet50_tpu at 224 px with the device augment and EMA
+   (global batch 64, 2 steps), each through its family's entry point with
+   one checkpoint from rank 0; then one f64 resnet50_tpu step at global
+   batch 4 against the one-process step on the same images on the card,
+   loss, gradients, weights and BatchNorm statistics within the DDP_F64_*
+   bounds. A worker's failure fails the phase.
 
 The line before the last is a JSON object with one record per kernel; the
 last is `{"ok": true, "device": {...}}`.
@@ -100,6 +116,7 @@ from __future__ import annotations
 import copy
 import functools
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -133,9 +150,11 @@ from deepvision_tpu_torch.ops.attention import (flash_attention,
                                                 flash_attention_reference,
                                                 naive_attention)
 from deepvision_tpu_torch.ops.best_iou import best_iou, best_iou_reference
+from deepvision_tpu_torch.parallel import mesh
 from deepvision_tpu_torch.serve.cli import _smoke, build_parser, build_server
 from deepvision_tpu_torch.serve.engine import PredictEngine
 from deepvision_tpu_torch.serve.server import InferenceServer
+from deepvision_tpu_torch.utils.device import resolve_device
 from deepvision_tpu_torch.tools.build_report import (count_opcodes,
                                                      demangle, loop_report,
                                                      ptxas_by_function,
@@ -637,12 +656,14 @@ def float64_copy(model):
     return m
 
 
-def train_step_grads(cfg, model, batch, device,
-                     dtype: torch.dtype = torch.float32) -> tuple:
-    """Loss and gradients of one train step of `cfg` (its optimizer, label
-    smoothing and aux weight; f32 compute, or f64 for a reference) through
-    a copy of `model` on `device`; the gradients as the step leaves them
-    (clipped, where the optimizer clips)."""
+def train_step_state(cfg, model, batch, device,
+                     dtype: torch.dtype = torch.float32) -> dict:
+    """One train step of `cfg` (its optimizer, label smoothing and aux
+    weight; f32 compute, or f64 for a reference; augment off) through a
+    copy of `model` on `device`, on this process's `batch`: its `loss` (of
+    the global batch under a process group), `grads` as the step leaves
+    them (clipped, where the optimizer clips; averaged over the ranks
+    under a group) and the model's `state` after it."""
     m = (float64_copy(model) if dtype == torch.float64
          else copy.deepcopy(model)).to(device)
     state = TrainState(m, build_optimizer(m.parameters(), cfg.optimizer,
@@ -650,9 +671,18 @@ def train_step_grads(cfg, model, batch, device,
     step = make_classification_train_step(
         label_smoothing=cfg.label_smoothing, aux_weight=cfg.aux_loss_weight,
         compute_dtype=dtype)
-    loss = step(state, *(torch.from_numpy(a).to(device) for a in batch))
-    return (float(loss["loss"]),
-            {n: p.grad.cpu() for n, p in m.named_parameters()})
+    metrics = step(state, *(torch.from_numpy(np.ascontiguousarray(a))
+                            .to(device) for a in batch))
+    return {"loss": float(metrics["loss"]),
+            "grads": {n: p.grad.cpu() for n, p in m.named_parameters()},
+            "state": {k: v.cpu() for k, v in m.state_dict().items()}}
+
+
+def train_step_grads(cfg, model, batch, device,
+                     dtype: torch.dtype = torch.float32) -> tuple:
+    """(loss, gradients) of `train_step_state`."""
+    out = train_step_state(cfg, model, batch, device, dtype)
+    return out["loss"], out["grads"]
 
 
 def vit_grad_rel(card: dict, cpu: dict) -> float:
@@ -1128,6 +1158,340 @@ def post(url: str, x: np.ndarray) -> np.ndarray:
         return np.asarray(json.loads(resp.read())["predictions"], np.float32)
 
 
+# -- phase 11: data parallelism over torch.distributed -----------------------
+
+# phase 11a: the normal entry points under a torchrun launch of one process
+# (NCCL), at phases 5 and 8's batch, steps and cuts
+DDP_YOLO_ARGS = ["-m", YOLO_MODEL, "--synthetic", "--image-size", "416",
+                 "--batch-size", str(YOLO_BATCH), "--steps-per-epoch",
+                 str(YOLO_STEPS), "--epochs", "1", "--device", "cuda"]
+DDP_RESNET_ARGS = ["-m", RESNET_MODEL, "--synthetic", "--device-augment",
+                   "--batch-size", str(RESNET_BATCH), "--steps-per-epoch",
+                   str(RESNET_STEPS), "--epochs", "1", "--device", "cuda"]
+# phase 11b: two ranks on the one card over gloo (NCCL refuses two ranks on
+# one GPU), each launched as the only process of its host, so each drives
+# card 0; global batches, each rank taking half
+DDP_RANKS = 2
+DDP2_YOLO_BATCH, DDP2_YOLO_STEPS = 16, 2
+DDP2_RESNET_BATCH, DDP2_RESNET_STEPS = 64, 2
+DDP2_YOLO_ARGS = ["-m", YOLO_MODEL, "--synthetic", "--image-size", "416",
+                  "--batch-size", str(DDP2_YOLO_BATCH), "--steps-per-epoch",
+                  str(DDP2_YOLO_STEPS), "--epochs", "1", "--device", "cuda"]
+DDP2_RESNET_ARGS = ["-m", RESNET_MODEL, "--synthetic", "--device-augment",
+                    "--batch-size", str(DDP2_RESNET_BATCH),
+                    "--steps-per-epoch", str(DDP2_RESNET_STEPS), "--epochs",
+                    "1", "--device", "cuda"]
+# one f64 resnet50_tpu step (augment and dropout off) at global batch 4, 2
+# rows a rank, against the one-process f64 step on the same 4 images on
+# the card. Both compute one function: the two-rank step differs in the
+# order of sums only (the global BatchNorm statistics from all-reduced
+# per-rank sums, the gradients averaged over the ranks). Bounds: the
+# loss relative; the gradients over the model's largest gradient (PR 7's
+# f64 card-vs-CPU bound); the updated weights over the step's largest
+# update; the BatchNorm running statistics over their largest value
+DDP_F64_BATCH = 4
+DDP_F64_LOSS_RTOL = 1e-12
+DDP_F64_GRAD_RTOL = 1e-9
+DDP_F64_WEIGHT_RTOL = 1e-9
+DDP_F64_STAT_RTOL = 1e-12
+DDP_WORKER_TIMEOUT = 420
+
+
+def family_main(family: str, argv: list):
+    """The family entry point `<family>/torch/train.py` as its `__main__`
+    runs it, with `argv`: returns the (closed) trainer and fit's result."""
+    import importlib.util
+    path = f"{family}/torch/train.py"
+    spec = importlib.util.spec_from_file_location(f"{family}_torch_train",
+                                                  path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    run = run_detection if family == "YOLO" else run_classification
+    return run(family, script.MODELS, argv)
+
+
+def f64_step_errors(one: dict, ranks: list, before: dict) -> dict:
+    """The largest errors of the ranks' steps against the one-process
+    step `one` (each from `train_step_state`): loss relative, gradients
+    over the largest gradient, updated weights over the largest update from
+    `before` (the weights before the step), BatchNorm running statistics
+    over their largest value (0 without BatchNorm); `counters` is whether
+    every rank counted the same BatchNorm updates."""
+    top_grad = max(g.abs().max().item() for g in one["grads"].values())
+    params = one["grads"].keys()
+    top_update = max((one["state"][n] - before[n].double()).abs().max()
+                     .item() for n in params)
+    stats = [k for k, v in one["state"].items()
+             if k not in params and v.is_floating_point()]
+    top_stat = max((one["state"][k].abs().max().item() for k in stats),
+                   default=1.0)
+    err = {"loss": 0.0, "grad": 0.0, "weight": 0.0, "stat": 0.0,
+           "counters": True}
+    for r in ranks:
+        err["loss"] = max(err["loss"], abs(r["loss"] - one["loss"])
+                          / abs(one["loss"]))
+        err["grad"] = max(err["grad"], max(
+            (r["grads"][n] - g).abs().max().item()
+            for n, g in one["grads"].items()) / top_grad)
+        err["weight"] = max(err["weight"], max(
+            (r["state"][n] - one["state"][n]).abs().max().item()
+            for n in params) / top_update)
+        err["stat"] = max(err["stat"], max(
+            ((r["state"][k] - one["state"][k]).abs().max().item()
+             for k in stats), default=0.0) / top_stat)
+        err["counters"] &= all(
+            torch.equal(r["state"][k], v) for k, v in one["state"].items()
+            if not v.is_floating_point())
+    return err
+
+
+def check_f64_step_errors(err: dict) -> None:
+    if not (err["loss"] <= DDP_F64_LOSS_RTOL
+            and err["grad"] <= DDP_F64_GRAD_RTOL
+            and err["weight"] <= DDP_F64_WEIGHT_RTOL
+            and err["stat"] <= DDP_F64_STAT_RTOL and err["counters"]):
+        raise AssertionError(f"the two-rank f64 step is off the one-process "
+                             f"step: {err}")
+
+
+def ddp_worker(spec_path: str) -> int:
+    """One rank of phase 11 (`chip_smoke.py --ddp-worker spec.json`): bring
+    the process group up from the launcher's environment, call each
+    family entry point with its argv, then (if asked) the f64 step on this
+    rank's rows; write what it saw to `<out>/rank<r>.json` (and `.pt`)."""
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    mesh.maybe_init_distributed(spec["backend"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = mesh.rank()
+    out = {"rank": rank, "world": mesh.world_size(),
+           "backend": torch.distributed.get_backend(),
+           "device": str(resolve_device("cuda")),
+           "device_count": torch.cuda.device_count(), "runs": []}
+    for family, argv in spec["runs"]:
+        torch.cuda.reset_peak_memory_stats()
+        best_iou.launches = flash_attention.launches = 0
+        t0 = time.perf_counter()
+        trainer, result = family_main(family, argv)
+        wall = time.perf_counter() - t0
+        out["runs"].append({
+            "family": family, "argv": argv, "wall_s": wall,
+            "steps": trainer.last_epoch_steps, "result": result,
+            "best_iou_launches": best_iou.launches,
+            "flash_attention_launches": flash_attention.launches,
+            "batch_per_rank": trainer.config.batch_size // mesh.world_size(),
+            "peak_bytes": torch.cuda.max_memory_allocated()})
+    if spec.get("f64"):
+        cfg = get_config(RESNET_MODEL)
+        model = build_model(cfg.replace(dtype="float32"))
+        batch = next(iter(SyntheticClassification(
+            DDP_F64_BATCH, cfg.data.image_size, 3, 1000, 1, seed=7)))
+        rows = [mesh.shard_rows(a, rank, mesh.world_size()) for a in batch]
+        torch.save(train_step_state(cfg, model, rows, resolve_device("cuda"),
+                                    torch.float64),
+                   f"{spec['out']}/rank{rank}.pt")
+    with open(f"{spec['out']}/rank{rank}.json", "w") as fh:
+        json.dump(out, fh)
+    mesh.destroy()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_workers(commands: list, envs: list, logs: list,
+                timeout: float = DDP_WORKER_TIMEOUT) -> None:
+    """Start every command at once (each with its environment, its output
+    to its log) and wait for all; fails, with each failing log's tail,
+    if any exits non-zero or outlives `timeout` (then all are killed)."""
+    procs = []
+    for cmd, env, log in zip(commands, envs, logs):
+        with open(log, "w") as fh:
+            procs.append(subprocess.Popen(cmd, env=env, stdout=fh,
+                                          stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        codes = [p.wait(timeout=max(1.0, deadline - time.monotonic()))
+                 for p in procs]
+    except subprocess.TimeoutExpired:
+        codes = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if codes is None or any(codes):
+        tails = []
+        for log in logs:
+            with open(log) as fh:
+                tails.append(f"--- {log}:\n" + fh.read()[-3000:])
+        raise AssertionError(f"a worker failed (exit codes {codes}):\n"
+                             + "\n".join(tails))
+
+
+def ddp_phase(tag: str, spec: dict, commands: list, envs: list) -> list:
+    """Run one phase's workers on `spec`; the ranks' records, by rank."""
+    spec_path = f"{spec['out']}/spec.json"
+    with open(spec_path, "w") as fh:
+        json.dump(spec, fh)
+    logs = [f"{spec['out']}/worker{i}.log" for i in range(len(commands))]
+    t0 = time.perf_counter()
+    run_workers([c + ["--ddp-worker", spec_path] for c in commands], envs,
+                logs)
+    phase(f"{tag}: workers done in {time.perf_counter() - t0:.1f}s")
+    ranks = []
+    for r in range(len(commands)):
+        with open(f"{spec['out']}/rank{r}.json") as fh:
+            ranks.append(json.load(fh))
+    return ranks
+
+
+def check_ddp_run(tag: str, rec: dict, rank: dict, n_steps: int,
+                  eval_batches: int, global_batch: int) -> float:
+    """One entry-point run of a rank: finite losses, the validation over
+    the global batches, K2 on YOLO's path. Returns its `step_ms`."""
+    steps, result = rec["steps"], rec["result"]
+    name = rec["argv"][1]
+    step_ms = statistics.median(s["step_ms"] for s in steps[1:])
+    losses = [round(s["loss"], 4) for s in steps]
+    phase(f"{tag} rank {rank['rank']}/{rank['world']} ({rank['backend']}, "
+          f"{rank['device']}): {name} batch {global_batch} "
+          f"({rec['batch_per_rank']} a rank) losses={losses} val="
+          + " ".join(f"{k}={v:.4f}" for k, v in result.items()
+                     if isinstance(v, float))
+          + f" step_ms={step_ms:.3f} (median after the first; first "
+          f"{steps[0]['step_ms']:.3f}) best_iou launches="
+          f"{rec['best_iou_launches']} peak_memory_allocated="
+          f"{rec['peak_bytes'] / 2**30:.3f} GiB; entry point "
+          f"{rec['wall_s']:.1f}s")
+    if len(steps) != n_steps or not all(
+            np.isfinite(v) for s in steps for v in s.values()):
+        raise AssertionError(f"{tag} {name}: steps not all finite: {steps}")
+    if not np.isfinite(result.get("loss", np.nan)):
+        raise AssertionError(f"{tag} {name}: validation {result}")
+    if name == YOLO_MODEL:
+        if result.get("count") != eval_batches \
+                or rec["best_iou_launches"] < n_steps + eval_batches:
+            raise AssertionError(
+                f"{tag} {name}: best_iou ran {rec['best_iou_launches']} "
+                f"times for {n_steps} steps and {eval_batches} eval batches "
+                f"(validation {result})")
+    elif result.get("count") != eval_batches * global_batch:
+        raise AssertionError(f"{tag} {name}: validation {result}")
+    return step_ms
+
+
+def ddp_plans(root: str, port: int) -> dict:
+    """What phase 11 launches, by sub-phase: the spec each worker reads,
+    the command of each rank (without the worker's own arguments) and its
+    environment (None: this process's). 11a is one process under
+    torchrun; 11b two ranks as two one-process hosts (RANK, WORLD_SIZE,
+    LOCAL_RANK 0) meeting at 127.0.0.1:`port`, both on card 0."""
+    here = os.path.abspath(__file__)
+    two = f"{root}/two"
+    return {
+        "11a": ({"out": root, "backend": "nccl", "runs": [
+                    ["YOLO", DDP_YOLO_ARGS + ["--workdir", f"{root}/yolo"]],
+                    ["ResNet", DDP_RESNET_ARGS + ["--workdir",
+                                                  f"{root}/resnet"]]]},
+                [[sys.executable, "-m", "torch.distributed.run",
+                  "--standalone", "--nproc_per_node=1", here]], [None]),
+        "11b": ({"out": two, "backend": "gloo", "f64": True, "runs": [
+                    ["YOLO", DDP2_YOLO_ARGS + ["--workdir", f"{two}/yolo"]],
+                    ["ResNet", DDP2_RESNET_ARGS + ["--workdir",
+                                                   f"{two}/resnet"]]]},
+                [[sys.executable, here]] * DDP_RANKS,
+                [dict(os.environ, RANK=str(r), WORLD_SIZE=str(DDP_RANKS),
+                      LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+                 for r in range(DDP_RANKS)])}
+
+
+def check_data_parallel(smi: str, yolo: dict, resnet: dict) -> dict:
+    """Phase 11: 11a, the yolov3 and resnet50_tpu entry points under a
+    torchrun launch of one process (NCCL), beside phases 5 and 8; 11b,
+    two ranks on the one card over gloo: yolov3 (K2 on every rank),
+    resnet50_tpu with the device augment and EMA, and the f64 step
+    against the one-process step."""
+    out = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    try:
+        plans = ddp_plans(root, free_port())
+        (rank,) = ddp_phase("phase 11a", *plans["11a"])
+        phase(f"phase 11a: world={rank['world']} backend={rank['backend']} "
+              f"device_count={rank['device_count']} card: {smi}")
+        ms = [check_ddp_run("phase 11a", rec, rank, n, eval_batches, batch)
+              for rec, n, eval_batches, batch in zip(
+                  rank["runs"], (YOLO_STEPS, RESNET_STEPS),
+                  (YOLO_EVAL_BATCHES, RESNET_EVAL_BATCHES),
+                  (YOLO_BATCH, RESNET_BATCH))]
+        phase(f"phase 11a: step_ms under DDP at world 1 ({rank['backend']}) "
+              f"against the one-process step of phases 5 and 8 in this "
+              f"run: yolov3 "
+              f"{ms[0]:.3f} vs {yolo['step_ms']:.3f} "
+              f"({ms[0] / yolo['step_ms']:.3f}x), resnet50_tpu {ms[1]:.3f} "
+              f"vs {resnet['step_ms']:.3f} ({ms[1] / resnet['step_ms']:.3f}x)")
+        out["11a"] = {"world": rank["world"], "backend": rank["backend"],
+                      "yolo_step_ms": ms[0], "resnet_step_ms": ms[1],
+                      "yolo_launches": rank["runs"][0]["best_iou_launches"],
+                      "one_process_step_ms": [yolo["step_ms"],
+                                              resnet["step_ms"]]}
+
+        root2 = plans["11b"][0]["out"]
+        os.makedirs(root2)
+        ranks = ddp_phase("phase 11b", *plans["11b"])
+        phase(f"phase 11b: world={ranks[0]['world']} backend="
+              f"{ranks[0]['backend']} device_count="
+              f"{ranks[0]['device_count']} (both ranks on "
+              f"{ranks[0]['device']}: not a scaling number) card: {smi}")
+        launches, ms2 = [], []
+        for rank in ranks:
+            ms2.append([check_ddp_run("phase 11b", rec, rank, n, 2, batch)
+                        for rec, n, batch in zip(
+                            rank["runs"],
+                            (DDP2_YOLO_STEPS, DDP2_RESNET_STEPS),
+                            (DDP2_YOLO_BATCH, DDP2_RESNET_BATCH))])
+            launches.append(rank["runs"][0]["best_iou_launches"])
+        for name in ("yolo", "resnet"):
+            if not os.path.exists(f"{root2}/{name}/ckpt/1.pt"):
+                raise AssertionError(f"phase 11b: {name} saved no checkpoint")
+
+        cfg = get_config(RESNET_MODEL)
+        model = build_model(cfg.replace(dtype="float32"))
+        batch = next(iter(SyntheticClassification(
+            DDP_F64_BATCH, cfg.data.image_size, 3, 1000, 1, seed=7)))
+        one = train_step_state(cfg, model, batch, resolve_device("cuda"),
+                               torch.float64)
+        two = [torch.load(f"{root2}/rank{r}.pt", weights_only=True)
+               for r in range(DDP_RANKS)]
+        before = {n: p.detach() for n, p in model.named_parameters()}
+        err = f64_step_errors(one, two, before)
+        phase(f"phase 11b: {RESNET_MODEL} one f64 step at global batch "
+              f"{DDP_F64_BATCH} ({DDP_F64_BATCH // DDP_RANKS} a rank, "
+              f"{cfg.data.image_size} "
+              f"px, augment off) against the one-process step on the same "
+              f"images on the card (loss {one['loss']:.9f}): loss "
+              f"{err['loss']:.3g} relative (bound {DDP_F64_LOSS_RTOL:g}), "
+              f"gradients {err['grad']:.3g} of the largest (bound "
+              f"{DDP_F64_GRAD_RTOL:g}), weights {err['weight']:.3g} of the "
+              f"largest update (bound {DDP_F64_WEIGHT_RTOL:g}), BatchNorm "
+              f"statistics {err['stat']:.3g} of the largest (bound "
+              f"{DDP_F64_STAT_RTOL:g}), counters equal={err['counters']}")
+        check_f64_step_errors(err)
+        out["11b"] = {"world": ranks[0]["world"],
+                      "backend": ranks[0]["backend"],
+                      "yolo_launches": launches, "step_ms": ms2,
+                      "f64": err}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1293,7 +1657,7 @@ def main() -> int:
     # 7-8. slice 6: lenet5 and resnet50_tpu training (no kernel on these
     # paths: every launch count below stays as phases 4-6 left it)
     check_lenet_training()
-    check_resnet_training(gen)
+    resnet = check_resnet_training(gen)
 
     # 9-10. slice 7: the classification zoo trained and served (no kernel
     # on these paths: the launch counts, zeroed here, must stay 0)
@@ -1306,6 +1670,11 @@ def main() -> int:
     if zoo_launches != (0, 0):
         raise AssertionError(f"a kernel ran on the zoo's paths: "
                              f"{zoo_launches}")
+
+    # 11. slice 8: data parallelism (the launch counts are each rank's,
+    # zeroed in the rank before each entry point)
+    torch.cuda.empty_cache()        # the workers share the card
+    ddp = check_data_parallel(smi, yolo, resnet)
 
     timed_keys = ("shape", "layout", "ms", "device_ms", "plain_ms",
                   "library_ms", "library_device_ms", "bound_ms")
@@ -1333,6 +1702,9 @@ def main() -> int:
         "source": "deepvision_tpu_torch/csrc/best_iou.cu",
         "replaces": "deepvision_tpu/ops/pallas_kernels.py:33",
         "launches": yolo["launches"], "max_abs_err": iou_err,
+        "ddp_launches": {"world 1, NCCL": ddp["11a"]["yolo_launches"],
+                         "world 2, gloo, per rank": ddp["11b"][
+                             "yolo_launches"]},
         "ms": iou_fused["ms"], "device_ms": iou_fused["device_ms"],
         "plain_ms": iou_fused["plain_ms"], "bound_ms": iou_fused["bound_ms"],
         "bound_by": iou_fused["bound_by"], "library_ms": None,
@@ -1349,4 +1721,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ddp_worker(sys.argv[2]) if sys.argv[1:2] == ["--ddp-worker"]
+             else main())

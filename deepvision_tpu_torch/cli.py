@@ -12,6 +12,13 @@ YOLO V3. The flags are the JAX CLI's (`-m`, `-c`, `--data-dir`,
 `--learning-rate`, `--accum-steps`, `--no-decay-bn-bias`, `--ema-decay`,
 `--device-augment`, `--prefetch-batches`, `--steps-per-epoch`, `--seed`,
 `--workdir`), plus `--device` and `--image-size`.
+
+Data parallelism needs no flag, as in the JAX CLI: under
+`torchrun --standalone --nproc_per_node=N ResNet/torch/train.py ...` each
+process is one rank (NCCL on the cards, gloo with `--device cpu`),
+`--batch-size` is the global batch and each rank's pipeline makes its own
+`batch-size // N` rows of every training batch; the validation batches
+are global and the trainer splits them. Only rank 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 from .configs import get_config
 from .core.config import TrainConfig
+from .parallel import mesh
 from .utils.device import resolve_device
 
 SYNTH_STEPS_DEFAULT = 8
@@ -137,24 +145,28 @@ def _config_from_args(args, synthetic_image_size: Optional[int]
 
 def _synthetic_data(cfg: TrainConfig, make_batches: Callable) -> Tuple:
     """Train and val epoch factories over `make_batches(batch_size, steps,
-    seed)`: the train epoch draws from seed `epoch`, the val set is 2
-    batches from seed 10**6, as in the JAX package."""
+    seed, rank)`: the train epoch draws from seed `epoch`, each rank its
+    own rows; the val set is 2 global batches from seed 10**6, as in the
+    JAX package."""
     n_batches = max(1, cfg.data.train_examples // cfg.batch_size)
     eval_batch = cfg.eval_batch_size or cfg.batch_size
-    return (lambda epoch: make_batches(cfg.batch_size, n_batches, epoch),
-            lambda epoch: make_batches(eval_batch, 2, 10**6))
+    per_rank, rank = cfg.batch_size // mesh.world_size(), mesh.rank()
+    return (lambda epoch: make_batches(per_rank, n_batches, epoch, rank),
+            lambda epoch: make_batches(eval_batch, 2, 10**6, 0))
 
 
 def _array_pair_fns(cfg: TrainConfig, train_xy, test_xy) -> Tuple:
     """Train and val epoch factories over in-memory (images, labels)
     arrays, the shape of the mnist and digits pipelines: the train epoch
-    shuffled from seed `epoch` with the last partial batch dropped, the
-    val set in order with it kept."""
+    shuffled from seed `epoch` with the last partial batch dropped, each
+    rank taking its rows of every batch; the val set in order with it
+    kept, as global batches."""
     from .data.mnist import MnistBatches
 
     def train_fn(epoch):
         return MnistBatches(*train_xy, cfg.batch_size, shuffle=True,
-                            seed=epoch)
+                            seed=epoch, rank=mesh.rank(),
+                            world=mesh.world_size())
 
     def val_fn(epoch):
         return MnistBatches(*test_xy, cfg.eval_batch_size or cfg.batch_size,
@@ -183,11 +195,12 @@ def _classification_data(cfg: TrainConfig, args) -> Tuple:
         # contract of the decode-only loaders
         size = (decode_image_size(data.image_size) if cfg.device_augment
                 else data.image_size)
-        return _synthetic_data(cfg, lambda batch, steps, seed:
+        return _synthetic_data(cfg, lambda batch, steps, seed, rank:
                                SyntheticClassification(
                                    batch, size, data.channels,
                                    data.num_classes, steps, seed=seed,
-                                   emit_uint8=cfg.device_augment))
+                                   emit_uint8=cfg.device_augment,
+                                   rank=rank))
     if data.dataset == "mnist":
         from .data.mnist import load_split
         data_dir = args.data_dir or data.data_dir or "dataset/mnist"
@@ -208,12 +221,12 @@ def _detection_data(cfg: TrainConfig, args) -> Tuple:
     from .data import detection as det
     data = cfg.data
     if args.synthetic or data.dataset == "synthetic":
-        return _synthetic_data(cfg, lambda batch, steps, seed:
+        return _synthetic_data(cfg, lambda batch, steps, seed, rank:
                                det.synthetic_batches(
                                    batch_size=batch,
                                    image_size=data.image_size,
                                    num_classes=data.num_classes, steps=steps,
-                                   seed=seed))
+                                   seed=seed, rank=rank))
     if data.dataset in ("detection", "digits_detect"):
         raise NotImplementedError(
             f"dataset {data.dataset!r} is not ported yet (the TFRecord "
@@ -226,22 +239,30 @@ def _detection_data(cfg: TrainConfig, args) -> Tuple:
 def _run(family: str, models: Sequence[str], trainer_factory: Callable,
          make_data: Callable, argv: Optional[Sequence[str]] = None,
          synthetic_image_size: Optional[int] = None):
-    """Parse → device → config overrides → trainer → data → fit. Returns
-    the (closed) trainer and fit's result, so a caller can read the trained
-    state."""
+    """Parse → process group (a torchrun launch) → device → config
+    overrides → trainer → data → fit. Returns the (closed) trainer and
+    fit's result, so a caller can read the trained state. A process group
+    this call brought up is destroyed at its end; one that was up before
+    is adopted and left up."""
     args = build_parser(family, models).parse_args(argv)
-    device = resolve_device(args.device)
-    cfg = _config_from_args(args, synthetic_image_size)
-    workdir = args.workdir or os.path.join("runs", cfg.name)
-    trainer = trainer_factory(cfg, workdir, device)
-    train_fn, val_fn = make_data(cfg, args)
-    trainer.init_state()
-    if args.checkpoint:
-        trainer.resume(None if args.checkpoint == "latest"
-                       else int(args.checkpoint))
-    from .core.trainer import fit_and_close
-    result = fit_and_close(trainer, train_fn, val_fn)
-    print(f"done: best={result.get('best_metric')}", flush=True)
+    owned = not mesh.is_initialized() and mesh.maybe_init_distributed(
+        "gloo" if args.device == "cpu" else None)
+    try:
+        device = resolve_device(args.device)
+        cfg = _config_from_args(args, synthetic_image_size)
+        workdir = args.workdir or os.path.join("runs", cfg.name)
+        trainer = trainer_factory(cfg, workdir, device)
+        train_fn, val_fn = make_data(cfg, args)
+        trainer.init_state()
+        if args.checkpoint:
+            trainer.resume(None if args.checkpoint == "latest"
+                           else int(args.checkpoint))
+        from .core.trainer import fit_and_close, say
+        result = fit_and_close(trainer, train_fn, val_fn)
+        say(f"done: best={result.get('best_metric')}")
+    finally:
+        if owned:
+            mesh.destroy()
     return trainer, result
 
 

@@ -5,8 +5,10 @@ One file per epoch, `<directory>/<epoch>.pt`, written by `torch.save` to a
 private temporary file and renamed into place, so a reader (or a process
 killed mid-save) never sees half a checkpoint. `metrics.json` beside it
 maps each kept epoch to its watched metric, for the keep-best policy; it is
-replaced the same way. Async saves, integrity manifests, resharding and
-retries are not ported yet.
+replaced the same way. Under a process group rank 0 alone writes, and
+every rank leaves `save` only once the checkpoint is committed (a
+barrier); every rank reads on restore. Async saves, integrity manifests,
+resharding and retries are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import re
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+from ..parallel import mesh
 
 _EPOCH_FILE = re.compile(r"^(\d+)\.pt$")
 _INDEX = "metrics.json"
@@ -48,11 +52,14 @@ class CheckpointManager:
         self.keep_best = keep_best
         self.best_mode = best_mode
         os.makedirs(directory, exist_ok=True)
-        index = os.path.join(directory, _INDEX)
-        self._metrics: Dict[int, Optional[float]] = {}
-        if os.path.exists(index):
-            with open(index) as fh:
-                self._metrics = {int(k): v for k, v in json.load(fh).items()}
+        self._metrics = self._read_index()
+
+    def _read_index(self) -> Dict[int, Optional[float]]:
+        index = os.path.join(self.directory, _INDEX)
+        if not os.path.exists(index):
+            return {}
+        with open(index) as fh:
+            return {int(k): v for k, v in json.load(fh).items()}
 
     def _path(self, epoch: int) -> str:
         return os.path.join(self.directory, f"{epoch}.pt")
@@ -76,6 +83,16 @@ class CheckpointManager:
 
     def save(self, epoch: int, payload: Dict[str, Any],
              metric: Optional[float] = None) -> None:
+        """Write `payload` as `epoch` (rank 0), then prune; every rank
+        returns once it is committed."""
+        if mesh.is_main_process():
+            self._write(epoch, payload, metric)
+        mesh.barrier()
+        if not mesh.is_main_process():
+            self._metrics = self._read_index()
+
+    def _write(self, epoch: int, payload: Dict[str, Any],
+               metric: Optional[float]) -> None:
         _atomic_write(self._path(epoch), lambda p: torch.save(payload, p))
         self._metrics[epoch] = None if metric is None else float(metric)
         keep = set(self.epochs()[-self.keep:])

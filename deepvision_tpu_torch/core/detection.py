@@ -5,8 +5,11 @@ deepvision_tpu/core/detection.py: `yolo_grid_sizes`, `make_yolo_train_step`,
 Each step is a plain function on device tensors: the labels are encoded on
 the device, then forward, `yolo_loss` (whose ignore mask runs the best-IoU
 kernel once for all three scales), the batch mean, and — in training — backward and
-the Adam update. Nothing in a step waits for the device. `make_predict_step`,
-NMS and mAP evaluation are not ported yet.
+the Adam update. Nothing in a step waits for the device. Under a process
+group the train step runs the state's DDP wrapper on the rank's rows
+(`yolo_loss` is per image, so the mean of the ranks' means is the global
+batch's) and returns the global means; the eval step runs the unwrapped
+model. `make_predict_step`, NMS and mAP evaluation are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 from ..ops import yolo as yolo_ops
+from ..parallel import mesh
 from .config import UNIT_RANGE_NORM, TrainConfig
 from .steps import normalize_input
 from .train_state import TrainState
@@ -48,17 +52,18 @@ def make_yolo_train_step(*, num_classes: int, grid_sizes: Sequence[int],
     def step(state: TrainState, images, boxes, classes, valid):
         images = normalize_input(images, input_norm, compute_dtype)
         y_trues = _encode(boxes, classes, valid, num_classes, grid_sizes)
-        state.model.train()
-        outputs = state.model(images)
+        state.train_model.train()
+        outputs = state.train_model(images)
         comp = yolo_ops.yolo_loss(y_trues, outputs, boxes, valid, num_classes)
         loss = comp["total"].mean()
         state.optimizer.zero_grad()
         loss.backward()
         state.optimizer.step()
         state.step += 1
-        return {"loss": loss.detach(),
-                **{f"{k}_loss": v.detach().mean() for k, v in comp.items()
-                   if k != "total"}}
+        return mesh.global_means({
+            "loss": loss.detach(),
+            **{f"{k}_loss": v.detach().mean() for k, v in comp.items()
+               if k != "total"}})
 
     return step
 

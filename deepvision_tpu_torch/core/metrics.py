@@ -1,6 +1,6 @@
 """Metrics stream (the JSONL + console part of
-deepvision_tpu/core/metrics.py::MetricsLogger, own copy). TensorBoard
-output is not ported yet.
+deepvision_tpu/core/metrics.py::MetricsLogger, own copy). Under a process
+group only rank 0 writes and echoes. TensorBoard output is not ported yet.
 """
 
 from __future__ import annotations
@@ -12,17 +12,21 @@ import threading
 import time
 from typing import Dict, Optional
 
+from ..parallel import mesh
+
 
 class MetricsLogger:
     """Console echo always; `<log_dir>/<name>.jsonl` when a log dir is
-    given. One lock keeps interleaved JSONL lines whole: the serving stack
-    flushes from its lifecycle thread while request threads log refusals."""
+    given; both on rank 0 only under a process group. One lock keeps
+    interleaved JSONL lines whole: the serving stack flushes from its
+    lifecycle thread while request threads log refusals."""
 
     def __init__(self, log_dir: Optional[str] = None, name: str = "serve"):
         self.name = name
         self._lock = threading.Lock()
         self._jsonl = None
-        if log_dir:
+        self._main = mesh.is_main_process()
+        if log_dir and self._main:
             os.makedirs(log_dir, exist_ok=True)
             self._jsonl = open(os.path.join(log_dir, f"{name}.jsonl"), "a")
         self._t0 = time.time()
@@ -47,7 +51,7 @@ class MetricsLogger:
                             for k, v in metrics.items()})
                 self._jsonl.write(json.dumps(rec, allow_nan=False) + "\n")
                 self._jsonl.flush()
-        if echo:
+        if echo and self._main:
             body = " ".join(f"{prefix + k}={v:.4f}" for k, v in metrics.items())
             where = f"epoch {epoch} " if epoch is not None else ""
             print(f"[{self.name}] {where}step {step}: {body}", flush=True)

@@ -1,7 +1,8 @@
 """Resilience primitives the serve path and the trainer use (own copy of
 deepvision_tpu/core/resilience.py: `log_resilience_event` and
-`GracefulShutdown`). Retry policies, the step watchdog and divergence
-recovery are not ported yet.
+`GracefulShutdown`), and `stop_agreed`, the preemption stop that every
+rank of a data-parallel run takes at the same step. Retry policies, the
+step watchdog and divergence recovery are not ported yet.
 """
 
 from __future__ import annotations
@@ -9,6 +10,8 @@ from __future__ import annotations
 import signal
 import sys
 from typing import Callable, Optional
+
+from ..parallel import mesh
 
 
 def log_resilience_event(logger, step: int, metrics: dict, *,
@@ -81,3 +84,11 @@ class GracefulShutdown:
     def __exit__(self, *exc):
         self._restore()
         return False
+
+
+def stop_agreed(shutdown: Optional[GracefulShutdown]) -> bool:
+    """Whether `shutdown` was requested here or on any other rank: a
+    signal reaches one rank, and every rank must leave the step loop at
+    the same step, or one would wait forever in a collective the others
+    never enter. Without a process group, the local flag."""
+    return mesh.agree_any(shutdown is not None and shutdown.requested)

@@ -8,8 +8,12 @@ place; nothing in it waits for the device. With `augment` (the device
 augmentation of data/device_augment.py) the images arrive as uint8 at the
 decode size and the augment crops and normalizes them, drawing from the
 state's per-(seed, step) generator on its own stream; `input_norm` is then
-off. The mesh, remat, mixup/cutmix and the grad correction of the JAX
-steps are not ported yet.
+off. Under a process group (parallel/mesh.py) a train step runs the
+state's DDP wrapper on the rank's rows: each rank's loss is the mean over
+its rows and DDP averages the gradients, which, the ranks holding equal
+rows, is the gradient of the global batch's mean; the metrics come back as
+the global batch's means. The model and spatial axes of the mesh, remat,
+mixup/cutmix and the grad correction of the JAX steps are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..parallel import mesh
 from . import losses
 from .train_state import TrainState
 
@@ -65,8 +70,9 @@ def make_classification_train_step(
                 images = augment(images, state.step_generator("augment"))
         else:
             images = normalize_input(images, input_norm, compute_dtype)
-        state.model.train()
-        outputs = state.model(images, generator=state.dropout_generator())
+        state.train_model.train()
+        outputs = state.train_model(images,
+                                    generator=state.dropout_generator())
         loss = losses.classification_loss(outputs, labels, label_smoothing,
                                           aux_weight)
         state.optimizer.zero_grad()
@@ -74,8 +80,9 @@ def make_classification_train_step(
         state.optimizer.step()
         state.step += 1
         with torch.no_grad():
-            return {"loss": loss.detach(),
-                    **losses.topk_accuracies(outputs, labels)}
+            return mesh.global_means({
+                "loss": loss.detach(),
+                **losses.topk_accuracies(outputs, labels)})
 
     return step
 

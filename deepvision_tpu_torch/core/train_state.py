@@ -13,6 +13,14 @@ The random draws of a step (dropout masks, device augmentation) come from
 generators on the model's device reseeded from (`seed`, `step`) and a
 stream tag, the counterpart of the JAX step's `fold_in(rng, state.step)`:
 they repeat on resume.
+
+Under a process group (parallel/mesh.py) the train steps run `train_model`,
+the model wrapped in `DistributedDataParallel`, which broadcasts rank 0's
+weights when it wraps and averages the gradients over the ranks in the
+backward. Evaluation, the EMA and the checkpoints use the unwrapped
+`model`, so a checkpoint is the same whatever the world size. Each rank
+draws its own dropout masks and augmentation: the rank joins the seed of
+the step's generators, and rank 0 draws the one-process stream.
 """
 
 from __future__ import annotations
@@ -20,10 +28,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import inspect
 from typing import Dict, Iterator, List, Optional
 
 import torch
 
+from ..parallel import mesh
 from .optim import Optimizer
 
 
@@ -50,21 +60,35 @@ class TrainState:
     generators: Dict[str, torch.Generator] = dataclasses.field(
         default_factory=dict)
 
+    #: the model wrapped for data parallelism under a process group
+    ddp: Optional[torch.nn.Module] = dataclasses.field(default=None,
+                                                       init=False)
+
     def __post_init__(self):
         if self.ema_decay is not None and self.ema is None:
             self.ema = [p.detach().clone() for p in self.model.parameters()]
+        if mesh.is_initialized():
+            self.ddp = wrap_ddp(self.model)
+
+    @property
+    def train_model(self) -> torch.nn.Module:
+        """What a train step runs: the DDP wrapper under a process group,
+        else the model."""
+        return self.model if self.ddp is None else self.ddp
 
     def step_generator(self, stream: str = "") -> torch.Generator:
         """The generator of this step's draws on `stream` ("" for dropout,
         "augment" for the device augmentation), seeded from a hash of
-        (`seed`, `step`, `stream`) on the device of the model's parameters
-        (the CPU generator keeps only a seed's low 32 bits, so all of them
-        are mixed into all of its bits)."""
+        (`seed`, `step`, `stream`, the rank; rank 0 and a run without a
+        process group hash the first three alone) on the device of the
+        model's parameters (the CPU generator keeps only a seed's low 32
+        bits, so all of them are mixed into all of its bits)."""
         device = next(self.model.parameters()).device
         gen = self.generators.get(stream)
         if gen is None or gen.device != device:
             gen = self.generators[stream] = torch.Generator(device=device)
-        key = f"{self.seed}:{self.step}" + (f":{stream}" if stream else "")
+        key = (f"{self.seed}:{self.step}" + (f":{stream}" if stream else "")
+               + (f"@{mesh.rank()}" if mesh.rank() else ""))
         digest = hashlib.blake2b(key.encode(), digest_size=8).digest()
         return gen.manual_seed(int.from_bytes(digest, "little") >> 1)
 
@@ -119,6 +143,24 @@ class TrainState:
             self.ema = [p.detach().clone() for _, p in named]
         else:
             self.ema = None
+
+
+def wrap_ddp(model: torch.nn.Module) -> torch.nn.Module:
+    """`model` (already on its device) in `DistributedDataParallel` over
+    the default group, rank 0's weights broadcast. The buffers are not
+    broadcast at each forward: the BatchNorm statistics come out of the
+    global batch equal on every rank (PyTorch releases that deprecate
+    `broadcast_buffers` name this `forward_sync_buffers`). No config
+    leaves a parameter out of its train forward, so DDP looks for none
+    (it raises if a model ever does)."""
+    ddp = torch.nn.parallel.DistributedDataParallel
+    device = next(model.parameters()).device
+    no_sync = ("forward_sync_buffers"
+               if "forward_sync_buffers" in inspect.signature(ddp).parameters
+               else "broadcast_buffers")
+    return ddp(model,
+               device_ids=[device.index] if device.type == "cuda" else None,
+               **{no_sync: False})
 
 
 def param_count(model: torch.nn.Module) -> int:

@@ -13,7 +13,20 @@ runs the step on each, updates the EMA of the parameters after each
 applied optimizer update (`config.ema_decay`), and keeps the metrics on
 the device; it reads them back at the `log_every_steps` boundaries and
 once at the end of the epoch. Evaluation, and so the best checkpoint,
-uses the EMA parameters when there are any. Mesh, grad calibration, the
+uses the EMA parameters when there are any.
+
+Under a process group (parallel/mesh.py, a torchrun launch) the trainer is
+data-parallel with the JAX mesh's semantics: `batch_size` and
+`eval_batch_size` are global and must divide the world size; each rank
+trains on its `batch_size // world` rows (its data pipeline makes only
+those) and the linear LR scaling still reads the global batch. Evaluation
+takes the global batches, pads a partial one to a multiple of the world
+size and gives each rank its rows with their mask; the sums are
+all-reduced. Every decision (the halt on a non-finite loss, the best
+metric, the plateau's scale, the preemption stop) is reached from
+all-reduced values, so all ranks take it alike. Rank 0 alone prints, logs
+and writes the checkpoints; the others wait for each save at a barrier,
+and all of them resume. The model and spatial axes, grad calibration, the
 epoch cache, multi-step dispatch, tracing, the watchdog, fault injection
 and divergence recovery are not ported yet.
 """
@@ -31,13 +44,14 @@ import torch
 
 from ..data import device_augment as daug
 from ..models import build_model
+from ..parallel import mesh
 from ..parallel.prefetch import prefetch_to_device
 from ..utils.device import resolve_device
 from .checkpoint import CheckpointManager
 from .config import TrainConfig
 from .metrics import MetricsLogger
 from .optim import build_optimizer
-from .resilience import GracefulShutdown
+from .resilience import GracefulShutdown, stop_agreed
 from .schedules import PlateauState
 from .steps import (make_classification_eval_step,
                     make_classification_train_step)
@@ -47,6 +61,12 @@ from .train_state import TrainState, param_count
 # project-wide reach resolves `train_step` by name to the JAX package's
 # donating step.
 # jaxlint: disable-file=DON001
+
+
+def say(message: str) -> None:
+    """Print a run's line from rank 0 only."""
+    if mesh.is_main_process():
+        print(message, flush=True)
 
 
 def _device_augments(config: TrainConfig, compute_dtype: torch.dtype):
@@ -95,6 +115,7 @@ class _StepClock:
     where every step runs synchronously."""
 
     def __init__(self, device: torch.device):
+        self.device = device
         self.cuda = device.type == "cuda"
         self.marks: list = []
         self.mark()
@@ -102,7 +123,7 @@ class _StepClock:
     def mark(self) -> None:
         if self.cuda:
             ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
+            ev.record(torch.cuda.current_stream(self.device))
             self.marks.append(ev)
         else:
             self.marks.append(time.perf_counter())
@@ -131,6 +152,11 @@ class Trainer:
         self.device = resolve_device(device)
         self.workdir = workdir or config.checkpoint_dir
         self.model = model if model is not None else build_model(config)
+        self.rank, self.world = mesh.rank(), mesh.world_size()
+        mesh.check_batch_divisible(config.batch_size, self.world)
+        if config.eval_batch_size:
+            mesh.check_batch_divisible(config.eval_batch_size, self.world,
+                                       what="eval_batch_size")
         self.steps_per_epoch = max(
             1, config.data.train_examples // config.batch_size)
         # one update sees batch_size * accum_steps examples: linear LR
@@ -138,16 +164,16 @@ class Trainer:
         opt_cfg = config.optimizer
         effective_batch = config.batch_size * opt_cfg.accum_steps
         if opt_cfg.accum_steps > 1:
-            print(f"[{config.name}] gradient accumulation: "
-                  f"{opt_cfg.accum_steps} micro-steps -> effective batch "
-                  f"{effective_batch}", flush=True)
+            say(f"[{config.name}] gradient accumulation: "
+                f"{opt_cfg.accum_steps} micro-steps -> effective batch "
+                f"{effective_batch}")
         if (opt_cfg.base_batch_size
                 and effective_batch != opt_cfg.base_batch_size):
             scaled = (opt_cfg.learning_rate * effective_batch
                       / opt_cfg.base_batch_size)
-            print(f"[{config.name}] linear LR scaling: "
-                  f"{opt_cfg.learning_rate} -> {scaled:g} (batch "
-                  f"{effective_batch}/{opt_cfg.base_batch_size})", flush=True)
+            say(f"[{config.name}] linear LR scaling: "
+                f"{opt_cfg.learning_rate} -> {scaled:g} (batch "
+                f"{effective_batch}/{opt_cfg.base_batch_size})")
             opt_cfg = dataclasses.replace(opt_cfg, learning_rate=scaled)
         self.opt_cfg = opt_cfg
         sched = config.schedule
@@ -202,9 +228,12 @@ class Trainer:
                                     self.config.total_epochs)
         self.state = TrainState(self.model, optimizer, seed=self.config.seed,
                                 ema_decay=self.config.ema_decay)
-        print(f"[{self.config.name}] model={self.config.model} "
-              f"params={param_count(self.model):,} device={self.device} "
-              f"steps/epoch={self.steps_per_epoch}", flush=True)
+        world = (f" world={self.world} batch/rank="
+                 f"{self.config.batch_size // self.world}"
+                 if mesh.is_initialized() else "")
+        say(f"[{self.config.name}] model={self.config.model} "
+            f"params={param_count(self.model):,} device={self.device} "
+            f"steps/epoch={self.steps_per_epoch}{world}")
         return self.state
 
     def resume(self, epoch: Optional[int] = None) -> Optional[int]:
@@ -226,7 +255,7 @@ class Trainer:
             self.plateau.num_bad_epochs = p.get("num_bad_epochs", 0)
             self.plateau.scale = p.get("scale", 1.0)
             self.state.optimizer.set_lr_scale(self.plateau.scale)
-        print(f"[{self.config.name}] resumed from epoch {got}", flush=True)
+        say(f"[{self.config.name}] resumed from epoch {got}")
         return got
 
     def _to_device(self, batch) -> tuple:
@@ -235,7 +264,9 @@ class Trainer:
                      for a in batch)
 
     def _preempted(self) -> bool:
-        return self._shutdown is not None and self._shutdown.requested
+        """Whether a stop was requested, on any rank (every rank calls
+        this at the same points and gets the same answer)."""
+        return stop_agreed(self._shutdown)
 
     # -- loops ------------------------------------------------------------
     def run_step(self, batch: tuple) -> Dict[str, torch.Tensor]:
@@ -252,10 +283,11 @@ class Trainer:
 
     def train_epoch(self, epoch: int, data: Iterable) -> dict:
         """The staged per-batch loop: host batches staged on the device by
-        the prefetcher → step → EMA. Returns the epoch's mean metrics,
-        `images_per_sec` over the whole epoch and `step_ms`, the median
-        step time after the first (which also pays for the first use of
-        every kernel)."""
+        the prefetcher → step → EMA. Returns the epoch's mean metrics (of
+        the global batches), `images_per_sec` of the whole job over the
+        whole epoch (and, under a process group, `images_per_sec_rank`)
+        and `step_ms`, the median step time after the first (which also
+        pays for the first use of every kernel)."""
         t0 = time.time()
         log_every = self.config.log_every_steps
         device_metrics: List[Dict[str, torch.Tensor]] = []
@@ -292,7 +324,9 @@ class Trainer:
             if len(step_ms) > 1:
                 out["step_ms"] = statistics.median(step_ms[1:])
         dt = time.time() - t0
-        out["images_per_sec"] = n_img / dt if dt > 0 else 0.0
+        out["images_per_sec"] = n_img * self.world / dt if dt > 0 else 0.0
+        if mesh.is_initialized():
+            out["images_per_sec_rank"] = n_img / dt if dt > 0 else 0.0
         if self.config.halt_on_nonfinite and not math.isfinite(
                 out.get("loss", 0.0)):
             self.logger.log(self.state.step, out, prefix="epoch_train_",
@@ -310,16 +344,18 @@ class Trainer:
             return self._evaluate(data)
 
     def _evaluate(self, data: Iterable) -> dict:
-        """Masked evaluation: a partial batch is zero-padded up to the
-        largest batch seen so far in this pass (a running maximum, so the
-        usual full-then-partial stream keeps one shape), its padded rows
-        carrying mask 0. Returns the metric sums over `count`, with
-        `count`; {} when nothing was evaluated."""
+        """Masked evaluation of global batches: a partial batch is
+        zero-padded up to the largest batch seen so far in this pass,
+        rounded up to a multiple of the world size (a running maximum, so
+        the usual full-then-partial stream keeps one shape), its padded
+        rows carrying mask 0; each rank evaluates its rows. Returns the
+        metric sums (all-reduced) over `count`, with `count`; {} when
+        nothing was evaluated."""
         sums: Dict[str, torch.Tensor] = {}
         target = 0
         for images, labels in data:
             n = len(labels)
-            target = max(target, n)
+            target = max(target, mesh.pad_to_multiple(n, self.world))
             mask = np.zeros((target,), np.float32)
             mask[:n] = 1.0
             if target != n:
@@ -327,10 +363,15 @@ class Trainer:
                 images = np.pad(np.asarray(images),
                                 pad + [(0, 0)] * (np.ndim(images) - 1))
                 labels = np.pad(np.asarray(labels), pad)
-            m = self.eval_step(self.state,
-                               *self._to_device((images, labels, mask)))
+            rows = (mesh.shard_rows(a, self.rank, self.world)
+                    for a in (images, labels, mask))
+            m = self.eval_step(self.state, *self._to_device(rows))
             for k, v in m.items():     # summed in f64, read once at the end
                 sums[k] = sums[k] + v.double() if k in sums else v.double()
+        if sums and mesh.is_initialized():
+            keys = list(sums)
+            sums = dict(zip(keys, mesh.all_reduce_(
+                torch.stack([sums[k] for k in keys]))))
         host = {k: float(v) for k, v in sums.items()}
         count = host.pop("count", 0.0)
         if count == 0:
@@ -355,10 +396,9 @@ class Trainer:
         if self.state.ema is not None and cfg.ema_decay is None:
             # restored from an EMA-trained checkpoint, but this run would
             # re-save a frozen average: drop it, loudly
-            print(f"[{cfg.name}] checkpoint carries EMA weights but "
-                  f"ema_decay is unset: discarding them for this training "
-                  f"run (pass --ema-decay to keep updating the average)",
-                  flush=True)
+            say(f"[{cfg.name}] checkpoint carries EMA weights but "
+                f"ema_decay is unset: discarding them for this training "
+                f"run (pass --ema-decay to keep updating the average)")
             self.state.ema = None
         last_val: dict = {}
         result: dict = {}
@@ -373,9 +413,9 @@ class Trainer:
                                     prefix="epoch_train_", epoch=epoch)
                     if self._preempted():
                         self._save_epoch(epoch, metric=None)
-                        print(f"[{cfg.name}] graceful preemption: checkpoint "
-                              f"committed at epoch {epoch} — relaunch with "
-                              f"-c latest to continue", flush=True)
+                        say(f"[{cfg.name}] graceful preemption: checkpoint "
+                            f"committed at epoch {epoch} — relaunch with "
+                            f"-c latest to continue")
                         result["preempted_at_epoch"] = epoch
                         break
                     if val_data_fn is not None:
@@ -434,10 +474,14 @@ class LossWatchedTrainer(Trainer):
         super().__init__(config, *args, **kwargs)
 
     def _evaluate(self, data: Iterable) -> dict:
+        """Each rank evaluates its rows of every global batch; a batch
+        counts when the global batch's loss is finite, which every rank
+        reads alike."""
         total, n = 0.0, 0
         for batch in data:
-            loss = float(self.eval_step(self.state,
-                                        *self._to_device(batch))["loss"])
+            rows = (mesh.shard_rows(a, self.rank, self.world) for a in batch)
+            m = self.eval_step(self.state, *self._to_device(rows))
+            loss = float(mesh.global_means(m)["loss"])
             if math.isfinite(loss):
                 total += loss
                 n += 1

@@ -16,6 +16,8 @@ from typing import Tuple
 
 import numpy as np
 
+from ..parallel.mesh import shard_rows
+
 MEAN, STD = 0.1307, 0.3081
 
 FILES = {
@@ -72,13 +74,18 @@ def load_split(data_dir: str, split: str) -> Tuple[np.ndarray, np.ndarray]:
 class MnistBatches:
     """(images, labels) batches of in-memory arrays, shuffled with a seeded
     `RandomState` per iterator; `drop_remainder` drops the last partial
-    batch."""
+    batch. With `world` > 1, `batch_size` is the global batch and each
+    batch is `rank`'s rows [rank·b, (rank + 1)·b) of it (b = batch_size //
+    world): the ranks of a data-parallel run see, together, exactly the
+    one-process epoch's images."""
 
     def __init__(self, images: np.ndarray, labels: np.ndarray,
                  batch_size: int, shuffle: bool = True, seed: int = 0,
-                 drop_remainder: bool = True):
+                 drop_remainder: bool = True, rank: int = 0,
+                 world: int = 1):
         self.images, self.labels = images, labels
         self.batch_size = batch_size
+        self.rank, self.world = rank, world
         self.shuffle = shuffle
         self.rng = np.random.RandomState(seed)
         self.drop_remainder = drop_remainder
@@ -91,6 +98,8 @@ class MnistBatches:
                else len(idx))
         for i in range(0, end, self.batch_size):
             sel = idx[i:i + self.batch_size]
+            if self.world > 1:
+                sel = shard_rows(sel, self.rank, self.world)
             yield self.images[sel], self.labels[sel]
 
     def __len__(self):

@@ -22,6 +22,11 @@ Numerics follow Flax where they differ from torch's defaults:
   `dtype`. Its momentum is Flax's (0.9 keeps 90% of the running value;
   torch's convention is the complement), and the running variance takes
   the BIASED batch variance, as Flax's does (torch feeds the unbiased one).
+  Under a process group (parallel/mesh.py) the batch statistics are those
+  of the global batch, as under the JAX mesh: all-reduced sums, the mean
+  first and then the squared deviations from it, with the backward
+  carrying the all-reduce too (`_GlobalBatchNorm`); every rank's running
+  statistics stay equal.
 
 `ComputeWeights.cast_compute_weights_` casts, once, for serving, the
 weights of every `Conv` and `Dense` that runs below f32; BatchNorm and the
@@ -41,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh
 from ..utils.flax_convert import flax_auto_names
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
@@ -287,6 +293,8 @@ class BatchNorm(nn.BatchNorm2d):
             y = F.batch_norm(x, self.running_mean, self.running_var,
                              self.weight, self.bias, False, 0.0, self.eps)
             return y.to(self.dtype)
+        if mesh.is_initialized():
+            return self._global_batch_norm(x).to(self.dtype)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         # the running statistics take the biased batch variance, as Flax's
@@ -296,6 +304,89 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
         return y.to(self.dtype)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the global batch (`_GlobalBatchNorm`), and the
+        running statistics from its mean and biased variance."""
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
+                                              self.eps)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return y
+
+
+def _channels(t: torch.Tensor) -> torch.Tensor:
+    """A per-channel vector broadcast against NCHW."""
+    return t[None, :, None, None]
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Batch normalization of NCHW `x` with the statistics of the global
+    batch, every rank holding as many rows (the trainer checks that the
+    batch divides the world). Returns (y, mean, biased variance).
+
+    The statistics come from all-reduced per-channel sums in two steps,
+    the global mean first, then the sum of squared deviations from it.
+    Each rank contributes its own count n, mean m_r and squared
+    deviations M2_r = n var_r (one Welford pass, `torch.var_mean`), so the
+    second sum is sum_r M2_r + n (m_r - mean)^2: the squared deviations of
+    all rows from the global mean, exactly, and with no E[x^2] - E[x]^2
+    to cancel in f32. The backward all-reduces the per-channel sums of dy
+    and dy (x - mean): every rank's rows reach every rank's output through
+    the statistics. The weight and bias gradients stay this rank's: DDP
+    averages them. On the card the normalization and its backward run
+    PyTorch's fused batch-norm kernels, on the CPU plain tensor ops."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        n = x.numel() // x.shape[1]
+        count = n * mesh.world_size()
+        var_r, mean_r = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        mean = mesh.all_reduce_(mean_r * n) / count
+        var = mesh.all_reduce_(var_r * n + n * (mean_r - mean).square()
+                               ) / count
+        invstd = torch.rsqrt(var + eps)
+        if x.is_cuda:
+            y = torch.batch_norm_elemt(x, weight, bias, mean, invstd, eps)
+        else:
+            y = (x - _channels(mean)) * _channels(invstd * weight) \
+                + _channels(bias)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.count = count
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        x, weight, mean, invstd = ctx.saved_tensors
+        c = x.shape[1]
+        if x.is_cuda:
+            fmt = (torch.channels_last
+                   if x.is_contiguous(memory_format=torch.channels_last)
+                   else torch.contiguous_format)
+            dy = dy.contiguous(memory_format=fmt)
+            sum_dy, sum_dy_xmu, grad_w, grad_b = \
+                torch.batch_norm_backward_reduce(dy, x, mean, invstd, weight,
+                                                 True, True, True)
+        else:
+            xmu = x - _channels(mean)
+            sum_dy = dy.sum(dim=(0, 2, 3))
+            sum_dy_xmu = (dy * xmu).sum(dim=(0, 2, 3))
+            grad_w, grad_b = sum_dy_xmu * invstd, sum_dy
+        sum_dy, sum_dy_xmu = mesh.all_reduce_(
+            torch.cat([sum_dy, sum_dy_xmu])).split(c)
+        if x.is_cuda:
+            count = torch.tensor([ctx.count], dtype=torch.int32,
+                                 device=x.device)
+            dx = torch.batch_norm_backward_elemt(dy, x, mean, invstd, weight,
+                                                 sum_dy, sum_dy_xmu, count)
+        else:
+            dx = (dy - _channels(sum_dy / ctx.count)
+                  - xmu * _channels(invstd.square() * sum_dy_xmu
+                                    / ctx.count)) \
+                * _channels(invstd * weight)
+        return dx, grad_w, grad_b, None
 
 
 class ConvBN(nn.Module):

@@ -39,7 +39,7 @@ from torch import nn
 
 from ..utils.registry import MODELS
 from .common import (BatchNorm, ComputeWeights, Conv, _add_children,
-                     global_avg_pool, he_normal_fanout_)
+                     at_least_f32, global_avg_pool, he_normal_fanout_)
 
 BN_EPS = 1e-5
 PAD1 = ((1, 1), (1, 1))
@@ -154,9 +154,9 @@ def _init(model: nn.Module, generator: Optional[torch.Generator]) -> None:
 
 def _global_pool_head(model, x: torch.Tensor) -> torch.Tensor:
     """f32 mean over H, W returned in the compute dtype (jnp.mean on bf16),
-    then the f32 head."""
+    then the f32 head (f64 in an f64 model)."""
     x = global_avg_pool(x, model.dtype)
-    return F.linear(x.float(), model.head.weight, model.head.bias)
+    return F.linear(at_least_f32(x), model.head.weight, model.head.bias)
 
 
 class ResNet(ComputeWeights, nn.Module):

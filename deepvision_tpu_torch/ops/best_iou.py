@@ -120,9 +120,10 @@ def best_iou(pred_boxes: Boxes, gt_boxes: torch.Tensor
     list of their (B, N_s) results. Padded GT rows must be zeroed by the
     caller (zero area → IoU 0).
 
-    On a CUDA tensor this launches the kernel once on the current stream,
-    for all segments, and counts the launch in `best_iou.launches`. On a
-    CPU tensor it returns `best_iou_reference`. Any other device raises."""
+    On a CUDA tensor this launches the kernel once on the current stream
+    of the tensor's card (whatever card is current), for all segments,
+    and counts the launch in `best_iou.launches`. On a CPU tensor it
+    returns `best_iou_reference`. Any other device raises."""
     single = isinstance(pred_boxes, torch.Tensor)
     preds = [pred_boxes] if single else list(pred_boxes)
     _check(preds, gt_boxes)
@@ -136,11 +137,15 @@ def best_iou(pred_boxes: Boxes, gt_boxes: torch.Tensor
     b, k = gt.shape[0], len(preds)
     outs = [torch.empty((b, p.shape[1]), dtype=torch.float32, device=device)
             for p in preds]
-    rc = _kernel()((ctypes.c_void_p * k)(*[p.data_ptr() for p in preds]),
-                   (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs]),
-                   (ctypes.c_int * k)(*[p.shape[1] for p in preds]), k,
-                   gt.data_ptr(), b, gt.shape[1],
-                   torch.cuda.current_stream(device).cuda_stream)
+    # the launcher runs on the current device, which must own the stream:
+    # a data-parallel rank's thread may have another card current
+    with torch.cuda.device(device):
+        rc = _kernel()(
+            (ctypes.c_void_p * k)(*[p.data_ptr() for p in preds]),
+            (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs]),
+            (ctypes.c_int * k)(*[p.shape[1] for p in preds]), k,
+            gt.data_ptr(), b, gt.shape[1],
+            torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"best_iou kernel launch failed: CUDA error {rc} "
                            f"at pred {[tuple(p.shape) for p in preds]}, gt "

@@ -11,7 +11,10 @@ batch, and `record_stream` tells the caching allocator that the consumer's
 stream uses the staged tensors, so their memory is not handed to the side
 stream again while the step still reads it. A pinned buffer is reused only
 after its copy's event has completed. On the CPU a batch is staged without
-pinning. `size <= 1` stages inline, in the consumer's thread.
+pinning. `size <= 1` stages inline, in the consumer's thread. Staging runs
+with `device` as the current card, so a rank of a data-parallel run puts
+its side stream, events and pinned buffers on its own card, whatever
+card the calling thread has current.
 
 The transfer ledger (read from any thread; plain int and float writes):
 - `bytes_staged_total`: host bytes staged so far (a uint8 batch counts a
@@ -149,14 +152,16 @@ class DevicePrefetcher:
         ledger updated around it."""
         nbytes = sum(int(np.asarray(a).nbytes) for a in batch)
         t0 = time.perf_counter()
-        if self._cuda and self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        staged = tuple(self._to_device(a) for a in batch)
-        event = None
-        if self._cuda:
-            event = torch.cuda.Event()
-            event.record(self._stream)
-            event.synchronize()      # the stage time includes the transfer
+        with (torch.cuda.device(self.device) if self._cuda
+              else contextlib.nullcontext()):
+            if self._cuda and self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            staged = tuple(self._to_device(a) for a in batch)
+            event = None
+            if self._cuda:
+                event = torch.cuda.Event()
+                event.record(self._stream)
+                event.synchronize()  # the stage time includes the transfer
         dt = time.perf_counter() - t0
         self.bytes_staged_total += nbytes
         self.batches_staged_total += 1
@@ -176,13 +181,11 @@ class DevicePrefetcher:
 
     def _producer(self) -> None:
         try:
-            with (torch.cuda.device(self.device) if self._cuda
-                  else contextlib.nullcontext()):
-                for batch in self._batches:
-                    if self._stop.is_set():
-                        return
-                    if not self._put(self._stage(batch)):
-                        return
+            for batch in self._batches:
+                if self._stop.is_set():
+                    return
+                if not self._put(self._stage(batch)):
+                    return
         except BaseException as e:  # re-raised in the consumer
             self._put(_ProducerError(e))
             return

@@ -11,7 +11,9 @@ naive VJP, which the autograd engine runs inside a range named after its
 node), the EMA update and the device augmentation (the trainer's and the
 step's `record_function` ranges). `print_report` prints a step's split,
 the device's busy and idle share of the wall time, and the kernels with
-the most device time.
+the most device time. Under a process group (a torchrun launch) the
+collectives' kernels are the `nccl` family, and `run_tag` names the
+world.
 """
 
 from __future__ import annotations
@@ -21,8 +23,11 @@ from typing import Callable, Dict
 
 import torch
 
+from ..parallel import mesh
+
 # kernel-name fragments, checked in order; the first match names the family
 FAMILIES = (
+    ("nccl", ("nccl",)),
     ("flash_attention", ("flash_attention",)),
     ("best_iou", ("best_iou",)),
     ("optimizer", ("adam", "multi_tensor_apply", "sgd")),
@@ -44,6 +49,15 @@ FAMILIES = (
 #: update, the train step's around the device augmentation
 RANGES = {"attention_backward": "_FlashAttentionBackward",
           "ema": "ema_update", "augment": "device_augment"}
+
+
+def run_tag() -> str:
+    """", under DDP at world N (backend)" when a process group is up (the
+    script ran under torchrun), else ""."""
+    if not mesh.is_initialized():
+        return ""
+    return (f", under DDP at world {mesh.world_size()} "
+            f"({torch.distributed.get_backend()})")
 
 
 def family(name: str) -> str:

@@ -3,7 +3,8 @@
 Entry points run on the card unless the caller asks for the CPU. Without a
 card and without that request they raise: a serving process that quietly
 fell back to the CPU would answer every request hundreds of times slower
-and nothing would say why.
+and nothing would say why. Under a process group (parallel/mesh.py) each rank
+drives its own card: `cuda` is `cuda:LOCAL_RANK`.
 """
 
 from __future__ import annotations
@@ -12,10 +13,14 @@ from typing import Optional, Union
 
 import torch
 
+from ..parallel import mesh
+
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """`None` means `cuda`. A CUDA device on a host without one raises."""
+    """`None` means `cuda`: the current card, or under a process group
+    card LOCAL_RANK. A CUDA device on a host without one raises, and so
+    does a rank whose card is missing."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -23,7 +28,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                 "no CUDA device is available; pass device='cpu' "
                 "(--device cpu on the CLI) to run on the CPU")
         if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+            dev = torch.device("cuda", mesh.local_rank()
+                               if mesh.is_initialized()
+                               else torch.cuda.current_device())
+        if dev.index >= torch.cuda.device_count():
+            raise RuntimeError(f"{dev} does not exist: this host has "
+                               f"{torch.cuda.device_count()} card(s)")
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev

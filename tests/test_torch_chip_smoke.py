@@ -1,8 +1,12 @@
 """chip_smoke.py's tensor-core gate, on listings shaped like `cuobjdump
 -sass` of the attention library: it passes only when every bf16 kernel
-(DMAX 64 and 128, 16-byte and scalar copies) is listed once with HMMA."""
+(DMAX 64 and 128, 16-byte and scalar copies) is listed once with HMMA.
+And the wiring of its phase 11 (data parallelism): the argv and
+environment each worker gets, a failing or hanging worker failing the
+phase, and the f64 step comparison with its bounds on CPU tensors."""
 
 import os
+import subprocess
 import sys
 
 import pytest
@@ -255,3 +259,143 @@ def test_float64_copy_computes_every_layer_in_f64(name):
     loss = losses.classification_loss(out, torch.arange(2))
     assert loss.dtype == torch.float64
     assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+# -- phase 11: data parallelism ----------------------------------------------
+
+def _flag(argv, name):
+    return argv[argv.index(name) + 1]
+
+
+def test_phase_11_workers_get_the_entry_points_argv(tmp_path):
+    """11a runs phases 5 and 8's entry-point arguments under a torchrun
+    launch of one process over NCCL; 11b two ranks over gloo, each the
+    only process of its host (LOCAL_RANK 0: both on card 0), meeting at
+    one address, with global batches that divide the world."""
+    plans = chip_smoke.ddp_plans(str(tmp_path), 29511)
+    spec, commands, envs = plans["11a"]
+    assert spec["backend"] == "nccl" and "f64" not in spec
+    (cmd,) = commands
+    assert cmd[1:] == ["-m", "torch.distributed.run", "--standalone",
+                       "--nproc_per_node=1",
+                       os.path.abspath(chip_smoke.__file__)]
+    assert envs == [None]
+    (yolo_family, yolo), (resnet_family, resnet) = spec["runs"]
+    assert (yolo_family, resnet_family) == ("YOLO", "ResNet")
+    assert (_flag(yolo, "-m"), _flag(yolo, "--image-size"),
+            _flag(yolo, "--batch-size"), _flag(yolo, "--steps-per-epoch"),
+            _flag(yolo, "--device")) == (
+        chip_smoke.YOLO_MODEL, "416", str(chip_smoke.YOLO_BATCH),
+        str(chip_smoke.YOLO_STEPS), "cuda")
+    assert (_flag(resnet, "-m"), _flag(resnet, "--batch-size"),
+            _flag(resnet, "--steps-per-epoch"), _flag(resnet, "--device")
+            ) == (chip_smoke.RESNET_MODEL, str(chip_smoke.RESNET_BATCH),
+                  str(chip_smoke.RESNET_STEPS), "cuda")
+    assert "--device-augment" in resnet
+    assert _flag(yolo, "--workdir") != _flag(resnet, "--workdir")
+
+    spec, commands, envs = plans["11b"]
+    assert spec["backend"] == "gloo" and spec["f64"]
+    assert len(commands) == len(envs) == chip_smoke.DDP_RANKS == 2
+    assert all(c[1:] == [os.path.abspath(chip_smoke.__file__)]
+               for c in commands)
+    assert [e["RANK"] for e in envs] == ["0", "1"]
+    assert {(e["WORLD_SIZE"], e["LOCAL_RANK"], e["MASTER_ADDR"],
+             e["MASTER_PORT"]) for e in envs} == {
+        ("2", "0", "127.0.0.1", "29511")}
+    (_, yolo), (_, resnet) = spec["runs"]
+    for argv, batch in ((yolo, chip_smoke.DDP2_YOLO_BATCH),
+                        (resnet, chip_smoke.DDP2_RESNET_BATCH)):
+        assert _flag(argv, "--batch-size") == str(batch)
+        assert batch % chip_smoke.DDP_RANKS == 0
+        assert _flag(argv, "--device") == "cuda"
+        assert _flag(argv, "--workdir").startswith(spec["out"])
+    assert _flag(yolo, "--image-size") == "416"
+    assert "--device-augment" in resnet
+    assert chip_smoke.DDP_F64_BATCH % chip_smoke.DDP_RANKS == 0
+
+
+def test_a_failing_worker_fails_the_phase(tmp_path):
+    ok = [sys.executable, "-c", "print('fine')"]
+    bad = [sys.executable, "-c", "import sys; print('boom'); sys.exit(3)"]
+    logs = [str(tmp_path / f"w{i}.log") for i in range(2)]
+    chip_smoke.run_workers([ok, ok], [None, None], logs)
+    with pytest.raises(AssertionError,
+                       match=r"(?s)exit codes \[0, 3\].*boom"):
+        chip_smoke.run_workers([ok, bad], [None, None], logs)
+
+
+def test_a_worker_that_outlives_its_time_is_killed_and_fails(tmp_path):
+    slow = [sys.executable, "-c", "import time; time.sleep(60)"]
+    logs = [str(tmp_path / "w.log")]
+    with pytest.raises(AssertionError, match="exit codes None"):
+        chip_smoke.run_workers([slow], [None], logs, timeout=1.0)
+
+
+def test_an_exception_exits_the_script_non_zero(tmp_path):
+    """A phase's AssertionError leaves `python chip_smoke.py` with a
+    non-zero exit: here a worker spec whose entry point does not exist."""
+    spec = tmp_path / "spec.json"
+    spec.write_text('{"out": "%s", "backend": "gloo", "runs": '
+                    '[["NoSuchFamily", []]]}' % tmp_path)
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT="0")
+    proc = subprocess.run([sys.executable, chip_smoke.__file__,
+                           "--ddp-worker", str(spec)], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert not (tmp_path / "rank0.json").exists()
+
+
+def _step_record(seed=0):
+    torch = chip_smoke.torch
+    g = torch.Generator().manual_seed(seed)
+    f64 = torch.float64
+    return {"loss": 2.5,
+            "grads": {"w": torch.randn(4, 3, generator=g, dtype=f64)},
+            "state": {"w": torch.randn(4, 3, generator=g, dtype=f64),
+                      "bn.running_mean": torch.rand(3, generator=g,
+                                                    dtype=f64),
+                      "bn.num_batches_tracked": torch.tensor(1)}}
+
+
+def _perturbed(key, name, delta):
+    r = _step_record()
+    if key == "loss":
+        r["loss"] += delta
+    else:
+        r[key] = dict(r[key])
+        r[key][name] = r[key][name] + delta
+    return r
+
+
+def test_f64_step_errors_hold_equal_steps():
+    one = _step_record()
+    before = {"w": one["state"]["w"] - 0.1}
+    err = chip_smoke.f64_step_errors(one, [_step_record(), _step_record()],
+                                     before)
+    assert err == {"loss": 0.0, "grad": 0.0, "weight": 0.0, "stat": 0.0,
+                   "counters": True}
+    chip_smoke.check_f64_step_errors(err)
+
+
+@pytest.mark.parametrize("key,name,delta,field", [
+    ("loss", None, 1e-9, "loss"),
+    ("grads", "w", 1e-6, "grad"),
+    ("state", "w", 1e-8, "weight"),
+    ("state", "bn.running_mean", 1e-9, "stat"),
+    ("state", "bn.num_batches_tracked", 1, "counters"),
+], ids=["loss", "gradient", "weight", "statistic", "counter"])
+def test_f64_step_errors_catch_one_rank_off(key, name, delta, field):
+    """One rank's step off the one-process step in one place, by more
+    than the bound there (the weights' update is 0.1 here), fails the
+    check and names the place."""
+    one = _step_record()
+    before = {"w": one["state"]["w"] - 0.1}
+    err = chip_smoke.f64_step_errors(
+        one, [_step_record(), _perturbed(key, name, delta)], before)
+    off = [k for k, v in err.items() if (v is False if k == "counters"
+                                          else v > 0)]
+    assert off == [field]
+    with pytest.raises(AssertionError, match="two-rank f64 step"):
+        chip_smoke.check_f64_step_errors(err)

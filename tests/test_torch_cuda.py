@@ -40,10 +40,16 @@ agree to 1e-4 as the ResNet's do; and `mobilenet_v1` served by the engine on
 the card at its full size, padded buckets against `reference()` within
 5e-2 of the largest logit (bf16 on both sides) and against an engine on
 the CPU on the same seeded weights within 5e-2.
+
+Data parallelism: both kernels launch on their tensors' card from a
+thread whose current card is another (two cards or more; skips on one),
+and 2 gloo ranks sharing card 0 take one f64 step of the reduced ResNet
+equal to the one-process step within chip_smoke.py's DDP_F64_* bounds.
 """
 
 import os
 import sys
+import threading
 import time
 
 import numpy as np
@@ -67,15 +73,19 @@ from deepvision_tpu_torch.models.mobilenet import MobileNetV1
 from deepvision_tpu_torch.models.resnet import BottleneckBlock, ResNet
 from deepvision_tpu_torch.models.shufflenet import ShuffleNetV1
 from deepvision_tpu_torch.models.vgg import DEPTHS, VGG
+from deepvision_tpu_torch.parallel import mesh
 from deepvision_tpu_torch.parallel.prefetch import prefetch_to_device
 from deepvision_tpu_torch.serve.engine import PredictEngine
 from deepvision_tpu_torch.ops import attention as port
 from deepvision_tpu_torch.ops import best_iou as k2
+from deepvision_tpu_torch.utils.device import resolve_device
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-from chip_smoke import (check_step_against_f64, padded_gt,  # noqa: E402
-                        ragged_gt, ragged_preds, random_boxes, same)
+from chip_smoke import (check_f64_step_errors,  # noqa: E402
+                        check_step_against_f64, f64_step_errors,
+                        padded_gt, ragged_gt, ragged_preds,
+                        random_boxes, same, train_step_state)
 
 pytestmark = pytest.mark.cuda
 
@@ -560,3 +570,82 @@ def test_engine_serves_mobilenet_v1_on_the_card(card):
     assert got.shape == (3, 1000) and np.isfinite(got).all()
     assert np.abs(got - ref).max() <= 5e-2 * np.abs(ref).max()
     assert np.abs(ref - want).max() <= 5e-2 * scale
+
+
+# -- data parallelism ---------------------------------------------------------
+
+def test_kernels_launch_on_their_tensors_card_whatever_card_is_current(card):
+    """K1 and K2 on tensors of the last card, called from a thread whose
+    current card is 0: each wrapper launches on its tensors' card (the
+    launch runs under `torch.cuda.device(tensor.device)`), once, and
+    agrees with its plain version. Needs two cards or more: skips on one
+    (a data-parallel rank drives a card other than 0 only there)."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two cards or more")
+    dev = torch.device("cuda", count - 1)
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((2, 6, 197, 64), generator=gen)
+               .to(dev, torch.bfloat16) for _ in range(3))
+    preds = [random_boxes(4, n, gen).to(dev) for n in (8112, 2028, 507)]
+    gt = padded_gt(4, 100, gen).to(dev)
+    out = {}
+
+    def launch():
+        try:
+            torch.cuda.set_device(0)
+            before = (port.flash_attention.launches, k2.best_iou.launches)
+            out["attention"] = port.flash_attention(q, k, v)
+            out["iou"] = k2.best_iou(preds, gt)
+            torch.cuda.synchronize(dev)
+            out["launches"] = (port.flash_attention.launches - before[0],
+                               k2.best_iou.launches - before[1])
+            out["current"] = torch.cuda.current_device()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            out["error"] = e
+
+    t = threading.Thread(target=launch)
+    t.start()
+    t.join()
+    if "error" in out:
+        raise out["error"]
+    assert out["launches"] == (1, 1) and out["current"] == 0
+    assert out["attention"].device == dev
+    ref = port.flash_attention_reference(q, k, v)
+    assert (out["attention"].float() - ref.float()).abs().max().item() \
+        <= BOUND[torch.bfloat16]
+    for got, want in zip(out["iou"], k2.best_iou_reference(preds, gt)):
+        assert got.device == dev and same(got, want)
+
+
+def _gloo_rank_on_card_0(out):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = mesh.rank(), mesh.world_size()
+    rows = [mesh.shard_rows(a, rank, world) for a in _f64_batch()]
+    torch.save(train_step_state(get_config("resnet50_tpu"),
+                                _reduced_resnet(), rows,
+                                resolve_device("cuda"), torch.float64),
+               os.path.join(out, f"rank{rank}.pt"))
+
+
+def _f64_batch():
+    return (np.random.RandomState(3).randn(4, 32, 32, 3).astype(np.float32),
+            np.arange(4, dtype=np.int32))
+
+
+def test_two_gloo_ranks_on_one_card_match_the_one_process_f64_step(
+        card, tmp_path):
+    """One f64 step of the reduced ResNet (resnet50_tpu's recipe) by 2
+    ranks over gloo, both on card 0, at global batch 4, against the
+    one-process step on the same 4 images on the card, within
+    chip_smoke.py's DDP_F64_* bounds (phase 11b at full size)."""
+    mesh.spawn_ranks(_gloo_rank_on_card_0, (str(tmp_path),), world=2,
+                     same_card=True, timeout=300)
+    model = _reduced_resnet()
+    one = train_step_state(get_config("resnet50_tpu"), model, _f64_batch(),
+                           torch.device("cuda"), torch.float64)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=True)
+             for r in range(2)]
+    err = f64_step_errors(one, ranks, dict(model.named_parameters()))
+    check_f64_step_errors(err)
