@@ -105,7 +105,28 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    one checkpoint from rank 0; then one f64 resnet50_tpu step at global
    batch 4 against the one-process step on the same images on the card,
    loss, gradients, weights and BatchNorm statistics within the DDP_F64_*
-   bounds. A worker's failure fails the phase.
+   bounds. A worker's failure fails the phase;
+12. slice 9: yolov3 inference on phase 5's checkpoint (416 px, 80
+   classes). 12a: `make_predict_step` at batch 16 (bf16, NMS at IoU 0.5
+   and score 0.05, 100 picks), its time split into the decoded forward
+   and greedy NMS by CUDA events (median of 5 after 3), the kernels one
+   NMS call launches (`torch.profiler`) and peak memory; NMS on the card
+   against NMS on the CPU on identical candidates, every pick equal; the
+   card against the CPU on the config's seeded weights in f32 on 2 images
+   (the candidates within 1e-3 of each tensor's largest value, the top 10
+   picks of each image matched greedily; phase 5's weights overflow the
+   box decode's exp()); `evaluate_map` (coco) over 2 synthetic batches,
+   every summary value finite. 12b: `YOLO/torch/
+   evaluate.py -m yolov3 --synthetic` as a subprocess on the card (rc 0, a
+   finite mAP in its JSON), and detect.py's chunk-to-lines function on 2
+   synthetic scenes in its chunk of 8. 12c: yolov3 served at full width by
+   `serve.cli.build_server` at buckets {1, 8}: synthetic `_smoke` load,
+   answers of 1-9 images and one `POST /predict` of one image (three
+   scales as nested lists) held leaf by leaf against
+   `engine.reference()`, one image against an engine on the CPU on the
+   same seeded weights (each leaf within 1e-1 of its largest value: bf16
+   over 75 conv layers), `measure_batch_ms` per bucket. No kernel is on
+   this path: the K1 and K2 launch counts, zeroed before it, stay 0.
 
 The line before the last is a JSON object with one record per kernel; the
 last is `{"ok": true, "device": {...}}`.
@@ -113,10 +134,12 @@ last is `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import atexit
 import copy
 import functools
 import json
 import os
+import runpy
 import shutil
 import statistics
 import subprocess
@@ -133,6 +156,9 @@ import torch.nn.functional as F
 from deepvision_tpu_torch.cli import run_classification, run_detection
 from deepvision_tpu_torch.configs import get_config
 from deepvision_tpu_torch.core.detection import (DetectionTrainer,
+                                                 evaluate_map,
+                                                 make_predict_step,
+                                                 predict_candidates,
                                                  yolo_grid_sizes)
 from deepvision_tpu_torch.core.optim import build_optimizer
 from deepvision_tpu_torch.core.steps import make_classification_train_step
@@ -140,6 +166,7 @@ from deepvision_tpu_torch.core.config import decode_image_size
 from deepvision_tpu_torch.core.train_state import TrainState
 from deepvision_tpu_torch.core.trainer import Trainer
 from deepvision_tpu_torch.data import device_augment as daug
+from deepvision_tpu_torch.data.class_names import names_for
 from deepvision_tpu_torch.data.detection import synthetic_batches
 from deepvision_tpu_torch.data.synthetic import SyntheticClassification
 from deepvision_tpu_torch.models import build_model
@@ -150,6 +177,7 @@ from deepvision_tpu_torch.ops.attention import (flash_attention,
                                                 flash_attention_reference,
                                                 naive_attention)
 from deepvision_tpu_torch.ops.best_iou import best_iou, best_iou_reference
+from deepvision_tpu_torch.ops.nms import batched_nms
 from deepvision_tpu_torch.parallel import mesh
 from deepvision_tpu_torch.serve.cli import _smoke, build_parser, build_server
 from deepvision_tpu_torch.serve.engine import PredictEngine
@@ -161,6 +189,7 @@ from deepvision_tpu_torch.tools.build_report import (count_opcodes,
                                                      sass_by_function)
 from deepvision_tpu_torch.utils.timing import graph_ms, loop_ms
 
+HERE = os.path.dirname(os.path.abspath(__file__))
 MODEL = "vit_small"
 BUCKETS = (1, 8, 32)
 YOLO_MODEL = "yolov3"
@@ -527,66 +556,66 @@ def yolo_loss_components(model, batch, device) -> dict:
 
 
 def check_yolo_slice() -> dict:
-    """Slice 2: yolov3 training through the port's own entry point."""
+    """Slice 2: yolov3 training through the port's own entry point. Its
+    workdir, with the epoch-1 checkpoint, stays for phase 12 and goes when
+    the script exits."""
     workdir = tempfile.mkdtemp(prefix="chip_smoke_yolo_")
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        best_iou.launches = 0            # counts of the main path only
-        t0 = time.perf_counter()
-        trainer, result = run_detection("YOLO", [YOLO_MODEL], [
-            "-m", YOLO_MODEL, "--synthetic", "--image-size", "416",
-            "--batch-size", str(YOLO_BATCH), "--steps-per-epoch",
-            str(YOLO_STEPS), "--epochs", "1", "--device", "cuda",
-            "--workdir", workdir])
-        wall = time.perf_counter() - t0
-        launches = best_iou.launches
-        peak = torch.cuda.max_memory_allocated()
-        cfg = trainer.config
-        if (cfg.data.image_size, cfg.data.num_classes, cfg.batch_size) != (
-                416, 80, YOLO_BATCH):
-            raise AssertionError(f"yolov3 ran at {cfg.data}")
-        steps = trainer.last_epoch_steps
-        for i, s in enumerate(steps):
-            phase(f"yolov3 step {i + 1}: " + " ".join(
-                f"{k}={v:.4f}" for k, v in s.items()))
-        if len(steps) != YOLO_STEPS or not all(
-                np.isfinite(v) for s in steps for v in s.values()):
-            raise AssertionError(f"yolov3 steps not all finite: {steps}")
-        val_loss = result.get("loss", float("nan"))
-        if result.get("count") != YOLO_EVAL_BATCHES or not np.isfinite(
-                val_loss):
-            raise AssertionError(f"yolov3 validation: {result}")
-        dispatches = YOLO_STEPS + YOLO_EVAL_BATCHES
-        phase(f"main path: {YOLO_STEPS} train steps + {YOLO_EVAL_BATCHES} "
-              f"eval batches, {launches} best_iou launches; val_loss="
-              f"{val_loss:.4f}; run_detection {wall:.1f}s")
-        if launches != dispatches:
-            raise AssertionError(f"best_iou ran {launches} times for "
-                                 f"{dispatches} dispatches, want one each "
-                                 f"(all 3 scales in one launch)")
-        step_ms = statistics.median(s["step_ms"] for s in steps[1:])
-        phase(f"yolov3 train step (batch {YOLO_BATCH}, 416 px, bf16): "
-              f"step_ms={step_ms:.3f} (median after the first; first "
-              f"{steps[0]['step_ms']:.3f}) images_per_sec="
-              f"{YOLO_BATCH / step_ms * 1e3:.2f} peak_memory_allocated="
-              f"{peak / 2**30:.3f} GiB")
+    atexit.register(shutil.rmtree, workdir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    best_iou.launches = 0            # counts of the main path only
+    t0 = time.perf_counter()
+    trainer, result = run_detection("YOLO", [YOLO_MODEL], [
+        "-m", YOLO_MODEL, "--synthetic", "--image-size", "416",
+        "--batch-size", str(YOLO_BATCH), "--steps-per-epoch",
+        str(YOLO_STEPS), "--epochs", "1", "--device", "cuda",
+        "--workdir", workdir])
+    wall = time.perf_counter() - t0
+    launches = best_iou.launches
+    peak = torch.cuda.max_memory_allocated()
+    cfg = trainer.config
+    if (cfg.data.image_size, cfg.data.num_classes, cfg.batch_size) != (
+            416, 80, YOLO_BATCH):
+        raise AssertionError(f"yolov3 ran at {cfg.data}")
+    steps = trainer.last_epoch_steps
+    for i, s in enumerate(steps):
+        phase(f"yolov3 step {i + 1}: " + " ".join(
+            f"{k}={v:.4f}" for k, v in s.items()))
+    if len(steps) != YOLO_STEPS or not all(
+            np.isfinite(v) for s in steps for v in s.values()):
+        raise AssertionError(f"yolov3 steps not all finite: {steps}")
+    val_loss = result.get("loss", float("nan"))
+    if result.get("count") != YOLO_EVAL_BATCHES or not np.isfinite(
+            val_loss):
+        raise AssertionError(f"yolov3 validation: {result}")
+    dispatches = YOLO_STEPS + YOLO_EVAL_BATCHES
+    phase(f"main path: {YOLO_STEPS} train steps + {YOLO_EVAL_BATCHES} "
+          f"eval batches, {launches} best_iou launches; val_loss="
+          f"{val_loss:.4f}; run_detection {wall:.1f}s")
+    if launches != dispatches:
+        raise AssertionError(f"best_iou ran {launches} times for "
+                             f"{dispatches} dispatches, want one each "
+                             f"(all 3 scales in one launch)")
+    step_ms = statistics.median(s["step_ms"] for s in steps[1:])
+    phase(f"yolov3 train step (batch {YOLO_BATCH}, 416 px, bf16): "
+          f"step_ms={step_ms:.3f} (median after the first; first "
+          f"{steps[0]['step_ms']:.3f}) images_per_sec="
+          f"{YOLO_BATCH / step_ms * 1e3:.2f} peak_memory_allocated="
+          f"{peak / 2**30:.3f} GiB")
 
-        fresh = DetectionTrainer(cfg, device="cuda", workdir=workdir)
-        fresh.init_state()
-        if fresh.resume() != 1:
-            raise AssertionError("the epoch-1 checkpoint did not restore")
-        want, got = trainer.state.state_dict(), fresh.state.state_dict()
-        same = (all(torch.equal(v, got["model"][k])
-                    for k, v in want["model"].items())
-                and want["step"] == got["step"]
-                and want["optimizer"]["count"] == got["optimizer"]["count"])
-        fresh.close()
-        phase(f"checkpoint round trip: {len(want['model'])} tensors, step "
-              f"{got['step']}, equal={same}")
-        if not same:
-            raise AssertionError("restored weights differ from the trained")
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+    fresh = DetectionTrainer(cfg, device="cuda", workdir=workdir)
+    fresh.init_state()
+    if fresh.resume() != 1:
+        raise AssertionError("the epoch-1 checkpoint did not restore")
+    want, got = trainer.state.state_dict(), fresh.state.state_dict()
+    same = (all(torch.equal(v, got["model"][k])
+                for k, v in want["model"].items())
+            and want["step"] == got["step"]
+            and want["optimizer"]["count"] == got["optimizer"]["count"])
+    fresh.close()
+    phase(f"checkpoint round trip: {len(want['model'])} tensors, step "
+          f"{got['step']}, equal={same}")
+    if not same:
+        raise AssertionError("restored weights differ from the trained")
 
     model = build_model(get_config(YOLO_MODEL).replace(dtype="float32"))
     batch = next(synthetic_batches(batch_size=2, image_size=416,
@@ -601,7 +630,8 @@ def check_yolo_slice() -> dict:
     if not all(torch.isfinite(v).all() for v in cpu.values()) \
             or rel > YOLO_CPU_RTOL:
         raise AssertionError(f"card and CPU loss differ by {rel:g}")
-    return {"launches": launches, "step_ms": step_ms}
+    return {"launches": launches, "step_ms": step_ms, "config": cfg,
+            "workdir": workdir}
 
 
 def check_attention_grad(shape, dtype, gen) -> float:
@@ -1492,6 +1522,405 @@ def check_data_parallel(smi: str, yolo: dict, resnet: dict) -> dict:
     return out
 
 
+# -- phase 12: yolov3 inference ----------------------------------------------
+
+PREDICT_IOU, PREDICT_SCORE = 0.5, 0.05     # evaluate_map's NMS thresholds
+PREDICT_WARMUP, PREDICT_ITERS = 3, 5
+# card vs CPU on the same (phase 5) weights, f32, 2 images at 416 px: the
+# candidates before NMS within DETECT_CPU_RTOL of each tensor's largest
+# value (75 conv layers whose sums run in other orders, phase 5's bound on
+# the loss), then the card's top DETECT_TOP picks of each image matched
+# greedily (same class, nearest box) among the CPU's picks on its own
+# candidates, scores and boxes within the same bound
+DETECT_CPU_RTOL = 1e-3
+DETECT_TOP = 10
+DETECT_SCENES = 2
+# served yolov3 answers against engine.reference() (a padded bucket against
+# the exact batch, both bf16 on the card), and the card against an engine
+# on the CPU (bf16 against bf16), each leaf relative to its largest value:
+# SERVE_TOL's bf16 roundings of activations in differently ordered sums,
+# compounded over 75 conv layers rather than ViT's 8 blocks, and the box
+# decode's exp() turns a rounding of tw into a relative error of w
+# (measured 0.052 and 0.034 on the H100)
+DETECT_SERVE_TOL = 1e-1
+SERVE_BUCKETS = (1, 8)
+EVALUATE_TIMEOUT = 300
+
+
+def event_ms(fn, warmup: int = PREDICT_WARMUP, iters: int = PREDICT_ITERS):
+    """(median ms of `iters` calls of `fn`, each between CUDA events after
+    `warmup` calls, the last call's result)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), out
+
+
+def device_profile(fn) -> tuple:
+    """(device kernels one call of `fn` launches, copies and memsets
+    apart; their summed device ms) from `torch.profiler`, after one
+    unprofiled call."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower()
+               and "memset" not in e.name.lower()]
+    if not kernels:
+        raise AssertionError("the profile holds no device kernel")
+    return (len(kernels),
+            sum(e.time_range.elapsed_us() for e in kernels) / 1e3)
+
+
+def conv_gflop(model, images, dtype) -> float:
+    """GFLOP (2 per multiply-add) of the convs of one decoded forward of
+    `model` on `images`, from their output shapes: each output element
+    costs in/groups * kh * kw multiply-adds."""
+    total = [0]
+
+    def hook(mod, _inputs, out):
+        total[0] += 2 * out.numel() * mod.weight[0].numel()
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.inference_mode():
+            predict_candidates(model, images, dtype)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0] / 1e9
+
+
+def leaf_rel_err(got, want) -> float:
+    """The worst of `leaf_rel_errs`."""
+    return max(leaf_rel_errs(got, want))
+
+
+def leaf_rel_errs(got, want) -> list:
+    """Largest |got - want| of each leaf over that leaf's largest |want|
+    (at least 1), leaf by leaf: `want` a tree (tuples) of arrays, `got`
+    the same tree, or its nested lists as JSON carries it."""
+    errs = []
+    for g, w in _leaf_pairs(got, want):
+        g, w = np.asarray(g, np.float32), np.asarray(w, np.float32)
+        if g.shape != w.shape:
+            raise AssertionError(f"leaf shapes differ: {g.shape} vs "
+                                 f"{w.shape}")
+        errs.append(float(np.abs(g - w).max())
+                    / max(1.0, float(np.abs(w).max())))
+    return errs
+
+
+def _leaf_pairs(got, want):
+    if isinstance(want, (tuple, list)):
+        if len(got) != len(want):
+            raise AssertionError(f"{len(got)} outputs, want {len(want)}")
+        for g, w in zip(got, want):
+            yield from _leaf_pairs(g, w)
+    else:
+        yield got, want
+
+
+def _leaves(tree):
+    if isinstance(tree, (tuple, list)):
+        for t in tree:
+            yield from _leaves(t)
+    else:
+        yield tree
+
+
+def match_picks(got, want, k: int, tol: float) -> int:
+    """Greedy match of the top-k picks of each image of NMS output `got`
+    among the picks of `want` ((boxes, scores, class_probs, counts), CPU
+    tensors or arrays): the same class, the nearest box, score and box
+    within `tol`. Returns the matched count; fails on a pick without a
+    match."""
+    boxes, scores, probs, counts = (np.asarray(t) for t in got)
+    w_boxes, w_scores, w_probs, w_counts = (np.asarray(t) for t in want)
+    matched = 0
+    for i in range(len(counts)):
+        pool = list(range(int(w_counts[i])))
+        for d in range(min(k, int(counts[i]))):
+            cls = int(np.argmax(probs[i, d]))
+            best = min(pool, key=lambda w: (
+                int(np.argmax(w_probs[i, w])) != cls,
+                float(np.abs(boxes[i, d] - w_boxes[i, w]).max())),
+                default=None)
+            if best is None or int(np.argmax(w_probs[i, best])) != cls \
+                    or abs(float(scores[i, d] - w_scores[i, best])) > tol \
+                    or float(np.abs(boxes[i, d] - w_boxes[i, best])
+                             .max()) > tol:
+                raise AssertionError(f"image {i} pick {d} (class {cls}, "
+                                     f"score {float(scores[i, d]):.6f}) has "
+                                     f"no match within {tol:g}")
+            pool.remove(best)
+            matched += 1
+    return matched
+
+
+def check_predict(trainer, cfg) -> dict:
+    """12a: the yolov3 predict step and evaluate_map at 416 px, batch 16,
+    on the restored phase 5 weights; the card against the CPU on the
+    config's seeded weights (phase 5's 3 steps leave the eval-mode heads
+    so large that exp() in the box decode overflows: its boxes are not a
+    comparison of two devices' arithmetic)."""
+    batches = list(synthetic_batches(batch_size=cfg.batch_size,
+                                     image_size=cfg.data.image_size,
+                                     num_classes=cfg.data.num_classes,
+                                     steps=2, seed=12))
+    images = torch.from_numpy(batches[0][0]).cuda()
+    state, model = trainer.state, trainer.model
+    dtype = getattr(torch, cfg.dtype)
+    nms_kw = dict(iou_thresh=PREDICT_IOU, score_thresh=PREDICT_SCORE,
+                  max_detection=100)
+    predict = make_predict_step(compute_dtype=dtype, **nms_kw)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, out = event_ms(lambda: predict(state, images))
+    peak = torch.cuda.max_memory_allocated()
+    model.eval()
+    with torch.inference_mode():
+        forward_ms, cand = event_ms(
+            lambda: predict_candidates(model, images, dtype))
+        nms_ms, _ = event_ms(lambda: batched_nms(*cand, **nms_kw))
+        nms_kernels, nms_busy = device_profile(
+            lambda: batched_nms(*cand, **nms_kw))
+        forward_kernels, forward_busy = device_profile(
+            lambda: predict_candidates(model, images, dtype))
+    gflop = conv_gflop(model, images[:1], dtype)
+    bound_ms = gflop * 1e9 * len(images) / PEAK_FLOPS[torch.bfloat16] * 1e3
+    counts = out[3].tolist()
+    n_cand = cand[1].shape[1]
+    finite_boxes = float(torch.isfinite(cand[0]).float().mean())
+    phase(f"12a predict step ({cfg.name}, batch {len(images)}, "
+          f"{cfg.data.image_size} px, {cfg.dtype}, {n_cand} candidates, "
+          f"D 100, score >= {PREDICT_SCORE}), each part timed alone by CUDA "
+          f"events, median of {PREDICT_ITERS} after {PREDICT_WARMUP}: "
+          f"step {step_ms:.3f} ms; forward {forward_ms:.3f} ms "
+          f"({forward_kernels} kernels, {forward_busy:.3f} ms device busy; "
+          f"its convs {gflop:.2f} GFLOP an image, bound {bound_ms:.3f} ms at "
+          f"the bf16 peak); "
+          f"NMS {nms_ms:.3f} ms ({nms_kernels} kernels, {nms_busy:.3f} ms "
+          f"device busy); peak_memory_allocated={peak / 2**30:.3f} GiB; "
+          f"counts {counts}; finite box coordinates {finite_boxes:.4f}")
+    if out[0].shape != (len(images), 100, 4) or n_cand != 3 * sum(
+            g * g for g in yolo_grid_sizes(cfg.data.image_size)):
+        raise AssertionError(f"predict shapes {[t.shape for t in out]}")
+    if not all(bool(((t >= 0) & (t <= 1)).all()) for t in out[1:3]):
+        raise AssertionError("predict scores or class probabilities are "
+                             "not finite values in [0, 1]")
+
+    # NMS on the card against the CPU on identical inputs (every candidate
+    # alive, so every image has 100 picks to compare)
+    every = dict(nms_kw, score_thresh=0.0)
+    with torch.inference_mode():
+        card_nms = [t.cpu() for t in batched_nms(*cand, **every)]
+    cpu_nms = batched_nms(*(t.cpu() for t in cand), **every)
+    nms_equal = all(same(a, b) for a, b in zip(card_nms, cpu_nms))
+    phase(f"12a NMS on the card vs on the CPU, identical candidates (score "
+          f">= 0, {int(cpu_nms[3].sum())} picks): equal={nms_equal}")
+    if not nms_equal or int(cpu_nms[3].min()) != 100:
+        raise AssertionError("the card's NMS picks differ from the CPU's")
+
+    # card vs CPU in f32 on the seeded weights
+    f32 = build_model(cfg.replace(dtype="float32")).eval()
+    two = batches[0][0][:2]
+    with torch.inference_mode():
+        cpu_cand = predict_candidates(f32, torch.from_numpy(two),
+                                      torch.float32)
+        card_cand = predict_candidates(copy.deepcopy(f32).cuda(),
+                                       torch.from_numpy(two).cuda(),
+                                       torch.float32)
+        card_cand = [t.cpu() for t in card_cand]
+        if not all(torch.isfinite(t).all() for t in cpu_cand):
+            raise AssertionError("the seeded weights' candidates are not "
+                                 "finite")
+        pre_err = leaf_rel_err([t.numpy() for t in card_cand],
+                               [t.numpy() for t in cpu_cand])
+        scale = max(1.0, max(float(t.abs().max()) for t in cpu_cand))
+        matched = match_picks(batched_nms(*card_cand, **every),
+                              batched_nms(*cpu_cand, **every), DETECT_TOP,
+                              DETECT_CPU_RTOL * scale)
+    phase(f"12a card vs CPU, f32, the config's seeded weights, {len(two)} "
+          f"images: candidates {pre_err:.3g} of each tensor's largest value "
+          f"(bound {DETECT_CPU_RTOL:g}); top {DETECT_TOP} picks of each "
+          f"image matched {matched}")
+    if not pre_err <= DETECT_CPU_RTOL:
+        raise AssertionError(f"card and CPU candidates differ by {pre_err:g}")
+
+    t0 = time.perf_counter()
+    summary = evaluate_map(state, batches, num_classes=cfg.data.num_classes,
+                           metric="coco", compute_dtype=dtype)
+    map_s = time.perf_counter() - t0
+    phase(f"12a evaluate_map (coco) over {len(batches)} synthetic batches "
+          f"of {cfg.batch_size}: " + " ".join(
+              f"{k}={summary[k]:.4f}" for k in ("mAP", "mAP@0.5", "mAP@0.75")
+              if k in summary) + f"; {len(summary)} keys; {map_s:.2f}s")
+    if not {"mAP", "mAP@0.5", "mAP@0.95"} <= set(summary) or not all(
+            np.isfinite(v) for v in summary.values()):
+        raise AssertionError(f"evaluate_map summary: {summary}")
+    return {"step_ms": step_ms, "forward_ms": forward_ms, "nms_ms": nms_ms,
+            "nms_kernels": nms_kernels, "nms_busy_ms": nms_busy,
+            "forward_kernels": forward_kernels,
+            "forward_busy_ms": forward_busy, "forward_bound_ms": bound_ms,
+            "peak_bytes": peak,
+            "map": summary["mAP"]}
+
+
+def check_detection_entry_points(trainer, cfg) -> None:
+    """12b: `YOLO/torch/evaluate.py --synthetic` as a subprocess on the
+    card, and detect.py's chunk-to-lines function on synthetic scenes."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        out, log = f"{root}/eval.json", f"{root}/eval.log"
+        t0 = time.perf_counter()
+        run_workers([[sys.executable, f"{HERE}/YOLO/torch/evaluate.py",
+                      "-m", YOLO_MODEL, "--synthetic", "--out", out,
+                      "--workdir", f"{root}/wd"]], [dict(os.environ)], [log],
+                    timeout=EVALUATE_TIMEOUT)
+        with open(out) as fh:
+            metrics = json.load(fh)
+        phase(f"12b YOLO/torch/evaluate.py -m {YOLO_MODEL} --synthetic: rc 0 "
+              f"in {time.perf_counter() - t0:.1f}s, mAP={metrics['mAP']:.4f} "
+              f"mAP@0.5={metrics['mAP@0.5']:.4f}")
+        if not np.isfinite(metrics["mAP"]):
+            raise AssertionError(f"evaluate.py wrote {metrics}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    detect = runpy.run_path(f"{HERE}/YOLO/torch/detect.py",
+                            run_name="not_main")
+    size = cfg.data.image_size
+    scenes, *_ = next(synthetic_batches(batch_size=DETECT_SCENES,
+                                        image_size=size,
+                                        num_classes=cfg.data.num_classes,
+                                        steps=1, seed=13))
+    batch = np.zeros((detect["CHUNK"], size, size, 3), np.float32)
+    batch[:DETECT_SCENES] = scenes
+    paths = [f"scene{i}" for i in range(DETECT_SCENES)]
+    lines = detect["detection_lines"](make_predict_step(), trainer.state,
+                                      batch, paths, names_for(
+                                          cfg.data.num_classes))
+    heads = [ln for ln in lines if not ln.startswith("  ")]
+    for ln in lines[:6]:
+        phase(f"12b detect.py lines: {ln}")
+    if [h.split(":")[0] for h in heads] != paths or not all(
+            h.endswith(" detections") for h in heads):
+        raise AssertionError(f"detect.py printed {lines[:4]}")
+
+
+def check_detection_serving() -> dict:
+    """12c: yolov3 served at full width through the port's own
+    `serve.cli.build_server` on the card at buckets {1, 8}."""
+    args = build_parser().parse_args(
+        ["-m", YOLO_MODEL, "--device", "cuda", "--buckets",
+         ",".join(map(str, SERVE_BUCKETS)), "--flush-every", "60"])
+    server = build_server(args)
+    engine = server.engine
+    engine.dispatches = 0
+    snap = _smoke(server, duration=3.0, n_threads=8)
+    server.close()
+    cfg = get_config(YOLO_MODEL)
+    rs = np.random.RandomState(12)
+    errs = np.zeros(9)
+    for n in (1, 3, 8, 9):
+        x = rs.randn(n, *engine.example_shape).astype(np.float32)
+        got = engine.predict(x)
+        want = [(n, g, g, 3, k) for g in yolo_grid_sizes(cfg.data.image_size)
+                for k in (4, 1, cfg.data.num_classes)]
+        if [np.shape(leaf) for leaf in _leaves(got)] != want:
+            raise AssertionError(f"{YOLO_MODEL} answered "
+                                 f"{[np.shape(t) for t in _leaves(got)]}")
+        errs = np.maximum(errs, leaf_rel_errs(got, engine.reference(x)))
+    http = InferenceServer(engine=engine, max_delay_ms=5.0,
+                           default_deadline_s=120.0, flush_every_s=60.0)
+    t = threading.Thread(target=lambda: http.serve(port=0), daemon=True)
+    t.start()
+    try:
+        if not http.ready.wait(60):
+            raise RuntimeError("HTTP server did not start")
+        x = rs.randn(1, *engine.example_shape).astype(np.float32)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{http.bound_port}/predict",
+            data=json.dumps({"instances": x.tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            body = resp.read()
+        http_s = time.perf_counter() - t0
+        answer = json.loads(body)["predictions"]
+    finally:
+        http.stop()
+        t.join(timeout=60)
+        http.close()
+    http_err = leaf_rel_err(answer, engine.reference(x))
+    cpu = PredictEngine.from_config(YOLO_MODEL, device="cpu", buckets=(1,),
+                                    verbose=False)
+    cpu_errs = leaf_rel_errs(engine.reference(x), cpu.reference(x))
+    batch_ms = {b: engine.measure_batch_ms(b, 10) for b in engine.buckets}
+    phase(f"12c {YOLO_MODEL} served at buckets {engine.buckets}: smoke "
+          f"{snap['requests']:.0f} requests, p50_ms="
+          f"{snap.get('p50_ms', float('nan')):.3f} p99_ms="
+          f"{snap.get('p99_ms', float('nan')):.3f} images_per_sec="
+          f"{snap['images_per_sec']:.1f}; {engine.dispatches} dispatches")
+    err, cpu_err = max(errs), max(cpu_errs)
+    phase(f"12c answers vs engine.reference(), worst leaf relative to its "
+          f"largest value: in-process {err:.3g} (by leaf kind, worst scale: "
+          f"{by_kind(errs)}), HTTP (1 image, {len(body) / 1e6:.1f} MB of "
+          f"JSON in {http_s:.2f}s) {http_err:.3g} (bound "
+          f"{DETECT_SERVE_TOL:g}); card vs CPU engine on the same seeded "
+          f"weights, 1 image: {cpu_err:.3g} ({by_kind(cpu_errs)}; bound "
+          f"{DETECT_SERVE_TOL:g})")
+    phase("12c measure_batch_ms (host input to host output): " + " ".join(
+        f"bucket {b}: {ms:.3f}" for b, ms in batch_ms.items()))
+    if not (err <= DETECT_SERVE_TOL and http_err <= DETECT_SERVE_TOL
+            and cpu_err <= DETECT_SERVE_TOL):
+        raise AssertionError(f"{YOLO_MODEL} served answers differ: {err:g}, "
+                             f"HTTP {http_err:g}, card vs CPU {cpu_err:g}")
+    return {"batch_ms": batch_ms, "http_s": http_s}
+
+
+def by_kind(errs) -> str:
+    """Per-leaf errors of the three (boxes, objectness, class_probs)
+    scales, the worst scale of each kind."""
+    return " ".join(f"{kind} {max(errs[i::3]):.3g}" for i, kind in
+                    enumerate(("boxes", "objectness", "class_probs")))
+
+
+def check_detection_inference(yolo: dict) -> dict:
+    """Phase 12, slice 9: yolov3 inference on the phase 5 checkpoint. No
+    TPU kernel is on this path: the K1 and K2 counts, zeroed here, must
+    stay 0."""
+    t0 = time.perf_counter()
+    flash_attention.launches = best_iou.launches = 0
+    cfg = yolo["config"]
+    trainer = DetectionTrainer(cfg, device="cuda", workdir=yolo["workdir"])
+    trainer.init_state()
+    if trainer.resume() != 1:
+        raise AssertionError("phase 5's checkpoint did not restore")
+    out = check_predict(trainer, cfg)
+    check_detection_entry_points(trainer, cfg)
+    trainer.close()
+    out["serve"] = check_detection_serving()
+    counts = (flash_attention.launches, best_iou.launches)
+    phase(f"12: launches on the inference path (flash_attention, best_iou): "
+          f"{counts}; phase 12 took {time.perf_counter() - t0:.1f}s")
+    if counts != (0, 0):
+        raise AssertionError(f"a kernel ran on the inference path: {counts}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1675,6 +2104,11 @@ def main() -> int:
     # zeroed in the rank before each entry point)
     torch.cuda.empty_cache()        # the workers share the card
     ddp = check_data_parallel(smi, yolo, resnet)
+
+    # 12. slice 9: yolov3 inference on phase 5's checkpoint (no kernel on
+    # this path: the launch counts, zeroed there, must stay 0)
+    torch.cuda.empty_cache()
+    check_detection_inference(yolo)
 
     timed_keys = ("shape", "layout", "ms", "device_ms", "plain_ms",
                   "library_ms", "library_device_ms", "bound_ms")

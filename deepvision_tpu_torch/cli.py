@@ -7,7 +7,8 @@ trains ResNet-50 on the card, `python LeNet/torch/train.py -m
 lenet5_digits --device cpu` LeNet-5 on the bundled digits on the CPU,
 `python ViT/torch/train.py -m vit_small --synthetic` ViT-Small/16 and
 `python YOLO/torch/train.py -m yolov3 --synthetic --image-size 416`
-YOLO V3. The flags are the JAX CLI's (`-m`, `-c`, `--data-dir`,
+YOLO V3 (`-m yolov3_digits --device cpu` on the digits_detect scenes of
+the bundled digits). The flags are the JAX CLI's (`-m`, `-c`, `--data-dir`,
 `--synthetic`, `--epochs`, `--batch-size`, `--eval-batch-size`,
 `--learning-rate`, `--accum-steps`, `--no-decay-bn-bias`, `--ema-decay`,
 `--device-augment`, `--prefetch-batches`, `--steps-per-epoch`, `--seed`,
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import os
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -85,7 +87,8 @@ def build_parser(family: str, models: Sequence[str]) -> argparse.ArgumentParser:
                         "device from a producer thread (default 2; 1 "
                         "stages inline)")
     p.add_argument("--steps-per-epoch", type=int, default=None,
-                   help="override steps per epoch (synthetic/smoke)")
+                   help="override steps per epoch (synthetic/smoke; "
+                        "cuts a digits_detect training epoch)")
     p.add_argument("--seed", type=int, default=None,
                    help="override the config's seed (weights and data)")
     p.add_argument("--workdir", default=None,
@@ -227,11 +230,40 @@ def _detection_data(cfg: TrainConfig, args) -> Tuple:
                                    image_size=data.image_size,
                                    num_classes=data.num_classes, steps=steps,
                                    seed=seed, rank=rank))
-    if data.dataset in ("detection", "digits_detect"):
+    if data.dataset == "digits_detect":
+        # real scanned digits composed into detection scenes: train scenes
+        # composed anew each epoch (seed 1000 + epoch) and shuffled, each
+        # rank taking its rows of every global batch, the first
+        # --steps-per-epoch batches when given (as the JAX CLI cuts its
+        # TFRecord epochs); the validation scenes pinned (data/digits.py),
+        # as global batches
+        if data.normalize_on_device:
+            raise SystemExit("--device-normalize is incompatible with "
+                             "digits_detect (scenes are already float "
+                             "[-1,1], not raw pixels)")
+        from .data.digits import (detection_batches, detection_scenes,
+                                  detection_val_scenes, scan_splits)
+        (tr_x, tr_y), _ = scan_splits()
+        va = detection_val_scenes(canvas=data.image_size,
+                                  n_scenes=data.val_examples)
+        rank, world = mesh.rank(), mesh.world_size()
+
+        def train_fn(epoch):
+            tr = detection_scenes(tr_x, tr_y, n_scenes=data.train_examples,
+                                  canvas=data.image_size, seed=1000 + epoch)
+            batches = detection_batches(tr, batch_size=cfg.batch_size,
+                                        shuffle_seed=epoch)
+            for batch in itertools.islice(batches, args.steps_per_epoch):
+                yield tuple(mesh.shard_rows(a, rank, world) for a in batch)
+
+        return train_fn, lambda epoch: detection_batches(
+            va, batch_size=cfg.batch_size)
+    if data.dataset == "detection":
         raise NotImplementedError(
-            f"dataset {data.dataset!r} is not ported yet (the TFRecord "
-            f"VOC/COCO pipeline and the digits_detect scenes); train with "
-            f"--synthetic")
+            "the VOC/COCO TFRecord pipeline (dataset 'detection') is not "
+            "ported yet: it reads TFRecords through TensorFlow, which the "
+            "port does not depend on; train with --synthetic or on "
+            "digits_detect")
     raise ValueError(f"detection families read 'detection' TFRecords, not "
                      f"dataset={data.dataset!r}")
 

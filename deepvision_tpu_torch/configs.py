@@ -208,9 +208,9 @@ CONFIGS.register("yolov3_voc", TrainConfig(
                     train_examples=2501, val_examples=2510),
 ))
 
-# -- YOLO on scanned-digit detection scenes, Darknet-53 at a quarter width
-#    on a 128px canvas (the digits_detect input is not ported yet: this
-#    config trains on --synthetic data only). ----
+# -- YOLO on scanned-digit detection scenes (data/digits.py, the
+#    digits_detect dataset), Darknet-53 at a quarter width on a 128px
+#    canvas. ----
 CONFIGS.register("yolov3_digits", TrainConfig(
     name="yolov3_digits", model="yolov3", family="detection", batch_size=32,
     total_epochs=150,

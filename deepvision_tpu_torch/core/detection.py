@@ -1,6 +1,7 @@
-"""Detection (YOLO V3) steps and trainer (own copy of
+"""Detection (YOLO V3) steps, inference and trainer (own copy of
 deepvision_tpu/core/detection.py: `yolo_grid_sizes`, `make_yolo_train_step`,
-`make_yolo_eval_step`, `DetectionTrainer`).
+`make_yolo_eval_step`, `make_predict_step`, `evaluate_map`,
+`DetectionTrainer`).
 
 Each step is a plain function on device tensors: the labels are encoded on
 the device, then forward, `yolo_loss` (whose ignore mask runs the best-IoU
@@ -9,16 +10,28 @@ the Adam update. Nothing in a step waits for the device. Under a process
 group the train step runs the state's DDP wrapper on the rank's rows
 (`yolo_loss` is per image, so the mean of the ranks' means is the global
 batch's) and returns the global means; the eval step runs the unwrapped
-model. `make_predict_step`, NMS and mAP evaluation are not ported yet.
+model.
+
+The predict step is inference end to end on the device: the decoded
+forward (eval mode, images cast to the compute dtype; the heads come out
+of the f32 final convs and decode in f32), the three scales flattened,
+detection confidence = objectness x class probability in f32 ranked by its
+best class, corner boxes in f32, then the fixed-shape greedy NMS of
+ops/nms.py. It runs under `torch.inference_mode()` on the EMA weights when
+the state keeps them (`Trainer.evaluate`'s weights). `evaluate_map` feeds
+its outputs to the mAP evaluator (core/eval_detection.py).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..ops import yolo as yolo_ops
+from ..ops.boxes import xywh_to_x1y1x2y2
+from ..ops.nms import batched_nms
 from ..parallel import mesh
 from .config import UNIT_RANGE_NORM, TrainConfig
 from .steps import normalize_input
@@ -83,6 +96,72 @@ def make_yolo_eval_step(*, num_classes: int, grid_sizes: Sequence[int],
         return {"loss": comp["total"].mean()}
 
     return step
+
+
+def predict_candidates(model: torch.nn.Module, images: torch.Tensor,
+                       compute_dtype: torch.dtype = torch.bfloat16
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The predict step before NMS: `model`'s decoded eval forward on
+    `images` → (corner boxes (B, N, 4), ranking scores (B, N), per-class
+    confidences (B, N, C)), all f32, N = 3 · sum of g² over the scales.
+    The caller holds the inference mode and the model's eval mode."""
+    outputs = model(images.to(compute_dtype), decode=True)
+    b = images.shape[0]
+    boxes = torch.cat([o[0].reshape(b, -1, 4) for o in outputs], dim=1)
+    obj = torch.cat([o[1].reshape(b, -1) for o in outputs], dim=1)
+    cls_probs = torch.cat([o[2].reshape(b, -1, o[2].shape[-1])
+                           for o in outputs], dim=1)
+    # detection confidence = objectness x class probability, the score both
+    # the COCO and VOC evaluators rank by; NMS ranks by the best class's
+    conf = obj[..., None].float() * cls_probs.float()
+    return (xywh_to_x1y1x2y2(boxes.float()), conf.max(dim=-1).values, conf)
+
+
+def make_predict_step(*, compute_dtype: torch.dtype = torch.bfloat16,
+                      iou_thresh: float = 0.5, score_thresh: float = 0.5,
+                      max_detection: int = 100) -> Callable:
+    """(state, images) → (nms_boxes (B, D, 4), nms_scores (B, D),
+    nms_class_probs (B, D, C), counts (B,) int32), on the images' device:
+    `predict_candidates` then `batched_nms`, on the state's EMA weights
+    when it keeps them."""
+
+    def step(state: TrainState, images: torch.Tensor):
+        model = state.model
+        with state.ema_weights(), torch.inference_mode():
+            model.eval()
+            boxes, scores, conf = predict_candidates(model, images,
+                                                     compute_dtype)
+            return batched_nms(boxes, scores, conf, iou_thresh=iou_thresh,
+                               score_thresh=score_thresh,
+                               max_detection=max_detection)
+
+    return step
+
+
+def evaluate_map(state: TrainState, batches: Iterable, *, num_classes: int,
+                 metric: str = "coco", iou_thresh: float = 0.5,
+                 score_thresh: float = 0.05,
+                 compute_dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Detection inference over `batches` of (images, boxes, classes,
+    valid[, difficult]) numpy arrays on the state's device, scored by the
+    mAP evaluator: metric "coco" → mAP@[.5:.95], "voc" → all-point
+    mAP@0.5, "voc07" → 11-point. The low default score threshold keeps the
+    precision-recall curve's low-confidence tail, as standard evaluators
+    do."""
+    from .eval_detection import make_evaluator
+
+    ev = make_evaluator(metric, num_classes)
+    predict = make_predict_step(compute_dtype=compute_dtype,
+                                iou_thresh=iou_thresh,
+                                score_thresh=score_thresh)
+    device = next(state.model.parameters()).device
+    for batch in batches:
+        images, boxes, classes, valid = batch[:4]
+        difficult = batch[4] if len(batch) > 4 else None  # VOC devkit flags
+        out = predict(state, torch.as_tensor(np.asarray(images)).to(device))
+        ev.add_batch(*(t.cpu().numpy() for t in out), boxes, classes, valid,
+                     gt_difficult=difficult)
+    return ev.summarize()
 
 
 class DetectionTrainer(LossWatchedTrainer):

@@ -13,7 +13,9 @@ runs the step on each, updates the EMA of the parameters after each
 applied optimizer update (`config.ema_decay`), and keeps the metrics on
 the device; it reads them back at the `log_every_steps` boundaries and
 once at the end of the epoch. Evaluation, and so the best checkpoint,
-uses the EMA parameters when there are any.
+uses the EMA parameters when there are any. A workdir's `model_kwargs.json`
+pins the architecture its weights fit (`apply_pinned_model_kwargs`): a
+trainer built on it without a model builds that one.
 
 Under a process group (parallel/mesh.py, a torchrun launch) the trainer is
 data-parallel with the JAX mesh's semantics: `batch_size` and
@@ -34,7 +36,9 @@ and divergence recovery are not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
 import statistics
 import time
 from typing import Callable, Dict, Iterable, List, Optional
@@ -78,6 +82,24 @@ def _device_augments(config: TrainConfig, compute_dtype: torch.dtype):
               compute_dtype=compute_dtype)
     return (daug.make_train_augment(data.image_size, **kw),
             daug.make_eval_augment(data.image_size, **kw))
+
+
+def apply_pinned_model_kwargs(config: TrainConfig,
+                              workdir: Optional[str]) -> TrainConfig:
+    """`config` with the model kwargs a workdir pins in its
+    `model_kwargs.json` folded over its own: a workdir holding imported
+    or reduced weights names the architecture they fit, and every later
+    run on it builds that one (the JAX package's
+    `build_model_from_config(..., workdir=)`)."""
+    pinned = os.path.join(workdir, "model_kwargs.json") if workdir else None
+    if not pinned or not os.path.exists(pinned):
+        return config
+    with open(pinned) as fp:
+        extra = json.load(fp)
+    if not extra:
+        return config
+    say(f"[{config.name}] applying pinned model kwargs {extra}")
+    return config.replace(model_kwargs={**config.model_kwargs, **extra})
 
 
 class TrainingDivergedError(RuntimeError):
@@ -148,10 +170,13 @@ class Trainer:
     def __init__(self, config: TrainConfig, *, device=None,
                  workdir: Optional[str] = None,
                  model: Optional[torch.nn.Module] = None):
-        self.config = config
         self.device = resolve_device(device)
         self.workdir = workdir or config.checkpoint_dir
-        self.model = model if model is not None else build_model(config)
+        if model is None:
+            config = apply_pinned_model_kwargs(config, self.workdir)
+            model = build_model(config)
+        self.config = config
+        self.model = model
         self.rank, self.world = mesh.rank(), mesh.world_size()
         mesh.check_batch_divisible(config.batch_size, self.world)
         if config.eval_batch_size:

@@ -30,7 +30,8 @@ from torch import nn
 
 from ..ops.yolo import ANCHORS_WH, decode_boxes
 from ..utils.registry import MODELS
-from .common import BatchNorm, Conv, _add_children, lecun_normal_
+from .common import (BatchNorm, ComputeWeights, Conv, _add_children,
+                     lecun_normal_)
 
 BN_EPS = 1e-3        # the reference's Keras BatchNormalization default
 
@@ -130,7 +131,7 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
 
 
 @MODELS.register("yolov3")
-class YoloV3(nn.Module):
+class YoloV3(ComputeWeights, nn.Module):
     """Full detector. `forward(x)` on (B, H, W, C) images: in train mode
     the 3 raw heads (B, g, g, 3, 5 + C) f32 at strides (8, 16, 32); in eval
     mode the 3 decoded (boxes_xywh, objectness, class_probs) triples, or the

@@ -36,7 +36,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from .engine import PredictEngine, pick_bucket
+from .engine import PredictEngine, pick_bucket, tree_slice
 
 
 class RequestRejected(RuntimeError):
@@ -270,7 +270,7 @@ class DynamicBatcher:
             self._record_dispatch_locked(now - t0)
         lo = 0
         for r in batch:
-            _settle(r.future, out[lo:lo + r.n])
+            _settle(r.future, tree_slice(out, lo, lo + r.n))
             lo += r.n
         if self.metrics is not None:
             self.metrics.observe_batch(

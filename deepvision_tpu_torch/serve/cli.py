@@ -8,9 +8,13 @@
     python -m deepvision_tpu_torch.serve -m vit_small --smoke
     python -m deepvision_tpu_torch.serve -m vit_tiny --smoke --device cpu
 
-Weights are random, drawn from each config's seed; checkpoint restore, hot
-reload, promotion, int8, meshes and autoscaling are still to port
-(ROADMAP.md).
+    # detection: yolov3 at 416 px answers each image's three decoded
+    # scales (boxes, objectness, class probabilities)
+    python -m deepvision_tpu_torch.serve -m yolov3 --buckets 1,8
+
+Every classification and detection config serves. Weights are random,
+drawn from each config's seed; checkpoint restore, hot reload, promotion,
+int8, meshes and autoscaling are still to port (ROADMAP.md).
 """
 
 from __future__ import annotations

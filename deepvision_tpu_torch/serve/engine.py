@@ -9,14 +9,21 @@ cuBLAS see rather than a set of compiled programs; a CUDA graph per bucket
 is the counterpart of the JAX engine's AOT executables (ROADMAP).
 
 Dtype policy matches the JAX engine: inputs cast to the config's compute
-dtype (bf16 unless the config pins f32), outputs returned as f32.
+dtype (bf16 unless the config pins f32), float outputs returned as f32.
+
+An answer is the model's eval-mode output as a tree of host arrays: one
+(n, classes) array for a classifier (its first output when it returns
+several, as the JAX engine's `take_first_output`), and for a detector the
+decoded `(boxes_xywh, objectness, class_probs)` triple of each of its
+three scales. `tree_slice` and `tree_concat` strip padding, join chunks
+and cut one request's rows out of a coalesced batch.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +32,29 @@ from ..configs import get_config
 from ..core.steps import normalize_input
 from ..models import build_model
 from ..utils.device import device_name, resolve_device
+
+
+#: the config families the engine can build and serve
+SERVED_FAMILIES = ("classification", "detection")
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """`fn` over the leaves of nested tuples and lists (and of `rest`, trees
+    of the same structure), keeping the structure."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, *leaves)
+                          for leaves in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def tree_slice(outputs: Any, lo: int, hi: int) -> Any:
+    """Rows `[lo:hi]` of every leaf of an output tree."""
+    return tree_map(lambda a: a[lo:hi], outputs)
+
+
+def tree_concat(chunks: Sequence[Any]) -> Any:
+    """Same-structure output trees joined along the batch."""
+    return tree_map(lambda *xs: np.concatenate(xs), *chunks)
 
 
 def pick_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -44,15 +74,15 @@ class PredictEngine:
 
     `predict(images)` accepts a host array of shape `(n, *example_shape)`
     (or one bare example), pads to the nearest bucket, runs ONE dispatch
-    per <=max_batch chunk, and returns the f32 host outputs with the
-    padding rows stripped. Thread-safe: the model is only read, and each
-    dispatch runs under `torch.inference_mode()`.
+    per <=max_batch chunk, and returns the host output tree (float leaves
+    f32) with the padding rows stripped. Thread-safe: the model is only
+    read, and each dispatch runs under `torch.inference_mode()`.
 
     The model must carry its compute dtype as `model.dtype` and implement
-    `cast_compute_weights_()` (every classification model of the port:
-    `models/common.py::ComputeWeights`, `models/vit.py`). A model that
-    returns a tuple serves its first output, the main head, as the JAX
-    engine's `take_first_output` does.
+    `cast_compute_weights_()` (`models/common.py::ComputeWeights`: every
+    classifier and YOLO V3; `models/vit.py`). With `take_first_output` (a
+    classifier) a model that returns a tuple serves its first output, the
+    main head; without it the whole tree is served.
     """
 
     def __init__(self, model: torch.nn.Module, *,
@@ -61,6 +91,7 @@ class PredictEngine:
                  buckets: Sequence[int] = (1, 8, 32),
                  max_batch: Optional[int] = None,
                  input_norm: Optional[Tuple] = None,
+                 take_first_output: bool = True,
                  name: str = "model", verbose: bool = True,
                  provenance: Optional[dict] = None):
         self.device = resolve_device(device)
@@ -80,6 +111,7 @@ class PredictEngine:
         self.verbose = verbose
         self.provenance = dict(provenance or {"weights": "random-init"})
         self.input_norm = input_norm
+        self.take_first_output = take_first_output
         self.input_dtype = np.dtype(np.uint8 if input_norm is not None
                                     else np.float32)
         self.compute_dtype = model.dtype
@@ -105,9 +137,10 @@ class PredictEngine:
         params carried over by utils/flax_convert.py)."""
         device = resolve_device(device)   # fail before building anything
         cfg = get_config(name)
-        if cfg.family != "classification":
-            raise ValueError(f"config {name!r} is {cfg.family}; the port "
-                             f"serves classification models only so far")
+        if cfg.family not in SERVED_FAMILIES:
+            raise ValueError(
+                f"config {name!r} is {cfg.family}; the port serves "
+                f"{' and '.join(SERVED_FAMILIES)} models only so far")
         model = build_model(cfg)
         provenance = {"weights": "random-init", "seed": cfg.seed}
         if state_dict is not None:
@@ -118,29 +151,31 @@ class PredictEngine:
         size = cfg.data.image_size
         return cls(model, example_shape=(size, size, cfg.data.channels),
                    device=device, buckets=buckets, max_batch=max_batch,
-                   input_norm=input_norm, name=cfg.name, verbose=verbose,
-                   provenance=provenance)
+                   input_norm=input_norm,
+                   take_first_output=cfg.family == "classification",
+                   name=cfg.name, verbose=verbose, provenance=provenance)
 
     # -- dispatch ----------------------------------------------------------
 
-    def _run(self, x: np.ndarray) -> np.ndarray:
-        """One forward at exactly x's batch size; f32 host output."""
+    def _run(self, x: np.ndarray) -> Any:
+        """One forward at exactly x's batch size; the host output tree."""
         with torch.inference_mode():
             images = torch.from_numpy(x).to(self.device)
             out = self.model(normalize_input(images, self.input_norm,
                                              self.compute_dtype))
-            if isinstance(out, (tuple, list)):
+            if self.take_first_output and isinstance(out, (tuple, list)):
                 out = out[0]
-            return out.float().cpu().numpy()
+            return tree_map(lambda t: (t.float() if t.is_floating_point()
+                                       else t).cpu().numpy(), out)
 
-    def _dispatch(self, x: np.ndarray) -> np.ndarray:
+    def _dispatch(self, x: np.ndarray) -> Any:
         n = x.shape[0]
         b = pick_bucket(n, self.buckets)
         if b != n:
             x = np.pad(x, [(0, b - n)] + [(0, 0)] * (x.ndim - 1))
         with self._lock:
             self.dispatches += 1
-        return self._run(x)[:n]
+        return tree_slice(self._run(x), 0, n)
 
     def warmup(self) -> None:
         """One blocking dispatch per bucket: absorbs first-call allocation,
@@ -165,17 +200,16 @@ class PredictEngine:
                 f"(or one bare example), got {x.shape}")
         return x
 
-    def predict(self, images) -> np.ndarray:
+    def predict(self, images) -> Any:
         """Host-in host-out bucketed prediction (pads, dispatches, strips).
         Oversize batches run as max_batch chunks plus one tail bucket."""
         x = self._coerce(images)
         if x.shape[0] <= self.max_batch:
             return self._dispatch(x)
-        return np.concatenate([self._dispatch(x[i:i + self.max_batch])
-                               for i in range(0, x.shape[0],
-                                              self.max_batch)])
+        return tree_concat([self._dispatch(x[i:i + self.max_batch])
+                            for i in range(0, x.shape[0], self.max_batch)])
 
-    def reference(self, images) -> np.ndarray:
+    def reference(self, images) -> Any:
         """Un-bucketed predict at the exact batch size — the oracle the
         padding-equivalence checks hold the bucketed path against."""
         return self._run(self._coerce(images))

@@ -9,7 +9,9 @@ concurrency the micro-batchers coalesce) over a `ModelFleet`:
     POST /predict           {"instances": [[...HWC floats...], ...],
                              "deadline_ms": 250}   (deadline optional)
                             -> 200 {"predictions": [...]} from the DEFAULT
-                               model (f32 outputs)
+                               model (f32 outputs: a detector's three
+                               scales of (boxes, objectness, class
+                               probabilities) as nested lists)
     POST /predict/<model>   -> same, routed by registry name; an unknown
                                name gets 404 with "served_models" in the body
                             -> 400 bad shape/body, 429 overloaded
@@ -49,7 +51,7 @@ from ..core.metrics import MetricsLogger
 from ..core.resilience import GracefulShutdown, log_resilience_event
 from .batcher import (DeadlineExpired, DeadlineUnmeetable, Draining,
                       Overloaded, result_within)
-from .engine import PredictEngine
+from .engine import PredictEngine, tree_map
 from .fleet import ModelFleet, UnknownModel
 
 DRAIN_WHAT = ("finishing in-flight batches, rejecting new work, "
@@ -319,7 +321,9 @@ def _make_handler(server: InferenceServer):
             except Exception as e:  # noqa: BLE001 — a failed dispatch must
                 refused("dispatch_error")           # not hang the client
                 return self._send(500, {"error": repr(e)})
-            self._send(200, {"predictions": np.asarray(out).tolist(),
-                             "model": sm.name})
+            # a classifier's (n, classes) array; a detector's three
+            # (boxes, objectness, class_probs) scales as nested lists
+            self._send(200, {"predictions": tree_map(
+                lambda a: np.asarray(a).tolist(), out), "model": sm.name})
 
     return Handler

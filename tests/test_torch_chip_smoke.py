@@ -399,3 +399,171 @@ def test_f64_step_errors_catch_one_rank_off(key, name, delta, field):
     assert off == [field]
     with pytest.raises(AssertionError, match="two-rank f64 step"):
         chip_smoke.check_f64_step_errors(err)
+
+
+# -- phase 12: yolov3 inference ----------------------------------------------
+
+class _FakeTrainer:
+    """Stands in for the restored phase 5 trainer."""
+
+    def __init__(self, restored=1):
+        self.restored = restored
+        self.closed = False
+
+    def init_state(self):
+        pass
+
+    def resume(self):
+        return self.restored
+
+    def close(self):
+        self.closed = True
+
+
+def _fake_phase_12(monkeypatch, restored=1, fail=None, launch=None):
+    """Phase 12 with each sub-phase replaced: `fail` names the one that
+    raises, `launch` the one that bumps a kernel's launch count."""
+    calls = []
+
+    def sub(name, result):
+        def run(*args):
+            calls.append(name)
+            if name == fail:
+                raise AssertionError(f"{name} failed")
+            if name == launch:
+                chip_smoke.best_iou.launches += 1
+            return result
+        return run
+
+    monkeypatch.setattr(chip_smoke, "DetectionTrainer",
+                        lambda *a, **k: _FakeTrainer(restored))
+    monkeypatch.setattr(chip_smoke, "check_predict", sub("predict", {}))
+    monkeypatch.setattr(chip_smoke, "check_detection_entry_points",
+                        sub("entry", None))
+    monkeypatch.setattr(chip_smoke, "check_detection_serving",
+                        sub("serve", {}))
+    monkeypatch.setattr(chip_smoke.best_iou, "launches", 7)
+    monkeypatch.setattr(chip_smoke.flash_attention, "launches", 9)
+    return calls
+
+
+def test_phase_12_runs_every_sub_phase_with_the_counts_zeroed(monkeypatch):
+    calls = _fake_phase_12(monkeypatch)
+    out = chip_smoke.check_detection_inference(
+        {"config": None, "workdir": "wd"})
+    assert calls == ["predict", "entry", "serve"] and "serve" in out
+    assert (chip_smoke.flash_attention.launches,
+            chip_smoke.best_iou.launches) == (0, 0)
+
+
+@pytest.mark.parametrize("fail", ["predict", "entry", "serve"])
+def test_a_failing_sub_phase_fails_phase_12(monkeypatch, fail):
+    _fake_phase_12(monkeypatch, fail=fail)
+    with pytest.raises(AssertionError, match=f"{fail} failed"):
+        chip_smoke.check_detection_inference({"config": None,
+                                              "workdir": "wd"})
+
+
+@pytest.mark.parametrize("launch", ["predict", "entry", "serve"])
+def test_a_kernel_launch_on_the_inference_path_fails_phase_12(monkeypatch,
+                                                              launch):
+    _fake_phase_12(monkeypatch, launch=launch)
+    with pytest.raises(AssertionError, match="a kernel ran"):
+        chip_smoke.check_detection_inference({"config": None,
+                                              "workdir": "wd"})
+
+
+def test_phase_12_fails_when_phase_5s_checkpoint_does_not_restore(
+        monkeypatch):
+    calls = _fake_phase_12(monkeypatch, restored=None)
+    with pytest.raises(AssertionError, match="did not restore"):
+        chip_smoke.check_detection_inference({"config": None,
+                                              "workdir": "wd"})
+    assert calls == []
+
+
+def test_leaf_errors_compare_json_lists_with_the_reference_tree():
+    np = chip_smoke.np
+    ref = ((np.ones((1, 2, 4)), np.full((1, 2, 1), 4.0)),
+           (np.zeros((1, 1, 4)), np.ones((1, 1, 1))))
+    answer = [[a.tolist() for a in scale] for scale in ref]
+    assert chip_smoke.leaf_rel_err(answer, ref) == 0.0
+    answer[0][1][0][1][0] = 5.0             # 1 off a leaf whose largest is 4
+    assert chip_smoke.leaf_rel_err(answer, ref) == 0.25
+    with pytest.raises(AssertionError, match="shapes differ"):
+        chip_smoke.leaf_rel_err([[np.ones((1, 3, 4)), ref[0][1]], ref[1]],
+                                ref)
+    with pytest.raises(AssertionError, match="outputs"):
+        chip_smoke.leaf_rel_err(answer[:1], ref)
+
+
+def test_match_picks_needs_each_top_pick_in_the_other_run():
+    torch = chip_smoke.torch
+    boxes = torch.tensor([[[0.1, 0.1, 0.3, 0.3], [0.5, 0.5, 0.9, 0.9],
+                           [0.0, 0.0, 0.0, 0.0]]])
+    want = (boxes, torch.tensor([[0.9, 0.8, 0.0]]),
+            torch.tensor([[[1.0, 0.0], [0.0, 1.0], [0.0, 0.0]]]),
+            torch.tensor([2]))
+    swapped = (boxes[:, [1, 0, 2]], torch.tensor([[0.8, 0.9, 0.0]]),
+               want[2][:, [1, 0, 2]], torch.tensor([2]))
+    assert chip_smoke.match_picks(swapped, want, 10, 1e-6) == 2
+    moved = (boxes + 0.01, *want[1:])
+    with pytest.raises(AssertionError, match="no match"):
+        chip_smoke.match_picks(moved, want, 10, 1e-3)
+    other_class = (boxes, want[1], want[2][:, :, [1, 0]], want[3])
+    with pytest.raises(AssertionError, match="no match"):
+        chip_smoke.match_picks(other_class, want, 1, 1e-3)
+
+
+def test_phase_12_rehearses_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 12's sub-phases end to end on the CPU at a small size
+    (yolov3_digits at 64 px, batch 4): the card's device, CUDA events and
+    profiler stood in for by the CPU, the host clock and a count of 1."""
+    torch = chip_smoke.torch
+    from deepvision_tpu_torch import cli
+    from deepvision_tpu_torch.core import trainer as trainer_mod
+    from deepvision_tpu_torch.serve import engine as engine_mod
+
+    class HostEvent:
+        def __init__(self, **_):
+            self.t = None
+
+        def record(self, *_):
+            self.t = chip_smoke.time.perf_counter()
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, end):
+            return (end.t - self.t) * 1e3
+
+    cpu = lambda device=None: torch.device("cpu")  # noqa: E731
+    for module in (cli, trainer_mod, engine_mod):
+        monkeypatch.setattr(module, "resolve_device", cpu)
+    monkeypatch.setattr(torch.Tensor, "cuda", lambda self, *a, **k: self)
+    monkeypatch.setattr(torch.nn.Module, "cuda", lambda self, *a, **k: self)
+    monkeypatch.setattr(torch.cuda, "Event", HostEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(chip_smoke, "device_profile",
+                        lambda fn: (fn(), (1, 0.0))[1])
+    run_workers = chip_smoke.run_workers
+    monkeypatch.setattr(chip_smoke, "run_workers",
+                        lambda cmds, envs, logs, timeout: run_workers(
+                            [c + ["--device", "cpu"] for c in cmds], envs,
+                            logs, timeout))
+    monkeypatch.setattr(chip_smoke, "YOLO_MODEL", "yolov3_digits")
+    torch.set_num_threads(2)
+    workdir = str(tmp_path / "wd")
+    trainer, _ = chip_smoke.run_detection("YOLO", ["yolov3_digits"], [
+        "-m", "yolov3_digits", "--synthetic", "--image-size", "64",
+        "--batch-size", "4", "--steps-per-epoch", "1", "--epochs", "1",
+        "--device", "cpu", "--workdir", workdir])
+    out = chip_smoke.check_detection_inference(
+        {"config": trainer.config, "workdir": workdir})
+    assert out["nms_ms"] > 0 and out["forward_ms"] > 0
+    assert set(out["serve"]["batch_ms"]) == {1, 8}
+    assert (chip_smoke.flash_attention.launches,
+            chip_smoke.best_iou.launches) == (0, 0)

@@ -41,6 +41,11 @@ the card at its full size, padded buckets against `reference()` within
 5e-2 of the largest logit (bf16 on both sides) and against an engine on
 the CPU on the same seeded weights within 5e-2.
 
+Detection inference has no kernel: greedy NMS on the card against NMS on
+the CPU on identical inputs at the yolov3 shape (exact picks, counts and
+gathered rows), and a reduced yolov3's candidates before NMS on the card
+against the CPU in f32 within 1e-4 of the largest value.
+
 Data parallelism: both kernels launch on their tensors' card from a
 thread whose current card is another (two cards or more; skips on one),
 and 2 gloo ranks sharing card 0 take one f64 step of the reduced ResNet
@@ -570,6 +575,99 @@ def test_engine_serves_mobilenet_v1_on_the_card(card):
     assert got.shape == (3, 1000) and np.isfinite(got).all()
     assert np.abs(got - ref).max() <= 5e-2 * np.abs(ref).max()
     assert np.abs(ref - want).max() <= 5e-2 * scale
+
+
+# -- detection inference: NMS on the card -----------------------------------
+
+YOLO_N = 3 * (52 * 52 + 26 * 26 + 13 * 13)      # yolov3's 10647 at 416 px
+
+
+def _nms_inputs(grid: bool, seed: int):
+    """(16, 10647) candidates of 80 classes, the yolov3 predict shape: on a
+    1/8 box grid and 1/1024 score grid (every pick decided with a margin:
+    IoUs are ratios a/u with u <= 128, scores tie exactly or differ by
+    1/1024), or continuous."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (16, YOLO_N)
+    if grid:
+        lo = torch.randint(0, 8, (*shape, 2), generator=g)
+        hi = torch.clamp(lo + torch.randint(0, 5, (*shape, 2), generator=g),
+                         max=8)
+        boxes = torch.cat([lo, hi], -1).float() / 8.0
+        scores = torch.randint(0, 1025, shape, generator=g).float() / 1024.0
+    else:
+        boxes = random_boxes(*shape, g)
+        scores = torch.rand(shape, generator=g)
+    return boxes, scores, torch.rand(*shape, 80, generator=g)
+
+
+def _pick_margins(boxes, picks, iou_thresh):
+    """Smallest |IoU - iou_thresh| between each valid pick and every
+    candidate of its image, and smallest nonzero gap between two picked
+    scores, in f64."""
+    from deepvision_tpu_torch.ops.boxes import broadcast_iou
+    iou_gap, score_gap = float("inf"), float("inf")
+    for i in range(boxes.shape[0]):
+        n = int(picks[3][i])
+        iou = broadcast_iou(picks[0][i, :n].double(), boxes[i].double())
+        iou_gap = min(iou_gap, (iou - iou_thresh).abs().min().item())
+        s = picks[1][i, :n].double()
+        gap = (s[:, None] - s[None, :]).abs()
+        if (gap > 0).any():
+            score_gap = min(score_gap, gap[gap > 0].min().item())
+    return iou_gap, score_gap
+
+
+@pytest.mark.parametrize("grid", [True, False], ids=["grid", "continuous"])
+def test_nms_on_the_card_picks_what_the_cpu_picks(card, grid):
+    """Identical inputs at the yolov3 shape (B 16, N 10647, C 80, D 100):
+    the card's picks, scores, class probabilities and counts equal the
+    CPU's exactly. On the grid inputs every pick has a margin (IoU 1e-6
+    from the threshold, scores tied or 1e-7 apart); on the continuous ones
+    the two devices run the same IEEE f32 operations, so they agree
+    without one."""
+    from deepvision_tpu_torch.ops.nms import batched_nms
+    boxes, scores, classes = _nms_inputs(grid, seed=3)
+    # on the grid an IoU of exactly 1/2 occurs; no a/u with u <= 128 lies
+    # within 1.5e-5 of 255/512
+    iou_thresh = 255 / 512 if grid else 0.5
+    kw = dict(iou_thresh=iou_thresh, score_thresh=0.05, max_detection=100)
+    cpu = batched_nms(boxes, scores, classes, **kw)
+    got = batched_nms(boxes.cuda(), scores.cuda(), classes.cuda(), **kw)
+    assert all(t.device.type == "cuda" for t in got)
+    for g, c in zip(got, cpu):
+        assert torch.equal(g.cpu(), c)
+    assert int(cpu[3].min()) > 0
+    if grid:
+        iou_gap, score_gap = _pick_margins(boxes, cpu, iou_thresh)
+        assert iou_gap >= 1e-6 and score_gap >= 1e-7
+
+
+def test_predict_step_on_the_card_matches_the_cpu(card):
+    """A reduced yolov3 (width 0.25, stages (1, 1, 2, 2, 1), 80 classes)
+    at 416 px in f32: the candidates before NMS on the card within 1e-4 of
+    the CPU's (cuDNN's conv sums in another order), and NMS on the card's
+    candidates equal to NMS on the same candidates on the CPU."""
+    from deepvision_tpu_torch.core.detection import predict_candidates
+    from deepvision_tpu_torch.models.yolo import YoloV3
+    from deepvision_tpu_torch.ops.nms import batched_nms
+    model = YoloV3(num_classes=80, width_mult=0.25,
+                   stage_blocks=(1, 1, 2, 2, 1), dtype=torch.float32,
+                   generator=torch.Generator().manual_seed(0)).eval()
+    x = torch.from_numpy(np.random.RandomState(5).rand(2, 416, 416, 3)
+                         .astype(np.float32) * 2 - 1)
+    with torch.inference_mode():
+        want = predict_candidates(model, x, torch.float32)
+        got = predict_candidates(model.cuda(), x.cuda(), torch.float32)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == torch.float32
+            assert (g.cpu() - w).abs().max().item() <= 1e-4 * max(
+                1.0, w.abs().max().item())
+        kw = dict(iou_thresh=0.5, score_thresh=0.05, max_detection=100)
+        card_nms = batched_nms(*got, **kw)
+        cpu_nms = batched_nms(*(t.cpu() for t in got), **kw)
+    for g, c in zip(card_nms, cpu_nms):
+        assert torch.equal(g.cpu(), c)
 
 
 # -- data parallelism ---------------------------------------------------------

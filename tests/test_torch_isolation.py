@@ -65,7 +65,7 @@ print(len(names))
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.split()[-1]) >= 59
+    assert int(proc.stdout.split()[-1]) >= 62
 
 
 def test_every_family_has_its_entry_points():
@@ -74,3 +74,5 @@ def test_every_family_has_its_entry_points():
         assert os.path.join(family, "torch", "train.py") in names, family
     for family in ("Inception", "MobileNet", "ResNet"):
         assert os.path.join(family, "torch", "profile_step.py") in names
+    for script in ("detect.py", "evaluate.py"):
+        assert os.path.join("YOLO", "torch", script) in names

@@ -11,8 +11,15 @@ reference equals the model's own eval forward bit for bit, and a padded
 bucket answers within 1e-3 of the largest logit), the zoo in their own
 files, and every other classification config through `from_config` at
 its full size (a padded bucket within 2e-2 of the largest logit: bf16).
+It serves detection too: a tiny f32 yolov3 answers the decoded
+(boxes, objectness, class_probs) of its three scales, equal row for row to
+`reference()` at every padding (1e-5) and to the JAX model's decoded apply
+on the same weights (1e-4 of each leaf's largest value); the batcher cuts
+each request's rows out of every leaf of a coalesced tree, and `/predict`
+answers the tree as nested lists.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -306,3 +313,150 @@ def test_batcher_under_contention_answers_every_row_to_its_owner():
     finally:
         sys.setswitchinterval(old)
         batcher.drain(timeout=10)
+
+
+# -- detection serving -------------------------------------------------------
+
+YOLO_TINY = dict(num_classes=2, width_mult=0.125, stage_blocks=(1, 1, 2, 2, 1))
+YOLO_SIZE = 64
+
+
+@pytest.fixture(scope="module")
+def yolo_bridged():
+    """A tiny f32 yolov3 (2 classes, 64 px) with seeded Flax weights, the
+    JAX model, and an engine of the port serving the same weights on the
+    CPU at buckets (1, 4)."""
+    from deepvision_tpu.models.yolo import YoloV3 as JaxYoloV3
+    from deepvision_tpu_torch.models.yolo import YoloV3
+    from test_torch_yolo import flax_yolo_variables
+
+    torch.set_num_threads(1)
+    x = _yolo_images(2)
+    jax_model = JaxYoloV3(**YOLO_TINY, dtype=jnp.float32)
+    params, stats = flax_yolo_variables(jax_model, x)
+    model = YoloV3(**YOLO_TINY, dtype=torch.float32)
+    model.load_state_dict(params_to_state_dict(params, model, stats))
+    engine = PredictEngine(model, example_shape=(YOLO_SIZE, YOLO_SIZE, 3),
+                           device="cpu", buckets=(1, 4),
+                           take_first_output=False, name="yolov3_tiny",
+                           verbose=False)
+    return jax_model, {"params": params, "batch_stats": stats}, engine
+
+
+def _yolo_images(n, seed=0):
+    return (np.random.RandomState(seed).rand(n, YOLO_SIZE, YOLO_SIZE, 3)
+            .astype(np.float32) * 2 - 1)
+
+
+def _tree_shapes(tree):
+    return [[np.shape(leaf) for leaf in scale] for scale in tree]
+
+
+def test_detection_engine_serves_the_decoded_scales(yolo_bridged):
+    """Three scales of (boxes_xywh, objectness, class_probs), f32, equal
+    to `reference()` row for row at every padding, and to the JAX model's
+    decoded apply on the same weights within 1e-4 of each leaf's largest
+    value (f32: only conv summation orders differ)."""
+    jax_model, variables, engine = yolo_bridged
+    x = _yolo_images(6, seed=1)
+    ref = engine.reference(x)
+    assert _tree_shapes(ref) == [[(6, g, g, 3, 4), (6, g, g, 3, 1),
+                                  (6, g, g, 3, 2)] for g in (8, 4, 2)]
+    for n in (1, 3, 6):         # 6: one max_batch chunk of 4 plus a tail
+        got = engine.predict(x[:n])
+        assert _tree_shapes(got) == _tree_shapes(
+            engine.reference(x[:n]))
+        for g3, r3 in zip(got, engine.reference(x[:n])):
+            for g, r in zip(g3, r3):
+                assert g.dtype == np.float32
+                np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-5)
+    apply = jax.jit(functools.partial(jax_model.apply, train=False))
+    want = apply(variables, jnp.asarray(x))
+    for g3, w3 in zip(ref, want):
+        for g, w in zip(g3, w3):
+            w = np.asarray(w, np.float32)
+            assert np.abs(g - w).max() <= 1e-4 * max(1.0, np.abs(w).max())
+
+
+def test_tree_helpers_slice_and_join_every_leaf():
+    from deepvision_tpu_torch.serve.engine import tree_concat, tree_slice
+    tree = (np.arange(6).reshape(3, 2), (np.arange(3), np.arange(9)
+                                         .reshape(3, 3)))
+    part = tree_slice(tree, 1, 3)
+    assert part[0].tolist() == [[2, 3], [4, 5]]
+    assert part[1][0].tolist() == [1, 2] and part[1][1].shape == (2, 3)
+    whole = tree_concat([tree_slice(tree, 0, 1), part])
+    assert isinstance(whole, tuple) and isinstance(whole[1], tuple)
+    for a, b in zip((whole[0], *whole[1]), (tree[0], *tree[1])):
+        np.testing.assert_array_equal(a, b)
+
+
+class _TreeEngine(_EchoEngine):
+    """Stand-in engine answering a two-level tree of its rows and counting
+    the rows of each dispatch."""
+
+    def __init__(self):
+        self.dispatched = []
+
+    def predict(self, images):
+        self.dispatched.append(len(images))
+        return (images * 2.0, (images * 3.0, images[:, :1]))
+
+
+def test_batcher_splits_a_coalesced_tree_per_request():
+    engine = _TreeEngine()
+    batcher = DynamicBatcher(engine, max_delay_ms=300.0)
+    xs = [np.full((n, 2), 10.0 * i, np.float32)
+          for i, n in enumerate((1, 3, 2), start=1)]
+    try:
+        futures = [batcher.submit(x) for x in xs]
+        answers = [result_within(f, 30.0) for f in futures]
+    finally:
+        assert batcher.drain(timeout=30)
+    assert engine.dispatched == [6]          # one coalesced dispatch
+    for x, (a, (b, c)) in zip(xs, answers):
+        np.testing.assert_array_equal(a, 2 * x)
+        np.testing.assert_array_equal(b, 3 * x)
+        np.testing.assert_array_equal(c, x[:, :1])
+
+
+def test_http_predict_answers_nested_lists_of_the_scales(yolo_bridged):
+    _, _, engine = yolo_bridged
+    srv = InferenceServer(engine=engine, max_delay_ms=3.0, flush_every_s=60)
+    t = threading.Thread(target=lambda: srv.serve(port=0), daemon=True)
+    t.start()
+    assert srv.ready.wait(60)
+    try:
+        x = _yolo_images(2, seed=4)
+        code, body = _request(f"http://127.0.0.1:{srv.bound_port}/predict",
+                              {"instances": x.tolist()})
+    finally:
+        srv.stop()
+        t.join(timeout=60)
+        srv.close()
+    assert code == 200 and body["model"] == "yolov3_tiny"
+    ref = engine.reference(x)
+    got = body["predictions"]
+    assert len(got) == 3 and all(len(scale) == 3 for scale in got)
+    for g3, r3 in zip(got, ref):
+        for g, r in zip(g3, r3):
+            np.testing.assert_allclose(np.asarray(g, np.float32), r,
+                                       rtol=1e-6, atol=1e-6)
+
+
+def test_from_config_serves_detection_and_refuses_other_families(
+        monkeypatch):
+    engine = PredictEngine.from_config("yolov3_digits", device="cpu",
+                                       buckets=(1,), verbose=False)
+    assert not engine.take_first_output and engine.example_shape == (128,
+                                                                      128, 3)
+    out = engine.predict(np.random.RandomState(0).rand(1, 128, 128, 3))
+    assert _tree_shapes(out) == [[(1, g, g, 3, 4), (1, g, g, 3, 1),
+                                  (1, g, g, 3, 10)] for g in (16, 8, 4)]
+    with pytest.raises(KeyError, match="'dcgan'"):
+        PredictEngine.from_config("dcgan", device="cpu", verbose=False)
+    from deepvision_tpu_torch.serve import engine as engine_mod
+    gan = get_config("yolov3_digits").replace(name="dcgan", family="gan")
+    monkeypatch.setattr(engine_mod, "get_config", lambda name: gan)
+    with pytest.raises(ValueError, match="'dcgan' is gan"):
+        PredictEngine.from_config("dcgan", device="cpu", verbose=False)
