@@ -126,7 +126,30 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    `engine.reference()`, one image against an engine on the CPU on the
    same seeded weights (each leaf within 1e-1 of its largest value: bf16
    over 75 conv layers), `measure_batch_ms` per bucket. No kernel is on
-   this path: the K1 and K2 launch counts, zeroed before it, stay 0.
+   this path: the K1 and K2 launch counts, zeroed before it, stay 0;
+13. slice 10: CenterNet and stacked-Hourglass pose at full width and 256
+   px. 13a: `centernet` (80 classes, 2 stacks, order 5) trained through
+   `ObjectsAsPoints/torch/train.py`'s `cli.run_centernet` for 2 synthetic
+   steps at batch 32 (the config's 64 cut), 2 validation batches and one
+   checkpoint — finite losses, the JAX model's parameter count, step_ms,
+   peak memory, the checkpoint restored into a fresh trainer with equal
+   weights, BatchNorm statistics and Adam state, the step alone on a
+   staged batch (CUDA events; kernels and device busy from the profiler),
+   and one step on 2 images on the card in f64 and f32 against the same
+   step in f64 on the CPU (phase 9's bounds); the predict step at batch
+   32 split into the forward and decode (CUDA events), decode on the card
+   against the CPU pick for pick on identical coarse heads (ties, zero
+   picks), and `ObjectsAsPoints/torch/evaluate.py -m centernet
+   --synthetic` as a worker (rc 0, a finite mAP). 13b: the same for
+   `hourglass104` (16 joints, 4 stacks, order 4, the config's batch 128
+   cut to 32) through `cli.run_pose`, its predict split into the forward
+   and the per-joint decode, `evaluate_pckh` on the card against the CPU
+   on seeded f32 weights, and `Hourglass/torch/evaluate.py --synthetic`.
+   13c: both served by the engine at buckets {1, 8}: every answer tree
+   (a dict of heads per stack; a heatmap per stack) leaf by leaf against
+   `engine.reference()`, one image against an engine on the CPU,
+   `measure_batch_ms` per bucket. No kernel is on these paths: the K1 and
+   K2 launch counts, zeroed before it, stay 0.
 
 The line before the last is a JSON object with one record per kernel; the
 last is `{"ok": true, "device": {...}}`.
@@ -136,6 +159,7 @@ from __future__ import annotations
 
 import atexit
 import copy
+import dataclasses
 import functools
 import json
 import os
@@ -153,14 +177,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deepvision_tpu_torch.cli import run_classification, run_detection
+from deepvision_tpu_torch.cli import (run_centernet, run_classification,
+                                      run_detection, run_pose)
 from deepvision_tpu_torch.configs import get_config
 from deepvision_tpu_torch.core.detection import (DetectionTrainer,
                                                  evaluate_map,
                                                  make_predict_step,
                                                  predict_candidates,
                                                  yolo_grid_sizes)
+from deepvision_tpu_torch.core.centernet import (CenterNetTrainer,
+                                                 make_centernet_predict_step,
+                                                 make_centernet_train_step,
+                                                 predict_heads)
+from deepvision_tpu_torch.core.eval_pose import evaluate_pckh
 from deepvision_tpu_torch.core.optim import build_optimizer
+from deepvision_tpu_torch.core.pose import PoseTrainer, make_pose_train_step
 from deepvision_tpu_torch.core.steps import make_classification_train_step
 from deepvision_tpu_torch.core.config import decode_image_size
 from deepvision_tpu_torch.core.train_state import TrainState
@@ -168,15 +199,19 @@ from deepvision_tpu_torch.core.trainer import Trainer
 from deepvision_tpu_torch.data import device_augment as daug
 from deepvision_tpu_torch.data.class_names import names_for
 from deepvision_tpu_torch.data.detection import synthetic_batches
+from deepvision_tpu_torch.data.pose import \
+    synthetic_batches as pose_synthetic_batches
 from deepvision_tpu_torch.data.synthetic import SyntheticClassification
 from deepvision_tpu_torch.models import build_model
 from deepvision_tpu_torch.models.common import Dropout
 from deepvision_tpu_torch.ops import _build
+from deepvision_tpu_torch.ops import centernet as cn_ops
 from deepvision_tpu_torch.ops import yolo as yolo_ops
 from deepvision_tpu_torch.ops.attention import (flash_attention,
                                                 flash_attention_reference,
                                                 naive_attention)
 from deepvision_tpu_torch.ops.best_iou import best_iou, best_iou_reference
+from deepvision_tpu_torch.ops.heatmap import decode_keypoints
 from deepvision_tpu_torch.ops.nms import batched_nms
 from deepvision_tpu_torch.parallel import mesh
 from deepvision_tpu_torch.serve.cli import _smoke, build_parser, build_server
@@ -687,31 +722,37 @@ def float64_copy(model):
 
 
 def train_step_state(cfg, model, batch, device,
-                     dtype: torch.dtype = torch.float32) -> dict:
+                     dtype: torch.dtype = torch.float32,
+                     make_step=None) -> dict:
     """One train step of `cfg` (its optimizer, label smoothing and aux
     weight; f32 compute, or f64 for a reference; augment off) through a
     copy of `model` on `device`, on this process's `batch`: its `loss` (of
     the global batch under a process group), `grads` as the step leaves
     them (clipped, where the optimizer clips; averaged over the ranks
-    under a group) and the model's `state` after it."""
+    under a group) and the model's `state` after it. `make_step(dtype)`
+    makes another family's step (classification's by default)."""
     m = (float64_copy(model) if dtype == torch.float64
          else copy.deepcopy(model)).to(device)
     state = TrainState(m, build_optimizer(m.parameters(), cfg.optimizer,
                                           cfg.schedule, 1, 1))
-    step = make_classification_train_step(
+    step = (make_step(dtype) if make_step else make_classification_train_step(
         label_smoothing=cfg.label_smoothing, aux_weight=cfg.aux_loss_weight,
-        compute_dtype=dtype)
-    metrics = step(state, *(torch.from_numpy(np.ascontiguousarray(a))
-                            .to(device) for a in batch))
+        compute_dtype=dtype))
+    # a reference step takes its float inputs (images, boxes, keypoints)
+    # in f64 too, so the targets it renders are f64
+    metrics = step(state, *(torch.from_numpy(np.ascontiguousarray(
+        a, np.float64 if dtype == torch.float64 and a.dtype.kind == "f"
+        else None)).to(device) for a in batch))
     return {"loss": float(metrics["loss"]),
             "grads": {n: p.grad.cpu() for n, p in m.named_parameters()},
             "state": {k: v.cpu() for k, v in m.state_dict().items()}}
 
 
 def train_step_grads(cfg, model, batch, device,
-                     dtype: torch.dtype = torch.float32) -> tuple:
+                     dtype: torch.dtype = torch.float32,
+                     make_step=None) -> tuple:
     """(loss, gradients) of `train_step_state`."""
-    out = train_step_state(cfg, model, batch, device, dtype)
+    out = train_step_state(cfg, model, batch, device, dtype, make_step)
     return out["loss"], out["grads"]
 
 
@@ -991,16 +1032,21 @@ def no_dropout(model):
     return model
 
 
-def check_step_against_f64(cfg, model, batch, name: str, what: str) -> dict:
-    """One train step of `cfg` on `batch` through `model` on the card in
-    f64 and in f32, each against the same step in f64 on the CPU (and the
-    CPU's own f32 step beside them); fails past the ZOO_* bounds."""
+def check_step_against_f64(cfg, model, batch, name: str, what: str,
+                           make_step=None) -> dict:
+    """One train step of `cfg` (the family's `make_step`, classification's
+    by default) on `batch` through `model` on the card in f64 and in f32,
+    each against the same step in f64 on the CPU (and the CPU's own f32
+    step beside them); fails past the ZOO_* bounds."""
     cpu, card = torch.device("cpu"), torch.device("cuda")
-    ref_loss, ref = train_step_grads(cfg, model, batch, cpu, torch.float64)
+    ref_loss, ref = train_step_grads(cfg, model, batch, cpu, torch.float64,
+                                     make_step)
     loss64, grads64 = train_step_grads(cfg, model, batch, card,
-                                       torch.float64)
-    loss32, grads32 = train_step_grads(cfg, model, batch, card)
-    cpu_loss32, cpu_grads32 = train_step_grads(cfg, model, batch, cpu)
+                                       torch.float64, make_step)
+    loss32, grads32 = train_step_grads(cfg, model, batch, card,
+                                       make_step=make_step)
+    cpu_loss32, cpu_grads32 = train_step_grads(cfg, model, batch, cpu,
+                                               make_step=make_step)
     rec = {"f64_loss": abs(loss64 - ref_loss) / abs(ref_loss),
            "f64_grad": grad_rel(grads64, ref)[0],
            "f32_loss": abs(loss32 - ref_loss) / abs(ref_loss),
@@ -1236,7 +1282,8 @@ def family_main(family: str, argv: list):
                                                   path)
     script = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(script)
-    run = run_detection if family == "YOLO" else run_classification
+    run = {"YOLO": run_detection, "ObjectsAsPoints": run_centernet,
+           "Hourglass": run_pose}.get(family, run_classification)
     return run(family, script.MODELS, argv)
 
 
@@ -1584,10 +1631,10 @@ def device_profile(fn) -> tuple:
             sum(e.time_range.elapsed_us() for e in kernels) / 1e3)
 
 
-def conv_gflop(model, images, dtype) -> float:
-    """GFLOP (2 per multiply-add) of the convs of one decoded forward of
-    `model` on `images`, from their output shapes: each output element
-    costs in/groups * kh * kw multiply-adds."""
+def conv_gflop(model, forward) -> float:
+    """GFLOP (2 per multiply-add) of the convs of `model` in one call of
+    `forward()`, from their output shapes: each output element costs
+    in/groups * kh * kw multiply-adds."""
     total = [0]
 
     def hook(mod, _inputs, out):
@@ -1597,7 +1644,7 @@ def conv_gflop(model, images, dtype) -> float:
                if isinstance(m, torch.nn.Conv2d)]
     try:
         with torch.inference_mode():
-            predict_candidates(model, images, dtype)
+            forward()
     finally:
         for h in handles:
             h.remove()
@@ -1625,7 +1672,12 @@ def leaf_rel_errs(got, want) -> list:
 
 
 def _leaf_pairs(got, want):
-    if isinstance(want, (tuple, list)):
+    if isinstance(want, dict):
+        if list(got) != list(want):
+            raise AssertionError(f"keys {list(got)}, want {list(want)}")
+        for k in want:
+            yield from _leaf_pairs(got[k], want[k])
+    elif isinstance(want, (tuple, list)):
         if len(got) != len(want):
             raise AssertionError(f"{len(got)} outputs, want {len(want)}")
         for g, w in zip(got, want):
@@ -1635,6 +1687,8 @@ def _leaf_pairs(got, want):
 
 
 def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
     if isinstance(tree, (tuple, list)):
         for t in tree:
             yield from _leaves(t)
@@ -1699,7 +1753,8 @@ def check_predict(trainer, cfg) -> dict:
             lambda: batched_nms(*cand, **nms_kw))
         forward_kernels, forward_busy = device_profile(
             lambda: predict_candidates(model, images, dtype))
-    gflop = conv_gflop(model, images[:1], dtype)
+    gflop = conv_gflop(model, lambda: predict_candidates(model, images[:1],
+                                                         dtype))
     bound_ms = gflop * 1e9 * len(images) / PEAK_FLOPS[torch.bfloat16] * 1e3
     counts = out[3].tolist()
     n_cand = cand[1].shape[1]
@@ -1921,6 +1976,401 @@ def check_detection_inference(yolo: dict) -> dict:
     return out
 
 
+# -- phase 13: CenterNet and stacked-Hourglass pose -------------------------
+
+P13_SIZE = 256
+# the configs' batches (64 for centernet, 128 for hourglass104) cut to 32
+P13_BATCH = 32
+P13_STEPS = 2
+P13_EVAL_BATCHES = 2           # the synthetic validation set
+# config -> (family entry point, parameters of the JAX model)
+P13_MODELS = {"centernet": ("ObjectsAsPoints", 110_102_312),
+              "hourglass104": ("Hourglass", 16_290_752)}
+# the predict step's detections (CenterNet decode)
+P13_TOP_K = 100
+# decode on the card against decode on the CPU on identical heads whose
+# logits take five values: the peak test and every tie are decided by
+# equal values on each device, so the picks are equal and the scores are
+# one sigmoid of the same logit on each (within an f32 rounding)
+DECODE_SCORE_TOL = 1e-6
+# served answers (bf16): a padded bucket against the exact batch on the
+# card, and the card against an engine on the CPU, each leaf within this
+# share of its largest value: phase 12c's bound for a bf16 conv net of
+# about 100 layers
+P13_SERVE_TOL = 1e-1
+
+
+def p13_args(name: str, workdir: str) -> list:
+    return ["-m", name, "--synthetic", "--image-size", str(P13_SIZE),
+            "--batch-size", str(P13_BATCH), "--steps-per-epoch",
+            str(P13_STEPS), "--epochs", "1", "--device", "cuda",
+            "--workdir", workdir]
+
+
+def p13_batches(name: str, cfg, seed: int):
+    """Synthetic training batches of `name`'s family at `cfg`'s batch and
+    size."""
+    if name == "centernet":
+        return synthetic_batches(batch_size=cfg.batch_size,
+                                 image_size=cfg.data.image_size,
+                                 num_classes=cfg.data.num_classes, steps=1,
+                                 seed=seed)
+    return pose_synthetic_batches(batch_size=cfg.batch_size,
+                                  image_size=cfg.data.image_size, steps=1,
+                                  seed=seed)
+
+
+def p13_step_factory(name: str, cfg):
+    """`make_step(dtype)` of `name`'s train step at `cfg`'s size."""
+    grid = cfg.data.image_size // 4
+    if name == "centernet":
+        return lambda dt: make_centernet_train_step(
+            num_classes=cfg.data.num_classes, grid=grid, compute_dtype=dt)
+    return lambda dt: make_pose_train_step(heatmap_size=(grid, grid),
+                                           compute_dtype=dt)
+
+
+def check_p13_training(name: str, tag: str) -> dict:
+    """13a/13b: `name` at full width, 256 px, trained through its family's
+    entry point for 2 synthetic steps at batch 32, 2 validation batches
+    and one checkpoint: finite losses, step_ms, peak memory, the
+    parameter count, the checkpoint restored into a fresh trainer with
+    equal weights, BatchNorm statistics and Adam state; then one f32 step
+    on 2 images on the card against the CPU (check_step_against_f64)."""
+    family, count = P13_MODELS[name]
+    full = get_config(name)
+    phase(f"{tag} {name}: the config's batch {full.batch_size} cut to "
+          f"{P13_BATCH}, {P13_STEPS} steps, {P13_EVAL_BATCHES} eval batches")
+    workdir = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer, result = family_main(family, p13_args(name, workdir))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        ran = trainer.config
+        params = sum(p.numel() for p in trainer.state.model.parameters())
+        steps = trainer.last_epoch_steps
+        for i, s in enumerate(steps):
+            phase(f"{tag} {name} step {i + 1}: " + " ".join(
+                f"{k}={v:.4f}" for k, v in s.items()))
+        step_ms = steps[-1]["step_ms"]
+        phase(f"{tag} {name} ({family}, {P13_SIZE} px, batch {P13_BATCH}, "
+              f"{ran.optimizer.name}, bf16): params={params:,} val loss="
+              f"{result.get('loss', float('nan')):.4f} step_ms={step_ms:.3f} "
+              f"(step 2; step 1 {steps[0]['step_ms']:.3f}) images_per_sec="
+              f"{P13_BATCH / step_ms * 1e3:.2f} peak_memory_allocated="
+              f"{peak / 2**30:.3f} GiB; {family} entry point {wall:.1f}s")
+        if (ran.data.image_size, ran.data.num_classes, ran.batch_size) != (
+                P13_SIZE, full.data.num_classes, P13_BATCH):
+            raise AssertionError(f"{name} ran at {ran.data}")
+        if params != count:
+            raise AssertionError(f"{name} has {params:,} parameters, the "
+                                 f"JAX model {count:,}")
+        if len(steps) != P13_STEPS or not all(
+                np.isfinite(v) for s in steps for v in s.values()):
+            raise AssertionError(f"{name} steps not all finite: {steps}")
+        if result.get("count") != P13_EVAL_BATCHES or not np.isfinite(
+                result.get("loss", np.nan)):
+            raise AssertionError(f"{name} validation: {result}")
+        fresh = type(trainer)(ran, device="cuda", workdir=workdir)
+        fresh.init_state()
+        if fresh.resume() != 1:
+            raise AssertionError("the epoch-1 checkpoint did not restore")
+        want, got = trainer.state.state_dict(), fresh.state.state_dict()
+        equal = same_tree(want, got)
+        fresh.close()
+        n_stats = sum(1 for k in want["model"] if "running" in k)
+        phase(f"{tag} checkpoint round trip: {len(want['model'])} tensors "
+              f"({n_stats} BatchNorm statistics), Adam's moments (count "
+              f"{got['optimizer']['count']}), step {got['step']}, "
+              f"equal={equal}")
+        if not equal:
+            raise AssertionError("the restored state differs from the "
+                                 "trained")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    # the step alone (its EMA update included) on a batch already on the
+    # card: wall by CUDA events, kernels and device busy by the profiler
+    batch = trainer._to_device(next(p13_batches(name, ran, seed=19)))
+    alone_ms, _ = event_ms(lambda: trainer.run_step(batch), warmup=1,
+                           iters=3)
+    kernels, busy = device_profile(lambda: trainer.run_step(batch))
+    phase(f"{tag} {name} train step alone on a staged batch: "
+          f"{alone_ms:.3f} ms (CUDA events, median of 3 after 1); {kernels} "
+          f"kernels, {busy:.3f} ms device busy (device idle "
+          f"{100 * max(0.0, 1 - busy / alone_ms):.1f}%)")
+    cfg = ran.replace(dtype="float32")
+    model = build_model(cfg)
+    batch = trainer._calibration_batch((P13_SIZE, P13_SIZE, 3), 2)
+    step_err = check_step_against_f64(
+        cfg, model, batch, f"{tag} {name}", f"2 images at {P13_SIZE} px",
+        make_step=p13_step_factory(name, cfg))
+    return {"trainer": trainer, "step_ms": step_ms, "peak_bytes": peak,
+            "params": params, "losses": steps, "step_err": step_err,
+            "alone_ms": alone_ms, "kernels": kernels, "busy_ms": busy}
+
+
+def coarse_heads(b: int, g: int, c: int, seed: int) -> dict:
+    """CenterNet heads whose heatmap logits take five values (plateaus of
+    equal peaks, more tied scores than picks); image 0 one flat plateau
+    (every cell a peak, all tied); image 1 a ramp 0.02 a cell and 0.001 a
+    class apart, whose only peak in each class is its last cell: fewer
+    peaks than picks, the rest zero scores in index order."""
+    rs = np.random.RandomState(seed)
+    hm = rs.choice([-6.0, -2.0, 0.0, 1.0, 3.0], (b, g, g, c))
+    hm[0] = 1.0
+    ramp = np.arange(g)[:, None, None] + np.arange(g)[None, :, None]
+    hm[1] = -4.0 + 0.02 * ramp + 0.001 * np.arange(c)
+    return {"heatmap": torch.from_numpy(hm.astype(np.float32)),
+            "size": torch.from_numpy(rs.uniform(0, 8, (b, g, g, 2))
+                                     .astype(np.float32)),
+            "offset": torch.from_numpy(rs.uniform(0, 1, (b, g, g, 2))
+                                       .astype(np.float32))}
+
+
+def check_centernet_predict(trainer) -> dict:
+    """13a: the predict step at batch 32 on the trained weights, timed by
+    CUDA events and split into the forward and decode; decode on the card
+    against the CPU on identical coarse heads; ObjectsAsPoints/torch/
+    evaluate.py --synthetic as a subprocess."""
+    cfg = trainer.config
+    dtype = getattr(torch, cfg.dtype)
+    state, model = trainer.state, trainer.model
+    images = torch.from_numpy(next(synthetic_batches(
+        batch_size=P13_BATCH, image_size=P13_SIZE,
+        num_classes=cfg.data.num_classes, steps=1, seed=14))[0]).cuda()
+    predict = make_centernet_predict_step(compute_dtype=dtype,
+                                          max_detections=P13_TOP_K)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, out = event_ms(lambda: predict(state, images))
+    peak = torch.cuda.max_memory_allocated()
+    model.eval()
+    with torch.inference_mode():
+        forward_ms, heads = event_ms(
+            lambda: predict_heads(model, images, dtype))
+        decode_ms, _ = event_ms(lambda: cn_ops.decode(
+            heads, max_detections=P13_TOP_K))
+        forward_kernels, forward_busy = device_profile(
+            lambda: predict_heads(model, images, dtype))
+        decode_kernels, decode_busy = device_profile(
+            lambda: cn_ops.decode(heads, max_detections=P13_TOP_K))
+    gflop = conv_gflop(model, lambda: predict_heads(model, images[:1],
+                                                    dtype))
+    bound_ms = gflop * 1e9 * P13_BATCH / PEAK_FLOPS[torch.bfloat16] * 1e3
+    phase(f"13a predict step (centernet, batch {P13_BATCH}, {P13_SIZE} px, "
+          f"bf16, K {P13_TOP_K}), each part timed alone by CUDA events, "
+          f"median of {PREDICT_ITERS} after {PREDICT_WARMUP}: step "
+          f"{step_ms:.3f} ms; forward {forward_ms:.3f} ms ({forward_kernels} "
+          f"kernels, {forward_busy:.3f} ms device busy; its convs "
+          f"{gflop:.2f} GFLOP an image, bound {bound_ms:.3f} ms at the bf16 "
+          f"peak); decode {decode_ms:.3f} ms ({decode_kernels} kernels, "
+          f"{decode_busy:.3f} ms device busy); peak_memory_allocated="
+          f"{peak / 2**30:.3f} GiB")
+    if [tuple(t.shape) for t in out] != [(P13_BATCH, P13_TOP_K, 4),
+                                         (P13_BATCH, P13_TOP_K),
+                                         (P13_BATCH, P13_TOP_K)] or not bool(
+            ((out[1] >= 0) & (out[1] <= 1)).all()):
+        raise AssertionError(f"predict shapes {[t.shape for t in out]}")
+
+    g = P13_SIZE // 4
+    heads = coarse_heads(P13_BATCH, g, cfg.data.num_classes, seed=15)
+    cpu = cn_ops.decode(heads, max_detections=P13_TOP_K)
+    with torch.inference_mode():
+        card = [t.cpu() for t in cn_ops.decode(
+            {k: v.cuda() for k, v in heads.items()},
+            max_detections=P13_TOP_K)]
+    picks_equal = torch.equal(card[2], cpu[2])
+    score_err = float((card[1] - cpu[1]).abs().max())
+    box_err = float((card[0] - cpu[0]).abs().max())
+    zeros = int((cpu[1] == 0).sum())
+    phase(f"13a decode on the card vs on the CPU, identical coarse heads "
+          f"({P13_BATCH} x {g} x {g} x {cfg.data.num_classes}, five logit "
+          f"values; {zeros} zero-score picks, ties in index order): classes "
+          f"equal={picks_equal}, scores {score_err:.3g} (bound "
+          f"{DECODE_SCORE_TOL:g}), boxes {box_err:.3g}")
+    if not (picks_equal and score_err <= DECODE_SCORE_TOL
+            and box_err <= DECODE_SCORE_TOL * g and zeros > 0):
+        raise AssertionError("the card's decode differs from the CPU's")
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cn_eval_")
+    try:
+        out_json, log = f"{root}/eval.json", f"{root}/eval.log"
+        t0 = time.perf_counter()
+        run_workers([[sys.executable,
+                      f"{HERE}/ObjectsAsPoints/torch/evaluate.py",
+                      "-m", "centernet", "--synthetic", "--out", out_json,
+                      "--workdir", f"{root}/wd"]], [dict(os.environ)], [log],
+                    timeout=EVALUATE_TIMEOUT)
+        with open(out_json) as fh:
+            metrics = json.load(fh)
+        phase(f"13a ObjectsAsPoints/torch/evaluate.py -m centernet "
+              f"--synthetic: rc 0 in {time.perf_counter() - t0:.1f}s, "
+              f"mAP={metrics['mAP']:.4f} mAP@0.5={metrics['mAP@0.5']:.4f}")
+        if not np.isfinite(metrics["mAP"]):
+            raise AssertionError(f"evaluate.py wrote {metrics}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"step_ms": step_ms, "forward_ms": forward_ms,
+            "decode_ms": decode_ms, "forward_busy_ms": forward_busy,
+            "decode_busy_ms": decode_busy, "forward_kernels": forward_kernels,
+            "decode_kernels": decode_kernels, "forward_bound_ms": bound_ms,
+            "peak_bytes": peak}
+
+
+def last_heatmaps(model, images, dtype) -> torch.Tensor:
+    """The last stack's heatmaps of `model` on `images` (inference)."""
+    return model(images.to(dtype))[-1]
+
+
+def check_pose_predict(trainer) -> dict:
+    """13b: the pose predict (last stack, per-joint decode) at batch 32,
+    timed by CUDA events and split into the forward and the decode;
+    evaluate_pckh on the card against the CPU on the config's seeded f32
+    weights; Hourglass/torch/evaluate.py --synthetic as a subprocess."""
+    cfg = trainer.config
+    dtype = getattr(torch, cfg.dtype)
+    model = trainer.model
+    images = torch.from_numpy(next(pose_synthetic_batches(
+        batch_size=P13_BATCH, image_size=P13_SIZE, steps=1,
+        seed=16))[0]).cuda()
+    model.eval()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        step_ms, _ = event_ms(lambda: decode_keypoints(
+            last_heatmaps(model, images, dtype)))
+        peak = torch.cuda.max_memory_allocated()
+        forward_ms, hm = event_ms(lambda: last_heatmaps(model, images,
+                                                        dtype))
+        decode_ms, _ = event_ms(lambda: decode_keypoints(hm))
+        forward_kernels, forward_busy = device_profile(
+            lambda: last_heatmaps(model, images, dtype))
+    gflop = conv_gflop(model, lambda: model(images[:1].to(dtype)))
+    bound_ms = gflop * 1e9 * P13_BATCH / PEAK_FLOPS[torch.bfloat16] * 1e3
+    phase(f"13b pose predict (hourglass104, batch {P13_BATCH}, {P13_SIZE} "
+          f"px, bf16, last stack + per-joint argmax), CUDA events, median "
+          f"of {PREDICT_ITERS} after {PREDICT_WARMUP}: {step_ms:.3f} ms; "
+          f"forward {forward_ms:.3f} ms ({forward_kernels} kernels, "
+          f"{forward_busy:.3f} ms device busy; its convs {gflop:.2f} GFLOP "
+          f"an image, every stack, bound {bound_ms:.3f} ms at the bf16 "
+          f"peak); decode {decode_ms:.3f} ms; peak_memory_allocated="
+          f"{peak / 2**30:.3f} GiB")
+
+    # PCKh on the card and on the CPU, the config's seeded weights in f32
+    f32 = build_model(cfg.replace(dtype="float32"))
+    batches = list(pose_synthetic_batches(batch_size=4,
+                                          image_size=P13_SIZE, steps=1,
+                                          seed=17))
+    sgd = torch.optim.SGD([torch.zeros(1)], lr=0.0)
+    card_model = copy.deepcopy(f32).cuda()
+    card = evaluate_pckh(TrainState(card_model, sgd), batches)
+    cpu = evaluate_pckh(TrainState(f32, sgd), batches)
+    x = torch.from_numpy(batches[0][0])
+    with torch.inference_mode():
+        hm_cpu = last_heatmaps(f32.eval(), x, torch.float32)
+        hm_card = last_heatmaps(card_model.eval(), x.cuda(),
+                                torch.float32).cpu()
+    err = float((hm_card - hm_cpu).abs().max())
+    scale = float(hm_cpu.abs().max())
+    # a pick may differ only where the CPU's heatmap holds two cells
+    # within the two devices' difference of each other
+    flat_cpu = hm_cpu.flatten(1, 2)
+    card_idx = hm_card.flatten(1, 2).argmax(dim=1)
+    gap = flat_cpu.max(dim=1).values - flat_cpu.gather(
+        1, card_idx[:, None]).squeeze(1)
+    differ = card_idx != flat_cpu.argmax(dim=1)
+    undecided = int((differ & (gap <= 2 * err)).sum())
+    phase(f"13b evaluate_pckh on the card vs the CPU, seeded f32 weights, 4 "
+          f"images: PCKh@0.5 {card['PCKh@0.5']:.4f} vs {cpu['PCKh@0.5']:.4f}"
+          f", summaries equal={card == cpu}; heatmaps {err:.3g} apart (of "
+          f"{scale:.3g}: random weights grow the residual stream); "
+          f"picks differing {int(differ.sum())} of {differ.numel()} "
+          f"({undecided} within that difference of the CPU's peak)")
+    if int(differ.sum()) != undecided or (card != cpu and not undecided):
+        raise AssertionError("the card's PCKh differs from the CPU's")
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_pose_eval_")
+    try:
+        log = f"{root}/eval.log"
+        t0 = time.perf_counter()
+        run_workers([[sys.executable, f"{HERE}/Hourglass/torch/evaluate.py",
+                      "--synthetic", "--workdir", f"{root}/wd"]],
+                    [dict(os.environ)], [log], timeout=EVALUATE_TIMEOUT)
+        with open(log) as fh:
+            lines = [ln for ln in fh.read().splitlines()
+                     if ln.startswith("PCKh@0.5: ")]
+        phase(f"13b Hourglass/torch/evaluate.py --synthetic: rc 0 in "
+              f"{time.perf_counter() - t0:.1f}s, {lines}")
+        if len(lines) != 1 or not np.isfinite(float(lines[0].split()[-1])):
+            raise AssertionError(f"evaluate.py printed {lines}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"step_ms": step_ms, "forward_ms": forward_ms,
+            "decode_ms": decode_ms, "forward_busy_ms": forward_busy,
+            "forward_kernels": forward_kernels, "forward_bound_ms": bound_ms,
+            "peak_bytes": peak}
+
+
+def check_p13_serving(name: str) -> dict:
+    """13c: `name` served by the engine on the card at buckets {1, 8} on
+    its seeded weights: every answer tree held leaf by leaf against
+    `engine.reference()`, one image against an engine on the CPU,
+    `measure_batch_ms` per bucket."""
+    engine = PredictEngine.from_config(name, device="cuda",
+                                       buckets=SERVE_BUCKETS, verbose=False)
+    rs = np.random.RandomState(18)
+    errs = []
+    for n in (1, 3, 8, 9):
+        x = rs.randn(n, *engine.example_shape).astype(np.float32)
+        got = engine.predict(x)
+        if [np.shape(leaf)[0] for leaf in _leaves(got)] != [n] * len(
+                list(_leaves(got))):
+            raise AssertionError(f"{name} answered {n} images with "
+                                 f"{[np.shape(t) for t in _leaves(got)]}")
+        errs.append(leaf_rel_err(got, engine.reference(x)))
+    x = rs.randn(1, *engine.example_shape).astype(np.float32)
+    cpu = PredictEngine.from_config(name, device="cpu", buckets=(1,),
+                                    verbose=False)
+    cpu_err = leaf_rel_err(engine.reference(x), cpu.reference(x))
+    shapes = [np.shape(leaf) for leaf in _leaves(engine.reference(x))]
+    batch_ms = {b: engine.measure_batch_ms(b, 10) for b in engine.buckets}
+    phase(f"13c {name} served at buckets {engine.buckets}: answer leaves "
+          f"{shapes}; answers vs engine.reference() at 1, 3, 8, 9 images, "
+          f"worst leaf relative to its largest value {max(errs):.3g}; card "
+          f"vs CPU engine on the same seeded weights, 1 image: "
+          f"{cpu_err:.3g} (bound {P13_SERVE_TOL:g}); measure_batch_ms "
+          + " ".join(f"bucket {b}: {ms:.3f}" for b, ms in batch_ms.items()))
+    if not (max(errs) <= P13_SERVE_TOL and cpu_err <= P13_SERVE_TOL):
+        raise AssertionError(f"{name} served answers differ: {errs}, card "
+                             f"vs CPU {cpu_err:g}")
+    return {"batch_ms": batch_ms, "err": max(errs), "cpu_err": cpu_err}
+
+
+def check_centernet_and_pose() -> dict:
+    """Phase 13, slice 10: CenterNet and stacked-Hourglass pose trained,
+    evaluated, inferred and served at full width. No TPU kernel is on this
+    path: the K1 and K2 counts, zeroed here, must stay 0."""
+    t0 = time.perf_counter()
+    flash_attention.launches = best_iou.launches = 0
+    out = {"centernet": check_p13_training("centernet", "13a")}
+    out["centernet"]["predict"] = check_centernet_predict(
+        out["centernet"].pop("trainer"))
+    torch.cuda.empty_cache()
+    out["hourglass104"] = check_p13_training("hourglass104", "13b")
+    out["hourglass104"]["predict"] = check_pose_predict(
+        out["hourglass104"].pop("trainer"))
+    torch.cuda.empty_cache()
+    for name in P13_MODELS:
+        out[name]["serve"] = check_p13_serving(name)
+    counts = (flash_attention.launches, best_iou.launches)
+    phase(f"13: launches on the CenterNet and pose paths (flash_attention, "
+          f"best_iou): {counts}; phase 13 took "
+          f"{time.perf_counter() - t0:.1f}s")
+    if counts != (0, 0):
+        raise AssertionError(f"a kernel ran on the phase 13 paths: {counts}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2109,6 +2559,11 @@ def main() -> int:
     # this path: the launch counts, zeroed there, must stay 0)
     torch.cuda.empty_cache()
     check_detection_inference(yolo)
+
+    # 13. slice 10: CenterNet and stacked-Hourglass pose (no kernel on
+    # these paths: the launch counts, zeroed there, must stay 0)
+    torch.cuda.empty_cache()
+    check_centernet_and_pose()
 
     timed_keys = ("shape", "layout", "ms", "device_ms", "plain_ms",
                   "library_ms", "library_device_ms", "bound_ms")

@@ -1,6 +1,7 @@
 """Command line of the port's training entry points (own copy of
 deepvision_tpu/cli.py: `build_parser`, `_run`, the data factories,
-`run_classification` and `run_detection`).
+`run_classification`, `run_detection`, `run_centernet` and
+`run_pose`).
 
 `python ResNet/torch/train.py -m resnet50_tpu --synthetic --device-augment`
 trains ResNet-50 on the card, `python LeNet/torch/train.py -m
@@ -8,11 +9,15 @@ lenet5_digits --device cpu` LeNet-5 on the bundled digits on the CPU,
 `python ViT/torch/train.py -m vit_small --synthetic` ViT-Small/16 and
 `python YOLO/torch/train.py -m yolov3 --synthetic --image-size 416`
 YOLO V3 (`-m yolov3_digits --device cpu` on the digits_detect scenes of
-the bundled digits). The flags are the JAX CLI's (`-m`, `-c`, `--data-dir`,
-`--synthetic`, `--epochs`, `--batch-size`, `--eval-batch-size`,
-`--learning-rate`, `--accum-steps`, `--no-decay-bn-bias`, `--ema-decay`,
-`--device-augment`, `--prefetch-batches`, `--steps-per-epoch`, `--seed`,
-`--workdir`), plus `--device` and `--image-size`.
+the bundled digits), `python ObjectsAsPoints/torch/train.py -m centernet
+--synthetic --image-size 256` CenterNet (`-m centernet_digits` on the
+digits_detect scenes) and `python Hourglass/torch/train.py -m
+hourglass104 --synthetic --image-size 256` the Stacked Hourglass. The
+flags are the JAX CLI's (`-m`, `-c`, `--data-dir`, `--synthetic`,
+`--epochs`, `--batch-size`, `--eval-batch-size`, `--learning-rate`,
+`--accum-steps`, `--no-decay-bn-bias`, `--ema-decay`, `--device-augment`,
+`--prefetch-batches`, `--steps-per-epoch`, `--seed`, `--workdir`), plus
+`--device` and `--image-size`.
 
 Data parallelism needs no flag, as in the JAX CLI: under
 `torchrun --standalone --nproc_per_node=N ResNet/torch/train.py ...` each
@@ -56,8 +61,8 @@ def build_parser(family: str, models: Sequence[str]) -> argparse.ArgumentParser:
                    help="dataset root (idx files for MNIST)")
     p.add_argument("--synthetic", action="store_true",
                    help="train on synthetic data (smoke test, no dataset "
-                        "needed; detection trains on a 64 px canvas unless "
-                        "--image-size)")
+                        "needed; detection and pose train on a 64 px "
+                        "canvas, CenterNet on 128 px, unless --image-size)")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--eval-batch-size", type=int, default=None,
@@ -318,3 +323,44 @@ def run_detection(family: str, models: Sequence[str],
     return _run(family, models,
                 lambda c, w, d: DetectionTrainer(c, device=d, workdir=w),
                 _detection_data, argv, synthetic_image_size=64)
+
+
+def _pose_data(cfg: TrainConfig, args) -> Tuple:
+    from .data import pose as pose_data
+    data = cfg.data
+    if args.synthetic or data.dataset == "synthetic":
+        return _synthetic_data(cfg, lambda batch, steps, seed, rank:
+                               pose_data.synthetic_batches(
+                                   batch_size=batch,
+                                   image_size=data.image_size, steps=steps,
+                                   seed=seed, rank=rank))
+    if data.dataset == "pose":
+        raise NotImplementedError(
+            "the MPII TFRecord pipeline (dataset 'pose') is not ported "
+            "yet: it reads TFRecords through TensorFlow, which the port "
+            "does not depend on; train with --synthetic")
+    raise ValueError(f"pose families read 'pose' TFRecords, not "
+                     f"dataset={data.dataset!r}")
+
+
+def run_centernet(family: str, models: Sequence[str],
+                  argv: Optional[Sequence[str]] = None):
+    """CenterNet entry point — `python train.py -m centernet [-c latest]`,
+    on the detection batches of `run_detection`. Synthetic runs use a
+    128 px canvas (the stride-4 stem and the order-5 hourglass need 2^5 on
+    the quarter grid), as in the JAX package, unless `--image-size`."""
+    from .core.centernet import CenterNetTrainer
+    return _run(family, models,
+                lambda c, w, d: CenterNetTrainer(c, device=d, workdir=w),
+                _detection_data, argv, synthetic_image_size=128)
+
+
+def run_pose(family: str, models: Sequence[str],
+             argv: Optional[Sequence[str]] = None):
+    """Pose (Stacked Hourglass) entry point — `python train.py -m
+    hourglass104 [-c latest]`. Synthetic runs use a 64 px canvas, as in
+    the JAX package, unless `--image-size`."""
+    from .core.pose import PoseTrainer
+    return _run(family, models,
+                lambda c, w, d: PoseTrainer(c, device=d, workdir=w),
+                _pose_data, argv, synthetic_image_size=64)

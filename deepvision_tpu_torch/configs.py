@@ -1,8 +1,8 @@
 """Registered configs of the port (own copy of deepvision_tpu/configs.py:
-the LeNet, AlexNet, VGG, Inception, ResNet, MobileNet, ShuffleNet, ViT and
-YOLO entries). Every field the port's dataclasses carry equals the JAX
-package's; tests/test_torch_vit.py and tests/test_torch_yolo.py hold them
-against it.
+the LeNet, AlexNet, VGG, Inception, ResNet, MobileNet, ShuffleNet, ViT,
+YOLO, Stacked Hourglass and CenterNet entries). Every field the port's
+dataclasses carry equals the JAX package's; tests/test_torch_vit.py and
+tests/test_torch_yolo.py hold them against it.
 """
 
 from __future__ import annotations
@@ -219,6 +219,48 @@ CONFIGS.register("yolov3_digits", TrainConfig(
     schedule=ScheduleConfig(name="step", boundaries_epochs=(70, 90),
                             decay_factor=0.1),
     data=DataConfig(dataset="digits_detect", image_size=128, num_classes=10,
+                    train_examples=512, val_examples=128),
+))
+
+# -- Stacked Hourglass: MPII's 16 joints at 256 px (64 px heatmaps), batch
+#    16 per replica in the reference (128 is the multi-chip global batch),
+#    Adam 1e-3, plateau /10 after 10 bad epochs watching val loss. ----
+CONFIGS.register("hourglass104", TrainConfig(
+    name="hourglass104", model="hourglass104", family="pose", batch_size=128,
+    total_epochs=100,
+    optimizer=OptimizerConfig(name="adam", learning_rate=1e-3),
+    schedule=ScheduleConfig(name="plateau", plateau_patience=10,
+                            plateau_factor=0.1, plateau_mode="min"),
+    data=DataConfig(dataset="pose", image_size=256, num_classes=16,
+                    train_examples=22246, val_examples=2958),
+))
+
+# -- CenterNet / ObjectsAsPoints: the 2-stack hourglass at 256 px, COCO's
+#    80 classes; Adam 1.25e-4, /10 at epochs 90 and 120 (Zhou 2019 section
+#    5.2). `objects_as_points` is the same recipe under the paper's name
+#    (its own runs/ workdir). ----
+_CENTERNET = TrainConfig(
+    name="centernet", model="centernet", family="centernet", batch_size=64,
+    total_epochs=140,
+    optimizer=OptimizerConfig(name="adam", learning_rate=1.25e-4),
+    schedule=ScheduleConfig(name="step", boundaries_epochs=(90, 120),
+                            decay_factor=0.1),
+    data=DataConfig(dataset="detection", image_size=256, num_classes=80,
+                    train_examples=118287, val_examples=5000),
+)
+CONFIGS.register("centernet", _CENTERNET)
+CONFIGS.register("objects_as_points", _CENTERNET.replace(
+    name="objects_as_points"))
+
+# -- CenterNet on the digits_detect scenes (data/digits.py): one stack of
+#    order 2 at a quarter width on a 64 px canvas (16 px grid). ----
+CONFIGS.register("centernet_digits", _CENTERNET.replace(
+    name="centernet_digits", batch_size=32, total_epochs=30,
+    model_kwargs={"num_stack": 1, "order": 2, "width_mult": 0.25},
+    optimizer=OptimizerConfig(name="adam", learning_rate=5e-4),
+    schedule=ScheduleConfig(name="step", boundaries_epochs=(20, 26),
+                            decay_factor=0.1),
+    data=DataConfig(dataset="digits_detect", image_size=64, num_classes=10,
                     train_examples=512, val_examples=128),
 ))
 

@@ -1,5 +1,6 @@
 """Detection (YOLO V3) steps, inference and trainer (own copy of
-deepvision_tpu/core/detection.py: `yolo_grid_sizes`, `make_yolo_train_step`,
+deepvision_tpu/core/detection.py: `boxes_calibration_batch`,
+`yolo_grid_sizes`, `make_yolo_train_step`,
 `make_yolo_eval_step`, `make_predict_step`, `evaluate_map`,
 `DetectionTrainer`).
 
@@ -39,6 +40,25 @@ from .train_state import TrainState
 from .trainer import LossWatchedTrainer
 
 Step = Callable[..., Dict[str, torch.Tensor]]
+
+
+def boxes_calibration_batch(config: TrainConfig, sample_shape,
+                            batch_size: int, seed: int = 0) -> tuple:
+    """A seeded (images, boxes, classes, valid) batch of the padded-GT
+    layout the YOLO and CenterNet steps share, one box per image: the JAX
+    package's grad-calibration batch, bit for bit (the port calibrates
+    nothing; its checks run one step on it)."""
+    rs = np.random.RandomState(seed)
+    b = batch_size
+    images = (rs.randint(0, 256, (b, *sample_shape)).astype(np.uint8)
+              if config.data.normalize_on_device
+              else rs.rand(b, *sample_shape).astype(np.float32))
+    boxes = np.zeros((b, yolo_ops.MAX_BOXES, 4), np.float32)
+    boxes[:, 0] = [0.2, 0.2, 0.6, 0.6]
+    classes = np.zeros((b, yolo_ops.MAX_BOXES), np.int32)
+    valid = np.zeros((b, yolo_ops.MAX_BOXES), np.float32)
+    valid[:, 0] = 1.0
+    return (images, boxes, classes, valid)
 
 
 def yolo_grid_sizes(image_size: int) -> Sequence[int]:

@@ -1,6 +1,7 @@
 """Model zoo of the port — importing this package registers its models in
 MODELS (the ViT, YOLO V3, LeNet-5, ResNet, AlexNet, VGG, Inception,
-MobileNet and ShuffleNet families so far)."""
+MobileNet, ShuffleNet, Stacked Hourglass and CenterNet families so
+far)."""
 
 from __future__ import annotations
 
@@ -9,8 +10,8 @@ from typing import Optional
 
 import torch
 
-from . import (alexnet, inception, lenet, mobilenet, resnet,  # noqa: F401
-               shufflenet, vgg, vit, yolo)
+from . import (alexnet, centernet, hourglass, inception,  # noqa: F401
+               lenet, mobilenet, resnet, shufflenet, vgg, vit, yolo)
 from ..utils.registry import MODELS
 
 
@@ -21,12 +22,14 @@ def build_model(config, *,
     class count, compute dtype and input geometry (the counterpart of
     deepvision_tpu/core/trainer.py::build_model_from_config). The weights
     are drawn from `generator` (a fresh one seeded with `config.seed` when
-    None), on the CPU in f32."""
+    None), on the CPU in f32. A pose model takes the class count as
+    `num_heatmap` (the JAX trainers' `num_classes_kwarg`)."""
     if generator is None:
         generator = torch.Generator().manual_seed(config.seed)
     ctor = MODELS.get(config.model)
     accepted = inspect.signature(ctor).parameters
     offered = {"num_classes": config.data.num_classes,
+               "num_heatmap": config.data.num_classes,
                "dtype": getattr(torch, config.dtype),
                "image_size": config.data.image_size,
                "channels": config.data.channels, "generator": generator}

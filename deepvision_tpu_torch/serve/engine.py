@@ -13,10 +13,13 @@ dtype (bf16 unless the config pins f32), float outputs returned as f32.
 
 An answer is the model's eval-mode output as a tree of host arrays: one
 (n, classes) array for a classifier (its first output when it returns
-several, as the JAX engine's `take_first_output`), and for a detector the
-decoded `(boxes_xywh, objectness, class_probs)` triple of each of its
-three scales. `tree_slice` and `tree_concat` strip padding, join chunks
-and cut one request's rows out of a coalesced batch.
+several, as the JAX engine's `take_first_output`); for YOLO the decoded
+`(boxes_xywh, objectness, class_probs)` triple of each of its three
+scales; for CenterNet one dict {"heatmap", "size", "offset"} per stack;
+for the Stacked Hourglass one heatmap array per stack. `tree_slice` and
+`tree_concat` strip padding, join chunks and cut one request's rows out
+of a coalesced batch; the server encodes the same tree as JSON (dicts as
+objects).
 """
 
 from __future__ import annotations
@@ -35,12 +38,16 @@ from ..utils.device import device_name, resolve_device
 
 
 #: the config families the engine can build and serve
-SERVED_FAMILIES = ("classification", "detection")
+SERVED_FAMILIES = ("classification", "detection", "pose", "centernet")
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    """`fn` over the leaves of nested tuples and lists (and of `rest`, trees
-    of the same structure), keeping the structure."""
+    """`fn` over the leaves of nested tuples, lists and mappings (and of
+    `rest`, trees of the same structure), keeping the structure: a mapping
+    comes back as a dict with its keys in its own order."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_map(fn, *leaves)
                           for leaves in zip(tree, *rest))
@@ -80,7 +87,7 @@ class PredictEngine:
 
     The model must carry its compute dtype as `model.dtype` and implement
     `cast_compute_weights_()` (`models/common.py::ComputeWeights`: every
-    classifier and YOLO V3; `models/vit.py`). With `take_first_output` (a
+    CNN of the zoo; `models/vit.py`). With `take_first_output` (a
     classifier) a model that returns a tuple serves its first output, the
     main head; without it the whole tree is served.
     """
@@ -140,7 +147,7 @@ class PredictEngine:
         if cfg.family not in SERVED_FAMILIES:
             raise ValueError(
                 f"config {name!r} is {cfg.family}; the port serves "
-                f"{' and '.join(SERVED_FAMILIES)} models only so far")
+                f"{', '.join(SERVED_FAMILIES)} models only so far")
         model = build_model(cfg)
         provenance = {"weights": "random-init", "seed": cfg.seed}
         if state_dict is not None:

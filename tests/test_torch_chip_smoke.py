@@ -3,7 +3,9 @@
 (DMAX 64 and 128, 16-byte and scalar copies) is listed once with HMMA.
 And the wiring of its phase 11 (data parallelism): the argv and
 environment each worker gets, a failing or hanging worker failing the
-phase, and the f64 step comparison with its bounds on CPU tensors."""
+phase, and the f64 step comparison with its bounds on CPU tensors. Phases
+12 and 13 rehearse on the CPU at small sizes, the card stood in for by the
+CPU."""
 
 import os
 import subprocess
@@ -515,27 +517,31 @@ def test_match_picks_needs_each_top_pick_in_the_other_run():
         chip_smoke.match_picks(other_class, want, 1, 1e-3)
 
 
-def test_phase_12_rehearses_on_the_cpu(monkeypatch, tmp_path):
-    """Phase 12's sub-phases end to end on the CPU at a small size
-    (yolov3_digits at 64 px, batch 4): the card's device, CUDA events and
-    profiler stood in for by the CPU, the host clock and a count of 1."""
+class HostEvent:
+    """torch.cuda.Event on the host clock."""
+
+    def __init__(self, **_):
+        self.t = None
+
+    def record(self, *_):
+        self.t = chip_smoke.time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3
+
+
+def _card_on_the_cpu(monkeypatch, pinned=None):
+    """The card's device, CUDA events, memory counters and profiler stood
+    in for by the CPU, the host clock, 0 and a count of 1; the workers get
+    `--device cpu`, and a `--workdir` they name pins the `pinned` model
+    kwargs."""
     torch = chip_smoke.torch
     from deepvision_tpu_torch import cli
     from deepvision_tpu_torch.core import trainer as trainer_mod
     from deepvision_tpu_torch.serve import engine as engine_mod
-
-    class HostEvent:
-        def __init__(self, **_):
-            self.t = None
-
-        def record(self, *_):
-            self.t = chip_smoke.time.perf_counter()
-
-        def synchronize(self):
-            pass
-
-        def elapsed_time(self, end):
-            return (end.t - self.t) * 1e3
 
     cpu = lambda device=None: torch.device("cpu")  # noqa: E731
     for module in (cli, trainer_mod, engine_mod):
@@ -547,15 +553,31 @@ def test_phase_12_rehearses_on_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
                         lambda *a: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
     monkeypatch.setattr(chip_smoke, "device_profile",
                         lambda fn: (fn(), (1, 0.0))[1])
     run_workers = chip_smoke.run_workers
-    monkeypatch.setattr(chip_smoke, "run_workers",
-                        lambda cmds, envs, logs, timeout: run_workers(
-                            [c + ["--device", "cpu"] for c in cmds], envs,
-                            logs, timeout))
-    monkeypatch.setattr(chip_smoke, "YOLO_MODEL", "yolov3_digits")
+
+    def on_the_cpu(cmds, envs, logs, timeout):
+        for cmd in cmds:
+            if pinned and "--workdir" in cmd:
+                wd = cmd[cmd.index("--workdir") + 1]
+                os.makedirs(wd, exist_ok=True)
+                with open(os.path.join(wd, "model_kwargs.json"), "w") as fh:
+                    chip_smoke.json.dump(pinned, fh)
+        run_workers([c + ["--device", "cpu"] for c in cmds], envs, logs,
+                    timeout)
+
+    monkeypatch.setattr(chip_smoke, "run_workers", on_the_cpu)
     torch.set_num_threads(2)
+
+
+def test_phase_12_rehearses_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 12's sub-phases end to end on the CPU at a small size
+    (yolov3_digits at 64 px, batch 4): the card's device, CUDA events and
+    profiler stood in for by the CPU, the host clock and a count of 1."""
+    _card_on_the_cpu(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "YOLO_MODEL", "yolov3_digits")
     workdir = str(tmp_path / "wd")
     trainer, _ = chip_smoke.run_detection("YOLO", ["yolov3_digits"], [
         "-m", "yolov3_digits", "--synthetic", "--image-size", "64",
@@ -567,3 +589,108 @@ def test_phase_12_rehearses_on_the_cpu(monkeypatch, tmp_path):
     assert set(out["serve"]["batch_ms"]) == {1, 8}
     assert (chip_smoke.flash_attention.launches,
             chip_smoke.best_iou.launches) == (0, 0)
+
+
+# -- phase 13: CenterNet and pose ------------------------------------------------
+
+TINY_P13 = dict(num_stack=2, order=2, width_mult=1 / 16)
+
+
+def _tiny_p13(monkeypatch):
+    """Phase 13 at 32 px, batch 2, on the tiny models of both families
+    (their configs otherwise as registered); returns the configs."""
+    from deepvision_tpu_torch import cli
+    from deepvision_tpu_torch.configs import get_config
+    from deepvision_tpu_torch.serve import engine as engine_mod
+
+    def tiny(name):
+        cfg = get_config(name)
+        if name not in chip_smoke.P13_MODELS:
+            return cfg
+        return cfg.replace(model_kwargs=TINY_P13)
+
+    for module in (chip_smoke, cli, engine_mod):
+        monkeypatch.setattr(module, "get_config", tiny)
+    counts = {name: (family, sum(p.numel() for p in chip_smoke.build_model(
+        tiny(name)).parameters()))
+        for name, (family, _) in chip_smoke.P13_MODELS.items()}
+    monkeypatch.setattr(chip_smoke, "P13_MODELS", counts)
+    monkeypatch.setattr(chip_smoke, "P13_SIZE", 32)
+    monkeypatch.setattr(chip_smoke, "P13_BATCH", 2)
+
+
+def test_phase_13_rehearses_on_the_cpu(monkeypatch):
+    """Phase 13 end to end on the CPU with the tiny models at 32 px: the
+    trainings through both entry points and their checkpoints, both
+    predict steps, decode and PCKh card against CPU (the CPU against
+    itself), both evaluate.py workers, serving; the f64 step check stood
+    in for (it needs the card; test_p13_steps_run_in_f64_and_f32 runs its
+    steps)."""
+    _card_on_the_cpu(monkeypatch, pinned=TINY_P13)
+    _tiny_p13(monkeypatch)
+    steps = []
+    monkeypatch.setattr(chip_smoke, "check_step_against_f64",
+                        lambda cfg, model, batch, name, what, make_step:
+                        steps.append((name, len(batch))) or {})
+    out = chip_smoke.check_centernet_and_pose()
+    assert steps == [("13a centernet", 4), ("13b hourglass104", 4)]
+    for name in ("centernet", "hourglass104"):
+        rec = out[name]
+        assert len(rec["losses"]) == 2 and rec["predict"]["forward_ms"] > 0
+        assert set(rec["serve"]["batch_ms"]) == {1, 8}
+        assert rec["serve"]["cpu_err"] == 0.0
+    assert out["centernet"]["predict"]["decode_ms"] > 0
+    assert (chip_smoke.flash_attention.launches,
+            chip_smoke.best_iou.launches) == (0, 0)
+
+
+def test_a_kernel_launch_fails_phase_13(monkeypatch):
+    def launch(name, tag):
+        chip_smoke.best_iou.launches += 1
+        return {"trainer": None}
+
+    monkeypatch.setattr(chip_smoke, "check_p13_training", launch)
+    monkeypatch.setattr(chip_smoke, "check_centernet_predict",
+                        lambda trainer: {})
+    monkeypatch.setattr(chip_smoke, "check_pose_predict", lambda trainer: {})
+    monkeypatch.setattr(chip_smoke, "check_p13_serving", lambda name: {})
+    with pytest.raises(AssertionError, match="a kernel ran"):
+        chip_smoke.check_centernet_and_pose()
+
+
+@pytest.mark.parametrize("name", ["centernet", "hourglass104"])
+def test_p13_steps_run_in_f64_and_f32(monkeypatch, name):
+    """The steps phase 13 holds card against CPU with, on the CPU: the f64
+    step renders f64 targets and computes an f64 loss, and the f32 step
+    lies within the f32 bounds of it."""
+    torch = chip_smoke.torch
+    _tiny_p13(monkeypatch)
+    cfg = chip_smoke.get_config(name).replace(dtype="float32")
+    cfg = cfg.replace(data=chip_smoke.dataclasses.replace(cfg.data,
+                                                          image_size=32))
+    trainer_cls = {"centernet": chip_smoke.CenterNetTrainer,
+                   "hourglass104": chip_smoke.PoseTrainer}[name]
+    model = chip_smoke.build_model(cfg)
+    batch = trainer_cls._calibration_batch(
+        type("T", (), {"config": cfg})(), (32, 32, 3), 2)
+    make_step = chip_smoke.p13_step_factory(name, cfg)
+    cpu = torch.device("cpu")
+    loss64, grads64 = chip_smoke.train_step_grads(cfg, model, batch, cpu,
+                                                  torch.float64, make_step)
+    loss32, grads32 = chip_smoke.train_step_grads(cfg, model, batch, cpu,
+                                                  make_step=make_step)
+    assert all(g.dtype == torch.float64 for g in grads64.values())
+    assert abs(loss32 - loss64) <= chip_smoke.ZOO_LOSS_RTOL * abs(loss64)
+    assert chip_smoke.grad_rel(grads32, grads64)[0] <= chip_smoke.ZOO_GRAD_RTOL
+
+
+def test_coarse_heads_tie_everywhere_and_leave_zero_picks():
+    """Image 0 is one plateau (its picks the first cells, in index order),
+    image 1 has one peak a class (fewer than the picks: zero scores)."""
+    heads = chip_smoke.coarse_heads(3, 8, 4, seed=0)
+    boxes, scores, classes = chip_smoke.cn_ops.decode(heads,
+                                                      max_detections=10)
+    assert classes[0].tolist() == [0, 1, 2, 3] * 2 + [0, 1]
+    assert (scores[0] == scores[0, 0]).all()
+    assert (scores[1, :4] > 0).all() and (scores[1, 4:] == 0).all()
+    assert classes[1, :4].tolist() == [3, 2, 1, 0]

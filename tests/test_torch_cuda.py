@@ -46,6 +46,17 @@ the CPU on identical inputs at the yolov3 shape (exact picks, counts and
 gathered rows), and a reduced yolov3's candidates before NMS on the card
 against the CPU in f32 within 1e-4 of the largest value.
 
+CenterNet and pose have no kernel: CenterNet's decode on the card picks
+what it picks on the CPU on identical heads of five logit values (plateaus
+of tied peaks, an image with fewer peaks than picks: ties in index order
+on both devices), classes exact, scores and boxes within 1e-6 (one
+sigmoid of the same logit on each device); `encode_labels` on the card
+with a shared centre cell (the last valid box writes) and a centre on the
+edge equals the CPU, masks, sizes and offsets exactly, the gaussians
+within 1e-6; the keypoint heatmaps within 1e-6 and their decode exactly;
+and reduced models of both families (2 stacks, order 2, width 1/16) in f32
+eval mode on the card within 1e-5 of the CPU's largest output.
+
 Data parallelism: both kernels launch on their tensors' card from a
 thread whose current card is another (two cards or more; skips on one),
 and 2 gloo ranks sharing card 0 take one f64 step of the reduced ResNet
@@ -88,7 +99,8 @@ from deepvision_tpu_torch.utils.device import resolve_device
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 from chip_smoke import (check_f64_step_errors,  # noqa: E402
-                        check_step_against_f64, f64_step_errors,
+                        check_step_against_f64, coarse_heads,
+                        f64_step_errors,
                         padded_gt, ragged_gt, ragged_preds,
                         random_boxes, same, train_step_state)
 
@@ -668,6 +680,78 @@ def test_predict_step_on_the_card_matches_the_cpu(card):
         cpu_nms = batched_nms(*(t.cpu() for t in got), **kw)
     for g, c in zip(card_nms, cpu_nms):
         assert torch.equal(g.cpu(), c)
+
+
+# -- CenterNet and pose --------------------------------------------------------
+
+@pytest.mark.parametrize("g,c,k", [(64, 80, 100), (8, 3, 100), (6, 5, 7)])
+def test_centernet_decode_on_the_card_picks_what_the_cpu_picks(card, g, c,
+                                                               k):
+    from deepvision_tpu_torch.ops.centernet import decode
+    heads = coarse_heads(4, g, c, seed=g + c)
+    cpu = decode(heads, max_detections=k)
+    got = decode({n: v.cuda() for n, v in heads.items()}, max_detections=k)
+    assert all(t.device.type == "cuda" for t in got)
+    assert torch.equal(got[2].cpu(), cpu[2])
+    assert (got[1].cpu() - cpu[1]).abs().max().item() <= 1e-6
+    assert (got[0].cpu() - cpu[0]).abs().max().item() <= 1e-6 * g
+    assert (cpu[1][1] == 0).any() == (g * g * c > k > c)
+
+
+def test_centernet_encode_labels_on_the_card_equals_the_cpu(card):
+    from deepvision_tpu_torch.ops.centernet import encode_labels
+    rs = np.random.RandomState(2)
+    xy1 = rs.uniform(-0.05, 0.8, (3, 100, 2))
+    boxes = np.concatenate([xy1, xy1 + rs.uniform(0.02, 0.4, (3, 100, 2))],
+                           -1).astype(np.float32)
+    boxes[0, :4] = [[0.30, 0.30, 0.40, 0.42], [0.31, 0.33, 0.39, 0.45],
+                    [0.32, 0.31, 0.38, 0.40], [0.29, 0.32, 0.41, 0.41]]
+    boxes[0, 4] = [0.90, 0.90, 1.10, 1.10]     # centre exactly 1.0: dropped
+    classes = rs.randint(-1, 81, (3, 100)).astype(np.int32)
+    valid = (rs.rand(3, 100) < 0.3).astype(np.float32)
+    valid[0, :5] = [1, 1, 0, 1, 1]
+    args = [torch.from_numpy(a) for a in (boxes, classes, valid)]
+    cpu = encode_labels(*args, 64, 80)
+    got = encode_labels(*(a.cuda() for a in args), 64, 80)
+    for k in ("mask", "size", "offset"):
+        assert torch.equal(got[k].cpu(), cpu[k]), k
+    assert (got["heatmap"].cpu() - cpu["heatmap"]).abs().max() <= 1e-6
+    assert cpu["mask"][0].sum() < valid[0].sum()   # shared cells, an edge
+
+
+def test_keypoint_heatmaps_and_decode_on_the_card_equal_the_cpu(card):
+    from deepvision_tpu_torch.ops.heatmap import (decode_keypoints,
+                                                  render_gaussian_heatmaps)
+    rs = np.random.RandomState(3)
+    kp = [torch.from_numpy(rs.uniform(-0.2, 1.2, (8, 16))
+                           .astype(np.float32)) for _ in range(2)]
+    vis = torch.from_numpy((rs.rand(8, 16) > 0.2).astype(np.float32) * 2)
+    cpu = render_gaussian_heatmaps(*kp, vis, 64, 64)
+    got = render_gaussian_heatmaps(*(t.cuda() for t in (*kp, vis)), 64, 64)
+    assert (got.cpu() - cpu).abs().max().item() <= 1e-6
+    for g, c in zip(decode_keypoints(got), decode_keypoints(cpu)):
+        assert torch.equal(g.cpu(), c)
+
+
+@pytest.mark.parametrize("name", ["centernet", "hourglass104"])
+def test_reduced_centernet_and_hourglass_forward_on_the_card(card, name):
+    from deepvision_tpu_torch.models.centernet import ObjectsAsPoints
+    from deepvision_tpu_torch.models.hourglass import StackedHourglass
+    ctor = ObjectsAsPoints if name == "centernet" else StackedHourglass
+    model = ctor(num_stack=2, order=2, width_mult=1 / 16,
+                 dtype=torch.float32,
+                 generator=torch.Generator().manual_seed(0)).eval()
+    x = torch.from_numpy(np.random.RandomState(4).rand(2, 64, 64, 3)
+                         .astype(np.float32) * 2 - 1)
+    with torch.inference_mode():
+        want = model(x)
+        got = model.cuda()(x.cuda())
+    flat = lambda t: [v for s in t for v in (s.values()  # noqa: E731
+                                              if isinstance(s, dict) else [s])]
+    for g, w in zip(flat(got), flat(want)):
+        assert g.shape == w.shape
+        assert (g.cpu() - w).abs().max().item() <= 1e-5 * max(
+            1.0, w.abs().max().item())
 
 
 # -- data parallelism ---------------------------------------------------------

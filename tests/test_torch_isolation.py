@@ -15,8 +15,8 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "deepvision_tpu_torch")
 BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "deepvision_tpu"}
-FAMILIES = ("AlexNet", "Inception", "LeNet", "MobileNet", "ResNet",
-            "ShuffleNet", "VGG", "ViT", "YOLO")
+FAMILIES = ("AlexNet", "Hourglass", "Inception", "LeNet", "MobileNet",
+            "ObjectsAsPoints", "ResNet", "ShuffleNet", "VGG", "ViT", "YOLO")
 ENTRY_POINTS = [os.path.join(REPO, "chip_smoke.py")] + sorted(
     path for family in FAMILIES
     for path in glob.glob(os.path.join(REPO, family, "torch", "*.py")))
@@ -65,7 +65,7 @@ print(len(names))
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.split()[-1]) >= 62
+    assert int(proc.stdout.split()[-1]) >= 70
 
 
 def test_every_family_has_its_entry_points():
@@ -74,5 +74,8 @@ def test_every_family_has_its_entry_points():
         assert os.path.join(family, "torch", "train.py") in names, family
     for family in ("Inception", "MobileNet", "ResNet"):
         assert os.path.join(family, "torch", "profile_step.py") in names
-    for script in ("detect.py", "evaluate.py"):
-        assert os.path.join("YOLO", "torch", script) in names
+    for family, scripts in (("YOLO", ("detect.py", "evaluate.py")),
+                            ("ObjectsAsPoints", ("detect.py", "evaluate.py")),
+                            ("Hourglass", ("evaluate.py", "infer.py"))):
+        for script in scripts:
+            assert os.path.join(family, "torch", script) in names

@@ -16,9 +16,15 @@ It serves detection too: a tiny f32 yolov3 answers the decoded
 `reference()` at every padding (1e-5) and to the JAX model's decoded apply
 on the same weights (1e-4 of each leaf's largest value); the batcher cuts
 each request's rows out of every leaf of a coalesced tree, and `/predict`
-answers the tree as nested lists.
+answers the tree as nested lists. The pose and CenterNet families serve
+their whole output trees — a heatmap per stack, a dict of heads per stack,
+whose keys the tree helpers and the JSON answer keep — through
+`from_config` (at a reduced size on the CPU), the batcher and `/predict`,
+each answer equal to `reference()` (1e-5: a padded bucket against the
+exact batch, f32).
 """
 
+import dataclasses
 import functools
 import json
 import os
@@ -460,3 +466,96 @@ def test_from_config_serves_detection_and_refuses_other_families(
     monkeypatch.setattr(engine_mod, "get_config", lambda name: gan)
     with pytest.raises(ValueError, match="'dcgan' is gan"):
         PredictEngine.from_config("dcgan", device="cpu", verbose=False)
+
+
+def test_tree_helpers_keep_the_keys_of_a_tuple_of_dicts():
+    """CenterNet's output tree, a dict of heads per stack, through
+    tree_slice, tree_concat and the server's JSON encoding."""
+    from deepvision_tpu_torch.serve.engine import (tree_concat, tree_map,
+                                                   tree_slice)
+    rs = np.random.RandomState(3)
+    tree = tuple({"heatmap": rs.rand(3, 4, 4, 2), "size": rs.rand(3, 4, 4, 2),
+                  "offset": rs.rand(3, 4, 4, 2)} for _ in range(2))
+    part = tree_slice(tree, 1, 3)
+    assert isinstance(part, tuple) and len(part) == 2
+    assert [list(d) for d in part] == [["heatmap", "size", "offset"]] * 2
+    np.testing.assert_array_equal(part[1]["size"], tree[1]["size"][1:3])
+    whole = tree_concat([tree_slice(tree, 0, 1), part])
+    for w, t in zip(whole, tree):
+        for k in t:
+            np.testing.assert_array_equal(w[k], t[k])
+    sent = json.loads(json.dumps(tree_map(lambda a: np.asarray(a).tolist(),
+                                          part)))
+    assert [sorted(d) for d in sent] == [["heatmap", "offset", "size"]] * 2
+    np.testing.assert_array_equal(np.asarray(sent[0]["offset"]),
+                                  part[0]["offset"])
+
+
+SERVED_TREES = {"centernet": dict(num_stack=2, order=2, width_mult=1 / 16),
+                "hourglass104": dict(num_stack=2, order=2, width_mult=1 / 16)}
+
+
+def _reduced_engine(monkeypatch, name):
+    """`from_config(name)` on the CPU at 32 px with the tiny model: the
+    config's own family, classes and dtype (bf16)."""
+    from deepvision_tpu_torch.serve import engine as engine_mod
+    cfg = get_config(name)
+    reduced = cfg.replace(model_kwargs=SERVED_TREES[name], data=dataclasses.
+                          replace(cfg.data, image_size=32))
+    monkeypatch.setattr(engine_mod, "get_config", lambda n: reduced)
+    return PredictEngine.from_config(name, device="cpu", buckets=(1, 4),
+                                     verbose=False)
+
+
+def _close_trees(got, want, tol=1e-5):
+    if isinstance(want, dict):
+        assert list(got) == list(want)
+        for k in want:
+            _close_trees(got[k], want[k], tol)
+    elif isinstance(want, (tuple, list)):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _close_trees(g, w, tol)
+    else:
+        g = np.asarray(got, np.float32)
+        assert g.shape == want.shape and want.dtype == np.float32
+        assert np.abs(g - want).max() <= tol * max(1.0, np.abs(want).max())
+
+
+@pytest.mark.parametrize("name", sorted(SERVED_TREES))
+def test_pose_and_centernet_serve_their_whole_trees(monkeypatch, name):
+    engine = _reduced_engine(monkeypatch, name)
+    assert not engine.take_first_output
+    rs = np.random.RandomState(5)
+    x = rs.rand(6, 32, 32, 3).astype(np.float32) * 2 - 1
+    ref = engine.reference(x)
+    assert isinstance(ref, tuple) and len(ref) == 2
+    if name == "centernet":
+        assert [{k: v.shape for k, v in d.items()} for d in ref] == [{
+            "heatmap": (6, 8, 8, 80), "size": (6, 8, 8, 2),
+            "offset": (6, 8, 8, 2)}] * 2
+    else:
+        assert [h.shape for h in ref] == [(6, 8, 8, 16)] * 2
+    for n in (1, 3, 6):         # 6: one max_batch chunk of 4 plus a tail
+        _close_trees(engine.predict(x[:n]), engine.reference(x[:n]))
+    batcher = DynamicBatcher(engine, max_delay_ms=200.0)
+    try:
+        futures = [batcher.submit(x[lo:hi]) for lo, hi in ((0, 1), (1, 3))]
+        answers = [result_within(f, 60.0) for f in futures]
+    finally:
+        assert batcher.drain(timeout=60)
+    for (lo, hi), a in zip(((0, 1), (1, 3)), answers):
+        _close_trees(a, engine.reference(x[lo:hi]))
+    srv = InferenceServer(engine=engine, max_delay_ms=3.0, flush_every_s=60)
+    t = threading.Thread(target=lambda: srv.serve(port=0), daemon=True)
+    t.start()
+    assert srv.ready.wait(60)
+    try:
+        code, body = _request(f"http://127.0.0.1:{srv.bound_port}/predict",
+                              {"instances": x[:2].tolist()})
+    finally:
+        srv.stop()
+        t.join(timeout=60)
+        srv.close()
+    assert code == 200 and body["model"] == name
+    _close_trees(body["predictions"], engine.reference(x[:2]))
