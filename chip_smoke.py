@@ -149,7 +149,35 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    (a dict of heads per stack; a heatmap per stack) leaf by leaf against
    `engine.reference()`, one image against an engine on the CPU,
    `measure_batch_ms` per bucket. No kernel is on these paths: the K1 and
-   K2 launch counts, zeroed before it, stay 0.
+   K2 launch counts, zeroed before it, stay 0;
+14. slice 11: U-Net segmentation, checkpoint restore, the GANs. 14a:
+   `unet_resnet50` (ResNet-50 encoder, 21 classes, 33,759,381 parameters)
+   at 224 px and the config's batch of 32, bf16, trained through
+   `UNet/torch/train.py`'s `cli.run_segmentation` with the paired device
+   augment (uint8 image and mask pairs at 256 px, cropped and flipped
+   together on the card) and an EMA for 3 synthetic steps, 2 validation
+   batches and one checkpoint — finite losses, mIoU and pixel accuracy,
+   the step alone (CUDA events; kernels and device busy from the
+   profiler) beside its conv bound, peak memory; one step on 2 images at
+   64 px on the card in f64 and f32 against the CPU in f64; the predict
+   step at batch 32. 14b (restore into the engine): the U-Net served by
+   `serve.cli.build_server --workdir` at buckets {1, 8} — provenance
+   `checkpoint` at epoch 1, the served int32 masks against the predict
+   step on the restored EMA weights (a pixel may differ only where the
+   step's top two logits lie within twice the largest difference of the
+   served logits from the step's: such pixels are counted and printed),
+   the answer's bytes, `measure_batch_ms`; yolov3 restored from phase 5's
+   workdir answering as an engine on the trainer's restored state_dict.
+   14c: `dcgan` at the config's batch of 256, 28 px, f32: 3 synthetic
+   steps, a checkpoint round trip of both networks and both Adams, 16
+   samples, the step alone, one f64 step (dropout off, the same noise)
+   card against CPU. 14d: `cyclegan` at 256 px, the config's batch of 8,
+   f32, 9 blocks: 2 steps of both phases through the image pools, a
+   checkpoint round trip, a batch translated both ways, the step alone
+   beside its conv bound and peak memory, one f64 step of each phase at
+   64 px card against CPU (the discriminators' BatchNorm statistics after
+   the generator phase included). No kernel is on these paths: the K1 and
+   K2 launch counts, zeroed at the start of each sub-phase, stay 0.
 
 The line before the last is a JSON object with one record per kernel; the
 last is `{"ok": true, "device": {...}}`.
@@ -178,7 +206,8 @@ import torch
 import torch.nn.functional as F
 
 from deepvision_tpu_torch.cli import (run_centernet, run_classification,
-                                      run_detection, run_pose)
+                                      run_detection, run_pose,
+                                      run_segmentation)
 from deepvision_tpu_torch.configs import get_config
 from deepvision_tpu_torch.core.detection import (DetectionTrainer,
                                                  evaluate_map,
@@ -190,8 +219,15 @@ from deepvision_tpu_torch.core.centernet import (CenterNetTrainer,
                                                  make_centernet_train_step,
                                                  predict_heads)
 from deepvision_tpu_torch.core.eval_pose import evaluate_pckh
+from deepvision_tpu_torch.core.gan import (CycleGANTrainer, DCGANTrainer,
+                                           make_cyclegan_discriminator_step,
+                                           make_cyclegan_generator_step,
+                                           make_dcgan_train_step)
 from deepvision_tpu_torch.core.optim import build_optimizer
 from deepvision_tpu_torch.core.pose import PoseTrainer, make_pose_train_step
+from deepvision_tpu_torch.core.segment import (
+    SegmentationTrainer, make_segmentation_predict_step,
+    make_segmentation_train_step)
 from deepvision_tpu_torch.core.steps import make_classification_train_step
 from deepvision_tpu_torch.core.config import decode_image_size
 from deepvision_tpu_torch.core.train_state import TrainState
@@ -199,11 +235,18 @@ from deepvision_tpu_torch.core.trainer import Trainer
 from deepvision_tpu_torch.data import device_augment as daug
 from deepvision_tpu_torch.data.class_names import names_for
 from deepvision_tpu_torch.data.detection import synthetic_batches
+from deepvision_tpu_torch.data.gan import (synthetic_mnist_batches,
+                                           synthetic_two_domain_batches)
 from deepvision_tpu_torch.data.pose import \
     synthetic_batches as pose_synthetic_batches
+from deepvision_tpu_torch.data.segmentation import SyntheticSegmentation
 from deepvision_tpu_torch.data.synthetic import SyntheticClassification
 from deepvision_tpu_torch.models import build_model
-from deepvision_tpu_torch.models.common import Dropout
+from deepvision_tpu_torch.models.common import ConvTranspose, Dropout
+from deepvision_tpu_torch.models.gan import (CycleGANGenerator,
+                                             DCGANDiscriminator,
+                                             DCGANGenerator,
+                                             PatchGANDiscriminator)
 from deepvision_tpu_torch.ops import _build
 from deepvision_tpu_torch.ops import centernet as cn_ops
 from deepvision_tpu_torch.ops import yolo as yolo_ops
@@ -215,9 +258,10 @@ from deepvision_tpu_torch.ops.heatmap import decode_keypoints
 from deepvision_tpu_torch.ops.nms import batched_nms
 from deepvision_tpu_torch.parallel import mesh
 from deepvision_tpu_torch.serve.cli import _smoke, build_parser, build_server
-from deepvision_tpu_torch.serve.engine import PredictEngine
+from deepvision_tpu_torch.serve.engine import PredictEngine, pick_bucket
 from deepvision_tpu_torch.serve.server import InferenceServer
 from deepvision_tpu_torch.utils.device import resolve_device
+from deepvision_tpu_torch.tools.gan_images import tile_grid
 from deepvision_tpu_torch.tools.build_report import (count_opcodes,
                                                      demangle, loop_report,
                                                      ptxas_by_function,
@@ -1283,7 +1327,8 @@ def family_main(family: str, argv: list):
     script = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(script)
     run = {"YOLO": run_detection, "ObjectsAsPoints": run_centernet,
-           "Hourglass": run_pose}.get(family, run_classification)
+           "Hourglass": run_pose, "UNet": run_segmentation}.get(
+        family, run_classification)
     return run(family, script.MODELS, argv)
 
 
@@ -1633,15 +1678,19 @@ def device_profile(fn) -> tuple:
 
 def conv_gflop(model, forward) -> float:
     """GFLOP (2 per multiply-add) of the convs of `model` in one call of
-    `forward()`, from their output shapes: each output element costs
-    in/groups * kh * kw multiply-adds."""
+    `forward()`, from their shapes: each output element of a conv costs
+    in/groups * kh * kw multiply-adds, each input element of a transposed
+    conv out * kh * kw (the zeros of its dilated input cost nothing)."""
     total = [0]
 
-    def hook(mod, _inputs, out):
-        total[0] += 2 * out.numel() * mod.weight[0].numel()
+    def hook(mod, inputs, out):
+        if isinstance(mod, ConvTranspose):
+            total[0] += 2 * inputs[0].numel() * mod.weight[:, 0].numel()
+        else:
+            total[0] += 2 * out.numel() * mod.weight[0].numel()
 
     handles = [m.register_forward_hook(hook) for m in model.modules()
-               if isinstance(m, torch.nn.Conv2d)]
+               if isinstance(m, (torch.nn.Conv2d, ConvTranspose))]
     try:
         with torch.inference_mode():
             forward()
@@ -2371,6 +2420,552 @@ def check_centernet_and_pose() -> dict:
     return out
 
 
+# -- phase 14: U-Net segmentation, checkpoint restore, DCGAN, CycleGAN ------
+
+P14_SEG_MODEL = "unet_resnet50"
+P14_SEG_SIZE = 224
+P14_SEG_BATCH = 32             # the config's batch
+P14_SEG_STEPS = 3
+P14_SEG_EVAL_BATCHES = 2       # the synthetic validation set
+# an EMA (not in the config) so that the restore must serve the EMA
+# weights and not the trained ones
+P14_EMA_DECAY = 0.999
+# parameters of the JAX model
+P14_SEG_PARAMS = 33_759_381
+P14_F64_SIZE = 64              # the card-vs-CPU steps: 2 images at 64 px
+# served masks against the predict step on the same restored weights: a
+# pixel may differ only where the step's top two logits are closer than
+# twice the largest difference between the engine's logits (its weights
+# cast once, the batch padded to its bucket) and the step's; such pixels
+# are counted and printed
+P14_SERVE_BUCKETS = (1, 8)
+P14_DCGAN_BATCH = 256          # the config's batch
+P14_DCGAN_STEPS = 3
+P14_DCGAN_SAMPLES = 16
+P14_CG_SIZE = 256
+P14_CG_BATCH = 8               # the config's batch
+P14_CG_BLOCKS = 9
+P14_CG_STEPS = 2
+# restored yolov3 answers against an engine on the trainer's restored
+# state_dict: the same weights through the same kernels on the same card
+P14_RESTORE_RTOL = 1e-6
+
+
+def _synthetic_seg(cfg, batch: int, seed: int):
+    """One synthetic segmentation batch of `cfg` (uint8 pairs at the
+    decode size under the device augment)."""
+    size = cfg.data.image_size
+    if cfg.device_augment:
+        size = decode_image_size(size)
+    return next(iter(SyntheticSegmentation(
+        batch, size, cfg.data.channels, cfg.data.num_classes, 1, seed=seed,
+        emit_uint8=cfg.device_augment)))
+
+
+def check_segmentation_training() -> dict:
+    """14a: unet_resnet50 at full width and 224 px trained through
+    UNet/torch/train.py's `cli.run_segmentation` with the paired device
+    augment and an EMA for 3 synthetic steps, 2 validation batches and one
+    checkpoint: finite losses, mIoU and pixel accuracy, the JAX model's
+    parameter count; the step alone (CUDA events; kernels and device busy
+    from the profiler), peak memory; one step on 2 images at 64 px on the
+    card in f64 and f32 against the CPU in f64; the predict step at batch
+    32. The workdir stays for 14b."""
+    name = P14_SEG_MODEL
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_unet_")
+    atexit.register(shutil.rmtree, workdir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, result = family_main("UNet", [
+        "-m", name, "--synthetic", "--image-size", str(P14_SEG_SIZE),
+        "--batch-size", str(P14_SEG_BATCH), "--steps-per-epoch",
+        str(P14_SEG_STEPS), "--epochs", "1", "--device-augment",
+        "--ema-decay", str(P14_EMA_DECAY), "--device", "cuda",
+        "--workdir", workdir])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ran = trainer.config
+    params = sum(p.numel() for p in trainer.model.parameters())
+    steps = trainer.last_epoch_steps
+    for i, s in enumerate(steps):
+        phase(f"14a {name} step {i + 1}: " + " ".join(
+            f"{k}={v:.4f}" for k, v in s.items()))
+    step_ms = statistics.median(s["step_ms"] for s in steps[1:])
+    phase(f"14a {name} ({P14_SEG_SIZE} px, batch {P14_SEG_BATCH}, "
+          f"{ran.optimizer.name}, bf16, paired device augment, EMA "
+          f"{P14_EMA_DECAY}): params={params:,} val loss="
+          f"{result.get('loss', float('nan')):.4f} miou="
+          f"{result.get('miou', float('nan')):.4f} pixel_acc="
+          f"{result.get('pixel_acc', float('nan')):.4f} step_ms="
+          f"{step_ms:.3f} (median after the first; first "
+          f"{steps[0]['step_ms']:.3f}) images_per_sec="
+          f"{P14_SEG_BATCH / step_ms * 1e3:.2f} peak_memory_allocated="
+          f"{peak / 2**30:.3f} GiB; UNet entry point {wall:.1f}s")
+    if (ran.data.image_size, ran.batch_size, ran.device_augment) != (
+            P14_SEG_SIZE, P14_SEG_BATCH, True):
+        raise AssertionError(f"{name} ran at {ran}")
+    if params != P14_SEG_PARAMS:
+        raise AssertionError(f"{name} has {params:,} parameters, the JAX "
+                             f"model {P14_SEG_PARAMS:,}")
+    if len(steps) != P14_SEG_STEPS or not all(
+            np.isfinite(v) for s in steps for v in s.values()):
+        raise AssertionError(f"{name} steps not all finite: {steps}")
+    if result.get("count") != P14_SEG_EVAL_BATCHES or not all(
+            np.isfinite(result.get(k, np.nan))
+            for k in ("loss", "miou", "pixel_acc")):
+        raise AssertionError(f"{name} validation: {result}")
+
+    batch = trainer._to_device(_synthetic_seg(ran, P14_SEG_BATCH, seed=19))
+    alone_ms, _ = event_ms(lambda: trainer.run_step(batch), warmup=1,
+                           iters=3)
+    kernels, busy = device_profile(lambda: trainer.run_step(batch))
+    model = trainer.model
+    images = torch.from_numpy(_synthetic_seg(
+        ran.replace(device_augment=False), P14_SEG_BATCH, seed=20)[0]).cuda()
+    gflop = conv_gflop(model, lambda: model.eval()(images[:1]))
+    bound_ms = 3 * gflop * 1e9 * P14_SEG_BATCH / PEAK_FLOPS[
+        torch.bfloat16] * 1e3
+    phase(f"14a {name} train step alone on a staged batch (augment, SGD, "
+          f"EMA): {alone_ms:.3f} ms (CUDA events, median of 3 after 1); "
+          f"{kernels} kernels, {busy:.3f} ms device busy (device idle "
+          f"{100 * max(0.0, 1 - busy / alone_ms):.1f}%); conv bound "
+          f"{bound_ms:.3f} ms (3x the forward's {gflop:.2f} GFLOP an image "
+          f"at the bf16 peak)")
+
+    cfg = ran.replace(dtype="float32", device_augment=False)
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data,
+                                               image_size=P14_F64_SIZE))
+    rs = np.random.RandomState(21)
+    two = (rs.uniform(-1, 1, (2, P14_F64_SIZE, P14_F64_SIZE, 3)).astype(
+        np.float32), rs.randint(0, cfg.data.num_classes, (
+            2, P14_F64_SIZE, P14_F64_SIZE)).astype(np.int32))
+    step_err = check_step_against_f64(
+        cfg, build_model(cfg), two, f"14a {name}",
+        f"2 images at {P14_F64_SIZE} px",
+        make_step=lambda dt: make_segmentation_train_step(compute_dtype=dt))
+
+    predict = make_segmentation_predict_step(compute_dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    predict_ms, masks = event_ms(lambda: predict(trainer.state, images))
+    predict_peak = torch.cuda.max_memory_allocated()
+    with torch.inference_mode():
+        p_kernels, p_busy = device_profile(
+            lambda: predict(trainer.state, images))
+    p_bound = gflop * 1e9 * P14_SEG_BATCH / PEAK_FLOPS[torch.bfloat16] * 1e3
+    phase(f"14a predict step ({name}, batch {P14_SEG_BATCH}, "
+          f"{P14_SEG_SIZE} px, bf16, EMA weights, argmax to int32): "
+          f"{predict_ms:.3f} ms (CUDA events, median of {PREDICT_ITERS} "
+          f"after {PREDICT_WARMUP}); {p_kernels} kernels, {p_busy:.3f} ms "
+          f"device busy; bound {p_bound:.3f} ms; peak_memory_allocated="
+          f"{predict_peak / 2**30:.3f} GiB")
+    if tuple(masks.shape) != (P14_SEG_BATCH, P14_SEG_SIZE, P14_SEG_SIZE) \
+            or masks.dtype != torch.int32 or not bool(
+                ((masks >= 0) & (masks < ran.data.num_classes)).all()):
+        raise AssertionError(f"predict gave {masks.dtype} {masks.shape}")
+    trainer.close()
+    return {"workdir": workdir, "config": ran, "step_ms": step_ms,
+            "alone_ms": alone_ms, "kernels": kernels, "busy_ms": busy,
+            "bound_ms": bound_ms, "peak_bytes": peak, "params": params,
+            "losses": steps, "val": result, "step_err": step_err,
+            "predict_ms": predict_ms, "predict_kernels": p_kernels,
+            "predict_busy_ms": p_busy, "predict_bound_ms": p_bound,
+            "predict_peak_bytes": predict_peak}
+
+
+def mask_agreement(served: np.ndarray, logits: torch.Tensor,
+                   gap: float) -> tuple:
+    """(pixels where `served` differs from the argmax of `logits`, those
+    of them whose top two logits lie within `gap`, all pixels that
+    close)."""
+    want = logits.argmax(dim=-1).cpu().numpy()
+    top2 = logits.float().topk(2, dim=-1).values
+    close = ((top2[..., 0] - top2[..., 1]) <= gap).cpu().numpy()
+    differ = served != want
+    return int(differ.sum()), int((differ & close).sum()), int(close.sum())
+
+
+def check_restored_serving(seg: dict, yolo: dict) -> dict:
+    """14b, S1: unet_resnet50 served by `serve.cli.build_server` from 14a's
+    workdir at buckets {1, 8}: the provenance, the masks against the
+    trainer's predict step on the same restored EMA weights, the answer's
+    bytes and `measure_batch_ms`; yolov3 restored from phase 5's workdir
+    against an engine on the trainer's restored state_dict."""
+    name, cfg = P14_SEG_MODEL, seg["config"]
+    args = build_parser().parse_args(
+        ["-m", name, "--workdir", seg["workdir"], "--device", "cuda",
+         "--buckets", ",".join(map(str, P14_SERVE_BUCKETS)),
+         "--flush-every", "60"])
+    t0 = time.perf_counter()
+    server = build_server(args)
+    engine = server.engine
+    built = time.perf_counter() - t0
+    prov = engine.provenance
+    trainer = SegmentationTrainer(cfg, device="cuda",
+                                  workdir=seg["workdir"])
+    trainer.init_state()
+    if trainer.resume() != 1 or trainer.state.ema is None:
+        raise AssertionError("14a's EMA checkpoint did not restore")
+    rs = np.random.RandomState(22)
+    differ = near = close = pixels = 0
+    logit_diff = 0.0
+    predict = make_segmentation_predict_step(compute_dtype=torch.bfloat16)
+    model = trainer.model
+    for n in (1, 3, 8):
+        x = _synthetic_seg(cfg.replace(device_augment=False), n,
+                           seed=int(rs.randint(1 << 30)))[0]
+        served = server.fleet.get(name).submit(x).result(timeout=120)
+        images = torch.from_numpy(x).cuda()
+        step = predict(trainer.state, images)
+        padded = np.pad(x, [(0, pick_bucket(n, engine.buckets) - n)]
+                        + [(0, 0)] * 3)
+        with trainer.state.ema_weights(), torch.inference_mode():
+            logits = model.eval()(images.to(torch.bfloat16))
+            served_logits = engine.model(torch.from_numpy(padded).cuda().to(
+                engine.compute_dtype))[:n]
+        if served.shape != (n, P14_SEG_SIZE, P14_SEG_SIZE) \
+                or served.dtype != np.int32:
+            raise AssertionError(f"served {served.dtype} {served.shape}")
+        if not torch.equal(step, logits.argmax(dim=-1).to(torch.int32)):
+            raise AssertionError("the predict step's masks are not the "
+                                 "argmax of the EMA weights' logits")
+        diff = float((served_logits - logits).abs().max())
+        logit_diff = max(logit_diff, diff)
+        d, nr, c = mask_agreement(served, logits, 2 * diff)
+        differ, near, close = differ + d, near + nr, close + c
+        pixels += served.size
+    one = server.fleet.get(name).submit(x[:1]).result(timeout=120)
+    answer_bytes = len(json.dumps(one.tolist()))
+    batch_ms = {b: engine.measure_batch_ms(b, 10) for b in engine.buckets}
+    server.close()
+    trainer.close()
+    phase(f"14b {name} served by build_server --workdir (built and warmed "
+          f"in {built:.1f}s): provenance {prov}; served masks vs the "
+          f"predict step on the restored EMA weights over {pixels} pixels: "
+          f"{differ} differ, {near} of them with the step's top two logits "
+          f"within twice the served logits' largest difference from the "
+          f"step's ({logit_diff:.3g}; {close} pixels that close in all); "
+          f"one "
+          f"answer {one.nbytes} bytes int32, {answer_bytes} bytes as JSON; "
+          f"measure_batch_ms " + " ".join(
+              f"bucket {b}: {ms:.3f}" for b, ms in batch_ms.items()))
+    if prov.get("weights") != "checkpoint" or prov.get(
+            "checkpoint_epoch") != 1:
+        raise AssertionError(f"{name} served {prov}")
+    if differ != near:
+        raise AssertionError(f"{differ - near} served pixels differ from "
+                             f"the predict step beyond the logit gap")
+
+    y_cfg = yolo["config"]
+    engine = PredictEngine.from_config(YOLO_MODEL, device="cuda",
+                                       buckets=(1,), workdir=yolo["workdir"],
+                                       verbose=False)
+    trainer = DetectionTrainer(y_cfg, device="cuda", workdir=yolo["workdir"])
+    trainer.init_state()
+    if trainer.resume() != 1:
+        raise AssertionError("phase 5's checkpoint did not restore")
+    ref = PredictEngine.from_config(
+        YOLO_MODEL, device="cuda", buckets=(1,),
+        state_dict=trainer.model.state_dict(), verbose=False)
+    trainer.close()
+    x = np.random.RandomState(23).rand(2, *engine.example_shape).astype(
+        np.float32)
+    got, want = engine.predict(x), ref.predict(x)
+    equal = all(np.allclose(g, w, rtol=P14_RESTORE_RTOL, atol=0,
+                            equal_nan=True)
+                for g, w in zip(_leaves(got), _leaves(want)))
+    phase(f"14b {YOLO_MODEL} restored from phase 5's workdir: provenance "
+          f"{engine.provenance}; answers vs an engine on the trainer's "
+          f"restored state_dict equal={equal} (rtol {P14_RESTORE_RTOL:g}, "
+          f"NaN equal to NaN: phase 5's weights overflow)")
+    if engine.provenance.get("weights") != "checkpoint" or not equal:
+        raise AssertionError("yolov3 restored answers differ")
+    return {"provenance": prov, "differ": differ, "near": near,
+            "close": close, "pixels": pixels, "logit_diff": logit_diff,
+            "batch_ms": batch_ms,
+            "answer_bytes": answer_bytes, "mask_bytes": one.nbytes}
+
+
+def _gan_state(model, device, dtype):
+    """A TrainState of an f64 or f32 copy of `model` on `device`, with an
+    Adam of the GAN configs' shape (the update is not compared)."""
+    m = (float64_copy(model) if dtype == torch.float64
+         else copy.deepcopy(model)).to(device)
+    return TrainState(m, build_optimizer(
+        m.parameters(), get_config("dcgan").optimizer,
+        get_config("dcgan").schedule, 1, 1))
+
+
+def _f64_inputs(arrays, device, dtype):
+    return [torch.from_numpy(a).to(device, dtype) for a in arrays]
+
+
+def gan_step_diffs(got: tuple, ref: tuple) -> dict:
+    """Errors of one GAN step's `(losses, states)` against the reference's:
+    losses relative, gradients over the largest of each network that the
+    step differentiated, BatchNorm
+    running statistics over their largest (0 without BatchNorm)."""
+    (losses, states), (ref_losses, ref_states) = got, ref
+    loss_err = max(abs(losses[k] - v) / max(abs(v), 1e-30)
+                   for k, v in ref_losses.items())
+    grad_err = stat_err = 0.0
+    for st, rst in zip(states, ref_states):
+        want = {n: p.grad.cpu() for n, p in rst.model.named_parameters()
+                if p.grad is not None}
+        if want:
+            grads = {n: p.grad.cpu() for n, p in st.model.named_parameters()}
+            grad_err = max(grad_err, grad_rel(grads, want)[0])
+        stats = {k: v.cpu() for k, v in rst.model.state_dict().items()
+                 if "running" in k}
+        if stats:
+            top = max(v.abs().max().item() for v in stats.values())
+            have = st.model.state_dict()
+            stat_err = max(stat_err, max(
+                (have[k].cpu() - v).abs().max().item()
+                for k, v in stats.items()) / top)
+    return {"loss": loss_err, "grad": grad_err, "stats": stat_err}
+
+
+def gan_step_errors(run, what: str) -> dict:
+    """`run(device, dtype) -> (losses, states)` on the card in f64 against
+    the CPU in f64 (`gan_step_diffs`); fails past the ZOO_F64_* bounds."""
+    ref = run(torch.device("cpu"), torch.float64)
+    err = gan_step_diffs(run(torch.device("cuda"), torch.float64), ref)
+    phase(f"{what} on the card in f64 vs the CPU in f64: losses "
+          f"{err['loss']:.3g} (bound {ZOO_F64_LOSS_RTOL:g}), gradients "
+          f"{err['grad']:.3g} (bound {ZOO_F64_GRAD_RTOL:g}), BatchNorm "
+          f"statistics {err['stats']:.3g} (bound {ZOO_F64_GRAD_RTOL:g})")
+    if not (all(np.isfinite(v) for v in ref[0].values())
+            and err["loss"] <= ZOO_F64_LOSS_RTOL
+            and err["grad"] <= ZOO_F64_GRAD_RTOL
+            and err["stats"] <= ZOO_F64_GRAD_RTOL):
+        raise AssertionError(f"{what}: the card's f64 step is off the "
+                             f"CPU's")
+    return err
+
+
+def dcgan_step_run(seed: int = 25):
+    """`run(device, dtype)`: one DCGAN step on 2 seeded images with given
+    noise, dropout off, on copies of seeded networks -> (losses, (gen
+    state, disc state))."""
+    rs = np.random.RandomState(seed)
+    real, noise = rs.uniform(-1, 1, (2, 28, 28, 1)), rs.randn(2, 100)
+    gen = DCGANGenerator(generator=torch.Generator().manual_seed(seed))
+    disc = no_dropout(DCGANDiscriminator(
+        generator=torch.Generator().manual_seed(seed + 1)))
+    step = make_dcgan_train_step(100)
+
+    def run(device, dtype):
+        g, d = _gan_state(gen, device, dtype), _gan_state(disc, device, dtype)
+        x, z = _f64_inputs((real, noise), device, dtype)
+        out = step(g, d, x, z)
+        return {k: float(v) for k, v in out.items()}, (g, d)
+
+    return run
+
+
+def cyclegan_step_runs(size: int, blocks: int, seed: int = 27):
+    """(`run_gen`, `run_disc`), each `run(device, dtype)`: one generator
+    phase on 2 seeded (a, b) pairs at `size` px (-> losses, (generators,
+    discriminators): their BatchNorm statistics advanced in it), and one
+    discriminator phase on seeded reals and fakes (-> losses,
+    (discriminators,)), on copies of seeded networks."""
+    rs = np.random.RandomState(seed)
+    shape = (2, size, size, 3)
+    arrays = [rs.uniform(-1, 1, shape) for _ in range(4)]
+    init = torch.Generator().manual_seed(seed)
+    gens = torch.nn.ModuleDict({k: CycleGANGenerator(blocks, generator=init)
+                                for k in ("a2b", "b2a")})
+    discs = torch.nn.ModuleDict({k: PatchGANDiscriminator(generator=init)
+                                 for k in ("a", "b")})
+    gen_step = make_cyclegan_generator_step()
+    disc_step = make_cyclegan_discriminator_step()
+
+    def run_gen(device, dtype):
+        g, d = _gan_state(gens, device, dtype), _gan_state(discs, device,
+                                                           dtype)
+        out, _, _ = gen_step(g, d, *_f64_inputs(arrays[:2], device, dtype))
+        return {k: float(v) for k, v in out.items()}, (g, d)
+
+    def run_disc(device, dtype):
+        d = _gan_state(discs, device, dtype)
+        out = disc_step(d, *_f64_inputs(arrays, device, dtype))
+        return {k: float(v) for k, v in out.items()}, (d,)
+
+    return run_gen, run_disc
+
+
+def gan_round_trip(trainer, fresh) -> bool:
+    """Whether `fresh`, resumed from `trainer`'s epoch-1 checkpoint, holds
+    both networks, both optimizers and both step counts exactly."""
+    if fresh.resume() != 1:
+        raise AssertionError("the epoch-1 checkpoint did not restore")
+    return same_tree(trainer._payload(), fresh._payload())
+
+
+def check_dcgan() -> dict:
+    """14c: dcgan at the config's batch of 256, 28 px, f32: 3 synthetic
+    steps, a checkpoint round trip of both networks and optimizers, 16
+    samples, the step alone, one f64 step (dropout off, the same noise) on
+    the card against the CPU."""
+    cfg = get_config("dcgan")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dcgan_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        trainer = DCGANTrainer(cfg.replace(total_epochs=1), workdir=workdir,
+                               device="cuda")
+        metrics = trainer.fit(lambda epoch: synthetic_mnist_batches(
+            P14_DCGAN_BATCH, steps=P14_DCGAN_STEPS, seed=epoch))
+        peak = torch.cuda.max_memory_allocated()
+        steps = trainer.last_epoch_steps
+        for i, s in enumerate(steps):
+            phase(f"14c dcgan step {i + 1}: " + " ".join(
+                f"{k}={v:.4f}" for k, v in s.items()))
+        if len(steps) != P14_DCGAN_STEPS or not all(
+                np.isfinite(v) for s in steps for v in s.values()):
+            raise AssertionError(f"dcgan steps not all finite: {steps}")
+        fresh = DCGANTrainer(cfg, workdir=workdir, device="cuda")
+        equal = gan_round_trip(trainer, fresh)
+        fresh.close()
+        samples = trainer.generate(P14_DCGAN_SAMPLES)
+        grid = tile_grid(samples)
+        images = torch.from_numpy(next(synthetic_mnist_batches(
+            P14_DCGAN_BATCH, steps=1, seed=24))).cuda()
+        alone_ms, _ = event_ms(lambda: trainer.train_step(
+            trainer.gen_state, trainer.disc_state, images), warmup=1,
+            iters=3)
+        kernels, busy = device_profile(lambda: trainer.train_step(
+            trainer.gen_state, trainer.disc_state, images))
+        trainer.close()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    phase(f"14c dcgan (batch {P14_DCGAN_BATCH}, 28 px, f32, two Adams): "
+          f"mean losses {metrics}; checkpoint round trip (generator, "
+          f"discriminator, both Adams, both steps) equal={equal}; "
+          f"{P14_DCGAN_SAMPLES} samples {samples.shape} in "
+          f"[{samples.min():.3f}, {samples.max():.3f}], grid {grid.shape}; "
+          f"step alone {alone_ms:.3f} ms (CUDA events, median of 3 after "
+          f"1), {kernels} kernels, {busy:.3f} ms device busy; "
+          f"peak_memory_allocated={peak / 2**30:.3f} GiB")
+    if not equal:
+        raise AssertionError("the restored DCGAN differs from the trained")
+    if samples.shape != (P14_DCGAN_SAMPLES, 28, 28, 1) or not (
+            np.isfinite(samples).all() and np.abs(samples).max() <= 1.0):
+        raise AssertionError(f"dcgan samples {samples.shape}")
+
+    err = gan_step_errors(dcgan_step_run(), "14c dcgan one step, 2 images, dropout off, "
+                               "the same noise,")
+    return {"losses": steps, "alone_ms": alone_ms, "kernels": kernels,
+            "busy_ms": busy, "peak_bytes": peak, "step_err": err}
+
+
+def check_cyclegan() -> dict:
+    """14d: cyclegan at 256 px, the config's batch of 8, f32, 9 blocks: 2
+    synthetic steps of both phases through the ImagePools, a checkpoint
+    round trip, a batch translated both ways, the step alone; one f64 step
+    of each phase at 64 px on the card against the CPU (the
+    discriminators' BatchNorm statistics after the generator phase
+    included)."""
+    cfg = get_config("cyclegan")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_cyclegan_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        trainer = CycleGANTrainer(cfg.replace(total_epochs=1),
+                                  workdir=workdir, device="cuda",
+                                  n_blocks=P14_CG_BLOCKS,
+                                  steps_per_epoch=P14_CG_STEPS)
+        metrics = trainer.fit(lambda epoch: synthetic_two_domain_batches(
+            P14_CG_BATCH, image_size=P14_CG_SIZE, steps=P14_CG_STEPS,
+            seed=epoch))
+        peak = torch.cuda.max_memory_allocated()
+        steps = trainer.last_epoch_steps
+        for i, s in enumerate(steps):
+            phase(f"14d cyclegan step {i + 1}: " + " ".join(
+                f"{k}={v:.4f}" for k, v in s.items()))
+        if len(steps) != P14_CG_STEPS or not all(
+                np.isfinite(v) for s in steps for v in s.values()):
+            raise AssertionError(f"cyclegan steps not all finite: {steps}")
+        fresh = CycleGANTrainer(cfg, workdir=workdir, device="cuda",
+                                n_blocks=P14_CG_BLOCKS)
+        equal = gan_round_trip(trainer, fresh)
+        fresh.close()
+        a, b = next(synthetic_two_domain_batches(
+            P14_CG_BATCH, image_size=P14_CG_SIZE, steps=1, seed=26))
+        translated = [trainer.translate(x, d) for x, d in ((a, "a2b"),
+                                                           (b, "b2a"))]
+        alone_ms, _ = event_ms(lambda: trainer.train_batch(a, b), warmup=1,
+                               iters=3)
+        kernels, busy = device_profile(lambda: trainer.train_batch(a, b))
+        one = torch.from_numpy(a[:1]).cuda()
+        gen, disc = trainer.generators["a2b"], trainer.discriminators["a"]
+        gflop = conv_gflop(gen, lambda: gen.eval()(one))
+        d_gflop = conv_gflop(disc, lambda: disc.eval()(one))
+        trainer.close()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    # a step's convs, per image: 6 generator passes and 6 discriminator
+    # passes (2 in the generator phase, 4 in the discriminator phase), each
+    # a forward and a backward of twice its FLOPs
+    bound_ms = 3 * 6 * (gflop + d_gflop) * 1e9 * P14_CG_BATCH / PEAK_FLOPS[
+        torch.float32] * 1e3
+    phase(f"14d cyclegan ({P14_CG_SIZE} px, batch {P14_CG_BATCH}, f32, "
+          f"{P14_CG_BLOCKS} blocks): mean losses {metrics}; checkpoint round "
+          f"trip (both generators, both discriminators, both Adams) "
+          f"equal={equal}; translated a2b {translated[0].shape} and b2a "
+          f"{translated[1].shape}; step alone (generator phase, pools, "
+          f"discriminator phase) {alone_ms:.3f} ms (CUDA events, median of "
+          f"3 after 1), {kernels} kernels, {busy:.3f} ms device busy (idle "
+          f"{100 * max(0.0, 1 - busy / alone_ms):.1f}%); conv bound "
+          f"{bound_ms:.3f} ms (6 x 3 passes of the generator's {gflop:.2f} "
+          f"and the discriminator's {d_gflop:.2f} GFLOP an image at the "
+          f"f32 peak); peak_memory_allocated="
+          f"{peak / 2**30:.3f} GiB")
+    if not equal:
+        raise AssertionError("the restored CycleGAN differs from the "
+                             "trained")
+    for t in translated:
+        if t.shape != a.shape or not (np.isfinite(t).all()
+                                      and np.abs(t).max() <= 1.0):
+            raise AssertionError(f"translated {t.shape}")
+
+    run_gen, run_disc = cyclegan_step_runs(P14_F64_SIZE, P14_CG_BLOCKS)
+    gen_err = gan_step_errors(run_gen, f"14d cyclegan generator phase (the "
+                                       f"discriminators' statistics "
+                                       f"included), 2 images at "
+                                       f"{P14_F64_SIZE} px,")
+    disc_err = gan_step_errors(run_disc, f"14d cyclegan discriminator "
+                                         f"phase, 2 images at "
+                                         f"{P14_F64_SIZE} px,")
+    return {"losses": steps, "alone_ms": alone_ms, "kernels": kernels,
+            "busy_ms": busy, "bound_ms": bound_ms, "peak_bytes": peak,
+            "step_err": {"gen": gen_err, "disc": disc_err}}
+
+
+def check_segmentation_and_gans(yolo: dict) -> dict:
+    """Phase 14, slice 11: U-Net segmentation trained, evaluated and
+    predicted at full width (14a), served from its checkpoint and yolov3
+    restored from phase 5's (14b), DCGAN (14c) and CycleGAN (14d). No TPU
+    kernel is on these paths: the K1 and K2 counts, zeroed at the start of
+    each sub-phase, must read 0 at its end."""
+    t0 = time.perf_counter()
+    out = {}
+    for tag, run in (("14a", check_segmentation_training),
+                     ("14b", lambda: check_restored_serving(out["14a"],
+                                                            yolo)),
+                     ("14c", check_dcgan), ("14d", check_cyclegan)):
+        flash_attention.launches = best_iou.launches = 0
+        t1 = time.perf_counter()
+        out[tag] = run()
+        counts = (flash_attention.launches, best_iou.launches)
+        phase(f"{tag}: launches (flash_attention, best_iou): {counts}; "
+              f"{time.perf_counter() - t1:.1f}s")
+        if counts != (0, 0):
+            raise AssertionError(f"a kernel ran on the phase {tag} path: "
+                                 f"{counts}")
+        torch.cuda.empty_cache()
+    phase(f"14: phase 14 took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2564,6 +3159,12 @@ def main() -> int:
     # these paths: the launch counts, zeroed there, must stay 0)
     torch.cuda.empty_cache()
     check_centernet_and_pose()
+
+    # 14. slice 11: U-Net segmentation, checkpoint restore into the
+    # engine, DCGAN and CycleGAN (no kernel on these paths: the launch
+    # counts, zeroed at each sub-phase, must stay 0)
+    torch.cuda.empty_cache()
+    check_segmentation_and_gans(yolo)
 
     timed_keys = ("shape", "layout", "ms", "device_ms", "plain_ms",
                   "library_ms", "library_device_ms", "bound_ms")

@@ -1,7 +1,7 @@
 """Command line of the port's training entry points (own copy of
 deepvision_tpu/cli.py: `build_parser`, `_run`, the data factories,
-`run_classification`, `run_detection`, `run_centernet` and
-`run_pose`).
+`run_classification`, `run_detection`, `run_centernet`, `run_pose` and
+`run_segmentation`).
 
 `python ResNet/torch/train.py -m resnet50_tpu --synthetic --device-augment`
 trains ResNet-50 on the card, `python LeNet/torch/train.py -m
@@ -12,7 +12,10 @@ YOLO V3 (`-m yolov3_digits --device cpu` on the digits_detect scenes of
 the bundled digits), `python ObjectsAsPoints/torch/train.py -m centernet
 --synthetic --image-size 256` CenterNet (`-m centernet_digits` on the
 digits_detect scenes) and `python Hourglass/torch/train.py -m
-hourglass104 --synthetic --image-size 256` the Stacked Hourglass. The
+hourglass104 --synthetic --image-size 256` the Stacked Hourglass and
+`python UNet/torch/train.py -m unet_resnet50 --synthetic --image-size 224
+--device-augment` the U-Net segmenter (`-m unet_digits --device cpu` on
+the digit segmentation scenes). The
 flags are the JAX CLI's (`-m`, `-c`, `--data-dir`, `--synthetic`,
 `--epochs`, `--batch-size`, `--eval-batch-size`, `--learning-rate`,
 `--accum-steps`, `--no-decay-bn-bias`, `--ema-decay`, `--device-augment`,
@@ -61,8 +64,9 @@ def build_parser(family: str, models: Sequence[str]) -> argparse.ArgumentParser:
                    help="dataset root (idx files for MNIST)")
     p.add_argument("--synthetic", action="store_true",
                    help="train on synthetic data (smoke test, no dataset "
-                        "needed; detection and pose train on a 64 px "
-                        "canvas, CenterNet on 128 px, unless --image-size)")
+                        "needed; detection, pose and segmentation train on "
+                        "a 64 px canvas, CenterNet on 128 px, unless "
+                        "--image-size)")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--eval-batch-size", type=int, default=None,
@@ -83,10 +87,11 @@ def build_parser(family: str, models: Sequence[str]) -> argparse.ArgumentParser:
                         "0.999-0.9999)")
     p.add_argument("--device-augment", action=argparse.BooleanOptionalAction,
                    default=None,
-                   help="classification: ship uint8 at the padded decode "
-                        "size and crop/flip/jitter/normalize on the device "
-                        "(a quarter of the host->device bytes; synthetic "
-                        "data)")
+                   help="classification and segmentation: ship uint8 at "
+                        "the padded decode size and crop/flip/jitter/"
+                        "normalize on the device (a quarter of the "
+                        "host->device bytes; synthetic data; segmentation "
+                        "crops and flips the mask with its image)")
     p.add_argument("--prefetch-batches", type=_positive_int, default=None,
                    help="stage this many training batches ahead on the "
                         "device from a producer thread (default 2; 1 "
@@ -110,7 +115,10 @@ def build_parser(family: str, models: Sequence[str]) -> argparse.ArgumentParser:
 
 def _config_from_args(args, synthetic_image_size: Optional[int]
                       ) -> TrainConfig:
-    cfg = get_config(args.model)
+    try:
+        cfg = get_config(args.model)
+    except ValueError as e:              # a config refused by name
+        raise SystemExit(f"error: {e}")
     if args.epochs:
         cfg = cfg.replace(total_epochs=args.epochs)
     if args.batch_size:
@@ -364,3 +372,66 @@ def run_pose(family: str, models: Sequence[str],
     return _run(family, models,
                 lambda c, w, d: PoseTrainer(c, device=d, workdir=w),
                 _pose_data, argv, synthetic_image_size=64)
+
+
+def _segmentation_data(cfg: TrainConfig, args) -> Tuple:
+    from .data import segmentation as seg_data
+    data = cfg.data
+    if args.synthetic or data.dataset in ("synthetic", "seg_synthetic"):
+        if data.normalize_on_device and not cfg.device_augment:
+            raise SystemExit("--device-normalize is incompatible with the "
+                             "synthetic segmentation backend (scenes are "
+                             "already float [-1,1]); use --device-augment "
+                             "for the uint8 pair staging contract")
+        from .core.config import decode_image_size
+        # under the device augment: uint8 image and mask pairs at the
+        # padded decode size, the staging contract of the paired augment
+        size = (decode_image_size(data.image_size) if cfg.device_augment
+                else data.image_size)
+        return _synthetic_data(cfg, lambda batch, steps, seed, rank:
+                               seg_data.SyntheticSegmentation(
+                                   batch, size, data.channels,
+                                   data.num_classes, steps, seed=seed,
+                                   emit_uint8=cfg.device_augment,
+                                   rank=rank))
+    if data.dataset == "digits_seg":
+        # real scanned digits composed into segmentation scenes: train
+        # scenes composed anew each epoch (seed 1000 + epoch) and shuffled,
+        # each rank taking its rows of every global batch, the first
+        # --steps-per-epoch batches when given; the validation scenes
+        # pinned (seed 2), as global batches
+        if cfg.device_augment or data.normalize_on_device:
+            raise SystemExit("digits_seg ships float [-1,1] scenes — "
+                             "--device-augment/--device-normalize need the "
+                             "uint8 staging backends (seg_synthetic)")
+        from .data.digits import scan_splits
+        (tr_x, tr_y), _ = scan_splits()
+        va = seg_data.segmentation_val_scenes(canvas=data.image_size,
+                                              n_scenes=data.val_examples)
+        rank, world = mesh.rank(), mesh.world_size()
+
+        def train_fn(epoch):
+            tr = seg_data.segmentation_scenes(
+                tr_x, tr_y, n_scenes=data.train_examples,
+                canvas=data.image_size, seed=1000 + epoch)
+            batches = seg_data.segmentation_batches(
+                tr, batch_size=cfg.batch_size, shuffle_seed=epoch)
+            for batch in itertools.islice(batches, args.steps_per_epoch):
+                yield tuple(mesh.shard_rows(a, rank, world) for a in batch)
+
+        return train_fn, lambda epoch: seg_data.segmentation_batches(
+            va, batch_size=cfg.eval_batch_size or cfg.batch_size)
+    raise ValueError(f"segmentation families read 'seg_synthetic' or "
+                     f"'digits_seg' data, not dataset={data.dataset!r}")
+
+
+def run_segmentation(family: str, models: Sequence[str],
+                     argv: Optional[Sequence[str]] = None):
+    """Segmentation (U-Net) entry point — `python train.py -m unet_resnet50
+    [-c latest]`. Synthetic runs use a 64 px canvas, as in the JAX
+    package, unless `--image-size` says otherwise (unet_small needs H and
+    W divisible by 8, the ResNet-50 encoder by 32)."""
+    from .core.segment import SegmentationTrainer
+    return _run(family, models,
+                lambda c, w, d: SegmentationTrainer(c, device=d, workdir=w),
+                _segmentation_data, argv, synthetic_image_size=64)

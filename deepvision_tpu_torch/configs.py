@@ -1,8 +1,10 @@
 """Registered configs of the port (own copy of deepvision_tpu/configs.py:
 the LeNet, AlexNet, VGG, Inception, ResNet, MobileNet, ShuffleNet, ViT,
-YOLO, Stacked Hourglass and CenterNet entries). Every field the port's
+YOLO, Stacked Hourglass, CenterNet, U-Net segmentation, DCGAN and
+CycleGAN entries, and `trainer_class_for_config`). Every field the port's
 dataclasses carry equals the JAX package's; tests/test_torch_vit.py and
-tests/test_torch_yolo.py hold them against it.
+tests/test_torch_yolo.py hold them against it. A JAX config that needs a
+field the port does not carry yet is refused by name (`NOT_PORTED`).
 """
 
 from __future__ import annotations
@@ -265,5 +267,104 @@ CONFIGS.register("centernet_digits", _CENTERNET.replace(
 ))
 
 
+# -- DCGAN on MNIST: batch 256, 50 epochs, two Adam(1e-4) optimizers, a
+#    checkpoint every 2 epochs, the last 3 kept. ----
+CONFIGS.register("dcgan", TrainConfig(
+    name="dcgan", model="dcgan", family="gan", batch_size=256, total_epochs=50,
+    optimizer=OptimizerConfig(name="adam", learning_rate=1e-4),
+    schedule=ScheduleConfig(name="constant"),
+    data=DataConfig(dataset="mnist", image_size=28, channels=1, num_classes=10,
+                    train_examples=60000, val_examples=10000),
+    dtype="float32", keep_checkpoints=3, keep_best=False,
+))
+
+# -- CycleGAN: 200 epochs, Adam 2e-4 (beta1 0.5), the LR decaying linearly
+#    to 0 after epoch 100, lambda_cycle 10 and lambda_id 5 (core/gan.py),
+#    batch 8. ----
+CONFIGS.register("cyclegan", TrainConfig(
+    name="cyclegan", model="cyclegan", family="gan", batch_size=8,
+    total_epochs=200,
+    optimizer=OptimizerConfig(name="adam", learning_rate=2e-4, beta1=0.5),
+    schedule=ScheduleConfig(name="linear_decay", decay_start_epoch=100),
+    data=DataConfig(dataset="cyclegan", image_size=256, num_classes=0,
+                    train_examples=1000, val_examples=100),
+    dtype="float32", keep_checkpoints=3, keep_best=False,
+))
+
+# -- U-Net over the ResNet-50 encoder at 224 px, 21 classes (the VOC
+#    convention), momentum SGD with cosine after 2 warmup epochs, on the
+#    synthetic shapes-and-masks scenes (data/segmentation.py). ----
+CONFIGS.register("unet_resnet50", TrainConfig(
+    name="unet_resnet50", model="unet_resnet50", family="segmentation",
+    batch_size=32, total_epochs=60,
+    optimizer=OptimizerConfig(name="momentum", learning_rate=0.02,
+                              momentum=0.9, weight_decay=1e-4,
+                              base_batch_size=32),
+    schedule=ScheduleConfig(name="cosine", warmup_epochs=2),
+    data=DataConfig(dataset="seg_synthetic", image_size=224, num_classes=21,
+                    train_examples=2048, val_examples=256,
+                    mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5)),
+))
+
+# -- The CPU-sized synthetic recipe: unet_small (BasicBlock encoder of two
+#    stages, width 8) on 64 px shapes-and-masks scenes, f32. ----
+CONFIGS.register("unet_synthetic", TrainConfig(
+    name="unet_synthetic", model="unet_small", family="segmentation",
+    batch_size=32, total_epochs=8,
+    optimizer=OptimizerConfig(name="adam", learning_rate=1e-3),
+    schedule=ScheduleConfig(name="constant"),
+    data=DataConfig(dataset="seg_synthetic", image_size=64, num_classes=6,
+                    train_examples=256, val_examples=64,
+                    mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5)),
+    dtype="float32",
+))
+
+# -- Scanned-digit segmentation scenes (data/segmentation.py: real
+#    scikit-learn digits pasted into 64 px scenes, 11 classes =
+#    background + 10 digits), with the cross-entropy + dice loss. ----
+CONFIGS.register("unet_digits", TrainConfig(
+    name="unet_digits", model="unet_small", family="segmentation",
+    batch_size=32, total_epochs=30, loss="xent_dice",
+    optimizer=OptimizerConfig(name="adam", learning_rate=1e-3),
+    schedule=ScheduleConfig(name="step", boundaries_epochs=(20, 26),
+                            decay_factor=0.1),
+    data=DataConfig(dataset="digits_seg", image_size=64, num_classes=11,
+                    train_examples=512, val_examples=128,
+                    mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5)),
+    dtype="float32",
+))
+
+# JAX configs the port refuses by name until it carries what they need
+NOT_PORTED = {
+    "unet_synthetic_sp2": (
+        "unet_synthetic_sp2 trains with spatial_parallel=2 and "
+        "spatial_backend='shard_map' (H sharded over a spatial mesh), which "
+        "the port does not carry yet (ROADMAP A6); train unet_synthetic"),
+}
+
+
 def get_config(name: str) -> TrainConfig:
+    if name in NOT_PORTED:
+        raise ValueError(NOT_PORTED[name])
     return CONFIGS.get(name)
+
+
+def trainer_class_for_config(name: str):
+    """The supervised trainer class of a config's `family`; None for an
+    adversarial config (core/gan.py builds its own pair of networks)."""
+    family = get_config(name).family
+    if family == "gan":
+        return None
+    from .core.centernet import CenterNetTrainer
+    from .core.detection import DetectionTrainer
+    from .core.pose import PoseTrainer
+    from .core.segment import SegmentationTrainer
+    from .core.trainer import Trainer
+    classes = {"classification": Trainer, "detection": DetectionTrainer,
+               "pose": PoseTrainer, "centernet": CenterNetTrainer,
+               "segmentation": SegmentationTrainer}
+    if family not in classes:
+        raise ValueError(
+            f"config {name!r} declares unknown trainer family {family!r}; "
+            f"expected one of {sorted(classes) + ['gan']}")
+    return classes[family]

@@ -1,6 +1,6 @@
 """Typed configs: the fields of deepvision_tpu/core/config.py that the
-port's serve path and its detection and classification trainers read (own
-copy), and `decode_image_size`. Defaults equal the JAX package's. Fields
+port's serve path and its trainers read (own copy), and
+`decode_image_size`. Defaults equal the JAX package's. Fields
 of the JAX configs that no ported path reads yet (mesh, mixup, dispatch
 and resilience levers) arrive with the slice that needs them.
 """
@@ -88,8 +88,7 @@ class TrainConfig:
     name: str = "model"
     model: str = "resnet50"
     # Trainer family this config belongs to: classification | detection |
-    # pose | centernet | gan (the port trains classification and detection
-    # so far).
+    # pose | centernet | segmentation | gan.
     family: str = "classification"
     model_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
     batch_size: int = 256           # global batch

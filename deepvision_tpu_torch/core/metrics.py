@@ -1,6 +1,8 @@
-"""Metrics stream (the JSONL + console part of
-deepvision_tpu/core/metrics.py::MetricsLogger, own copy). Under a process
-group only rank 0 writes and echoes. TensorBoard output is not ported yet.
+"""Metrics (own copy of parts of deepvision_tpu/core/metrics.py): the
+JSONL + console stream `MetricsLogger` (under a process group only rank 0
+writes and echoes; TensorBoard output is not ported yet), and the dense
+prediction metrics `confusion_matrix`, `segmentation_scores` and
+`StreamingConfusion`.
 """
 
 from __future__ import annotations
@@ -11,6 +13,9 @@ import os
 import threading
 import time
 from typing import Dict, Optional
+
+import numpy as np
+import torch
 
 from ..parallel import mesh
 
@@ -61,3 +66,60 @@ class MetricsLogger:
             if self._jsonl is not None:
                 self._jsonl.close()
                 self._jsonl = None
+
+
+def confusion_matrix(preds: torch.Tensor, labels: torch.Tensor,
+                     num_classes: int) -> torch.Tensor:
+    """(num_classes, num_classes) f32 confusion COUNTS, rows the true
+    classes and columns the predicted ones, on the labels' device with no
+    host sync (a scatter-add over the flattened pixels). Sums over batches
+    add elementwise."""
+    idx = (labels.reshape(-1).long() * num_classes
+           + preds.reshape(-1).long())
+    flat = torch.zeros(num_classes * num_classes, dtype=torch.float32,
+                       device=labels.device)
+    flat.index_add_(0, idx, torch.ones(idx.shape, dtype=torch.float32,
+                                       device=labels.device))
+    return flat.reshape(num_classes, num_classes)
+
+
+def segmentation_scores(cm) -> Dict[str, np.ndarray]:
+    """{pixel_acc, miou, per_class_iou, present} of a summed confusion
+    matrix (host numpy). IoU_c = TP_c / (row_c + col_c - TP_c); the mIoU
+    averages the classes present in the ground truth (an absent class
+    has IoU nan in `per_class_iou` and is left out)."""
+    cm = np.asarray(cm, np.float64)
+    tp = np.diag(cm)
+    gt = cm.sum(axis=1)
+    pred = cm.sum(axis=0)
+    union = gt + pred - tp
+    with np.errstate(divide="ignore", invalid="ignore"):
+        per_class = np.where(union > 0, tp / np.maximum(union, 1), np.nan)
+    present = gt > 0
+    total = cm.sum()
+    return {
+        "pixel_acc": float(tp.sum() / total) if total else 0.0,
+        "miou": float(np.nanmean(np.where(present, per_class, np.nan)))
+        if present.any() else 0.0,
+        "per_class_iou": per_class,
+        "present": present,
+    }
+
+
+class StreamingConfusion:
+    """Host-side sum of per-batch (C, C) confusion matrices; `result()`
+    derives pixel accuracy, mIoU and per-class IoU from the sums."""
+
+    def __init__(self, num_classes: int):
+        self.num_classes = num_classes
+        self.cm = np.zeros((num_classes, num_classes), np.float64)
+
+    def update(self, cm) -> None:
+        cm = np.asarray(cm, np.float64)
+        if cm.shape != self.cm.shape:
+            raise ValueError(f"confusion matrix shape {cm.shape} != "
+                             f"({self.num_classes}, {self.num_classes})")
+        self.cm += cm
+
+    def result(self) -> Dict[str, np.ndarray]:
+        return segmentation_scores(self.cm)

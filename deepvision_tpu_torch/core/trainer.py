@@ -108,10 +108,11 @@ class TrainingDivergedError(RuntimeError):
 
 
 def divergence_halt(config: TrainConfig, ckpt: CheckpointManager, epoch: int,
-                    what: str) -> None:
-    """Raise TrainingDivergedError naming the checkpoint to resume from."""
+                    what: str, resume_cmd: Optional[str] = None) -> None:
+    """Raise TrainingDivergedError naming the checkpoint to resume from and
+    the flag that does it (`-c <epoch>` unless `resume_cmd` says)."""
     last = ckpt.latest_epoch()
-    resume = (f"resume from epoch {last} with `-c {last}`"
+    resume = (f"resume from epoch {last} with `{resume_cmd or f'-c {last}'}`"
               if last is not None else "no checkpoint committed yet")
     raise TrainingDivergedError(
         f"[{config.name}] epoch {epoch} {what} — training diverged. "

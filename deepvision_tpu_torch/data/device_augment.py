@@ -1,6 +1,7 @@
 """Device-side batched augmentation of uint8 NHWC batches (own copy of
 deepvision_tpu/data/device_augment.py: `channel_stats`, `DEFAULT_JITTER`,
-`make_train_augment`, `make_eval_augment`).
+`make_train_augment`, `make_eval_augment`, and the paired stages of dense
+prediction, `make_paired_train_augment` and `make_paired_eval_augment`).
 
 The host only decodes and resizes to a padded square
 (`core.config.decode_image_size`: 224 -> 256) and ships uint8, a quarter
@@ -12,6 +13,10 @@ on the device inside the train step:
          example (the host ColorJitter's order and ranges), clip to
          [0, 255], (x/255 - mean)/std in f32, one cast to the compute dtype;
   eval:  the centred SxS crop, then the same normalization.
+
+The paired stages (segmentation) take a (B, D, D) mask beside the images:
+one crop and flip draw serves both, the mask gets no jitter and no
+normalization and comes back int32 (B, S, S).
 
 The draws are split from the transform: `draw_train_params` draws (tops,
 lefts, flip, brightness, contrast, saturation) per example from an
@@ -95,6 +100,18 @@ def _normalize(images: torch.Tensor, mean, std,
     return ((images / 255.0 - mean) / std).to(compute_dtype)
 
 
+def _crop_flip_index(draws: TrainDraws, image_size: int, device):
+    """(batch, rows, cols) index grids of the crops and flips of `draws`:
+    a flipped example reads its crop's columns backwards."""
+    steps = torch.arange(image_size, device=device)
+    rows = draws.tops[:, None] + steps                       # (B, S)
+    cols = torch.where(draws.flip[:, None],
+                       draws.lefts[:, None] + (image_size - 1) - steps,
+                       draws.lefts[:, None] + steps)          # (B, S)
+    batch = torch.arange(len(rows), device=device)[:, None, None]
+    return batch, rows[:, :, None], cols[:, None, :]
+
+
 def apply_train_augment(images: torch.Tensor, draws: TrainDraws,
                         image_size: int, *,
                         mean: Sequence[float] = IMAGENET_MEAN,
@@ -102,16 +119,10 @@ def apply_train_augment(images: torch.Tensor, draws: TrainDraws,
                         compute_dtype: torch.dtype = torch.bfloat16
                         ) -> torch.Tensor:
     """The train augment of (B, D, D, C) uint8 `images` with `draws`: the
-    crop and flip as one gather on index grids (a flipped example reads its
-    crop's columns backwards), the jitter in f32, clip, normalize, cast."""
+    crop and flip as one gather on index grids, the jitter in f32, clip,
+    normalize, cast."""
     b = images.shape[0]
-    steps = torch.arange(image_size, device=images.device)
-    rows = draws.tops[:, None] + steps                       # (B, S)
-    cols = torch.where(draws.flip[:, None],
-                       draws.lefts[:, None] + (image_size - 1) - steps,
-                       draws.lefts[:, None] + steps)          # (B, S)
-    batch = torch.arange(b, device=images.device)[:, None, None]
-    imgs = images[batch, rows[:, :, None], cols[:, None, :]].float()
+    imgs = images[_crop_flip_index(draws, image_size, images.device)].float()
     if draws.brightness is not None:
         imgs = imgs * draws.brightness.view(b, 1, 1, 1)
     if draws.contrast is not None:
@@ -122,6 +133,19 @@ def apply_train_augment(images: torch.Tensor, draws: TrainDraws,
         imgs = (imgs - gray) * draws.saturation.view(b, 1, 1, 1) + gray
     imgs = imgs.clamp(0.0, 255.0)
     return _normalize(imgs, mean, std, compute_dtype)
+
+
+def apply_paired_train_augment(images: torch.Tensor, masks: torch.Tensor,
+                               draws: TrainDraws, image_size: int, *,
+                               mean: Sequence[float] = IMAGENET_MEAN,
+                               std: Sequence[float] = IMAGENET_STD,
+                               compute_dtype: torch.dtype = torch.bfloat16):
+    """(images, masks) of `apply_train_augment` on the images and the same
+    crops and flips on the (B, D, D) masks, returned int32 (B, S, S)."""
+    index = _crop_flip_index(draws, image_size, masks.device)
+    return (apply_train_augment(images, draws, image_size, mean=mean,
+                                std=std, compute_dtype=compute_dtype),
+            masks[index].to(torch.int32))
 
 
 def make_train_augment(image_size: int, *,
@@ -159,5 +183,49 @@ def make_eval_augment(image_size: int, *,
         top, left = (h - image_size) // 2, (w - image_size) // 2
         crop = images[:, top:top + image_size, left:left + image_size, :]
         return _normalize(crop.float(), mean, std, compute_dtype)
+
+    return augment
+
+
+def make_paired_train_augment(image_size: int, *,
+                              mean: Sequence[float] = IMAGENET_MEAN,
+                              std: Sequence[float] = IMAGENET_STD,
+                              jitter: Tuple[float, float, float] =
+                              DEFAULT_JITTER,
+                              flip_prob: float = 0.5,
+                              compute_dtype: torch.dtype = torch.bfloat16
+                              ) -> Callable:
+    """`augment(images_u8, masks_u8, generator) -> (images, masks)`: one
+    draw of crops and flips on the generator's device for both, then
+    `apply_paired_train_augment`."""
+
+    def augment(images: torch.Tensor, masks: torch.Tensor,
+                generator: torch.Generator):
+        b, h, w = images.shape[:3]
+        draws = draw_train_params(b, h, w, image_size, generator,
+                                  jitter=jitter, flip_prob=flip_prob)
+        return apply_paired_train_augment(images, masks, draws, image_size,
+                                          mean=mean, std=std,
+                                          compute_dtype=compute_dtype)
+
+    return augment
+
+
+def make_paired_eval_augment(image_size: int, *,
+                             mean: Sequence[float] = IMAGENET_MEAN,
+                             std: Sequence[float] = IMAGENET_STD,
+                             compute_dtype: torch.dtype = torch.bfloat16
+                             ) -> Callable:
+    """`augment(images_u8, masks_u8) -> (images, masks)`: the centred crop
+    of both, the images normalized, the masks int32."""
+    image_augment = make_eval_augment(image_size, mean=mean, std=std,
+                                      compute_dtype=compute_dtype)
+
+    def augment(images: torch.Tensor, masks: torch.Tensor):
+        h, w = masks.shape[1:3]
+        top, left = (h - image_size) // 2, (w - image_size) // 2
+        return (image_augment(images),
+                masks[:, top:top + image_size,
+                      left:left + image_size].to(torch.int32))
 
     return augment

@@ -1,7 +1,7 @@
 """Model zoo of the port — importing this package registers its models in
 MODELS (the ViT, YOLO V3, LeNet-5, ResNet, AlexNet, VGG, Inception,
-MobileNet, ShuffleNet, Stacked Hourglass and CenterNet families so
-far)."""
+MobileNet, ShuffleNet, Stacked Hourglass, CenterNet, U-Net segmentation
+and GAN families)."""
 
 from __future__ import annotations
 
@@ -10,8 +10,9 @@ from typing import Optional
 
 import torch
 
-from . import (alexnet, centernet, hourglass, inception,  # noqa: F401
-               lenet, mobilenet, resnet, shufflenet, vgg, vit, yolo)
+from . import (alexnet, centernet, gan, hourglass,  # noqa: F401
+               inception, lenet, mobilenet, resnet, segment, shufflenet,
+               vgg, vit, yolo)
 from ..utils.registry import MODELS
 
 

@@ -1,7 +1,7 @@
 """Shared building blocks of the port's model zoo (own copy of
 deepvision_tpu/models/common.py: `he_normal_fanout`, `ConvBN`, `lrn`; and
-the Flax-numerics `Conv`, `Dense`, `BatchNorm`, `Dropout` and pools every
-model uses).
+the Flax-numerics `Conv`, `ConvTranspose`, `Dense`, `BatchNorm`, `Dropout`,
+pools and `reflect_pad` every model uses).
 
 Numerics follow Flax where they differ from torch's defaults:
 - `Conv` and `Dense` compute at the compute dtype from f32 master weights,
@@ -11,12 +11,18 @@ Numerics follow Flax where they differ from torch's defaults:
   before and 1 after, which `nn.Conv2d(padding=1)` does not), "VALID", or
   explicit `[(lo, hi), (lo, hi)]`; `groups` is Flax's
   `feature_group_count`;
+- `ConvTranspose` is Flax's `nn.ConvTranspose` with its defaults
+  (`transpose_kernel=False`, "SAME"): the kernel, not flipped, slides
+  over the input dilated by the stride and padded as `lax.conv_transpose`
+  pads it, and the output is the input size times the stride. That is
+  not `nn.ConvTranspose2d` with the kernel carried over;
 - `max_pool` and `avg_pool` are `nn.max_pool` and `nn.avg_pool` on NCHW:
   VALID by default, SAME padded as XLA pads (asymmetric at stride 2 on an
   even size), max with -inf, avg with zeros counted in the divisor
   (flax's `count_include_pad=True`); `flatten_nhwc` flattens in Flax's
   NHWC order, so the Dense after it takes a Flax kernel unchanged;
-- `BatchNorm` normalizes in f32 (in f64 for an f64 input: Flax's
+- `BatchNorm` normalizes NCHW, or (B, C) as Flax's BatchNorm does a
+  Dense output, in f32 (in f64 for an f64 input: Flax's
   `promote_types(float32, x.dtype)`), with the batch
   statistics in training and the running ones in eval, and returns its
   `dtype`. Its momentum is Flax's (0.9 keeps 90% of the running value;
@@ -221,19 +227,65 @@ class Conv(nn.Conv2d):
                 + self.bias.to(self.dtype)[:, None, None])
 
 
+def _transpose_pads(kernel: int, stride: int) -> Tuple[int, int]:
+    """`lax.conv_transpose`'s SAME padding of one spatial dim: the (low,
+    high) zeros around the stride-dilated input, so that the output is
+    input * stride long."""
+    total = kernel + stride - 2
+    low = kernel - 1 if stride > kernel - 1 else -(-total // 2)
+    return low, total - low
+
+
+class ConvTranspose(nn.Module):
+    """Flax `nn.ConvTranspose(features, kernel, strides, padding="SAME")`
+    at the compute dtype `dtype`: the correlation of the kernel, as it is,
+    with the input dilated by the stride and padded by `_transpose_pads`.
+    It runs as `F.conv_transpose2d` with the kernel flipped and its
+    channels swapped (that op pads kernel - 1 on each side), cropped or
+    padded to Flax's pads. The weight is OIHW (out, in, kh, kw), as a
+    `Conv`'s, so the weight bridge maps Flax's HWIO kernel onto it."""
+
+    def __init__(self, in_features: int, features: int, kernel: Size2,
+                 strides: Size2 = 1, use_bias: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.kernel_size, self.stride = _pair(kernel), _pair(strides)
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(features, in_features,
+                                               *self.kernel_size))
+        self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
+                     else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight = self.weight.to(self.dtype).transpose(0, 1).flip(2, 3)
+        y = F.conv_transpose2d(x.to(self.dtype), weight, stride=self.stride)
+        (top, bottom), (left, right) = (
+            tuple(p - (k - 1) for p in _transpose_pads(k, s))
+            for k, s in zip(self.kernel_size, self.stride))
+        y = F.pad(y, (left, right, top, bottom))
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)[:, None, None]
+        return y
+
+
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """`jnp.pad(mode="reflect")` of H and W of NCHW `x`."""
+    return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+
+
 class Dense(nn.Linear):
     """Flax `nn.Dense` at `dtype`: input, weight and bias cast to it (an
     f32 head promotes a bf16 input); below f32 the bias is added to the
     rounded product, as Flax does."""
 
     def __init__(self, in_features: int, features: int,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(in_features, features)
+                 dtype: torch.dtype = torch.float32, use_bias: bool = True):
+        super().__init__(in_features, features, bias=use_bias)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, weight = x.to(self.dtype), self.weight.to(self.dtype)
-        if self.dtype == torch.float32:
+        if self.bias is None or self.dtype == torch.float32:
             return F.linear(x, weight, self.bias)
         return F.linear(x, weight) + self.bias.to(self.dtype)
 
@@ -278,9 +330,10 @@ class ComputeWeights:
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Flax `nn.BatchNorm(momentum, epsilon)` on NCHW: f32 normalization
-    (f64 for an f64 input), output in `dtype` (f32 unless a model asks for
-    its compute dtype)."""
+    """Flax `nn.BatchNorm(momentum, epsilon)` on NCHW or (B, C): f32
+    normalization (f64 for an f64 input), output in `dtype` (f32 unless a
+    model asks for its compute dtype). The statistics reduce every axis
+    but the channels'."""
 
     def __init__(self, features: int, *, eps: float, momentum: float = 0.9,
                  dtype: torch.dtype = torch.float32):
@@ -300,7 +353,8 @@ class BatchNorm(nn.BatchNorm2d):
         # the running statistics take the biased batch variance, as Flax's
         # do (torch's own update would fold in var * n / (n - 1))
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            var, mean = torch.var_mean(x, dim=(0, *range(2, x.ndim)),
+                                       correction=0)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
         return y.to(self.dtype)

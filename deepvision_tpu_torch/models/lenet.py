@@ -40,8 +40,9 @@ class LeNet5(ComputeWeights, nn.Module):
                 lecun_normal_(m.weight, generator)
                 m.bias.zero_()
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def penultimate(self, x: torch.Tensor) -> torch.Tensor:
+        """F6's output before its tanh: the 84-dim embedding the GAN
+        evaluation reads (core/eval_gan.py)."""
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         x = torch.tanh(F.avg_pool2d(torch.tanh(self.c1(x)), 2))
         x = torch.tanh(F.avg_pool2d(torch.tanh(self.c3(x)), 2))
@@ -51,7 +52,11 @@ class LeNet5(ComputeWeights, nn.Module):
             raise ValueError(f"LeNet-5 takes 32x32 inputs: C5 gave a "
                              f"{tuple(x.shape[-2:])} map, whose NCHW flatten "
                              f"order is not Flax's NHWC one")
-        x = torch.tanh(F.linear(x.flatten(1), self.f6.weight.to(self.dtype),
-                                self.f6.bias.to(self.dtype)))
+        return F.linear(x.flatten(1), self.f6.weight.to(self.dtype),
+                        self.f6.bias.to(self.dtype))
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = torch.tanh(self.penultimate(x))
         return F.linear(x, self.output.weight.to(self.dtype),
                         self.output.bias.to(self.dtype)).float()

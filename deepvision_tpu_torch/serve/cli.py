@@ -12,9 +12,16 @@
     # scales (boxes, objectness, class probabilities)
     python -m deepvision_tpu_torch.serve -m yolov3 --buckets 1,8
 
-Every classification and detection config serves. Weights are random,
-drawn from each config's seed; checkpoint restore, hot reload, promotion,
-int8, meshes and autoscaling are still to port (ROADMAP.md).
+    # the weights a training run left in its workdir (the EMA weights
+    # where it kept them); segmentation answers int32 class-id masks
+    python -m deepvision_tpu_torch.serve -m unet_synthetic \
+        --workdir runs/unet_synthetic
+
+Five families serve: classification, detection (YOLO), CenterNet, pose
+and segmentation, on a workdir's checkpoint (`--workdir`, `-c`) or on
+weights drawn from each config's seed; /healthz reports which. GAN
+configs are refused. Hot reload, promotion, int8, meshes and autoscaling
+are still to port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -37,6 +44,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="registered config name, or a comma-separated list "
                         "to serve a fleet (first name is the default model "
                         "bare POST /predict hits)")
+    p.add_argument("-c", "--checkpoint", default=None,
+                   help="epoch number or 'latest' (needs --workdir; "
+                        "single-model only)")
+    p.add_argument("--workdir", default=None,
+                   help="training workdir to restore weights from (EMA "
+                        "weights win when present); single-model only. "
+                        "Omit it for random-weight smoke serving")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (default cuda; cpu runs "
                         "the kernels' plain versions)")
@@ -161,6 +175,11 @@ def validate_args(parser: argparse.ArgumentParser, args) -> None:
         parser.error(f"--deadline-ms must be > 0, got {args.deadline_ms}")
     if args.duration <= 0:
         parser.error(f"--duration must be > 0, got {args.duration}")
+    if args.checkpoint is not None and args.workdir is None:
+        parser.error("-c/--checkpoint needs --workdir")
+    if args.workdir is not None and len(names) > 1:
+        parser.error("--workdir restores one model; serve a fleet on "
+                     "seeded weights, or one model per process")
 
 
 def build_server(args):
@@ -180,7 +199,8 @@ def build_server(args):
     for name in names:
         engine = PredictEngine.from_config(
             name, device=args.device, buckets=buckets,
-            max_batch=args.max_batch)
+            max_batch=args.max_batch, workdir=args.workdir,
+            checkpoint=args.checkpoint)
         engine.warmup()
         fleet.add(engine, max_batch=args.max_batch,
                   max_delay_ms=args.max_delay_ms,

@@ -16,10 +16,19 @@ An answer is the model's eval-mode output as a tree of host arrays: one
 several, as the JAX engine's `take_first_output`); for YOLO the decoded
 `(boxes_xywh, objectness, class_probs)` triple of each of its three
 scales; for CenterNet one dict {"heatmap", "size", "offset"} per stack;
-for the Stacked Hourglass one heatmap array per stack. `tree_slice` and
+for the Stacked Hourglass one heatmap array per stack; for segmentation
+the int32 (n, H, W) class-id masks (the argmax of the logits, on the
+device: the engine's `output_transform`). `tree_slice` and
 `tree_concat` strip padding, join chunks and cut one request's rows out
 of a coalesced batch; the server encodes the same tree as JSON (dicts as
 objects).
+
+Weights: seeded random ones (the config's seed), an explicit `state_dict`,
+or a training workdir's checkpoint (`load_checkpoint_weights`, the
+`--workdir` / `-c` of the serving CLI): restored through the config's own
+trainer, the EMA weights when the checkpoint keeps them, with a provenance
+record that `/healthz` reports. GAN configs are refused: a generator has
+no single logits forward to serve.
 """
 
 from __future__ import annotations
@@ -38,7 +47,68 @@ from ..utils.device import device_name, resolve_device
 
 
 #: the config families the engine can build and serve
-SERVED_FAMILIES = ("classification", "detection", "pose", "centernet")
+SERVED_FAMILIES = ("classification", "detection", "pose", "centernet",
+                   "segmentation")
+
+
+def check_served(name: str, cfg) -> None:
+    """Raise unless the engine serves `cfg`'s family; a GAN config with
+    the JAX engine's message."""
+    if cfg.family == "gan":
+        raise ValueError(
+            f"config {name!r} is adversarial — serve a generator via "
+            f"tools/export.py instead (no single logits apply fn)")
+    if cfg.family not in SERVED_FAMILIES:
+        raise ValueError(
+            f"config {name!r} is {cfg.family}; the port serves "
+            f"{', '.join(SERVED_FAMILIES)} models only so far")
+
+
+def load_checkpoint_weights(name: str, workdir: str, *,
+                            checkpoint=None, verbose: bool = True
+                            ) -> Tuple[torch.nn.Module, dict, Any]:
+    """Restore a config's serving weights from a training workdir
+    (deepvision_tpu/serve/engine.py::load_checkpoint_weights): the
+    checkpoint (`checkpoint`: an epoch, or None / "latest") is restored
+    through the config's own trainer on the CPU, and the EMA weights win
+    when it keeps them: the parameters `Trainer.evaluate` scores under
+    `state.ema_weights()`, with the current BatchNorm statistics. With
+    nothing restorable the trainer's seeded weights serve, with a warning.
+
+    Returns `(model, provenance, cfg)`; the provenance record is
+    {weights: "checkpoint" | "random-init", checkpoint_epoch, verified,
+    manifest_sha256, resharded}. The port keeps no integrity manifest and
+    reshards nothing yet, so the last three are false, null and false."""
+    from ..configs import trainer_class_for_config
+    cfg = get_config(name)
+    check_served(name, cfg)
+    trainer = trainer_class_for_config(name)(cfg, device="cpu",
+                                            workdir=workdir)
+    try:
+        trainer.init_state()
+        got = trainer.resume(None if checkpoint in (None, "latest")
+                             else int(checkpoint))
+        if got is None and verbose:
+            print(f"[serve:{cfg.name}] WARNING: nothing restorable in "
+                  f"{workdir!r} — serving RANDOM weights", flush=True)
+        state = trainer.state
+        if state.ema is not None:
+            with torch.no_grad():
+                for p, e in zip(state.model.parameters(), state.ema):
+                    p.copy_(e)
+    finally:
+        trainer.close()
+    provenance = {"weights": "checkpoint" if got is not None
+                  else "random-init",
+                  "checkpoint_epoch": got, "verified": False,
+                  "manifest_sha256": None, "resharded": False}
+    return state.model, provenance, trainer.config
+
+
+def argmax_masks(logits: torch.Tensor) -> torch.Tensor:
+    """Segmentation's answer: int32 class ids, the argmax over the last
+    axis of the (n, H, W, C) logits."""
+    return logits.argmax(dim=-1).to(torch.int32)
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -89,7 +159,9 @@ class PredictEngine:
     `cast_compute_weights_()` (`models/common.py::ComputeWeights`: every
     CNN of the zoo; `models/vit.py`). With `take_first_output` (a
     classifier) a model that returns a tuple serves its first output, the
-    main head; without it the whole tree is served.
+    main head; without it the whole tree is served. `output_transform`,
+    when given, maps that output on the device before it goes to the host
+    (segmentation's `argmax_masks`).
     """
 
     def __init__(self, model: torch.nn.Module, *,
@@ -99,6 +171,7 @@ class PredictEngine:
                  max_batch: Optional[int] = None,
                  input_norm: Optional[Tuple] = None,
                  take_first_output: bool = True,
+                 output_transform: Optional[Callable] = None,
                  name: str = "model", verbose: bool = True,
                  provenance: Optional[dict] = None):
         self.device = resolve_device(device)
@@ -119,6 +192,7 @@ class PredictEngine:
         self.provenance = dict(provenance or {"weights": "random-init"})
         self.input_norm = input_norm
         self.take_first_output = take_first_output
+        self.output_transform = output_transform
         self.input_dtype = np.dtype(np.uint8 if input_norm is not None
                                     else np.float32)
         self.compute_dtype = model.dtype
@@ -138,21 +212,25 @@ class PredictEngine:
                     buckets: Sequence[int] = (1, 8, 32),
                     max_batch: Optional[int] = None,
                     state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                    workdir: Optional[str] = None, checkpoint=None,
                     verbose: bool = True) -> "PredictEngine":
-        """Build an engine for a registered config: weights drawn from
-        `cfg.seed` through a `torch.Generator`, or `state_dict` (e.g. JAX
-        params carried over by utils/flax_convert.py)."""
+        """Build an engine for a registered config: weights restored from
+        the training `workdir` (`load_checkpoint_weights`; `checkpoint` an
+        epoch or "latest"), or `state_dict` (e.g. JAX params carried over
+        by utils/flax_convert.py), or drawn from `cfg.seed` through a
+        `torch.Generator`."""
         device = resolve_device(device)   # fail before building anything
         cfg = get_config(name)
-        if cfg.family not in SERVED_FAMILIES:
-            raise ValueError(
-                f"config {name!r} is {cfg.family}; the port serves "
-                f"{', '.join(SERVED_FAMILIES)} models only so far")
-        model = build_model(cfg)
-        provenance = {"weights": "random-init", "seed": cfg.seed}
-        if state_dict is not None:
-            model.load_state_dict(state_dict)
-            provenance = {"weights": "state_dict"}
+        check_served(name, cfg)
+        if workdir is not None:
+            model, provenance, cfg = load_checkpoint_weights(
+                name, workdir, checkpoint=checkpoint, verbose=verbose)
+        else:
+            model = build_model(cfg)
+            provenance = {"weights": "random-init", "seed": cfg.seed}
+            if state_dict is not None:
+                model.load_state_dict(state_dict)
+                provenance = {"weights": "state_dict"}
         input_norm = ((cfg.data.mean, cfg.data.std)
                       if cfg.data.normalize_on_device else None)
         size = cfg.data.image_size
@@ -160,6 +238,9 @@ class PredictEngine:
                    device=device, buckets=buckets, max_batch=max_batch,
                    input_norm=input_norm,
                    take_first_output=cfg.family == "classification",
+                   output_transform=(argmax_masks
+                                     if cfg.family == "segmentation"
+                                     else None),
                    name=cfg.name, verbose=verbose, provenance=provenance)
 
     # -- dispatch ----------------------------------------------------------
@@ -172,6 +253,8 @@ class PredictEngine:
                                              self.compute_dtype))
             if self.take_first_output and isinstance(out, (tuple, list)):
                 out = out[0]
+            if self.output_transform is not None:
+                out = self.output_transform(out)
             return tree_map(lambda t: (t.float() if t.is_floating_point()
                                        else t).cpu().numpy(), out)
 

@@ -57,6 +57,16 @@ within 1e-6; the keypoint heatmaps within 1e-6 and their decode exactly;
 and reduced models of both families (2 stacks, order 2, width 1/16) in f32
 eval mode on the card within 1e-5 of the CPU's largest output.
 
+Segmentation and the GANs have no kernel: the transposed conv on the card
+against the CPU within 1e-5 of the largest output; the paired augment on
+the same draws (images 1e-4, masks exact); unet_small's train step on the
+card in f64 and f32 against the CPU in f64 (`check_step_against_f64`'s
+bounds), its f32 eval forward within 1e-5 and the confusion counts equal;
+the DCGAN step and both CycleGAN phases on the card in f64 against the CPU
+(chip_smoke.py's `gan_step_errors`: 1e-12 and 1e-9); and unet_synthetic
+served on the card from its workdir, the masks equal to the predict
+step's.
+
 Data parallelism: both kernels launch on their tensors' card from a
 thread whose current card is another (two cards or more; skips on one),
 and 2 gloo ranks sharing card 0 take one f64 step of the reduced ResNet
@@ -831,3 +841,102 @@ def test_two_gloo_ranks_on_one_card_match_the_one_process_f64_step(
              for r in range(2)]
     err = f64_step_errors(one, ranks, dict(model.named_parameters()))
     check_f64_step_errors(err)
+
+
+# -- segmentation and the GANs ------------------------------------------------
+
+@pytest.mark.parametrize("kernel,stride,size", [(5, 1, 7), (5, 2, 7),
+                                                (3, 2, 9), (3, 2, 64)])
+def test_conv_transpose_on_the_card_matches_the_cpu(card, kernel, stride,
+                                                    size):
+    from deepvision_tpu_torch.models.common import ConvTranspose
+    g = torch.Generator().manual_seed(size)
+    conv = ConvTranspose(8, 4, kernel, stride, use_bias=True)
+    with torch.no_grad():
+        conv.weight.normal_(generator=g)
+        conv.bias.normal_(generator=g)
+    x = torch.randn(2, 8, size, size + 1, generator=g)
+    with torch.no_grad():
+        want = conv(x)
+        got = conv.cuda()(x.cuda()).cpu()
+    assert got.shape == want.shape == (2, 4, size * stride,
+                                       (size + 1) * stride)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_paired_augment_on_the_card_matches_the_cpu(card):
+    """The same draws on both devices: images within 1e-4, masks exact."""
+    rs = np.random.RandomState(0)
+    images = torch.from_numpy(rs.randint(0, 256, (4, 40, 40, 3))
+                              .astype(np.uint8))
+    masks = torch.from_numpy(rs.randint(0, 6, (4, 40, 40)).astype(np.uint8))
+    draws = daug.draw_train_params(4, 40, 40, 32,
+                                   torch.Generator().manual_seed(1))
+    kw = dict(mean=(0.5,) * 3, std=(0.5,) * 3, compute_dtype=torch.float32)
+    want = daug.apply_paired_train_augment(images, masks, draws, 32, **kw)
+    got = daug.apply_paired_train_augment(images.cuda(), masks.cuda(),
+                                          draws.to("cuda"), 32, **kw)
+    assert (got[0].cpu() - want[0]).abs().max().item() <= 1e-4
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_unet_train_step_on_the_card_matches_the_cpu(card):
+    """unet_small (the unet_synthetic model) one step on 2 images at 32
+    px, on the card in f64 and f32 against the CPU in f64
+    (`check_step_against_f64`: 1e-12 / 1e-9 in f64, 2e-4 / 1e-1 in f32);
+    the eval forward in f32 within 1e-5, and the confusion counts of the
+    eval step equal."""
+    from deepvision_tpu_torch.core.metrics import confusion_matrix
+    from deepvision_tpu_torch.core.segment import make_segmentation_train_step
+    cfg = get_config("unet_synthetic")
+    model = build_model(cfg)
+    rs = np.random.RandomState(2)
+    batch = (rs.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32),
+             rs.randint(0, 6, (2, 32, 32)).astype(np.int32))
+    check_step_against_f64(
+        cfg, model, batch, "unet_small", "2 images at 32 px",
+        make_step=lambda dt: make_segmentation_train_step(compute_dtype=dt))
+    x, masks = (torch.from_numpy(a) for a in batch)
+    with torch.inference_mode():
+        want = model.eval()(x)
+        got = model.cuda()(x.cuda()).cpu()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert torch.equal(confusion_matrix(got.argmax(-1).cuda(), masks.cuda(),
+                                        6).cpu(),
+                       confusion_matrix(got.argmax(-1), masks, 6))
+
+
+def test_gan_steps_on_the_card_match_the_cpu_in_f64(card):
+    """One DCGAN step (the same noise, dropout off) and both CycleGAN
+    phases (1 block, 32 px) on the card in f64 against the CPU in f64:
+    losses 1e-12 relative, gradients and BatchNorm statistics 1e-9
+    (chip_smoke.py's `gan_step_errors`)."""
+    from chip_smoke import cyclegan_step_runs, dcgan_step_run, gan_step_errors
+    gan_step_errors(dcgan_step_run(), "dcgan")
+    for run, what in zip(cyclegan_step_runs(32, 1), ("generator phase",
+                                                     "discriminator phase")):
+        gan_step_errors(run, what)
+
+
+def test_engine_serves_segmentation_masks_on_the_card(card, tmp_path):
+    """unet_synthetic trained one step on the card, served from its
+    workdir on the card: provenance `checkpoint`, int32 masks equal to
+    the predict step's on the same weights."""
+    from deepvision_tpu_torch.cli import run_segmentation
+    from deepvision_tpu_torch.core.segment import \
+        make_segmentation_predict_step
+    trainer, _ = run_segmentation("UNet", ["unet_synthetic"], [
+        "-m", "unet_synthetic", "--synthetic", "--epochs", "1",
+        "--steps-per-epoch", "1", "--batch-size", "2", "--workdir",
+        str(tmp_path)])
+    engine = PredictEngine.from_config("unet_synthetic", device="cuda",
+                                       buckets=(1, 4), workdir=str(tmp_path),
+                                       verbose=False)
+    assert engine.provenance["weights"] == "checkpoint"
+    x = np.random.RandomState(3).uniform(-1, 1, (4, 64, 64, 3)).astype(
+        np.float32)
+    want = make_segmentation_predict_step(compute_dtype=torch.float32)(
+        trainer.state, torch.from_numpy(x).cuda()).cpu().numpy()
+    got = engine.predict(x)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)

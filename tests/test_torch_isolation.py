@@ -1,6 +1,6 @@
 """The port stands alone: no module of deepvision_tpu_torch/ (nor its entry
-points <Family>/torch/*.py for every family in FAMILIES and chip_smoke.py,
-which run where JAX is not installed)
+points <Family>/torch/*.py for every family in FAMILIES and GAN_FAMILIES,
+and chip_smoke.py, which run where JAX is not installed)
 imports jax, flax, optax, orbax or anything of the JAX package
 deepvision_tpu."""
 
@@ -16,9 +16,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "deepvision_tpu_torch")
 BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "deepvision_tpu"}
 FAMILIES = ("AlexNet", "Hourglass", "Inception", "LeNet", "MobileNet",
-            "ObjectsAsPoints", "ResNet", "ShuffleNet", "VGG", "ViT", "YOLO")
+            "ObjectsAsPoints", "ResNet", "ShuffleNet", "UNet", "VGG", "ViT",
+            "YOLO")
+# the GANs' entry points, named as in the JAX package
+GAN_FAMILIES = {"DCGAN": ("main.py", "inference.py"),
+                "CycleGAN": ("train.py", "inference.py")}
 ENTRY_POINTS = [os.path.join(REPO, "chip_smoke.py")] + sorted(
-    path for family in FAMILIES
+    path for family in FAMILIES + tuple(GAN_FAMILIES)
     for path in glob.glob(os.path.join(REPO, family, "torch", "*.py")))
 
 
@@ -65,7 +69,7 @@ print(len(names))
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.split()[-1]) >= 70
+    assert int(proc.stdout.split()[-1]) >= 79
 
 
 def test_every_family_has_its_entry_points():
@@ -76,6 +80,7 @@ def test_every_family_has_its_entry_points():
         assert os.path.join(family, "torch", "profile_step.py") in names
     for family, scripts in (("YOLO", ("detect.py", "evaluate.py")),
                             ("ObjectsAsPoints", ("detect.py", "evaluate.py")),
-                            ("Hourglass", ("evaluate.py", "infer.py"))):
+                            ("Hourglass", ("evaluate.py", "infer.py")),
+                            *GAN_FAMILIES.items()):
         for script in scripts:
             assert os.path.join(family, "torch", script) in names

@@ -459,13 +459,17 @@ def test_from_config_serves_detection_and_refuses_other_families(
     out = engine.predict(np.random.RandomState(0).rand(1, 128, 128, 3))
     assert _tree_shapes(out) == [[(1, g, g, 3, 4), (1, g, g, 3, 1),
                                   (1, g, g, 3, 10)] for g in (16, 8, 4)]
-    with pytest.raises(KeyError, match="'dcgan'"):
+    with pytest.raises(KeyError, match="'no_such_config'"):
+        PredictEngine.from_config("no_such_config", device="cpu",
+                                  verbose=False)
+    with pytest.raises(ValueError, match="'dcgan' is adversarial"):
         PredictEngine.from_config("dcgan", device="cpu", verbose=False)
     from deepvision_tpu_torch.serve import engine as engine_mod
-    gan = get_config("yolov3_digits").replace(name="dcgan", family="gan")
-    monkeypatch.setattr(engine_mod, "get_config", lambda name: gan)
-    with pytest.raises(ValueError, match="'dcgan' is gan"):
-        PredictEngine.from_config("dcgan", device="cpu", verbose=False)
+    other = get_config("yolov3_digits").replace(name="other",
+                                                family="other")
+    monkeypatch.setattr(engine_mod, "get_config", lambda name: other)
+    with pytest.raises(ValueError, match="'other' is other"):
+        PredictEngine.from_config("other", device="cpu", verbose=False)
 
 
 def test_tree_helpers_keep_the_keys_of_a_tuple_of_dicts():

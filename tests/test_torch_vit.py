@@ -119,7 +119,9 @@ NOT_CARRIED = {
                                   "inception_v3", "mobilenet_v1",
                                   "shufflenet_v1", "hourglass104",
                                   "centernet", "objects_as_points",
-                                  "centernet_digits"])
+                                  "centernet_digits", "unet_resnet50",
+                                  "unet_synthetic", "unet_digits", "dcgan",
+                                  "cyclegan"])
 def test_configs_equal_the_jax_package(name):
     """Every field the port's dataclasses carry equals the JAX config's —
     the optimizer, schedule and data configs field by field — and the JAX
