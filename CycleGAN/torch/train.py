@@ -5,11 +5,12 @@
 The flags are the JAX entry point's (`CycleGAN/jax/train.py`): `--dataset`
 (`tfrecords/<dataset>/{trainA,trainB}.tfrecord`), `--batch-size`,
 `--epochs`, `--image-size`, `--workdir`, `--resume`, `--synthetic` and
-`--steps-per-epoch`, plus `--device` (cuda by default; a host with no card
-raises). The two-domain TFRecord pipeline is not ported
-yet (it raises by name): train with `--synthetic`, on a 64 px canvas
-unless `--image-size` is given. `--recover-on-divergence` is refused by
-name; `--profile-dir` and `--compilation-cache` are XLA's. For example,
+`--steps-per-epoch` and `--recover-on-divergence`, plus `--device` (cuda
+by default; a host with no card raises). The two-domain TFRecord pipeline
+is not ported yet (it raises by name): train with `--synthetic`, on a
+64 px canvas unless `--image-size` is given. SIGTERM commits a checkpoint
+and exits 0; `--resume` continues. `--profile-dir` and
+`--compilation-cache` are XLA's. For example,
 two steps at the full 256 px and the config's batch of 8:
 
     python CycleGAN/torch/train.py --synthetic --image-size 256 \
@@ -35,7 +36,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="random two-domain data smoke run")
     p.add_argument("--steps-per-epoch", type=int, default=2)
     p.add_argument("--recover-on-divergence", type=int, default=None,
-                   metavar="N", help="not ported yet: refused")
+                   metavar="N",
+                   help="roll both networks back to the last committed "
+                        "checkpoint and retry (LR scaled down) up to N "
+                        "times when an epoch's metrics go non-finite "
+                        "(default 0: halt)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     return p
@@ -44,10 +49,10 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
-    if args.recover_on_divergence is not None:
-        p.error("--recover-on-divergence is not ported yet (divergence "
-                "recovery waits for the checkpoint features, ROADMAP A4): "
-                "a non-finite epoch halts with the checkpoint to --resume")
+    if args.recover_on_divergence is not None \
+            and args.recover_on_divergence < 0:
+        p.error(f"--recover-on-divergence must be >= 0, got "
+                f"{args.recover_on_divergence}")
     if not args.synthetic and not args.dataset:
         p.error("--dataset is required without --synthetic")
 
@@ -61,6 +66,8 @@ def main(argv=None):
         cfg = cfg.replace(total_epochs=args.epochs)
     if args.batch_size:
         cfg = cfg.replace(batch_size=args.batch_size)
+    if args.recover_on_divergence is not None:
+        cfg = cfg.replace(recover_on_divergence=args.recover_on_divergence)
     image_size = args.image_size or (64 if args.synthetic else 256)
     workdir = args.workdir or (
         f"runs/cyclegan-{args.dataset}" if args.dataset else "runs/cyclegan")

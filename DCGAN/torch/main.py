@@ -5,11 +5,11 @@ main.py [--synthetic] [--resume]`.
 The flags are the JAX entry point's (`DCGAN/jax/main.py`): `--data-dir`
 (MNIST idx files), `--epochs`, `--batch-size`, `--workdir`, `--resume`,
 `--synthetic` and `--steps-per-epoch`, plus `--device` (cuda by default;
-a host with no card raises). `--recover-on-divergence` is refused by name
-(divergence recovery is not ported yet: a non-finite epoch halts);
-`--profile-dir` and `--compilation-cache` are XLA's and have no
-counterpart here. For example, three synthetic steps at the config's
-batch of 256:
+a host with no card raises) and `--recover-on-divergence N` (roll back
+and retry a non-finite epoch up to N times). SIGTERM commits a checkpoint
+and exits 0; `--resume` continues. `--profile-dir` and
+`--compilation-cache` are XLA's and have no counterpart here. For
+example, three synthetic steps at the config's batch of 256:
 
     python DCGAN/torch/main.py --synthetic --steps-per-epoch 3 --epochs 1
 """
@@ -32,7 +32,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps-per-epoch", type=int, default=4,
                    help="steps per epoch in --synthetic mode")
     p.add_argument("--recover-on-divergence", type=int, default=None,
-                   metavar="N", help="not ported yet: refused")
+                   metavar="N",
+                   help="roll both networks back to the last committed "
+                        "checkpoint and retry (LR scaled down) up to N "
+                        "times when an epoch's metrics go non-finite "
+                        "(default 0: halt)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     return p
@@ -41,10 +45,10 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
-    if args.recover_on_divergence is not None:
-        p.error("--recover-on-divergence is not ported yet (divergence "
-                "recovery waits for the checkpoint features, ROADMAP A4): "
-                "a non-finite epoch halts with the checkpoint to --resume")
+    if args.recover_on_divergence is not None \
+            and args.recover_on_divergence < 0:
+        p.error(f"--recover-on-divergence must be >= 0, got "
+                f"{args.recover_on_divergence}")
 
     from deepvision_tpu_torch.configs import get_config
     from deepvision_tpu_torch.core.gan import DCGANTrainer
@@ -56,6 +60,8 @@ def main(argv=None):
         cfg = cfg.replace(total_epochs=args.epochs)
     if args.batch_size:
         cfg = cfg.replace(batch_size=args.batch_size)
+    if args.recover_on_divergence is not None:
+        cfg = cfg.replace(recover_on_divergence=args.recover_on_divergence)
 
     trainer = DCGANTrainer(cfg, workdir=args.workdir, device=args.device)
     if args.resume:

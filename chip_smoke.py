@@ -179,6 +179,29 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    the generator phase included). No kernel is on these paths: the K1 and
    K2 launch counts, zeroed at the start of each sub-phase, stay 0.
 
+15. slice 12: resilient training, yolov3 at full width (416 px, batch 16,
+   bf16, synthetic, lr 1e-3). 15a: `YOLO/torch/train.py`'s
+   `cli.run_detection` for 2 epochs of 3 steps with `--recover-on-
+   divergence 1` and the NaN fault (DEEPVISION_FAULT_NAN_STEP) at epoch
+   2's second batch: epoch 2 rolls back to epoch 1 and trains again at LR
+   scale 0.5, then commits; the events, the epochs, the K2 count (one per
+   train step, the diverged and the retried epoch's included, and per
+   eval batch; K1's 0), the host-blocking time of `save()` (the
+   snapshot), the writer's write and hash times and the bytes, and
+   step_ms with a save in flight against step_ms with none. 15b: a
+   verified restore timed; the newest epoch bit-flipped; strict mode
+   raises; `python -m deepvision_tpu_torch fsck` exits 1, 1 with
+   `--quarantine`, then 0; fallback on a copy quarantines `corrupt-2/` and
+   lands on epoch 1. 15c: two runs of `YOLO/torch/train.py` as
+   subprocesses at once: SIGTERM after the first one's first step line
+   (exit 0 with a verified epoch, then `--auto-resume` finishes); SIGKILL
+   to the second while a save is in flight (its resume lands on the
+   newest epoch that verifies). 15d: the
+   trainer's watchdog with an injected abort is quiet through normal
+   steps and fires on a stalled iterator. 15e: 15a's workdir served by
+   `serve.cli.build_server --workdir`: provenance `verified: true` with
+   the manifest's digest; a corrupted copy refused.
+
 The line before the last is a JSON object with one record per kernel; the
 last is `{"ok": true, "device": {...}}`.
 """
@@ -191,8 +214,10 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import runpy
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -218,6 +243,9 @@ from deepvision_tpu_torch.core.centernet import (CenterNetTrainer,
                                                  make_centernet_predict_step,
                                                  make_centernet_train_step,
                                                  predict_heads)
+from deepvision_tpu_torch.core import integrity
+from deepvision_tpu_torch.core.checkpoint import (CheckpointCorruptionError,
+                                                  CheckpointManager)
 from deepvision_tpu_torch.core.eval_pose import evaluate_pckh
 from deepvision_tpu_torch.core.gan import (CycleGANTrainer, DCGANTrainer,
                                            make_cyclegan_discriminator_step,
@@ -1580,7 +1608,8 @@ def check_data_parallel(smi: str, yolo: dict, resnet: dict) -> dict:
                             (DDP2_YOLO_BATCH, DDP2_RESNET_BATCH))])
             launches.append(rank["runs"][0]["best_iou_launches"])
         for name in ("yolo", "resnet"):
-            if not os.path.exists(f"{root2}/{name}/ckpt/1.pt"):
+            if not os.path.exists(f"{root2}/{name}/ckpt/1/"
+                                  f"{integrity.MANIFEST_NAME}"):
                 raise AssertionError(f"phase 11b: {name} saved no checkpoint")
 
         cfg = get_config(RESNET_MODEL)
@@ -2966,6 +2995,495 @@ def check_segmentation_and_gans(yolo: dict) -> dict:
     return out
 
 
+# -- phase 15: resilient training ---------------------------------------------
+
+P15_SIZE = 416
+P15_BATCH = 16
+P15_STEPS = 3                  # per epoch
+P15_EPOCHS = 2
+P15_EVAL_BATCHES = 2           # the synthetic validation set
+# the NaN fault (DEEPVISION_FAULT_NAN_STEP, 0-based over the run): epoch
+# 2's second batch
+P15_NAN_STEP = P15_STEPS + 1
+# the config's lr 0.01 takes yolov3 from random weights to a non-finite
+# loss by itself (ROADMAP Queue C): at 1e-3 only the injected fault makes
+# a step non-finite
+P15_LR = "1e-3"
+P15_DEVICE = "cuda"
+P15_TIMED_STEPS = 10           # step_ms with no write in flight
+P15_MAX_WRITE_STEPS = 60       # steps timed while a write is in flight
+P15_WATCHDOG_SECS = 5.0
+P15_TIMEOUT = 600              # a subprocess of 15c
+FAULT_VARS = ("DEEPVISION_FAULT_DATA_IO_STEP", "DEEPVISION_FAULT_NAN_STEP",
+              "DEEPVISION_FAULT_CKPT_SAVE_FAILS",
+              "DEEPVISION_FAULT_CKPT_ASYNC_FAILS",
+              "DEEPVISION_FAULT_CKPT_CORRUPT")
+
+
+def p15_argv(workdir: str, epochs: int, *extra) -> list:
+    """YOLO/torch/train.py's arguments of phase 15: the model at full
+    width, P15_SIZE px, batch P15_BATCH, synthetic, bf16."""
+    return ["-m", YOLO_MODEL, "--synthetic", "--image-size", str(P15_SIZE),
+            "--batch-size", str(P15_BATCH), "--steps-per-epoch",
+            str(P15_STEPS), "--epochs", str(epochs), "--learning-rate",
+            P15_LR, "--device", P15_DEVICE, "--workdir", workdir, *extra]
+
+
+def p15_cmd(workdir: str, epochs: int, *extra) -> list:
+    return [sys.executable, os.path.join(HERE, "YOLO", "torch", "train.py"),
+            *p15_argv(workdir, epochs, *extra)]
+
+
+def p15_env() -> dict:
+    return {k: v for k, v in os.environ.items() if k not in FAULT_VARS}
+
+
+def p15_workdir(tag: str) -> str:
+    workdir = tempfile.mkdtemp(prefix=f"chip_smoke_p15{tag}_")
+    atexit.register(shutil.rmtree, workdir, ignore_errors=True)
+    return workdir
+
+
+def verified_epochs(ckpt: str) -> list:
+    """The committed epochs of `ckpt` whose files verify."""
+    return [e for e in integrity.committed_epochs(ckpt)
+            if integrity.verify_files(os.path.join(ckpt, str(e)))[0]
+            == integrity.OK]
+
+
+def flip_a_bit(step_dir: str) -> str:
+    """Bit rot in the middle of an epoch's largest payload file."""
+    target = max((os.path.join(r, f) for r, _, fs in os.walk(step_dir)
+                  for f in fs if f != integrity.MANIFEST_NAME),
+                 key=os.path.getsize)
+    with open(target, "r+b") as fp:
+        fp.seek(os.path.getsize(target) // 2)
+        byte = fp.read(1)
+        fp.seek(-1, 1)
+        fp.write(bytes([byte[0] ^ 0x80]))
+    return os.path.relpath(target, step_dir)
+
+
+def fsck(path: str, *flags) -> tuple:
+    """`python -m deepvision_tpu_torch fsck <path> --format json`: (exit
+    code, its summary)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "deepvision_tpu_torch", "fsck", path,
+         "--format", "json", *flags], capture_output=True, text=True,
+        cwd=HERE, timeout=300)
+    return proc.returncode, json.loads(proc.stdout)
+
+
+def check_p15_divergence() -> dict:
+    """15a: YOLO/torch/train.py's `cli.run_detection` for P15_EPOCHS
+    epochs with `--recover-on-divergence 1` and the NaN fault at epoch 2's
+    second batch: epoch 2 rolls back to epoch 1 and trains again at LR
+    scale plateau x 0.5, then commits. K2 launches once per train step
+    (the diverged and the retried epoch's included) and per eval batch."""
+    workdir = p15_workdir("a")
+    os.environ["DEEPVISION_FAULT_NAN_STEP"] = str(P15_NAN_STEP)
+    os.environ["DEEPVISION_IO_RETRY_DELAY"] = "0.01"
+    flash_attention.launches = best_iou.launches = 0
+    t0 = time.perf_counter()
+    try:
+        trainer, result = run_detection("YOLO", [YOLO_MODEL], p15_argv(
+            workdir, P15_EPOCHS, "--recover-on-divergence", "1"))
+    finally:
+        for var in ("DEEPVISION_FAULT_NAN_STEP", "DEEPVISION_IO_RETRY_DELAY"):
+            os.environ.pop(var, None)
+    wall = time.perf_counter() - t0
+    launches = (flash_attention.launches, best_iou.launches)
+    hist = trainer.logger.history
+    events = {k: v["value"] for k, v in hist.items()
+              if k.startswith("resilience_")}
+    epochs = hist["epoch_train_loss"]["epochs"]
+    losses = hist["epoch_train_loss"]["value"]
+    train_steps = P15_STEPS * (P15_EPOCHS + 1)
+    eval_batches = P15_EVAL_BATCHES * P15_EPOCHS
+    ckpt = os.path.join(workdir, "ckpt")
+    scale = trainer.state.optimizer.lr_scale
+    plateau = trainer.plateau.scale if trainer.plateau else 1.0
+    save = {"block_ms": 1e3 * trainer.ckpt.last_save_block_secs,
+            **trainer.ckpt.last_commit}
+    phase(f"15a {YOLO_MODEL} ({P15_SIZE} px, batch {P15_BATCH}, "
+          f"{trainer.config.dtype}, lr {P15_LR}) with the NaN fault at "
+          f"batch {P15_NAN_STEP} and --recover-on-divergence 1: events "
+          f"{events}; epochs logged {epochs} with mean train loss {losses}; "
+          f"final step {trainer.state.step}, LR scale {scale:g} (plateau "
+          f"{plateau:g}); verified epochs {verified_epochs(ckpt)}; "
+          f"launches (flash_attention, best_iou) {launches} for "
+          f"{train_steps} train steps and {eval_batches} eval batches; "
+          f"run_detection {wall:.1f}s")
+    phase(f"15a checkpoint of epoch {save['epoch']}: save() blocked "
+          f"{save['block_ms']:.1f} ms (the host snapshot), the writer "
+          f"wrote in {save['write_secs']:.3f}s and hashed in "
+          f"{save['hash_secs']:.3f}s, {save['bytes']} bytes")
+    if events.get("resilience_divergence_recoveries") != [1.0] \
+            or events.get("resilience_lr_scale") != [0.5]:
+        raise AssertionError(f"15a: no single rollback at scale 0.5: "
+                             f"{events}")
+    if epochs != [1, 2, 2] or not (np.isfinite(losses[0])
+                                   and np.isnan(losses[1])
+                                   and np.isfinite(losses[2])):
+        raise AssertionError(f"15a: epochs {epochs}, losses {losses}")
+    if trainer.state.step != P15_STEPS * P15_EPOCHS \
+            or scale != plateau * 0.5:
+        raise AssertionError(f"15a: step {trainer.state.step}, LR scale "
+                             f"{scale}")
+    if launches != (0, train_steps + eval_batches):
+        raise AssertionError(f"15a: launches {launches}, want (0, "
+                             f"{train_steps + eval_batches})")
+    if verified_epochs(ckpt) != [1, 2] or not np.isfinite(
+            result.get("loss", np.nan)):
+        raise AssertionError(f"15a: committed {verified_epochs(ckpt)}, "
+                             f"validation {result}")
+    return {"trainer": trainer, "config": trainer.config,
+            "workdir": workdir, "launches": launches[1],
+            "train_steps": train_steps, "eval_batches": eval_batches,
+            "events": events, "save": save}
+
+
+def check_p15_save_overlap(trainer) -> dict:
+    """15a, the async save against the step loop: step_ms (host clock
+    around each step and a synchronize) with no write in flight, then a
+    save of the trained state into a manager of its own and the steps run
+    while its writer writes and hashes, then again with none."""
+    batch = trainer._to_device(next(synthetic_batches(
+        batch_size=P15_BATCH, image_size=P15_SIZE,
+        num_classes=trainer.config.data.num_classes, steps=1, seed=11)))
+
+    def step_ms() -> float:
+        t = time.perf_counter()
+        trainer.run_step(batch)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t)
+
+    for _ in range(2):
+        step_ms()
+    alone = [step_ms() for _ in range(P15_TIMED_STEPS)]
+    root = tempfile.mkdtemp(prefix="chip_smoke_p15_save_")
+    mgr = CheckpointManager(root, keep=1, keep_best=False)
+    saves = []
+    during: list = []
+    for epoch in (1, 2):       # the first allocates the pinned buffers
+        t0 = time.perf_counter()
+        mgr.save(epoch, trainer.state.state_dict())
+        block = time.perf_counter() - t0
+        if epoch == 2:
+            while mgr.writing and len(during) < P15_MAX_WRITE_STEPS:
+                during.append(step_ms())
+        still = mgr.writing
+        mgr.flush()
+        saves.append({"block_ms": 1e3 * block,
+                      "save_to_commit_s": time.perf_counter() - t0,
+                      **mgr.last_commit})
+    mgr.close()
+    shutil.rmtree(root, ignore_errors=True)
+    after = [step_ms() for _ in range(P15_TIMED_STEPS)]
+    out = {"alone_ms": statistics.median(alone),
+           "during_ms": statistics.median(during) if during else None,
+           "after_ms": statistics.median(after), "during_steps": len(during),
+           "write_outlasted_steps": still, "saves": saves}
+    phase(f"15a async save of the trained state: first save blocked "
+          f"{saves[0]['block_ms']:.1f} ms (pinned buffers allocated), the "
+          f"second {saves[1]['block_ms']:.1f} ms (reused); writer "
+          f"{saves[1]['write_secs']:.3f}s write + "
+          f"{saves[1]['hash_secs']:.3f}s hash of {saves[1]['bytes']} bytes; "
+          f"step_ms median {out['alone_ms']:.3f} with no write, "
+          + (f"{out['during_ms']:.3f}" if during else "n/a")
+          + f" over {len(during)} steps while the write was in flight "
+          f"(still writing after them: {still}), {out['after_ms']:.3f} "
+          f"after")
+    if not during:
+        raise AssertionError("15a: the write ended before a step ran")
+    return out
+
+
+def check_p15_integrity(a: dict) -> dict:
+    """15b: a verified restore timed; the newest epoch bit-flipped; strict
+    mode raises and quarantines nothing; fsck exits 1, 1 with
+    --quarantine, then 0; fallback on a copy of the damaged directory
+    quarantines corrupt-2/ and lands on epoch 1."""
+    cfg, workdir = a["config"], a["workdir"]
+    ckpt = os.path.join(workdir, "ckpt")
+
+    def trainer_on(wd):
+        t = DetectionTrainer(cfg, device=P15_DEVICE, workdir=wd)
+        t.init_state()
+        return t
+
+    t = trainer_on(workdir)
+    t0 = time.perf_counter()
+    got = t.resume()
+    restore_s = time.perf_counter() - t0
+    info = t.ckpt.last_restore_info
+    t.close()
+    total = integrity.load_manifest(os.path.join(ckpt, "2"))["total_bytes"]
+    rc_clean, _ = fsck(workdir)
+    flipped = flip_a_bit(os.path.join(ckpt, "2"))
+    copy = p15_workdir("b")
+    shutil.copytree(ckpt, os.path.join(copy, "ckpt"))
+    t = trainer_on(workdir)
+    try:
+        t.resume(verify="strict")
+        strict = "restored"
+    except CheckpointCorruptionError as e:
+        strict = f"refused: {str(e)[:120]}"
+    t.close()
+    untouched = os.path.isdir(os.path.join(ckpt, "2")) and not \
+        integrity.quarantined_dirs(ckpt)
+    rcs = [rc_clean]
+    summaries = []
+    for flags in ((), ("--quarantine",), ()):
+        rc, summary = fsck(workdir, *flags)
+        rcs.append(rc)
+        summaries.append({k: summary[k] for k in ("fsck", "corrupt",
+                                                  "quarantined")})
+    t = trainer_on(copy)
+    fell_back = t.resume()
+    fb_info = t.ckpt.last_restore_info
+    t.close()
+    quarantined = integrity.quarantined_dirs(os.path.join(copy, "ckpt"))
+    phase(f"15b restore of epoch {got} with its verify (file hashes, "
+          f"torch.load, leaf hashes) of {total} bytes: {restore_s:.3f}s "
+          f"(verified={info['verified']}); bit flipped in epoch 2's "
+          f"{flipped}: strict {strict}; fsck exit codes (clean, damaged, "
+          f"--quarantine, again) {rcs} {summaries}; fallback on a copy "
+          f"landed on epoch {fell_back} (skipped "
+          f"{fb_info['fallback_skipped']}, quarantined {quarantined})")
+    if got != 2 or not info["verified"]:
+        raise AssertionError(f"15b: restored {got}, {info}")
+    if not strict.startswith("refused") or not untouched:
+        raise AssertionError(f"15b: strict {strict}, untouched {untouched}")
+    if rcs != [0, 1, 1, 0] or integrity.quarantined_dirs(ckpt) != [
+            "corrupt-2"]:
+        raise AssertionError(f"15b: fsck {rcs}, quarantined "
+                             f"{integrity.quarantined_dirs(ckpt)}")
+    if fell_back != 1 or quarantined != ["corrupt-2"] \
+            or fb_info["fallback_skipped"] != 1:
+        raise AssertionError(f"15b: fallback {fell_back} {fb_info}")
+    torch.cuda.empty_cache()
+    return {"restore_s": restore_s, "restore_bytes": total,
+            "fsck": rcs, "copy": copy}
+
+
+def _echo_lines(proc, lines: list, seen: threading.Event,
+                pattern: str) -> None:
+    for line in proc.stdout:
+        lines.append(line)
+        if re.search(pattern, line):
+            seen.set()
+
+
+def check_p15_preemption() -> dict:
+    """15c: two runs of YOLO/torch/train.py as subprocesses on the card, at
+    once. The first gets SIGTERM after its first step line: exit 0 with a
+    verified epoch committed, then `--auto-resume` finishes the run. The
+    second gets SIGKILL while a save is in flight (its temporary directory
+    on disk, two epochs committed): its resume lands on the newest epoch
+    that verifies. Both relaunches run at once too."""
+    wd_term, wd_kill = p15_workdir("c"), p15_workdir("c2")
+    ckpt_term = os.path.join(wd_term, "ckpt")
+    ckpt_kill = os.path.join(wd_kill, "ckpt")
+    env = p15_env()
+    t0 = time.perf_counter()
+    term = subprocess.Popen(p15_cmd(wd_term, 1000, "--auto-resume"),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, env=env, cwd=HERE)
+    kill = subprocess.Popen(p15_cmd(wd_kill, 1000, "--auto-resume"),
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.DEVNULL, env=env, cwd=HERE)
+    lines: list = []
+    seen = threading.Event()
+    reader = threading.Thread(target=_echo_lines, daemon=True,
+                              args=(term, lines, seen, r"epoch \d+ step \d+"))
+    reader.start()
+    in_flight: list = []
+    try:
+        deadline = time.monotonic() + P15_TIMEOUT
+        while term.poll() is None or kill.poll() is None:
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"15c: no step line or no save in flight within "
+                    f"{P15_TIMEOUT}s: " + "".join(lines[-20:]))
+            if seen.is_set() and term.poll() is None:
+                term.send_signal(signal.SIGTERM)
+                term.wait(timeout=P15_TIMEOUT)
+            if kill.poll() is None and os.path.isdir(ckpt_kill):
+                in_flight = [d for d in os.listdir(ckpt_kill)
+                             if d.startswith(".tmp-")]
+                if in_flight and len(
+                        integrity.committed_epochs(ckpt_kill)) >= 2:
+                    kill.send_signal(signal.SIGKILL)
+                    kill.wait(timeout=60)
+            time.sleep(0.005)
+    finally:
+        for proc in (term, kill):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    reader.join(timeout=60)
+    out = "".join(lines)
+    m = re.search(r"graceful preemption: checkpoint committed at epoch "
+                  r"(\d+)", out)
+    if term.returncode != 0 or not m:
+        raise AssertionError(f"15c: SIGTERM exit {term.returncode}: "
+                             f"{out[-3000:]}")
+    epoch = int(m.group(1))
+    if verified_epochs(ckpt_term)[-1:] != [epoch]:
+        raise AssertionError(f"15c: epoch {epoch} not verified: "
+                             f"{integrity.audit(ckpt_term)}")
+    committed = integrity.committed_epochs(ckpt_kill)
+    newest_ok = verified_epochs(ckpt_kill)[-1]
+    signalled_s = time.perf_counter() - t0
+    again = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env,
+                              cwd=HERE)
+             for cmd in (p15_cmd(wd_term, epoch + 1, "--auto-resume"),
+                         p15_cmd(wd_kill, committed[-1] + 1,
+                                 "--auto-resume"))]
+    outs = [proc.communicate(timeout=P15_TIMEOUT) for proc in again]
+    (out_t, err_t), (out_k, err_k) = outs
+    m2 = re.search(r"resumed from epoch (\d+)", out_k)
+    left = [d for d in os.listdir(ckpt_kill) if d.startswith(".tmp-")]
+    phase(f"15c SIGTERM after the first step line: exit {term.returncode}, "
+          f"epoch {epoch} committed and verified; --auto-resume exit "
+          f"{again[0].returncode}, finished epoch {epoch + 1}. SIGKILL with "
+          f"{in_flight} on disk and epochs {committed} committed: newest "
+          f"verified {newest_ok}, the resume landed on "
+          f"{m2.group(1) if m2 else None} (exit {again[1].returncode}), "
+          f"temporary directories left {left}. Signals sent "
+          f"{signalled_s:.1f}s after the two starts")
+    if again[0].returncode != 0 or f"resumed from epoch {epoch}" not in \
+            out_t or "done: best=" not in out_t:
+        raise AssertionError(f"15c: --auto-resume exit "
+                             f"{again[0].returncode}: {out_t[-2000:]}"
+                             f"{err_t[-2000:]}")
+    if again[1].returncode != 0 or not m2 or int(m2.group(1)) != newest_ok \
+            or left:
+        raise AssertionError(f"15c: resume after SIGKILL: {out_k[-2000:]}"
+                             f"{err_k[-2000:]}")
+    return {"sigterm_epoch": epoch, "sigkill_committed": committed,
+            "sigkill_resumed": newest_ok}
+
+
+def check_p15_watchdog(a: dict) -> dict:
+    """15d: `watchdog_secs` armed in a DetectionTrainer on the card, the
+    abort injected: P15_STEPS normal steps keep it quiet; a data iterator
+    that then stalls fires it after the threshold, at the last step."""
+    cfg = a["config"].replace(watchdog_secs=P15_WATCHDOG_SECS,
+                              total_epochs=2)
+    trainer = DetectionTrainer(cfg, device=P15_DEVICE,
+                               workdir=p15_workdir("d"))
+    fired = threading.Event()
+    at: dict = {}
+
+    def abort():
+        at["step"] = trainer._host_step
+        at["fired"] = time.perf_counter()
+        fired.set()
+
+    trainer.watchdog_abort = abort
+    batches = list(synthetic_batches(
+        batch_size=P15_BATCH, image_size=P15_SIZE,
+        num_classes=cfg.data.num_classes, steps=P15_STEPS, seed=3))
+
+    def data(epoch):
+        if epoch == 1:
+            yield from batches
+            return
+        at["quiet_through_epoch_1"] = not fired.is_set()
+        at["stall"] = time.perf_counter()
+        fired.wait(6 * P15_WATCHDOG_SECS)
+
+    trainer.init_state()
+    trainer.fit(data)
+    trainer.close()
+    waited = at.get("fired", np.inf) - at.get("stall", 0.0)
+    phase(f"15d watchdog at {P15_WATCHDOG_SECS:g}s: quiet through "
+          f"{P15_STEPS} steps ({at.get('quiet_through_epoch_1')}); fired "
+          f"{waited:.2f}s into the stalled iterator at step "
+          f"{at.get('step')}")
+    if not fired.is_set() or not at.get("quiet_through_epoch_1") \
+            or at.get("step") != P15_STEPS \
+            or not P15_WATCHDOG_SECS <= waited <= 3 * P15_WATCHDOG_SECS:
+        raise AssertionError(f"15d: {at}")
+    return {"fired_after_s": waited, "step": at["step"]}
+
+
+def check_p15_serving(a: dict, b: dict) -> dict:
+    """15e: 15a's workdir (epoch 2 quarantined by 15b's fsck) served by
+    `serve.cli.build_server --workdir`: provenance verified with epoch 1's
+    manifest digest, an answer equal to `engine.reference()`; 15b's copy
+    with its last good epoch bit-flipped is refused."""
+    ckpt = os.path.join(a["workdir"], "ckpt")
+    args = build_parser().parse_args(
+        ["-m", YOLO_MODEL, "--workdir", a["workdir"], "--device", P15_DEVICE,
+         "--buckets", "1", "--flush-every", "60"])
+    server = build_server(args)
+    engine = server.engine
+    prov = engine.provenance
+    want = {"weights": "checkpoint", "checkpoint_epoch": 1, "verified": True,
+            "manifest_sha256": integrity.manifest_digest(
+                integrity.load_manifest(os.path.join(ckpt, "1"))),
+            "resharded": False}
+    x = np.random.RandomState(31).rand(1, *engine.example_shape).astype(
+        np.float32)
+    got = server.fleet.get().submit(x).result(timeout=120)
+    ref = engine.reference(x)
+    equal = all(np.allclose(g, w, rtol=P14_RESTORE_RTOL, atol=0,
+                            equal_nan=True)
+                for g, w in zip(_leaves(got), _leaves(ref)))
+    server.close()
+    copy = b["copy"]
+    flip_a_bit(os.path.join(copy, "ckpt", "1"))
+    args = build_parser().parse_args(
+        ["-m", YOLO_MODEL, "--workdir", copy, "--device", P15_DEVICE,
+         "--buckets", "1", "--flush-every", "60"])
+    try:
+        build_server(args).close()
+        refused = "served"
+    except CheckpointCorruptionError as e:
+        refused = f"refused: {str(e)[:120]}"
+    phase(f"15e {YOLO_MODEL} served from 15a's workdir: provenance {prov}; "
+          f"answer vs engine.reference() equal={equal}; the corrupted copy "
+          f"{refused}")
+    if prov != want or not equal or not refused.startswith("refused"):
+        raise AssertionError(f"15e: provenance {prov} (want {want}), "
+                             f"equal {equal}, {refused}")
+    torch.cuda.empty_cache()
+    return {"provenance": prov}
+
+
+def check_resilience() -> dict:
+    """Phase 15, slice 12: resilient yolov3 training on the card. K2 runs
+    on 15a's path (the main path of this phase, its counts zeroed just
+    before run_detection) and on 15d's steps; K1 on none."""
+    t0 = time.perf_counter()
+    out = {"15a": check_p15_divergence()}
+    trainer = out["15a"].pop("trainer")
+    out["15a"]["overlap"] = check_p15_save_overlap(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    expected = {"15b": 0, "15c": 0, "15d": P15_STEPS, "15e": 0}
+    for tag, run in (("15b", lambda: check_p15_integrity(out["15a"])),
+                     ("15c", check_p15_preemption),
+                     ("15d", lambda: check_p15_watchdog(out["15a"])),
+                     ("15e", lambda: check_p15_serving(out["15a"],
+                                                       out["15b"]))):
+        flash_attention.launches = best_iou.launches = 0
+        t1 = time.perf_counter()
+        out[tag] = run()
+        counts = (flash_attention.launches, best_iou.launches)
+        phase(f"{tag}: launches (flash_attention, best_iou): {counts}; "
+              f"{time.perf_counter() - t1:.1f}s")
+        if counts != (0, expected[tag]):
+            raise AssertionError(f"phase {tag}: launches {counts}, want "
+                                 f"(0, {expected[tag]})")
+    phase(f"15: phase 15 took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3166,6 +3684,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_segmentation_and_gans(yolo)
 
+    # 15. slice 12: resilient training (K2 on its main path, 15a: the
+    # counts, zeroed there, read just after run_detection)
+    torch.cuda.empty_cache()
+    resil = check_resilience()
+
     timed_keys = ("shape", "layout", "ms", "device_ms", "plain_ms",
                   "library_ms", "library_device_ms", "bound_ms")
     b32 = main_path[-1]                  # bucket 32, the model's layout
@@ -3201,6 +3724,10 @@ def main() -> int:
         "library_device_ms": None, "shape": iou_fused["shape"],
         "segments": iou_fused["segments"], "dtype": "float32",
         "sass": k2_sass,
+        "resilience_launches": {
+            "launches": resil["15a"]["launches"],
+            "train_steps": resil["15a"]["train_steps"],
+            "eval_batches": resil["15a"]["eval_batches"]},
         "scales": [{k: r[k] for k in ("shape", "ms", "device_ms", "plain_ms",
                                       "bound_ms")}
                    for r in iou_scales]}]}), flush=True)

@@ -19,8 +19,11 @@ the digit segmentation scenes). The
 flags are the JAX CLI's (`-m`, `-c`, `--data-dir`, `--synthetic`,
 `--epochs`, `--batch-size`, `--eval-batch-size`, `--learning-rate`,
 `--accum-steps`, `--no-decay-bn-bias`, `--ema-decay`, `--device-augment`,
-`--prefetch-batches`, `--steps-per-epoch`, `--seed`, `--workdir`), plus
-`--device` and `--image-size`.
+`--prefetch-batches`, `--steps-per-epoch`, `--seed`, `--workdir`, and the
+resilience flags `--auto-resume`, `--resume {strict,fallback}`,
+`--recover-on-divergence N`, `--watchdog-secs S` (or
+DEEPVISION_WATCHDOG_SECS) and `--no-graceful-shutdown`), plus `--device`
+and `--image-size`.
 
 Data parallelism needs no flag, as in the JAX CLI: under
 `torchrun --standalone --nproc_per_node=N ResNet/torch/train.py ...` each
@@ -28,6 +31,9 @@ process is one rank (NCCL on the cards, gloo with `--device cpu`),
 `--batch-size` is the global batch and each rank's pipeline makes its own
 `batch-size // N` rows of every training batch; the validation batches
 are global and the trainer splits them. Only rank 0 prints and writes.
+A checkpoint is whole under DDP, so `--auto-resume` under another world
+size restores it natively (`resharded` stays false; model and spatial
+resharding are ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -105,6 +111,33 @@ def build_parser(family: str, models: Sequence[str]) -> argparse.ArgumentParser:
                    help="checkpoints and metrics (default runs/<config>)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--auto-resume", action="store_true",
+                   help="resume from the latest checkpoint if one exists "
+                        "(preemption recovery; starts fresh otherwise)")
+    p.add_argument("--resume", choices=["strict", "fallback"], default=None,
+                   help="checkpoint integrity mode for -c/--auto-resume: "
+                        "'fallback' (default) verifies the integrity "
+                        "manifest and on corruption quarantines the bad "
+                        "epoch (corrupt-<N>/) and resumes from the next-"
+                        "newest epoch that verifies; 'strict' refuses to "
+                        "restore an unverified checkpoint (audit with "
+                        "`python -m deepvision_tpu_torch fsck`)")
+    p.add_argument("--recover-on-divergence", type=int, default=None,
+                   metavar="N",
+                   help="when an epoch's loss goes non-finite, roll back to "
+                        "the last committed checkpoint, scale the LR down, "
+                        "and retry — up to N times before halting with the "
+                        "usual divergence error (default 0: halt only)")
+    p.add_argument("--watchdog-secs", type=float,
+                   default=os.environ.get("DEEPVISION_WATCHDOG_SECS"),
+                   metavar="S",
+                   help="in-process stall watchdog: abort (exit 70) with "
+                        "diagnostics when no train step completes for S "
+                        "seconds — set S above the first step's time; "
+                        "default off (env DEEPVISION_WATCHDOG_SECS)")
+    p.add_argument("--no-graceful-shutdown", action="store_true",
+                   help="disable the SIGTERM/SIGINT handler that commits a "
+                        "checkpoint and exits 0 on preemption")
     p.add_argument("--image-size", type=int, default=None,
                    help="override the image size; the JAX CLI has no such "
                         "flag. With --synthetic it replaces the 64 px "
@@ -146,6 +179,20 @@ def _config_from_args(args, synthetic_image_size: Optional[int]
         cfg = cfg.replace(prefetch_batches=args.prefetch_batches)
     if args.seed is not None:
         cfg = cfg.replace(seed=args.seed)
+    if args.resume:
+        cfg = cfg.replace(resume_verify=args.resume)
+    if args.recover_on_divergence is not None:
+        if args.recover_on_divergence < 0:
+            raise SystemExit(f"--recover-on-divergence must be >= 0, got "
+                             f"{args.recover_on_divergence}")
+        cfg = cfg.replace(recover_on_divergence=args.recover_on_divergence)
+    if args.watchdog_secs is not None:
+        secs = float(args.watchdog_secs)
+        if secs <= 0:
+            raise SystemExit(f"--watchdog-secs must be > 0, got {secs}")
+        cfg = cfg.replace(watchdog_secs=secs)
+    if args.no_graceful_shutdown:
+        cfg = cfg.replace(graceful_shutdown=False)
     if args.synthetic:
         n_batches = args.steps_per_epoch or SYNTH_STEPS_DEFAULT
         synth = dict(dataset="synthetic",
@@ -302,6 +349,10 @@ def _run(family: str, models: Sequence[str], trainer_factory: Callable,
         if args.checkpoint:
             trainer.resume(None if args.checkpoint == "latest"
                            else int(args.checkpoint))
+        elif args.auto_resume:
+            # preemption recovery: the latest checkpoint if there is one,
+            # a fresh start otherwise
+            trainer.resume()
         from .core.trainer import fit_and_close, say
         result = fit_and_close(trainer, train_fn, val_fn)
         say(f"done: best={result.get('best_metric')}")

@@ -1,8 +1,8 @@
 """Typed configs: the fields of deepvision_tpu/core/config.py that the
 port's serve path and its trainers read (own copy), and
 `decode_image_size`. Defaults equal the JAX package's. Fields
-of the JAX configs that no ported path reads yet (mesh, mixup, dispatch
-and resilience levers) arrive with the slice that needs them.
+of the JAX configs that no ported path reads yet (mesh, mixup and
+dispatch levers) arrive with the slice that needs them.
 """
 
 from __future__ import annotations
@@ -121,6 +121,27 @@ class TrainConfig:
     # training batches staged ahead on the device by a producer thread
     # (parallel/prefetch.py); 1 stages inline
     prefetch_batches: int = 2
+    # divergence recovery (core/resilience.py): when an epoch's mean loss
+    # is non-finite, roll back to the last committed checkpoint, scale the
+    # LR by recovery_lr_factor and retry the epoch, up to this many times a
+    # run; then the halt fires. 0 halts at once. Needs halt_on_nonfinite
+    # (the trigger) and a committed checkpoint to roll back to
+    recover_on_divergence: int = 0
+    # multiplied into a persistent LR scale at every rollback (composed
+    # with the plateau's scale)
+    recovery_lr_factor: float = 0.5
+    # integrity mode of a restore (-c, --auto-resume, a rollback):
+    # "fallback" quarantines a corrupt epoch (corrupt-<epoch>/) and resumes
+    # from the next-newest one that verifies, "strict" raises, "off"
+    # restores blindly (core/checkpoint.py)
+    resume_verify: str = "fallback"
+    # in-process step watchdog (resilience.StepWatchdog): abort with
+    # diagnostics (exit 70) when no step completes for this many seconds;
+    # None is off
+    watchdog_secs: Optional[float] = None
+    # SIGTERM/SIGINT during fit(): finish the step in flight, commit a
+    # checkpoint, exit 0 with the resume hint
+    graceful_shutdown: bool = True
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

@@ -27,14 +27,22 @@ the DCGAN step also takes its noise as an argument. A checkpoint is {"gen", "dis
 saved every 2 epochs and at the last, the last `keep_checkpoints` kept.
 
 The port runs these trainers in one process and refuses a process group
-of more than one rank (GANs under torchrun are ROADMAP A6). Graceful
-shutdown and divergence recovery wait for A4: a non-finite epoch halts.
+of more than one rank (GANs under torchrun are ROADMAP A6). They share the
+supervised trainer's resilience (deepvision_tpu/core/gan.py): the fault
+injector and the retry policy from the environment, the host pull under
+`resilient_batches`, SIGTERM/SIGINT committing a checkpoint and raising
+PreemptionExit, and bounded divergence recovery: a non-finite epoch rolls
+both networks and both optimizers back to the last {gen, disc}
+checkpoint, multiplies both LR scales by `recovery_lr_factor`, and
+retries.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import statistics
+import sys
 import time
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
@@ -46,11 +54,14 @@ from ..models.gan import (CycleGANGenerator, DCGANDiscriminator,
                           DCGANGenerator, PatchGANDiscriminator)
 from ..parallel import mesh
 from ..utils.device import resolve_device
+from ..utils.faults import FaultInjector
 from ..utils.image_pool import ImagePool
 from .checkpoint import CheckpointManager
 from .config import TrainConfig
 from .metrics import MetricsLogger
 from .optim import build_optimizer
+from .resilience import (GracefulShutdown, PreemptionExit, RetryPolicy,
+                         log_resilience_event, resilient_batches)
 from .train_state import TrainState
 from .trainer import _StepClock, divergence_halt, say
 
@@ -97,9 +108,9 @@ def _state(model: torch.nn.Module, config: TrainConfig,
 class AdversarialTrainer:
     """The epoch loop of the two-network trainers: per-step metrics kept on
     the device and averaged at the end of the epoch, a {gen, disc}
-    checkpoint every `save_every` epochs and at the last, and resume.
-    Subclasses set `gen_state` / `disc_state` and implement
-    `train_batch(*batch) -> metrics`."""
+    checkpoint every `save_every` epochs and at the last, resume, graceful
+    preemption and divergence recovery. Subclasses set `gen_state` /
+    `disc_state` and implement `train_batch(*batch) -> metrics`."""
 
     gen_state: TrainState
     disc_state: TrainState
@@ -116,9 +127,16 @@ class AdversarialTrainer:
         self.device = resolve_device(device)
         self.workdir = workdir
         self.logger = MetricsLogger(workdir, name=config.name)
-        self.ckpt = CheckpointManager(workdir + "/ckpt",
-                                      keep=config.keep_checkpoints,
-                                      keep_best=False)
+        self.faults = FaultInjector.from_env()
+        self.retry_policy = RetryPolicy.from_env()
+        self._recovery_scale = 1.0
+        self._recoveries = 0
+        self._batch_count = 0
+        self._shutdown: Optional[GracefulShutdown] = None
+        self.ckpt = CheckpointManager(
+            workdir + "/ckpt", keep=config.keep_checkpoints, keep_best=False,
+            retry_policy=self.retry_policy, on_retry=self._log_retry,
+            fault_injector=self.faults if self.faults.active else None)
         self.start_epoch = 1
         #: per-step host metrics (with `step_ms`) of the last trained epoch
         self.last_epoch_steps: List[Dict[str, float]] = []
@@ -132,13 +150,24 @@ class AdversarialTrainer:
         return {"gen": self.gen_state.state_dict(),
                 "disc": self.disc_state.state_dict()}
 
-    def resume(self, epoch: Optional[int] = None) -> Optional[int]:
+    def _log_retry(self, what: str, attempt: int, exc: BaseException,
+                   delay: float) -> None:
+        print(f"[{self.config.name}] transient {what} failure "
+              f"(attempt {attempt}/{self.retry_policy.max_retries}): {exc} "
+              f"— retrying in {delay:.2f}s", file=sys.stderr, flush=True)
+        log_resilience_event(self.logger, self._batch_count,
+                             {f"{what}_retries": float(attempt)})
+
+    def resume(self, epoch: Optional[int] = None,
+               verify: Optional[str] = None) -> Optional[int]:
         """Restore both networks and both optimizers from the latest (or
-        the given) checkpoint; the restored epoch, or None."""
-        restored = self.ckpt.restore(epoch)
-        if restored is None:
+        the given) checkpoint, verified as `verify` (default
+        `config.resume_verify`) says; the restored epoch, or None."""
+        payload, _, got = self.ckpt.restore(
+            epoch, verify=verify if verify is not None
+            else self.config.resume_verify)
+        if got is None:
             return None
-        got, payload = restored
         self.gen_state.load_state_dict(payload["gen"])
         self.disc_state.load_state_dict(payload["disc"])
         self.start_epoch = got + 1
@@ -151,10 +180,17 @@ class AdversarialTrainer:
         t0 = time.time()
         step_metrics: List[Metrics] = []
         clock = _StepClock(self.device)
-        for batch in data:
+        batches = resilient_batches(
+            data, self.retry_policy,
+            injector=self.faults if self.faults.active else None,
+            on_retry=self._log_retry)
+        for batch in batches:
+            if self._shutdown is not None and self._shutdown.requested:
+                break  # the step in flight finished; fit commits, exits 0
             if not isinstance(batch, tuple):
                 batch = (batch,)
             step_metrics.append(self.train_batch(*batch))
+            self._batch_count += 1
             clock.mark()
         out: Dict[str, float] = {}
         self.last_epoch_steps = []
@@ -172,29 +208,83 @@ class AdversarialTrainer:
         out["epoch_seconds"] = time.time() - t0
         return out
 
+    def _recover_from_divergence(self, epoch: int) -> Optional[int]:
+        """Roll both networks and both optimizers back to the last
+        committed {gen, disc} checkpoint and multiply both LR scales by
+        `config.recovery_lr_factor` (persistently). Returns the restored
+        epoch, or None when nothing is committed."""
+        got = self.resume()
+        if got is None:
+            return None
+        self._recoveries += 1
+        self._recovery_scale *= self.config.recovery_lr_factor
+        for state in (self.gen_state, self.disc_state):
+            state.optimizer.set_lr_scale(self._recovery_scale)
+        say(f"[{self.config.name}] divergence recovery {self._recoveries}: "
+            f"epoch {epoch} diverged — rolled back to epoch {got}, LR scale "
+            f"now {self._recovery_scale:g}")
+        log_resilience_event(
+            self.logger, self._batch_count,
+            {"divergence_recoveries": float(self._recoveries),
+             "lr_scale": self._recovery_scale}, epoch=epoch)
+        return got
+
     def fit(self, train_data_fn: Callable[[int], Iterable],
             total_epochs: Optional[int] = None,
             save_every: int = 2) -> Dict[str, float]:
         """Train epochs start_epoch..total_epochs; save every `save_every`
         epochs and at the last (`DCGAN/tensorflow/main.py:81-83`). A
-        non-finite mean metric halts with the checkpoint to resume from.
-        Returns the last epoch's mean metrics."""
+        non-finite mean metric rolls back and retries under
+        `config.recover_on_divergence`, then halts with the checkpoint to
+        resume from; SIGTERM/SIGINT commit the epoch and raise
+        PreemptionExit. Returns the last epoch's mean metrics, with the
+        last save committed."""
         total_epochs = total_epochs or self.config.total_epochs
         metrics: Dict[str, float] = {}
-        for epoch in range(self.start_epoch, total_epochs + 1):
-            metrics = self._train_one_epoch(train_data_fn(epoch))
-            self.logger.log(epoch, metrics, epoch=epoch, prefix="train_")
-            if self.config.halt_on_nonfinite and any(
-                    not math.isfinite(v) for v in metrics.values()):
-                divergence_halt(self.config, self.ckpt, epoch,
-                                f"mean metrics contain a non-finite value "
-                                f"({metrics})", resume_cmd="--resume")
-            if epoch % save_every == 0 or epoch == total_epochs:
-                self.ckpt.save(epoch, self._payload())
+        recoveries_left = self.config.recover_on_divergence
+        with contextlib.ExitStack() as stack:
+            if self.config.graceful_shutdown:
+                self._shutdown = stack.enter_context(GracefulShutdown(
+                    what="finishing the step, saving a checkpoint, then "
+                         "exiting 0"))
+            stack.callback(setattr, self, "_shutdown", None)
+            epoch = self.start_epoch
+            while epoch <= total_epochs:
+                metrics = self._train_one_epoch(train_data_fn(epoch))
+                # logged before the divergence check: the diverged epoch's
+                # metrics belong in the stream
+                self.logger.log(epoch, metrics, epoch=epoch, prefix="train_")
+                if self._shutdown is not None and self._shutdown.requested:
+                    self.ckpt.save(epoch, self._payload())
+                    self.ckpt.flush()
+                    raise PreemptionExit(
+                        epoch,
+                        f"[{self.config.name}] graceful preemption: "
+                        f"checkpoint committed at epoch {epoch} — relaunch "
+                        f"with --resume to continue")
+                if self.config.halt_on_nonfinite and any(
+                        not math.isfinite(v) for v in metrics.values()):
+                    if recoveries_left > 0:
+                        rolled = self._recover_from_divergence(epoch)
+                        if rolled is not None:
+                            recoveries_left -= 1
+                            epoch = rolled + 1
+                            continue
+                    divergence_halt(self.config, self.ckpt, epoch,
+                                    f"mean metrics contain a non-finite "
+                                    f"value ({metrics})",
+                                    resume_cmd="--resume")
+                if epoch % save_every == 0 or epoch == total_epochs:
+                    self.ckpt.save(epoch, self._payload())
+                epoch += 1
+        self.ckpt.flush()
         return metrics
 
     def close(self) -> None:
-        self.logger.close()
+        try:
+            self.ckpt.close()
+        finally:
+            self.logger.close()
 
 
 # -- DCGAN ----------------------------------------------------------------------

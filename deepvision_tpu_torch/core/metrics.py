@@ -1,6 +1,7 @@
 """Metrics (own copy of parts of deepvision_tpu/core/metrics.py): the
-JSONL + console stream `MetricsLogger` (under a process group only rank 0
-writes and echoes; TensorBoard output is not ported yet), and the dense
+JSONL + console stream `MetricsLogger` with its in-memory `history`
+(under a process group only rank 0 writes and echoes; TensorBoard output
+is not ported yet), and the dense
 prediction metrics `confusion_matrix`, `segmentation_scores` and
 `StreamingConfusion`.
 """
@@ -24,10 +25,13 @@ class MetricsLogger:
     """Console echo always; `<log_dir>/<name>.jsonl` when a log dir is
     given; both on rank 0 only under a process group. One lock keeps
     interleaved JSONL lines whole: the serving stack flushes from its
-    lifecycle thread while request threads log refusals."""
+    lifecycle thread while request threads log refusals. `history` maps
+    each prefixed key to {"epochs": [...], "value": [...]} (the epoch, or
+    the step when none is given), as the JAX logger's."""
 
     def __init__(self, log_dir: Optional[str] = None, name: str = "serve"):
         self.name = name
+        self.history: Dict[str, Dict[str, list]] = {}
         self._lock = threading.Lock()
         self._jsonl = None
         self._main = mesh.is_main_process()
@@ -45,6 +49,11 @@ class MetricsLogger:
         the console echo."""
         metrics = {k: float(v) for k, v in metrics.items()}
         with self._lock:
+            for k, v in metrics.items():
+                h = self.history.setdefault(prefix + k,
+                                            {"epochs": [], "value": []})
+                h["epochs"].append(epoch if epoch is not None else step)
+                h["value"].append(v)
             if self._jsonl is not None:
                 rec = {"step": step, "t": round(time.time() - self._t0, 3),
                        **({"epoch": epoch} if epoch is not None else {}),

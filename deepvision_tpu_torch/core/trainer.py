@@ -27,19 +27,44 @@ size and gives each rank its rows with their mask; the sums are
 all-reduced. Every decision (the halt on a non-finite loss, the best
 metric, the plateau's scale, the preemption stop) is reached from
 all-reduced values, so all ranks take it alike. Rank 0 alone prints, logs
-and writes the checkpoints; the others wait for each save at a barrier,
-and all of them resume. The model and spatial axes, grad calibration, the
-epoch cache, multi-step dispatch, tracing, the watchdog, fault injection
-and divergence recovery are not ported yet.
+and writes the checkpoints; every rank waits for the writes at each
+`flush()` and restore, and all of them resume.
+
+Resilience (core/resilience.py, core/checkpoint.py, utils/faults.py), as
+the JAX trainer's:
+- the host pull runs under `resilient_batches` inside the prefetch
+  thread: a transient OSError is retried with backoff, and the fault
+  injector's failed pulls and poisoned (NaN) batches are staged like any
+  other batch;
+- checkpoints are saved asynchronously (a host snapshot, then a writer
+  thread) with an integrity manifest, and restored verified
+  (`config.resume_verify`); `fit` ends with `flush()`;
+- a non-finite epoch is rolled back to the last committed checkpoint
+  (parameters, optimizer moments and counters, BatchNorm statistics, EMA,
+  plateau state) and retried with the LR scaled by
+  `config.recovery_lr_factor`, up to `config.recover_on_divergence`
+  times; the scale persists and composes with the plateau's;
+- SIGTERM/SIGINT finish the step in flight, commit the epoch
+  synchronously and raise `PreemptionExit` (exit 0 through
+  `fit_and_close`);
+- `config.watchdog_secs` arms a `StepWatchdog` that is fed when a step's
+  completion reaches the host: on the card when the step's CUDA event has
+  completed (polled without blocking), never at its enqueue;
+- every recovery writes a `resilience_*` event to the metrics stream.
+
+The model and spatial axes, grad calibration, the epoch cache,
+multi-step dispatch and tracing are not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
 import os
 import statistics
+import sys
 import time
 from typing import Callable, Dict, Iterable, List, Optional
 
@@ -51,11 +76,14 @@ from ..models import build_model
 from ..parallel import mesh
 from ..parallel.prefetch import prefetch_to_device
 from ..utils.device import resolve_device
+from ..utils.faults import FaultInjector
 from .checkpoint import CheckpointManager
 from .config import TrainConfig
 from .metrics import MetricsLogger
 from .optim import build_optimizer
-from .resilience import GracefulShutdown, stop_agreed
+from .resilience import (GracefulShutdown, PreemptionExit, RetryPolicy,
+                         StepWatchdog, log_resilience_event,
+                         resilient_batches, stop_agreed)
 from .schedules import PlateauState
 from .steps import (make_classification_eval_step,
                     make_classification_train_step)
@@ -123,11 +151,15 @@ def divergence_halt(config: TrainConfig, ckpt: CheckpointManager, epoch: int,
 def fit_and_close(trainer: "Trainer", *args, **kwargs) -> dict:
     """`trainer.fit(...)` then `close()`, with the entry point's divergence
     UX: a TrainingDivergedError becomes a one-line remedy and a nonzero
-    exit instead of a traceback."""
+    exit instead of a traceback, and a PreemptionExit (SIGTERM or SIGINT
+    seen, checkpoint committed) the resume hint and exit 0."""
     try:
         return trainer.fit(*args, **kwargs)
     except TrainingDivergedError as e:
         raise SystemExit(f"error: {e}")
+    except PreemptionExit as e:
+        say(str(e))
+        raise SystemExit(0)
     finally:
         trainer.close()
 
@@ -141,7 +173,18 @@ class _StepClock:
         self.device = device
         self.cuda = device.type == "cuda"
         self.marks: list = []
+        self._done = 0
         self.mark()
+
+    def progressed(self) -> bool:
+        """Whether a mark recorded since the last call has completed on the
+        device, found without blocking (`Event.query`); on the CPU every
+        mark has."""
+        done = self._done
+        while self._done < len(self.marks) and (
+                not self.cuda or self.marks[self._done].query()):
+            self._done += 1
+        return self._done > done
 
     def mark(self) -> None:
         if self.cuda:
@@ -207,6 +250,19 @@ class Trainer:
             patience=sched.plateau_patience, factor=sched.plateau_factor,
             mode=sched.plateau_mode) if sched.name == "plateau" else None
         self.logger = MetricsLogger(self.workdir, name=config.name)
+        # resilience: the environment's fault injector (inert unless a
+        # DEEPVISION_FAULT_* variable is set) and the transient-I/O retry
+        # policy of the checkpoint and the host data pull
+        self.faults = FaultInjector.from_env()
+        self.retry_policy = RetryPolicy.from_env()
+        self._recovery_scale = 1.0   # product of the rollbacks' factors
+        self._recoveries = 0
+        self._host_step = 0
+        self._last_saved_epoch: Optional[int] = None
+        self._prefetcher = None      # the live prefetcher during an epoch
+        self._watchdog: Optional[StepWatchdog] = None
+        #: what the watchdog does on a stall; None is its exit (code 70)
+        self.watchdog_abort: Optional[Callable[[], None]] = None
         self.state: Optional[TrainState] = None
         self.start_epoch = 1
         self.best_metric: Optional[float] = None
@@ -223,7 +279,9 @@ class Trainer:
             self.watch_key, self.watch_mode = "top1", "max"
         self.ckpt = CheckpointManager(
             self.workdir + "/ckpt", keep=config.keep_checkpoints,
-            keep_best=config.keep_best, best_mode=self.watch_mode)
+            keep_best=config.keep_best, best_mode=self.watch_mode,
+            retry_policy=self.retry_policy, on_retry=self._log_retry,
+            fault_injector=self.faults if self.faults.active else None)
         # the classification steps; a family subclass installs its own
         compute_dtype = getattr(torch, config.dtype)
         input_norm = ((config.data.mean, config.data.std)
@@ -262,17 +320,32 @@ class Trainer:
             f"steps/epoch={self.steps_per_epoch}{world}")
         return self.state
 
-    def resume(self, epoch: Optional[int] = None) -> Optional[int]:
-        """Restore the latest (or the given) checkpoint — the `-c` UX.
-        Returns the restored epoch, or None when nothing is saved."""
+    def _log_retry(self, what: str, attempt: int, exc: BaseException,
+                   delay: float) -> None:
+        """The retry hook of the checkpoint and the data pull: stderr on
+        every rank, the metrics stream on rank 0. May fire from the
+        prefetch and checkpoint threads (the logger locks)."""
+        print(f"[{self.config.name}] transient {what} failure "
+              f"(attempt {attempt}/{self.retry_policy.max_retries}): {exc} "
+              f"— retrying in {delay:.2f}s", file=sys.stderr, flush=True)
+        log_resilience_event(self.logger, self._host_step,
+                             {f"{what}_retries": float(attempt)})
+
+    def resume(self, epoch: Optional[int] = None,
+               verify: Optional[str] = None) -> Optional[int]:
+        """Restore the latest (or the given) checkpoint — the `-c` and
+        `--auto-resume` UX. `verify` overrides `config.resume_verify`
+        ("fallback", "strict" or "off"). Returns the restored epoch, or
+        None when nothing is saved."""
         if self.state is None:
             raise RuntimeError("call init_state first")
-        restored = self.ckpt.restore(epoch)
-        if restored is None:
+        state, host, got = self.ckpt.restore(
+            epoch, verify=verify if verify is not None
+            else self.config.resume_verify)
+        if got is None:
             return None
-        got, payload = restored
-        self.state.load_state_dict(payload["state"])
-        host = payload["host"]
+        self.state.load_state_dict(state)
+        self._host_step = self.state.step
         self.start_epoch = got + 1
         self.best_metric = host.get("best_metric")
         if self.plateau and "plateau" in host:
@@ -281,6 +354,14 @@ class Trainer:
             self.plateau.num_bad_epochs = p.get("num_bad_epochs", 0)
             self.plateau.scale = p.get("scale", 1.0)
             self.state.optimizer.set_lr_scale(self.plateau.scale)
+        info = self.ckpt.last_restore_info or {}
+        if info.get("fallback_skipped") or not info.get("verified", False):
+            # a corruption fallback or an unverified (legacy) restore
+            log_resilience_event(
+                self.logger, self._host_step,
+                {"ckpt_fallback_generations":
+                    float(info.get("fallback_skipped") or 0),
+                 "ckpt_verified": 1.0 if info.get("verified") else 0.0})
         say(f"[{self.config.name}] resumed from epoch {got}")
         return got
 
@@ -320,20 +401,30 @@ class Trainer:
         n_img = 0
         clock = _StepClock(self.device)
         state = self.state
+        data = resilient_batches(
+            data, self.retry_policy,
+            injector=self.faults if self.faults.active else None,
+            on_retry=self._log_retry)
         staged = prefetch_to_device(data, self.config.prefetch_batches,
                                     self.device)
+        self._prefetcher = staged
+        self._beat()
         try:
             for batch in staged:
                 if self._preempted():
                     break  # the last step has finished; fit() saves
                 metrics = self.run_step(batch)
                 clock.mark()
+                self._host_step = state.step
+                if self._watchdog is not None and clock.progressed():
+                    self._watchdog.beat()
                 device_metrics.append(metrics)
                 n_img += len(batch[0])
                 if state.step % log_every == 0:
                     self.logger.log(state.step, metrics, prefix="train_",
                                     epoch=epoch)
         finally:
+            self._prefetcher = None
             self.last_prefetch_ledger = staged.ledger()
             staged.close()
         out: Dict[str, float] = {}
@@ -342,6 +433,7 @@ class Trainer:
             keys = list(device_metrics[0])
             stacked = torch.stack([torch.stack([m[k].float() for k in keys])
                                    for m in device_metrics]).cpu()
+            self._beat()
             step_ms = clock.step_ms()
             self.last_epoch_steps = [
                 {**dict(zip(keys, row.tolist())), "step_ms": ms}
@@ -411,8 +503,10 @@ class Trainer:
             resume: bool = False,
             total_epochs: Optional[int] = None) -> dict:
         """Per epoch: train, evaluate, watch the metric, step the plateau,
-        save. SIGTERM/SIGINT finish the step in flight, save the epoch and
-        return with `preempted_at_epoch` set."""
+        save. A non-finite epoch rolls back and retries under
+        `config.recover_on_divergence`; SIGTERM/SIGINT finish the step in
+        flight, commit the epoch and raise PreemptionExit. Ends with the
+        last save committed (`flush()`)."""
         cfg = self.config
         total_epochs = total_epochs or cfg.total_epochs
         if self.state is None:
@@ -427,48 +521,86 @@ class Trainer:
                 f"run (pass --ema-decay to keep updating the average)")
             self.state.ema = None
         last_val: dict = {}
-        result: dict = {}
-        with GracefulShutdown(what="finishing the step, saving a "
-                                   "checkpoint, then exiting 0") as shutdown:
-            self._shutdown = shutdown
-            try:
-                for epoch in range(self.start_epoch, total_epochs + 1):
+        recoveries_left = cfg.recover_on_divergence
+        with contextlib.ExitStack() as stack:
+            if cfg.graceful_shutdown:
+                self._shutdown = stack.enter_context(GracefulShutdown(
+                    what="finishing the step, saving a checkpoint, then "
+                         "exiting 0"))
+            if cfg.watchdog_secs:
+                self._watchdog = stack.enter_context(StepWatchdog(
+                    cfg.watchdog_secs, diagnostics=self._watchdog_diagnostics,
+                    name=cfg.name, _abort=self.watchdog_abort))
+            stack.callback(self._clear_resilience_handles)
+            epoch = self.start_epoch
+            while epoch <= total_epochs:
+                if self._preempted() and self._last_saved_epoch is not None:
+                    # the signal landed between epochs: the last save
+                    # already holds everything trained
+                    self._commit_preemption(self._last_saved_epoch)
+                try:
                     train_metrics = self.train_epoch(epoch,
                                                      train_data_fn(epoch))
-                    self.logger.log(self.state.step, train_metrics,
-                                    prefix="epoch_train_", epoch=epoch)
-                    if self._preempted():
-                        self._save_epoch(epoch, metric=None)
-                        say(f"[{cfg.name}] graceful preemption: checkpoint "
-                            f"committed at epoch {epoch} — relaunch with "
-                            f"-c latest to continue")
-                        result["preempted_at_epoch"] = epoch
-                        break
-                    if val_data_fn is not None:
-                        last_val = self.evaluate(val_data_fn(epoch))
-                        self.logger.log(self.state.step, last_val,
-                                        prefix="val_", epoch=epoch)
-                        # an empty eval must not count as a perfect 0.0
-                        # loss in min mode
-                        metric = last_val.get(
-                            self.watch_key, 0.0 if self.watch_mode == "max"
-                            else math.inf)
-                    else:
-                        metric = train_metrics.get(
-                            self.watch_key, 0.0 if self.watch_mode == "max"
-                            else math.inf)
-                    if self.best_metric is None or (
-                            metric > self.best_metric
-                            if self.watch_mode == "max"
-                            else metric < self.best_metric):
-                        self.best_metric = metric
-                    if self.plateau:
-                        self.state.optimizer.set_lr_scale(
-                            self.plateau.update(metric))
-                    self._save_epoch(epoch, metric=metric)
-            finally:
-                self._shutdown = None
-        return {"best_metric": self.best_metric, **last_val, **result}
+                except TrainingDivergedError:
+                    # bounded recovery: roll back to the last committed
+                    # epoch, scale the LR down, retry; the halt fires once
+                    # the budget is spent or nothing is committed
+                    if recoveries_left <= 0:
+                        raise
+                    rolled = self._recover_from_divergence(epoch)
+                    if rolled is None:
+                        raise
+                    recoveries_left -= 1
+                    epoch = rolled + 1
+                    continue
+                self.logger.log(self.state.step, train_metrics,
+                                prefix="epoch_train_", epoch=epoch)
+                if self._preempted():
+                    # preempted mid-epoch: skip the evaluation and commit
+                    # what was trained as this epoch
+                    self._save_epoch(epoch, metric=None)
+                    self._commit_preemption(epoch)
+                if val_data_fn is not None:
+                    last_val = self.evaluate(val_data_fn(epoch))
+                    self.logger.log(self.state.step, last_val,
+                                    prefix="val_", epoch=epoch)
+                    # an empty eval must not count as a perfect 0.0 loss in
+                    # min mode
+                    metric = last_val.get(
+                        self.watch_key, 0.0 if self.watch_mode == "max"
+                        else math.inf)
+                else:
+                    metric = train_metrics.get(
+                        self.watch_key, 0.0 if self.watch_mode == "max"
+                        else math.inf)
+                if self.best_metric is None or (
+                        metric > self.best_metric
+                        if self.watch_mode == "max"
+                        else metric < self.best_metric):
+                    self.best_metric = metric
+                if self.plateau:
+                    self.state.optimizer.set_lr_scale(
+                        self.plateau.update(metric) * self._recovery_scale)
+                self._save_epoch(epoch, metric=metric)
+                epoch += 1
+        # fit returning means "training done": the last save is committed
+        self.ckpt.flush()
+        return {"best_metric": self.best_metric, **last_val}
+
+    def _beat(self) -> None:
+        if self._watchdog is not None:
+            self._watchdog.beat()
+
+    def _clear_resilience_handles(self) -> None:
+        self._shutdown = None
+        self._watchdog = None
+
+    def _watchdog_diagnostics(self) -> dict:
+        pf = self._prefetcher
+        return {"last_step": self._host_step,
+                "last_checkpoint_epoch": self._last_saved_epoch,
+                "prefetch_queue_depth": (pf.queue_depth if pf is not None
+                                         else None)}
 
     def _save_epoch(self, epoch: int, metric: Optional[float]) -> None:
         host = {"best_metric": self.best_metric}
@@ -476,11 +608,52 @@ class Trainer:
             host["plateau"] = {"best": self.plateau.best,
                                "num_bad_epochs": self.plateau.num_bad_epochs,
                                "scale": self.plateau.scale}
-        self.ckpt.save(epoch, {"state": self.state.state_dict(),
-                               "host": host}, metric=metric)
+        self.ckpt.save(epoch, self.state.state_dict(), host_state=host,
+                       metric=metric)
+        self._last_saved_epoch = epoch
+
+    def _commit_preemption(self, epoch: int) -> None:
+        """The graceful preemption tail: wait until the checkpoint of
+        `epoch` is committed (a SIGKILL that follows must find it
+        restorable), then raise PreemptionExit."""
+        self.ckpt.flush()
+        log_resilience_event(self.logger, self._host_step,
+                             {"preempted_at_epoch": float(epoch)},
+                             epoch=epoch)
+        raise PreemptionExit(
+            epoch,
+            f"[{self.config.name}] graceful preemption: checkpoint "
+            f"committed at epoch {epoch} — relaunch with --auto-resume "
+            f"(or -c latest) to continue")
+
+    def _recover_from_divergence(self, epoch: int) -> Optional[int]:
+        """Roll back to the last committed checkpoint and scale the LR by
+        `config.recovery_lr_factor` (the scale persists for the rest of the
+        run and composes with the plateau's). Returns the restored epoch,
+        or None when nothing is committed yet."""
+        if self.ckpt.latest_epoch() is None:
+            return None
+        got = self.resume()
+        if got is None:
+            return None
+        self._recoveries += 1
+        self._recovery_scale *= self.config.recovery_lr_factor
+        base = self.plateau.scale if self.plateau else 1.0
+        self.state.optimizer.set_lr_scale(base * self._recovery_scale)
+        say(f"[{self.config.name}] divergence recovery {self._recoveries}: "
+            f"epoch {epoch} diverged — rolled back to epoch {got}, LR scale "
+            f"now {self._recovery_scale:g}")
+        log_resilience_event(
+            self.logger, self._host_step,
+            {"divergence_recoveries": float(self._recoveries),
+             "lr_scale": self._recovery_scale}, epoch=epoch)
+        return got
 
     def close(self) -> None:
-        self.logger.close()
+        try:
+            self.ckpt.close()
+        finally:
+            self.logger.close()
 
 
 class LossWatchedTrainer(Trainer):

@@ -16,8 +16,9 @@ A launch is `torchrun --standalone --nproc_per_node=N <entry point> ...`:
 NCCL carries the collectives on CUDA, gloo on the CPU. Only `all_reduce`,
 `broadcast` (DDP's, at wrap time) and `barrier` are used, which gloo also
 runs on CUDA tensors: two ranks can share one card over gloo, where NCCL
-refuses. Decisions every rank must take alike (stop, halt, save) are
-reached on the host over a gloo group, without a device sync.
+refuses. Decisions every rank must take alike (stop, halt, save, which
+checkpoint to restore) are reached on the host over a gloo group, without
+a device sync.
 The model, spatial and shard_map axes of the JAX mesh are not ported yet.
 """
 
@@ -154,6 +155,16 @@ def barrier() -> None:
     """Every rank waits here for the others (a host-side barrier)."""
     if is_initialized():
         dist.barrier(group=_control_group())
+
+
+def broadcast_object(obj=None, src: int = 0):
+    """Rank `src`'s picklable `obj` on every rank (a host-side decision
+    one rank takes for all; `obj` itself without a group)."""
+    if not is_initialized():
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=_control_group())
+    return box[0]
 
 
 def pad_to_multiple(n: int, k: int) -> int:

@@ -13,7 +13,9 @@
     python -m deepvision_tpu_torch.serve -m yolov3 --buckets 1,8
 
     # the weights a training run left in its workdir (the EMA weights
-    # where it kept them); segmentation answers int32 class-id masks
+    # where it kept them), verified against the checkpoint's integrity
+    # manifest (a corrupt one is refused; --no-verify serves it flagged
+    # verified: false); segmentation answers int32 class-id masks
     python -m deepvision_tpu_torch.serve -m unet_synthetic \
         --workdir runs/unet_synthetic
 
@@ -51,6 +53,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="training workdir to restore weights from (EMA "
                         "weights win when present); single-model only. "
                         "Omit it for random-weight smoke serving")
+    p.add_argument("--no-verify", action="store_true",
+                   help="serve weights whose checkpoint fails (or skips) "
+                        "integrity verification — by default a corrupt "
+                        "checkpoint REFUSES to serve "
+                        "(CheckpointCorruptionError; audit with `python -m "
+                        "deepvision_tpu_torch fsck <workdir>`); legacy "
+                        "workdirs with no manifests always serve, flagged "
+                        "verified:false on /healthz")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (default cuda; cpu runs "
                         "the kernels' plain versions)")
@@ -200,7 +210,7 @@ def build_server(args):
         engine = PredictEngine.from_config(
             name, device=args.device, buckets=buckets,
             max_batch=args.max_batch, workdir=args.workdir,
-            checkpoint=args.checkpoint)
+            checkpoint=args.checkpoint, verify=not args.no_verify)
         engine.warmup()
         fleet.add(engine, max_batch=args.max_batch,
                   max_delay_ms=args.max_delay_ms,

@@ -26,9 +26,11 @@ objects).
 Weights: seeded random ones (the config's seed), an explicit `state_dict`,
 or a training workdir's checkpoint (`load_checkpoint_weights`, the
 `--workdir` / `-c` of the serving CLI): restored through the config's own
-trainer, the EMA weights when the checkpoint keeps them, with a provenance
-record that `/healthz` reports. GAN configs are refused: a generator has
-no single logits forward to serve.
+trainer, the EMA weights when the checkpoint keeps them, verified against
+its integrity manifest in strict mode (a corrupt checkpoint raises
+`CheckpointCorruptionError` unless `verify=False`, the CLI's
+`--no-verify`), with a provenance record that `/healthz` reports. GAN
+configs are refused: a generator has no single logits forward to serve.
 """
 
 from __future__ import annotations
@@ -65,7 +67,8 @@ def check_served(name: str, cfg) -> None:
 
 
 def load_checkpoint_weights(name: str, workdir: str, *,
-                            checkpoint=None, verbose: bool = True
+                            checkpoint=None, verbose: bool = True,
+                            verify: bool = True
                             ) -> Tuple[torch.nn.Module, dict, Any]:
     """Restore a config's serving weights from a training workdir
     (deepvision_tpu/serve/engine.py::load_checkpoint_weights): the
@@ -74,11 +77,16 @@ def load_checkpoint_weights(name: str, workdir: str, *,
     when it keeps them: the parameters `Trainer.evaluate` scores under
     `state.ema_weights()`, with the current BatchNorm statistics. With
     nothing restorable the trainer's seeded weights serve, with a warning.
+    `verify=True` restores in strict integrity mode: a checkpoint whose
+    manifest does not verify raises CheckpointCorruptionError instead of
+    serving corrupt weights; `verify=False` restores blindly and flags the
+    weights unverified.
 
     Returns `(model, provenance, cfg)`; the provenance record is
     {weights: "checkpoint" | "random-init", checkpoint_epoch, verified,
-    manifest_sha256, resharded}. The port keeps no integrity manifest and
-    reshards nothing yet, so the last three are false, null and false."""
+    manifest_sha256, resharded}. `resharded` stays false: a checkpoint is
+    whole and restores natively at any world size (no resharding is
+    ported)."""
     from ..configs import trainer_class_for_config
     cfg = get_config(name)
     check_served(name, cfg)
@@ -87,10 +95,17 @@ def load_checkpoint_weights(name: str, workdir: str, *,
     try:
         trainer.init_state()
         got = trainer.resume(None if checkpoint in (None, "latest")
-                             else int(checkpoint))
+                             else int(checkpoint),
+                             verify="strict" if verify else "off")
         if got is None and verbose:
             print(f"[serve:{cfg.name}] WARNING: nothing restorable in "
                   f"{workdir!r} — serving RANDOM weights", flush=True)
+        info = trainer.ckpt.last_restore_info or {}
+        if got is not None and not info.get("verified") and verbose:
+            why = ("legacy checkpoint without a manifest"
+                   if info.get("legacy") else "verification off")
+            print(f"[serve:{cfg.name}] WARNING: serving UNVERIFIED weights "
+                  f"(epoch {got}: {why})", flush=True)
         state = trainer.state
         if state.ema is not None:
             with torch.no_grad():
@@ -100,8 +115,10 @@ def load_checkpoint_weights(name: str, workdir: str, *,
         trainer.close()
     provenance = {"weights": "checkpoint" if got is not None
                   else "random-init",
-                  "checkpoint_epoch": got, "verified": False,
-                  "manifest_sha256": None, "resharded": False}
+                  "checkpoint_epoch": got,
+                  "verified": bool(info.get("verified", False)),
+                  "manifest_sha256": info.get("manifest_sha256"),
+                  "resharded": bool(info.get("resharded", False))}
     return state.model, provenance, trainer.config
 
 
@@ -213,10 +230,12 @@ class PredictEngine:
                     max_batch: Optional[int] = None,
                     state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                     workdir: Optional[str] = None, checkpoint=None,
-                    verbose: bool = True) -> "PredictEngine":
+                    verbose: bool = True,
+                    verify: bool = True) -> "PredictEngine":
         """Build an engine for a registered config: weights restored from
         the training `workdir` (`load_checkpoint_weights`; `checkpoint` an
-        epoch or "latest"), or `state_dict` (e.g. JAX params carried over
+        epoch or "latest"; `verify` False serves a checkpoint that fails
+        or skips verification, flagged unverified), or `state_dict` (e.g. JAX params carried over
         by utils/flax_convert.py), or drawn from `cfg.seed` through a
         `torch.Generator`."""
         device = resolve_device(device)   # fail before building anything
@@ -224,7 +243,8 @@ class PredictEngine:
         check_served(name, cfg)
         if workdir is not None:
             model, provenance, cfg = load_checkpoint_weights(
-                name, workdir, checkpoint=checkpoint, verbose=verbose)
+                name, workdir, checkpoint=checkpoint, verbose=verbose,
+                verify=verify)
         else:
             model = build_model(cfg)
             provenance = {"weights": "random-init", "seed": cfg.seed}

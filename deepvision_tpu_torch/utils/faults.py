@@ -1,0 +1,211 @@
+"""Deterministic fault injection for the trainers and the checkpoint layer
+(own copy of the trainer and checkpoint part of
+deepvision_tpu/utils/faults.py: `FaultInjector` with the same environment
+variables and the same parsing).
+
+Every recovery path of core/resilience.py and core/checkpoint.py must be
+testable on the CPU without a flaky cluster to provide the faults, so the
+injector fakes the failure classes long runs see:
+
+    DEEPVISION_FAULT_DATA_IO_STEP=k[:count]  raise OSError before yielding
+                                             batch k (0-based, counted across
+                                             the whole process), `count` times
+                                             (default 1): transient, retries
+                                             eventually succeed
+    DEEPVISION_FAULT_NAN_STEP=k              overwrite batch k's images with
+                                             NaN, so the step's loss goes
+                                             non-finite through the real step
+                                             (one-shot)
+    DEEPVISION_FAULT_CKPT_SAVE_FAILS=M       raise OSError from the first M
+                                             checkpoint save() calls
+    DEEPVISION_FAULT_CKPT_ASYNC_FAILS=M      raise OSError inside the first M
+                                             background writes: the failure
+                                             class the synchronous save's
+                                             retry can never see
+    DEEPVISION_FAULT_CKPT_CORRUPT=k:mode     after epoch k's save commits
+                                             (manifest written), corrupt it on
+                                             disk (one-shot). mode: `truncate`
+                                             (halve the largest payload file),
+                                             `bitflip` (flip one bit in its
+                                             middle), `delete_manifest` (what
+                                             a kill between the data commit
+                                             and the manifest commit leaves)
+
+`tamper_sharding`, the JAX package's fourth mode, edits a manifest's mesh
+section, which only an elastic (resharding) restore reads; the port keeps
+no such section yet, so the mode is refused by name. The serving, replica,
+quantization, promotion and drift faults arrive with their serve features.
+
+An unset environment yields an inert injector (`active` False) whose hooks
+are cheap no-ops.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from typing import Optional, Tuple
+
+import numpy as np
+
+CORRUPT_MODES = ("truncate", "bitflip", "delete_manifest", "tamper_sharding")
+
+
+def _parse_step_count(raw: Optional[str]) -> Tuple[Optional[int], int]:
+    if not raw:
+        return None, 0
+    step, _, count = raw.partition(":")
+    return int(step), int(count) if count else 1
+
+
+def _parse_epoch_mode(raw: Optional[str]
+                      ) -> Tuple[Optional[int], Optional[str]]:
+    if not raw:
+        return None, None
+    epoch, _, mode = raw.partition(":")
+    mode = mode or "bitflip"
+    if mode not in CORRUPT_MODES:
+        raise ValueError(f"DEEPVISION_FAULT_CKPT_CORRUPT mode must be one of "
+                         f"{CORRUPT_MODES}, got {mode!r}")
+    if mode == "tamper_sharding":
+        raise NotImplementedError(
+            "DEEPVISION_FAULT_CKPT_CORRUPT mode 'tamper_sharding' edits the "
+            "manifest's mesh section, which the port does not write until "
+            "elastic resharding is ported (ROADMAP A6)")
+    return int(epoch), mode
+
+
+class FaultInjector:
+    """Process-local fault state: counters advance as the hooks are called,
+    so a fault fires at a deterministic batch or save index and then
+    clears."""
+
+    def __init__(self, data_io_step: Optional[int] = None,
+                 data_io_count: int = 1,
+                 nan_step: Optional[int] = None,
+                 ckpt_save_fails: int = 0,
+                 ckpt_async_fails: int = 0,
+                 ckpt_corrupt_epoch: Optional[int] = None,
+                 ckpt_corrupt_mode: Optional[str] = None):
+        self.data_io_step = data_io_step
+        self.data_io_remaining = (data_io_count if data_io_step is not None
+                                  else 0)
+        self.nan_step = nan_step
+        self.ckpt_save_fails = ckpt_save_fails
+        self.ckpt_async_fails = ckpt_async_fails
+        self.ckpt_corrupt_epoch = ckpt_corrupt_epoch
+        self.ckpt_corrupt_mode = ckpt_corrupt_mode
+        self._batch_index = 0   # advances once per batch pulled
+        self._save_index = 0
+        self._async_index = 0
+
+    @classmethod
+    def from_env(cls, env=None) -> "FaultInjector":
+        env = os.environ if env is None else env
+        io_step, io_count = _parse_step_count(
+            env.get("DEEPVISION_FAULT_DATA_IO_STEP"))
+        nan_step, _ = _parse_step_count(env.get("DEEPVISION_FAULT_NAN_STEP"))
+        corrupt_epoch, corrupt_mode = _parse_epoch_mode(
+            env.get("DEEPVISION_FAULT_CKPT_CORRUPT"))
+        return cls(data_io_step=io_step, data_io_count=io_count,
+                   nan_step=nan_step,
+                   ckpt_save_fails=int(
+                       env.get("DEEPVISION_FAULT_CKPT_SAVE_FAILS", "0")),
+                   ckpt_async_fails=int(
+                       env.get("DEEPVISION_FAULT_CKPT_ASYNC_FAILS", "0")),
+                   ckpt_corrupt_epoch=corrupt_epoch,
+                   ckpt_corrupt_mode=corrupt_mode)
+
+    @property
+    def active(self) -> bool:
+        return (self.data_io_step is not None or self.nan_step is not None
+                or self.ckpt_save_fails > 0 or self.ckpt_async_fails > 0
+                or self.ckpt_corrupt_epoch is not None)
+
+    # -- hooks -----------------------------------------------------------
+    def before_batch(self) -> None:
+        """Called before pulling the next batch from the source iterator.
+        Raises the configured transient OSError without advancing the batch
+        index, so a retry faces the remaining fault budget and then pulls
+        the batch the source never lost."""
+        if (self.data_io_remaining > 0
+                and self._batch_index == self.data_io_step):
+            self.data_io_remaining -= 1
+            raise OSError(
+                f"injected transient I/O error at batch {self._batch_index} "
+                f"({self.data_io_remaining} more to come)")
+
+    def poison_batch(self, batch):
+        """Called with the pulled batch; advances the batch index. At the
+        configured step the first array (the images, by every family's
+        batch contract; the batch itself where it is one bare array, as
+        the DCGAN pipeline's) becomes float32 NaN of the same shape, so the
+        loss goes non-finite through the real step. The staging and the
+        steps take float32 images where they take uint8 ones: every step
+        casts to f32 before it scales or normalizes, and NaN survives
+        every such operation."""
+        i = self._batch_index
+        self._batch_index += 1
+        if self.nan_step is None or i != self.nan_step:
+            return batch
+        self.nan_step = None  # one-shot: the retried epoch trains clean
+        if isinstance(batch, np.ndarray):
+            return np.full_like(batch, np.nan, dtype=np.float32)
+        batch = tuple(batch)
+        poisoned = np.full_like(np.asarray(batch[0], dtype=np.float32),
+                                np.nan)
+        return (poisoned,) + batch[1:]
+
+    def before_checkpoint_save(self) -> None:
+        """Called at the top of every checkpoint save; the first M calls
+        raise a transient OSError."""
+        i = self._save_index
+        self._save_index += 1
+        if i < self.ckpt_save_fails:
+            raise OSError(
+                f"injected transient checkpoint-write failure "
+                f"({i + 1}/{self.ckpt_save_fails})")
+
+    def during_async_save(self) -> None:
+        """Called from the checkpoint writer thread after save() returned;
+        the first M calls raise: the background failure that must surface
+        at the next save()/flush() rather than at close()."""
+        i = self._async_index
+        self._async_index += 1
+        if i < self.ckpt_async_fails:
+            raise OSError(
+                f"injected async checkpoint-write failure "
+                f"({i + 1}/{self.ckpt_async_fails})")
+
+    def corrupt_checkpoint(self, epoch: int, step_dir: str,
+                           manifest_name: str = "integrity_manifest.json"
+                           ) -> None:
+        """Called after epoch `epoch`'s save fully committed (data and
+        manifest on disk): corrupt it deterministically (one-shot; the
+        largest payload file, its path as the tiebreak)."""
+        if self.ckpt_corrupt_epoch is None or epoch != self.ckpt_corrupt_epoch:
+            return
+        mode = self.ckpt_corrupt_mode
+        self.ckpt_corrupt_epoch = None
+        if mode == "delete_manifest":
+            target = os.path.join(step_dir, manifest_name)
+            os.remove(target)
+        else:
+            candidates = sorted(
+                (os.path.join(root, f)
+                 for root, _, files in os.walk(step_dir) for f in files
+                 if f != manifest_name),
+                key=lambda p: (os.path.getsize(p), p))
+            target = candidates[-1]
+            if mode == "truncate":
+                with open(target, "r+b") as fp:
+                    fp.truncate(max(1, os.path.getsize(target) // 2))
+            else:  # bitflip
+                with open(target, "r+b") as fp:
+                    fp.seek(os.path.getsize(target) // 2)
+                    byte = fp.read(1) or b"\x00"
+                    fp.seek(-len(byte), 1)
+                    fp.write(bytes([byte[0] ^ 0x80]))
+        print(f"[faults] corrupted checkpoint epoch {epoch} ({mode}: "
+              f"{os.path.relpath(target, step_dir)})",
+              file=sys.stderr, flush=True)

@@ -532,7 +532,9 @@ def test_centernet_digits_trains_evaluates_and_detects(tmp_path, monkeypatch,
     out = capsys.readouterr().out
     assert "epoch 1 step 2" in out and "val_loss=" in out
     assert sorted(os.listdir(os.path.join(workdir, "ckpt"))) == [
-        "1.pt", "metrics.json"]
+        "1", "metrics.json"]
+    assert os.path.exists(os.path.join(workdir, "ckpt", "1",
+                                       "integrity_manifest.json"))
     metrics = _script("evaluate.py")["main"](
         ["-m", "centernet_digits", "--device", "cpu", "--workdir", workdir,
          "--metric", "voc", "--max-batches", "1"])

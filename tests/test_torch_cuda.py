@@ -67,6 +67,10 @@ the DCGAN step and both CycleGAN phases on the card in f64 against the CPU
 served on the card from its workdir, the masks equal to the predict
 step's.
 
+Resilient training: the async save's snapshot of card tensors survives
+the in-place updates of the steps after it (equal tensor for tensor), and
+K2 launches once per train step across a divergence rollback.
+
 Data parallelism: both kernels launch on their tensors' card from a
 thread whose current card is another (two cards or more; skips on one),
 and 2 gloo ranks sharing card 0 take one f64 step of the reduced ResNet
@@ -940,3 +944,58 @@ def test_engine_serves_segmentation_masks_on_the_card(card, tmp_path):
     got = engine.predict(x)
     assert got.dtype == np.int32
     np.testing.assert_array_equal(got, want)
+
+
+# -- resilient training: the async snapshot and the rollback -----------------
+
+def test_the_snapshot_of_card_tensors_survives_in_place_updates(card,
+                                                                 tmp_path):
+    """save() copies card tensors into pinned buffers without blocking and
+    returns; train steps that update every tensor in place right after it
+    (on the same stream) must not reach the checkpoint. A second save
+    reuses the pinned buffers."""
+    from deepvision_tpu_torch.core import integrity
+    from deepvision_tpu_torch.core.checkpoint import CheckpointManager
+    model = _reduced_resnet().to("cuda")
+    opt = build_optimizer(model.parameters(),
+                          get_config("resnet50_tpu").optimizer,
+                          get_config("resnet50_tpu").schedule, 10, 1)
+    state = TrainState(model, opt)
+    step = make_classification_train_step(compute_dtype=torch.float32)
+    x = torch.randn(4, 32, 32, 3, device="cuda")
+    y = torch.randint(0, 10, (4,), device="cuda", dtype=torch.int32)
+    step(state, x, y)
+    mgr = CheckpointManager(str(tmp_path), keep=2, keep_best=False)
+    for epoch in (1, 2):
+        want = {k: v.detach().cpu().clone() for k, v in integrity.flatten(
+            state.state_dict()).items() if torch.is_tensor(v)}
+        mgr.save(epoch, state.state_dict())
+        for _ in range(3):
+            step(state, x, y)
+        mgr.flush()
+        got, _, restored = mgr.restore(epoch, verify="strict")
+        assert restored == epoch
+        for k, v in integrity.flatten(got).items():
+            if torch.is_tensor(v):
+                assert torch.equal(v, want[k]), (epoch, k)
+    mgr.close()
+
+
+def test_the_k2_count_across_a_rollback(card, tmp_path, monkeypatch):
+    """yolov3_digits trained 2 epochs of 2 steps on the card with the NaN
+    fault at epoch 2's first batch and one recovery: K2 launches once per
+    train step (the diverged epoch's and the retried epoch's included) and
+    per eval batch, and the run ends at the right step and LR scale."""
+    from deepvision_tpu_torch.cli import run_detection
+    monkeypatch.setenv("DEEPVISION_FAULT_NAN_STEP", "2")
+    monkeypatch.setenv("DEEPVISION_IO_RETRY_DELAY", "0.01")
+    before = k2.best_iou.launches
+    trainer, _ = run_detection("YOLO", ["yolov3_digits"], [
+        "-m", "yolov3_digits", "--synthetic", "--image-size", "64",
+        "--batch-size", "2", "--steps-per-epoch", "2", "--epochs", "2",
+        "--recover-on-divergence", "1", "--workdir", str(tmp_path)])
+    hist = trainer.logger.history
+    assert hist["resilience_divergence_recoveries"]["value"] == [1.0]
+    assert hist["epoch_train_loss"]["epochs"] == [1, 2, 2]
+    assert trainer.state.step == 4
+    assert k2.best_iou.launches - before == 6 + 2 * 2

@@ -391,7 +391,7 @@ def _workdir_with_tiny_weights(tmp_path, dtype=torch.bfloat16):
     trainer.model.load_state_dict(
         params_to_state_dict(params, trainer.model, stats))
     trainer.init_state()
-    trainer.ckpt.save(0, {"state": trainer.state.state_dict(), "host": {}})
+    trainer.ckpt.save(0, trainer.state.state_dict())
     trainer.close()
     return workdir
 

@@ -235,13 +235,14 @@ def test_checkpoints_keep_the_newest_and_the_best(tmp_path):
     mgr = CheckpointManager(str(tmp_path), keep=2, keep_best=True,
                             best_mode="min")
     for epoch, metric in [(1, 3.0), (2, 1.0), (3, 2.0), (4, 2.5), (5, None)]:
-        mgr.save(epoch, {"w": torch.full((2,), float(epoch))}, metric)
-    assert mgr.epochs() == [2, 4, 5] and mgr.best_epoch() == 2
-    epoch, payload = mgr.restore()
+        mgr.save(epoch, {"w": torch.full((2,), float(epoch))}, metric=metric)
+    assert mgr.best_epoch() == 2 and mgr.epochs() == [2, 4, 5]
+    payload, _, epoch = mgr.restore()
     assert epoch == 5 and payload["w"].tolist() == [5.0, 5.0]
+    mgr.close()
     again = CheckpointManager(str(tmp_path), keep=2, best_mode="min")
-    assert again.best_epoch() == 2 and again.restore(2)[0] == 2
-    assert not [f for f in os.listdir(tmp_path) if f.endswith(".tmp")]
+    assert again.best_epoch() == 2 and again.restore(2)[2] == 2
+    assert not [f for f in os.listdir(tmp_path) if "tmp" in f]
     with pytest.raises(FileNotFoundError):
         again.restore(3)
 
@@ -259,15 +260,16 @@ def _train(workdir, *extra):
 def test_entry_point_trains_saves_and_resumes(tmp_path):
     first = _train(tmp_path, "--epochs", "1")
     assert first.returncode == 0, first.stderr[-3000:]
-    assert os.listdir(tmp_path / "ckpt") == ["1.pt", "metrics.json"] or \
-        sorted(os.listdir(tmp_path / "ckpt")) == ["1.pt", "metrics.json"]
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["1", "metrics.json"]
+    assert os.path.exists(tmp_path / "ckpt" / "1" / "integrity_manifest.json")
     assert "done: best=" in first.stdout
     second = _train(tmp_path, "--epochs", "2", "-c", "latest")
     assert second.returncode == 0, second.stderr[-3000:]
     assert "resumed from epoch 1" in second.stdout
     assert "epoch 2 step 4" in second.stdout
-    assert sorted(os.listdir(tmp_path / "ckpt")) == ["1.pt", "2.pt",
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["1", "2",
                                                      "metrics.json"]
+    assert os.path.exists(tmp_path / "ckpt" / "2" / "integrity_manifest.json")
     val = [float(line.split("val_loss=")[1].split()[0])
            for line in second.stdout.splitlines() if "val_loss=" in line]
     assert len(val) == 1 and math.isfinite(val[0])

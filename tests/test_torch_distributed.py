@@ -35,7 +35,12 @@ Bounds:
 - (c) a 2-rank classification eval with a partial last batch against the
   one-process eval (the reduced ResNet in f64, so each row's loss differs
   by f64 rounding only): `count` exactly, loss and top-k 1e-12 relative;
-- (d) checkpoints and (f) random streams: equal, tensor for tensor.
+- (d) checkpoints and (f) random streams: equal, tensor for tensor;
+- (h) divergence recovery under DDP: lenet5 in f32 with the NaN fault on
+  rank 1's rows of epoch 2's first batch rolls both ranks back at once
+  (the same events as the one-process run poisoned whole), the ranks'
+  states equal, and the weights within 1e-6 of the one-process run's on
+  the same global batches (3.0e-8 measured: summation order only).
 """
 
 import dataclasses
@@ -79,6 +84,13 @@ RECIPE = ("resnet50_tpu", 4, 10)       # config, steps per epoch, epochs
 RESNET_ARGS = ["-m", "resnet50_tpu", "--synthetic", "--device", "cpu",
                "--image-size", "32", "--batch-size", "4",
                "--steps-per-epoch", "2", "--epochs", "1"]
+# (h): lenet5 (f32) under the NaN fault at epoch 2's first batch, with one
+# recovery: 3 epochs of 2 steps at global batch 4
+ROLLBACK_ARGS = ["-m", "lenet5", "--synthetic", "--device", "cpu",
+                 "--batch-size", "4", "--steps-per-epoch", "2", "--epochs",
+                 "3", "--learning-rate", "1e-3", "--recover-on-divergence",
+                 "1"]
+ROLLBACK_WEIGHT_TOL = 1e-6
 # (b): config -> (its trainer, image size, dtype). vit_tiny runs K1's plain
 # version, which takes f32 and bf16 only
 STEP_CASES = {"yolov3_digits": (DetectionTrainer, 64, "float64"),
@@ -240,17 +252,49 @@ def _resumed_state(workdir, argv):
     return epoch, trainer.state.state_dict()
 
 
+def _rollback_run(workdir, poison: bool) -> dict:
+    """ROLLBACK_ARGS's trainer on global synthetic batches (this rank's
+    rows of each), the NaN fault armed in this process when `poison`: its
+    final state and resilience events."""
+    args = build_parser("LeNet", ["lenet5"]).parse_args(ROLLBACK_ARGS)
+    cfg = _config_from_args(args, None)
+
+    def data(epoch):
+        for batch in SyntheticClassification(cfg.batch_size, 32, 1, 10, 2,
+                                              seed=epoch):
+            yield _rows(*batch)
+
+    if poison:
+        os.environ["DEEPVISION_FAULT_NAN_STEP"] = "2"
+    try:
+        trainer = Trainer(cfg, device="cpu", workdir=workdir)
+    finally:
+        os.environ.pop("DEEPVISION_FAULT_NAN_STEP", None)
+    trainer.fit(data)
+    trainer.close()
+    h = trainer.logger.history
+    return {"state": trainer.state.state_dict(),
+            "recoveries": h["resilience_divergence_recoveries"]["value"],
+            "lr_scale": h["resilience_lr_scale"]["value"],
+            "epochs": h["epoch_train_loss"]["epochs"]}
+
+
 def _job_ckpt(out) -> dict:
     one = os.path.join(out, "one")
     epoch, state = _resumed_state(one, RESNET_ARGS)
-    saved = torch.load(os.path.join(one, "ckpt", "1.pt"), weights_only=True)
+    saved = torch.load(os.path.join(one, "ckpt", "1", "state.pt"),
+                       weights_only=True)
     two = os.path.join(out, "two")
     trainer, result = run_classification(
         "ResNet", ["resnet50_tpu"], RESNET_ARGS + ["--workdir", two])
     return {"resumed_epoch": epoch,
-            "resumed_equal": same_tree(state, saved["state"]),
+            "resumed_equal": same_tree(state, saved),
             "trained": trainer.state.state_dict(), "result": result,
-            "eval": _eval(os.path.join(out, "eval"))}
+            "eval": _eval(os.path.join(out, "eval")),
+            # only rank 1's batch is poisoned: the epoch's loss is a
+            # global mean, so both ranks roll back together
+            "rollback": _rollback_run(os.path.join(out, "rollback"),
+                                      poison=mesh.rank() == 1)}
 
 
 JOBS = {"steps": _job_steps, "ckpt": _job_ckpt}
@@ -427,7 +471,9 @@ def ckpt(tmp_path_factory):
     two = str(out / "two")
     return {"ranks": ranks, "two": two,
             "resumed": _resumed_state(two, RESNET_ARGS),
-            "eval": _eval(str(out / "eval_one"))}
+            "eval": _eval(str(out / "eval_one")),
+            "rollback": _rollback_run(str(out / "rollback_one"),
+                                      poison=True)}
 
 
 def test_two_rank_eval_with_a_partial_batch_equals_the_one_process_eval(
@@ -449,7 +495,9 @@ def test_two_ranks_resume_a_one_process_checkpoint(ckpt):
 def test_a_two_rank_run_writes_one_checkpoint_from_rank_0(ckpt):
     two = ckpt["two"]
     assert sorted(os.listdir(os.path.join(two, "ckpt"))) == [
-        "1.pt", "metrics.json"]
+        "1", "metrics.json"]
+    assert os.path.exists(os.path.join(two, "ckpt", "1",
+                                       "integrity_manifest.json"))
     with open(os.path.join(two, "resnet50_tpu.jsonl")) as fh:
         lines = fh.read().splitlines()
     assert sum("epoch_train_loss" in line for line in lines) == 1
@@ -464,6 +512,21 @@ def test_one_process_resumes_a_two_rank_checkpoint(ckpt):
     assert state["ema"] is not None
     for r in ckpt["ranks"]:
         assert same_tree(state, r["trained"])
+
+
+def test_both_ranks_roll_back_at_once_and_match_one_process(ckpt):
+    one = ckpt["rollback"]
+    assert one["recoveries"] == [1.0] and one["lr_scale"] == [0.5]
+    assert one["epochs"] == [1, 2, 2, 3]
+    zero, first = (r["rollback"] for r in ckpt["ranks"])
+    for r in (zero, first):
+        assert (r["recoveries"], r["lr_scale"], r["epochs"]) == (
+            one["recoveries"], one["lr_scale"], one["epochs"])
+        assert r["state"]["step"] == one["state"]["step"] == 6
+    assert same_tree(zero["state"], first["state"])
+    for k, v in one["state"]["model"].items():
+        diff = (zero["state"]["model"][k] - v).abs().max().item()
+        assert diff <= ROLLBACK_WEIGHT_TOL, (k, diff)
 
 
 # -- (g) -------------------------------------------------------------------

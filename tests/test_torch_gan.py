@@ -627,13 +627,15 @@ def test_dcgan_entry_points(tmp_path, capsys):
     main = runpy.run_path(os.path.join(REPO, "DCGAN", "torch", "main.py"),
                           run_name="not_main")
     with pytest.raises(SystemExit):
-        main["main"](["--recover-on-divergence", "1", "--synthetic"])
-    assert "not ported yet" in capsys.readouterr().err
+        main["main"](["--recover-on-divergence", "-1", "--synthetic"])
+    assert "must be >= 0" in capsys.readouterr().err
     wd = str(tmp_path / "wd")
     trainer, metrics = main["main"](
         ["--synthetic", "--steps-per-epoch", "1", "--epochs", "1",
-         "--batch-size", "2", "--device", "cpu", "--workdir", wd])
+         "--batch-size", "2", "--device", "cpu", "--workdir", wd,
+         "--recover-on-divergence", "1"])
     assert np.isfinite(metrics["gen_loss"])
+    assert trainer.config.recover_on_divergence == 1
     out = str(tmp_path / "grid.png")
     runpy.run_path(os.path.join(REPO, "DCGAN", "torch", "inference.py"),
                    run_name="not_main")["main"](

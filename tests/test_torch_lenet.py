@@ -251,4 +251,5 @@ def test_entry_point_trains_on_digits(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "params=61,706" in proc.stdout
     assert "epoch 1 step 11" in proc.stdout and "val_count=360" in proc.stdout
-    assert sorted(os.listdir(tmp_path / "ckpt")) == ["1.pt", "metrics.json"]
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["1", "metrics.json"]
+    assert os.path.exists(tmp_path / "ckpt" / "1" / "integrity_manifest.json")

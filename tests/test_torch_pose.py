@@ -427,7 +427,8 @@ def test_entry_points_train_evaluate_and_infer(tmp_path, monkeypatch,
                    run_name="__main__")
     out = capsys.readouterr().out
     assert "val_loss=" in out and "done: best=" in out
-    assert sorted(os.listdir(tmp_path / "ckpt")) == ["1.pt", "metrics.json"]
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["1", "metrics.json"]
+    assert os.path.exists(tmp_path / "ckpt" / "1" / "integrity_manifest.json")
 
     script = lambda name: runpy.run_path(  # noqa: E731
         os.path.join(REPO, "Hourglass", "torch", name), run_name="not_main")

@@ -518,14 +518,16 @@ def _train(workdir, *extra):
 def test_entry_point_trains_saves_and_resumes(tmp_path):
     first = _train(tmp_path, "--epochs", "1")
     assert first.returncode == 0, first.stderr[-3000:]
-    assert sorted(os.listdir(tmp_path / "ckpt")) == ["1.pt", "metrics.json"]
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["1", "metrics.json"]
+    assert os.path.exists(tmp_path / "ckpt" / "1" / "integrity_manifest.json")
     assert "params=25,557,032" in first.stdout
     assert "val_top1=" in first.stdout and "done: best=" in first.stdout
     second = _train(tmp_path, "--epochs", "2", "-c", "latest")
     assert second.returncode == 0, second.stderr[-3000:]
     assert "resumed from epoch 1" in second.stdout
     assert "epoch 2 step 4" in second.stdout
-    assert sorted(os.listdir(tmp_path / "ckpt")) == ["1.pt", "2.pt",
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["1", "2",
                                                      "metrics.json"]
-    payload = torch.load(tmp_path / "ckpt" / "2.pt", weights_only=True)
-    assert len(payload["state"]["ema"]) == 161
+    state = torch.load(tmp_path / "ckpt" / "2" / "state.pt",
+                       weights_only=True)
+    assert len(state["ema"]) == 161

@@ -8,7 +8,8 @@ the engine restored from it must answer exactly what an engine built on
 the trainer's restored weights answers (the EMA weights, where the run
 kept them, with the current BatchNorm statistics: what `Trainer.evaluate`
 scores), and the segmentation masks must equal the trainer's predict step
-on them. Both run on the same device at the same batch size, so the bound
+on them. The restore is verified: the provenance carries the epoch's
+manifest digest. Both run on the same device at the same batch size, so the bound
 is equality. GAN configs are refused with the JAX engine's message
 (deepvision_tpu/serve/engine.py:103-106, read from its source: the JAX
 serve package does not import on this jax, see ROADMAP Queue C).
@@ -26,6 +27,7 @@ import torch
 
 from deepvision_tpu_torch import cli
 from deepvision_tpu_torch.configs import get_config, trainer_class_for_config
+from deepvision_tpu_torch.core import integrity
 from deepvision_tpu_torch.core.segment import make_segmentation_predict_step
 from deepvision_tpu_torch.serve import cli as serve_cli
 from deepvision_tpu_torch.serve.engine import (PredictEngine,
@@ -72,9 +74,13 @@ def test_served_masks_equal_the_predict_step_on_ema_weights(unet_workdir):
     try:
         described = server.fleet.describe()["unet_synthetic"]
         engine = server.engine
+        manifest = integrity.load_manifest(
+            os.path.join(unet_workdir, "ckpt", "2"))
         assert engine.provenance == described["weights"] == {
             "weights": "checkpoint", "checkpoint_epoch": 2,
-            "verified": False, "manifest_sha256": None, "resharded": False}
+            "verified": True,
+            "manifest_sha256": integrity.manifest_digest(manifest),
+            "resharded": False}
         trainer = _restored_trainer("unet_synthetic", unet_workdir)
         assert trainer.state.ema is not None
         predict = make_segmentation_predict_step(compute_dtype=torch.float32)

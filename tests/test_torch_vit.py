@@ -101,11 +101,9 @@ def test_bridge_raises_on_a_missing_extra_or_misshapen_leaf(fault):
 # pipelines' settings)
 NOT_CARRIED = {
     "TrainConfig": {"cutmix_alpha", "epoch_on_device", "epoch_shuffle",
-                    "graceful_shutdown", "log_grad_norm", "mixup_alpha",
-                    "model_parallel", "recover_on_divergence",
-                    "recovery_lr_factor", "remat", "resume_verify",
-                    "spatial_backend", "spatial_parallel",
-                    "steps_per_dispatch", "watchdog_secs"},
+                    "log_grad_norm", "mixup_alpha", "model_parallel",
+                    "remat", "spatial_backend", "spatial_parallel",
+                    "steps_per_dispatch"},
     "OptimizerConfig": set(), "ScheduleConfig": set(),
     "DataConfig": {"cache_val", "num_parallel_calls", "shuffle_buffer"},
 }

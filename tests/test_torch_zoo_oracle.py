@@ -170,10 +170,12 @@ def train_and_resume(family: str, model: str, size: int, workdir,
             "--learning-rate", "1e-3", "--workdir", str(workdir)]
     first = run_entry_point(family, argv + ["--epochs", "1"], capsys)
     assert f"[{model}] epoch 1 step 2" in first and "done: best=" in first
-    assert sorted(os.listdir(workdir / "ckpt")) == ["1.pt", "metrics.json"]
+    assert sorted(os.listdir(workdir / "ckpt")) == ["1", "metrics.json"]
+    assert os.path.exists(workdir / "ckpt" / "1" / "integrity_manifest.json")
     second = run_entry_point(family, argv + ["--epochs", "2", "-c",
                                              "latest"], capsys)
     assert "resumed from epoch 1" in second
     assert "epoch 2 step 4" in second
-    assert sorted(os.listdir(workdir / "ckpt")) == ["1.pt", "2.pt",
+    assert sorted(os.listdir(workdir / "ckpt")) == ["1", "2",
                                                     "metrics.json"]
+    assert os.path.exists(workdir / "ckpt" / "2" / "integrity_manifest.json")
