@@ -201,6 +201,33 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    steps and fires on a stalled iterator. 15e: 15a's workdir served by
    `serve.cli.build_server --workdir`: provenance `verified: true` with
    the manifest's digest; a corrupted copy refused.
+16. slice 13: running the server, vit_small at full width (224 px) behind
+   `serve.cli.build_server`. 16a: 4 epochs trained by `ViT/torch/train.py`'s
+   `cli.run_classification` (batch 32, 2 steps an epoch), committed into
+   the served run dir one at a time; epoch 1 served over HTTP at buckets
+   {1, 8, 32} with 2 dispatcher workers, the promotion gate at -0.02, a
+   0.5 canary of 3 s, every request traced; under 3 closed-loop
+   in-process clients and one paced HTTP client `POST /reload` promotes
+   epoch 2 (shadow eval on the pinned
+   shard, both generations through K1; the gate; the canary), refuses
+   epoch 3 with DEEPVISION_FAULT_PROMOTE_REGRESS=3:accuracy and caches
+   the refusal (a second POST scores nothing), and rolls epoch 4 back in
+   the canary with ...=4:latency. Every answer within SERVE_TOL of its
+   epoch's `reference()`, no batch span serving two generations, K1's
+   launches equal depth x dispatches of both generations; the verified
+   load, `stage_candidate`, the shadow eval and `promote_candidate` timed
+   alone. 16b: DEEPVISION_FAULT_SERVE_DISPATCH_FAIL=2:3 with K=3: 500s,
+   then 503 naming the model (the time from the K-th error to it), and
+   after the cooldown a probe that closes the circuit. 16c: closed-loop
+   overload at bucket 8 from one worker: the autoscaler grows the pool
+   and shrinks it back when the load stops, the parameter storage
+   unchanged; images/s and p99 at one worker and at the peak, in turns.
+   16d: `/metrics` valid and monotone, `/trace` with one request's chain,
+   HTTP p50/p99 at bucket 8 with tracing on and off in turns,
+   `render_prometheus` for one model and three. 16e: `python -m
+   deepvision_tpu_torch.serve --drain-grace 1` as a subprocess (started
+   with the phase) gets SIGTERM under traffic: /healthz "draining" within
+   the grace, no answer but 200 or 503 draining, exit 0.
 
 The line before the last is a JSON object with one record per kernel; the
 last is `{"ok": true, "device": {...}}`.
@@ -224,6 +251,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -243,7 +271,7 @@ from deepvision_tpu_torch.core.centernet import (CenterNetTrainer,
                                                  make_centernet_predict_step,
                                                  make_centernet_train_step,
                                                  predict_heads)
-from deepvision_tpu_torch.core import integrity
+from deepvision_tpu_torch.core import integrity, scoring
 from deepvision_tpu_torch.core.checkpoint import (CheckpointCorruptionError,
                                                   CheckpointManager)
 from deepvision_tpu_torch.core.eval_pose import evaluate_pckh
@@ -275,6 +303,10 @@ from deepvision_tpu_torch.models.gan import (CycleGANGenerator,
                                              DCGANDiscriminator,
                                              DCGANGenerator,
                                              PatchGANDiscriminator)
+from deepvision_tpu_torch.obs.export import (chrome_trace,
+                                             parse_prometheus_text,
+                                             render_prometheus,
+                                             validate_serve_exposition)
 from deepvision_tpu_torch.ops import _build
 from deepvision_tpu_torch.ops import centernet as cn_ops
 from deepvision_tpu_torch.ops import yolo as yolo_ops
@@ -285,10 +317,15 @@ from deepvision_tpu_torch.ops.best_iou import best_iou, best_iou_reference
 from deepvision_tpu_torch.ops.heatmap import decode_keypoints
 from deepvision_tpu_torch.ops.nms import batched_nms
 from deepvision_tpu_torch.parallel import mesh
+from deepvision_tpu_torch.serve.batcher import RequestRejected, result_within
 from deepvision_tpu_torch.serve.cli import _smoke, build_parser, build_server
-from deepvision_tpu_torch.serve.engine import PredictEngine, pick_bucket
+from deepvision_tpu_torch.serve.engine import (PredictEngine,
+                                               load_checkpoint_weights,
+                                               pick_bucket)
+from deepvision_tpu_torch.serve.fleet import ModelFleet
 from deepvision_tpu_torch.serve.server import InferenceServer
 from deepvision_tpu_torch.utils.device import resolve_device
+from deepvision_tpu_torch.utils.faults import FaultInjector
 from deepvision_tpu_torch.tools.gan_images import tile_grid
 from deepvision_tpu_torch.tools.build_report import (count_opcodes,
                                                      demangle, loop_report,
@@ -3484,6 +3521,671 @@ def check_resilience() -> dict:
     return out
 
 
+# -- phase 16: running the server -----------------------------------------------
+
+P16_MODEL = MODEL
+P16_DEVICE = "cuda"
+P16_BUCKETS = BUCKETS
+P16_TRAIN_BATCH = 32
+P16_TRAIN_STEPS = 2            # per epoch
+P16_GATE = -0.02               # the candidate may score 2 points lower
+P16_CANARY_FRAC = 0.5
+P16_CANARY_WINDOW = 3.0
+P16_CLIENTS = 3                # closed-loop in-process clients of 16a
+P16_HTTP_PAUSE = 0.1           # between 16a's HTTP client's requests
+P16_INPUTS = 4                 # distinct images the 16a clients send
+P16_BREAKER_K = 3
+P16_BREAKER_COOLDOWN = 1.0
+P16_FAIL_AT = 2                # DEEPVISION_FAULT_SERVE_DISPATCH_FAIL=2:K
+P16_AUTOSCALE_EVERY = 0.5
+P16_MAX_WORKERS = 4
+P16_LOAD_CLIENTS = 32          # closed-loop in-process clients of 16c
+P16_LOAD_SECS = 2.0            # one measured window
+P16_DRAIN_GRACE = 1.0
+P16_TIMEOUT = 300              # startup of 16e's subprocess, any wait
+
+
+def p16_post(base: str, body: bytes, rid: str, path: str = "/predict"):
+    """POST a pre-encoded body; (status, parsed JSON, seconds)."""
+    req = urllib.request.Request(base + path, data=body,
+                                 headers={"Content-Type": "application/json",
+                                          "X-Request-Id": rid})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            status, raw = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    return status, json.loads(raw or b"{}"), time.perf_counter() - t0
+
+
+def p16_get(base: str, path: str):
+    with urllib.request.urlopen(base + path, timeout=120) as resp:
+        raw = resp.read()
+    return raw.decode() if path == "/metrics" else json.loads(raw)
+
+
+def p16_serve(server) -> tuple:
+    """`server.serve` on a free port in a thread; (thread, base URL)."""
+    t = threading.Thread(target=lambda: server.serve(port=0), daemon=True)
+    t.start()
+    if not server.ready.wait(P16_TIMEOUT):
+        raise RuntimeError("phase 16: the server did not start")
+    return t, f"http://127.0.0.1:{server.bound_port}"
+
+
+def p16_stop(server, t) -> None:
+    server.stop()
+    t.join(timeout=P16_TIMEOUT)
+    server.close()
+    if t.is_alive():
+        raise AssertionError("phase 16: the server did not drain")
+
+
+def p16_args(*extra):
+    return build_parser().parse_args(
+        ["-m", P16_MODEL, "--device", P16_DEVICE, "--flush-every", "600",
+         *extra])
+
+
+def p16_train(workdir: str, epochs: int) -> None:
+    """`ViT/torch/train.py`'s run_classification: P16_TRAIN_STEPS steps an
+    epoch at batch P16_TRAIN_BATCH, synthetic, resumed from the workdir's
+    newest checkpoint."""
+    run_classification("ViT", [P16_MODEL], [
+        "-m", P16_MODEL, "--synthetic", "--batch-size", str(P16_TRAIN_BATCH),
+        "--steps-per-epoch", str(P16_TRAIN_STEPS), "--epochs", str(epochs),
+        "--device", P16_DEVICE, "--workdir", workdir, "--auto-resume"])
+
+
+def p16_commit(stash: str, workdir: str, epoch: int) -> None:
+    """Training commits epoch `epoch` into the served run dir (a copy of
+    the stashed checkpoint: the files and their manifest as written)."""
+    shutil.copytree(os.path.join(stash, "ckpt", str(epoch)),
+                    os.path.join(workdir, "ckpt", str(epoch)))
+
+
+def p16_checkpoints() -> tuple:
+    """Four epochs of vit_small at full width: epochs 1-2 from one run,
+    3-4 from its resumption, each stashed as soon as it is written (the
+    trainer keeps the newest 3)."""
+    train = p15_workdir("16_train")
+    stash = p15_workdir("16_stash")
+    t0 = time.perf_counter()
+    for upto in (2, 4):
+        p16_train(train, upto)
+        for e in range(upto - 1, upto + 1):
+            shutil.copytree(os.path.join(train, "ckpt", str(e)),
+                            os.path.join(stash, "ckpt", str(e)))
+    phase(f"16a: {P16_MODEL} trained 4 epochs of {P16_TRAIN_STEPS} steps at "
+          f"batch {P16_TRAIN_BATCH} in {time.perf_counter() - t0:.1f}s")
+    return stash
+
+
+def p16_references(stash: str, inputs: np.ndarray) -> dict:
+    """Each epoch's answers to the 16a inputs, one at a time: the
+    `reference()` (unbucketed) of an engine on that epoch's weights."""
+    refs = {}
+    for e in range(1, 5):
+        eng = PredictEngine.from_config(P16_MODEL, device=P16_DEVICE,
+                                        workdir=stash, checkpoint=e,
+                                        buckets=(1,), verbose=False)
+        refs[e] = [eng.reference(x[None]) for x in inputs]
+        del eng
+    return refs
+
+
+def check_p16_promotion(stash: str) -> dict:
+    """16a: epoch 1 served over HTTP with the promotion gate, the poller
+    off; POST /reload promotes epoch 2 through shadow, gate and canary
+    under closed-loop traffic (P16_CLIENTS in-process clients through the
+    fleet's batcher, and one paced HTTP client); epoch 3 with the accuracy fault refused and
+    cached; epoch 4 with the latency fault rolled back in the canary. K1's
+    launches equal depth x dispatches of both generations (the shadow
+    eval's included), no batch mixes generations, every answer equals its
+    epoch's reference."""
+    cfg = get_config(P16_MODEL)
+    depth = cfg.model_kwargs["depth"]
+    workdir = p15_workdir("16a")
+    p16_commit(stash, workdir, 1)
+    rs = np.random.RandomState(16)
+    shape = (cfg.data.image_size, cfg.data.image_size, cfg.data.channels)
+    inputs = rs.rand(P16_INPUTS, *shape).astype(np.float32)
+    refs = p16_references(stash, inputs)
+    bodies = [json.dumps({"instances": x[None].tolist()}).encode()
+              for x in inputs]
+    server = build_server(p16_args(
+        "--workdir", workdir, "-c", "1",
+        "--buckets", ",".join(map(str, P16_BUCKETS)),
+        "--promote-gate", str(P16_GATE),
+        "--canary-frac", str(P16_CANARY_FRAC),
+        "--canary-window", str(P16_CANARY_WINDOW), "--workers", "2",
+        "--trace-sample", "1.0"))
+    sm = server.fleet.default
+    engine, promoter = sm.engine, sm.promoter
+    t, base = p16_serve(server)
+    stop = threading.Event()
+    answers, failures = [], []
+
+    def http_client() -> None:
+        # paced: a JSON parse of a 224 px image holds the GIL for tens of
+        # ms, and back-to-back parses from 4 clients stretched every
+        # dispatch the canary times to 200-240 ms on the H100 (PERF.md)
+        n = 0
+        while not stop.is_set():
+            i = n % P16_INPUTS
+            rid = f"p16a-http-{n}"
+            status, body, _ = p16_post(base, bodies[i], rid)
+            if status != 200:
+                failures.append((rid, status, body))
+                return
+            answers.append((rid, i, body["generation"],
+                            body["weights_epoch"],
+                            np.asarray(body["predictions"], np.float32)))
+            n += 1
+            stop.wait(P16_HTTP_PAUSE)
+
+    def client(k: int) -> None:
+        n = 0
+        while not stop.is_set():
+            i = (k + n) % P16_INPUTS
+            rid = f"p16a-{k}-{n}"
+            fut = sm.submit(inputs[i][None], trace=server.tracer
+                            .request_context(rid, forced=True))
+            try:
+                pred = result_within(fut, 120.0)
+            except Exception as e:  # noqa: BLE001 — every failure counts
+                failures.append((rid, repr(e)))
+                return
+            answers.append((rid, i, fut.generation,
+                            fut.weights.get("checkpoint_epoch"), pred))
+            n += 1
+
+    decisions = []
+    flash_attention.launches = 0         # counts of the main path only
+    engine.dispatches = 0
+    engine.dispatches_by_generation.update(live=0, candidate=0)
+    clients = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(P16_CLIENTS)]
+    clients.append(threading.Thread(target=http_client, daemon=True))
+    try:
+        for c in clients:
+            c.start()
+        time.sleep(0.5)                  # traffic on the incumbent
+        for epoch, fault in ((2, None), (3, "accuracy"), (None, None),
+                             (4, "latency")):
+            if epoch is not None:
+                p16_commit(stash, workdir, epoch)
+                env = ({"DEEPVISION_FAULT_PROMOTE_REGRESS":
+                        f"{epoch}:{fault}"} if fault else {})
+                promoter.faults = FaultInjector.from_env(env)
+            evals = promoter.shadow_evals
+            _, out, secs = p16_post(base, b"", f"p16a-reload-{epoch}",
+                                    "/reload")
+            rec = out["models"][P16_MODEL]
+            decisions.append({
+                "epoch": epoch, "swapped": out["swapped"],
+                "scored": promoter.shadow_evals - evals,
+                "decision": (rec["promotion"]["decisions"][-1]
+                             if promoter.shadow_evals > evals else None),
+                "reload": rec["reload"], "post_s": secs})
+            time.sleep(0.3)
+    finally:
+        stop.set()
+        for c in clients:
+            c.join(timeout=P16_TIMEOUT)
+    launches, dispatches = flash_attention.launches, engine.dispatches
+    by_gen = dict(engine.dispatches_by_generation)
+    trace = chrome_trace(server.tracer)
+    p16_stop(server, t)
+
+    for d in decisions:
+        rec = d["decision"] or {}
+        phase(f"16a POST /reload (epoch {d['epoch']}): swapped "
+              f"{d['swapped']}, scored {d['scored']}, "
+              f"{rec.get('decision')} "
+              + " ".join(f"{k}={rec[k]}" for k in (
+                  "metric_live", "metric_candidate", "metric_delta",
+                  "canary_requests", "baseline_requests",
+                  "live_dispatch_p50_ms", "candidate_dispatch_p50_ms",
+                  "secs") if k in rec)
+              + f"; the POST took {d['post_s']:.2f}s")
+    want = [(1, 1, "promoted"), (0, 1, "refused_gate"), (0, 0, None),
+            (0, 1, "rolled_back_canary")]
+    got = [(d["swapped"], d["scored"], (d["decision"] or {}).get(
+        "decision")) for d in decisions]
+    if got != want or failures:
+        raise AssertionError(f"16a: decisions {got} (want {want}); "
+                             f"failed requests {failures[:3]}")
+    if decisions[3]["decision"]["canary_requests"] <= 0:
+        raise AssertionError("16a: the latency canary served no request")
+
+    served_err, by_epoch = 0.0, {}
+    for rid, i, gen, epoch, pred in answers:
+        by_epoch[(gen, epoch)] = by_epoch.get((gen, epoch), 0) + 1
+        served_err = max(served_err, float(np.abs(
+            pred - refs[epoch][i]).max()))
+    generation_of = {rid: (gen, epoch) for rid, _, gen, epoch, _ in answers}
+    mixed = 0
+    batches = [e for e in trace["traceEvents"]
+               if e.get("ph") == "X" and e["name"] == "batch"]
+    for b in batches:
+        served = {generation_of[r] for r in b["args"]["requests"]
+                  if r in generation_of}
+        mixed += len(served) > 1
+    n_http = sum(rid.startswith("p16a-http") for rid, *_ in answers)
+    phase(f"16a answers: {len(answers)} ({n_http} over HTTP, the rest "
+          f"submitted in-process), by (generation, epoch) "
+          f"{by_epoch}; max |answer - its epoch's reference| = "
+          f"{served_err:.3g} (bound {SERVE_TOL:g}); {len(batches)} batch "
+          f"spans, {mixed} mixing generations")
+    phase(f"16a main path: {dispatches} dispatches ({by_gen}), "
+          f"{launches} flash_attention launches (depth {depth}): K1 per "
+          f"generation live={depth * by_gen['live']} "
+          f"candidate={depth * by_gen['candidate']}")
+    if served_err > SERVE_TOL or mixed or not batches:
+        raise AssertionError(f"16a: answers off by {served_err:g}, "
+                             f"{mixed} mixed batches")
+    if dispatches == 0 or launches != depth * dispatches \
+            or by_gen["candidate"] == 0:
+        raise AssertionError(f"16a: flash_attention ran {launches} times for "
+                             f"{dispatches} dispatches ({by_gen}) of depth "
+                             f"{depth}")
+    if {e for _, e in by_epoch} - {1, 2, 4} or (("live", 2) not in by_epoch):
+        raise AssertionError(f"16a: answers by epoch {by_epoch}")
+    return {"launches": launches, "dispatches": dispatches,
+            "by_generation": by_gen, "decisions": decisions,
+            "timings": p16_timings(stash)}
+
+
+def p16_timings(stash: str) -> dict:
+    """The promotion pipeline's pieces timed alone, on an engine of
+    epoch 1: the verified load of epoch 2, `stage_candidate`, the shadow
+    eval (both generations over the pinned shard), `promote_candidate`."""
+    def sync():
+        if P16_DEVICE == "cuda":
+            torch.cuda.synchronize()
+
+    engine = PredictEngine.from_config(
+        P16_MODEL, device=P16_DEVICE, workdir=stash, checkpoint=1,
+        buckets=P16_BUCKETS, verbose=False)
+    engine.warmup()
+    cfg = get_config(P16_MODEL)
+    t0 = time.perf_counter()
+    model, prov, _ = load_checkpoint_weights(P16_MODEL, stash, checkpoint=2,
+                                             verbose=False)
+    load_s = time.perf_counter() - t0
+    sync()
+    t0 = time.perf_counter()
+    engine.stage_candidate(model, prov)
+    stage_s = time.perf_counter() - t0
+    images, targets = scoring.pinned_shard(
+        cfg, image_size=engine.example_shape[0],
+        input_dtype=engine.input_dtype)
+    sync()
+    t0 = time.perf_counter()
+    scores = [scoring.score_serving_outputs(
+        cfg, engine.predict(images, generation=g), targets)
+        for g in (None, "candidate")]
+    shadow_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.promote_candidate()
+    promote_s = time.perf_counter() - t0
+    out = {"verified_load_ms": 1e3 * load_s, "stage_candidate_ms":
+           1e3 * stage_s, "shadow_eval_ms": 1e3 * shadow_s,
+           "promote_candidate_ms": 1e3 * promote_s,
+           "shadow_examples": len(images), "scores": scores}
+    phase("16a timings: " + " ".join(
+        f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in out.items()))
+    return out
+
+
+def check_p16_breaker() -> dict:
+    """16b: DEEPVISION_FAULT_SERVE_DISPATCH_FAIL=k:K armed: the dispatch
+    error answers until K errors open the circuit, then 503 naming the
+    model with Retry-After; after the cooldown one probe is admitted, its
+    success closes the circuit and the model answers again."""
+    key = "DEEPVISION_FAULT_SERVE_DISPATCH_FAIL"
+    os.environ[key] = f"{P16_FAIL_AT}:{P16_BREAKER_K}"
+    try:
+        server = build_server(p16_args(
+            "--buckets", "1,8", "--breaker-k", str(P16_BREAKER_K),
+            "--breaker-cooldown", str(P16_BREAKER_COOLDOWN)))
+    finally:
+        del os.environ[key]
+    engine = server.engine
+    t, base = p16_serve(server)
+    body = json.dumps({"instances": np.zeros(
+        (1, *engine.example_shape), np.float32).tolist()}).encode()
+    seq, t_kth = [], time.perf_counter()
+    try:
+        for n in range(P16_FAIL_AT + P16_BREAKER_K + 1):
+            status, out, _ = p16_post(base, body, f"p16b-{n}")
+            seq.append((status, out.get("reason")))
+            if status == 500:
+                t_kth = time.perf_counter()
+        to_503 = time.perf_counter() - t_kth
+        retry = out
+        time.sleep(P16_BREAKER_COOLDOWN)
+        for n in range(2):
+            status, out, _ = p16_post(base, body, f"p16b-probe-{n}")
+            seq.append((status, out.get("reason")))
+        breaker = server.fleet.default.breaker.describe()
+    finally:
+        p16_stop(server, t)
+    want = ([(200, None)] * P16_FAIL_AT + [(500, None)] * P16_BREAKER_K
+            + [(503, "circuit_open"), (200, None), (200, None)])
+    phase(f"16b breaker (K={P16_BREAKER_K}, cooldown "
+          f"{P16_BREAKER_COOLDOWN:g}s): statuses {seq}; from the K-th "
+          f"error to the first 503: {1e3 * to_503:.3f} ms; 503 body model "
+          f"{retry.get('model')!r}; breaker {breaker}")
+    if seq != want or retry.get("model") != P16_MODEL \
+            or breaker["opened"] != 1 or breaker["closed_after_open"] != 1:
+        raise AssertionError(f"16b: {seq} (want {want}), {breaker}")
+    return {"k_to_503_ms": 1e3 * to_503, "statuses": seq}
+
+
+def p16_load(sm, secs: float, clients: int) -> dict:
+    """Closed-loop in-process clients of one image each for `secs`: the
+    window's images/s and p99 (ServingMetrics) and the refusals."""
+    stop = threading.Event()
+    x = np.zeros((1, *sm.engine.example_shape), sm.engine.input_dtype)
+    refused = [0]
+
+    def client():
+        while not stop.is_set():
+            try:
+                result_within(sm.submit(x), 60.0)
+            except RequestRejected:
+                refused[0] += 1
+                time.sleep(0.001)
+
+    sm.metrics.snapshot(reset=True)
+    threads = [threading.Thread(target=client, daemon=True)
+               for _ in range(clients)]
+    for c in threads:
+        c.start()
+    time.sleep(secs)
+    snap = sm.metrics.snapshot(reset=True)
+    stop.set()
+    for c in threads:
+        c.join(timeout=P16_TIMEOUT)
+    return {"images_per_sec": snap["images_per_sec"],
+            "p99_ms": snap.get("p99_ms", float("nan")),
+            "mean_batch_fill": snap["mean_batch_fill"],
+            "workers": sm.batcher.workers, "refused": refused[0]}
+
+
+def check_p16_autoscale() -> dict:
+    """16c: closed-loop overload at bucket 8 with one worker, the
+    autoscaler sampling every P16_AUTOSCALE_EVERY s: the pool grows while
+    the load sheds and shrinks back once it stops, and no weight is
+    copied. Then images/s and p99 at one worker and at the pool's peak."""
+    server = build_server(p16_args(
+        "--buckets", "1,8", "--max-queue", "16", "--workers", "1",
+        "--max-workers", str(P16_MAX_WORKERS),
+        "--autoscale-every", str(P16_AUTOSCALE_EVERY)))
+    sm = server.fleet.default
+    ctl = server.autoscaler
+    # this phase's hysteresis: decisions 0.5 s apart, down after 2 idle
+    # samples (the defaults, 2 s and 10, make the fall back take 30 s)
+    ctl.cooldown_s, ctl.down_after = P16_AUTOSCALE_EVERY, 2
+    ptrs = [p.data_ptr() for p in sm.engine.model.parameters()]
+    try:
+        server.start_control_loops()
+        t0 = time.perf_counter()
+        overload = p16_load(sm, 3.0, P16_LOAD_CLIENTS)
+        peak = sm.batcher.workers
+        deadline = time.monotonic() + 30
+        while sm.batcher.workers > 1 and time.monotonic() < deadline:
+            time.sleep(0.1)
+        fell_to = sm.batcher.workers
+        back_s = time.perf_counter() - t0
+        ctl.stop()
+        stats = dict(sm.autoscale_stats)
+        windows = []
+        for n in (1, peak, 1, peak):
+            sm.batcher.set_workers(n)
+            time.sleep(0.2)
+            windows.append(p16_load(sm, P16_LOAD_SECS, 16))
+    finally:
+        server.close()
+    same = ptrs == [p.data_ptr() for p in sm.engine.model.parameters()]
+    phase(f"16c autoscaler: overload {overload}; peak {peak} workers, back "
+          f"to {fell_to} {back_s:.1f}s after the load began; decisions "
+          f"{ {k: stats[k] for k in ('scale_ups', 'scale_downs', 'escalations')} }; "
+          f"parameter storage unchanged {same}")
+    for w in windows:
+        phase(f"16c {w['workers']} worker(s), bucket 8, 16 closed-loop "
+              f"clients: images/s={w['images_per_sec']:.1f} "
+              f"p99_ms={w['p99_ms']:.3f} mean_batch_fill="
+              f"{w['mean_batch_fill']:.2f}")
+    if peak <= 1 or fell_to != 1 or not same or stats["scale_ups"] < 1:
+        raise AssertionError(f"16c: peak {peak}, fell to {fell_to}, "
+                             f"weights kept {same}, {stats}")
+    return {"peak_workers": peak, "windows": windows}
+
+
+def check_p16_metrics_trace() -> dict:
+    """16d: `/metrics` passes validate_serve_exposition and is monotone
+    across two scrapes; `/trace` holds the admission -> queue_wait ->
+    batch -> device_dispatch -> response_write chain of one client-id
+    request; p50/p99 at bucket 8 over HTTP with tracing on (sample 1.0)
+    and off, in turns; render_prometheus for one model and three."""
+    server = build_server(p16_args("--buckets", "1,8",
+                                   "--trace-sample", "1.0"))
+    engine = server.engine
+    t, base = p16_serve(server)
+    body = json.dumps({"instances": np.zeros(
+        (1, *engine.example_shape), np.float32).tolist()}).encode()
+    try:
+        m1 = p16_get(base, "/metrics")
+        status, _, _ = p16_post(base, body, "p16d-demo")
+        m2 = p16_get(base, "/metrics")
+        doc = p16_get(base, "/trace")
+        lat = {}
+        for on in (True, False, True, False):
+            server.tracer.enabled = on
+            lat.setdefault(on, []).extend(p16_http_load(base, body))
+        server.tracer.enabled = True
+        render_ms = p16_render_ms(server.fleet)
+    finally:
+        p16_stop(server, t)
+    errors = validate_serve_exposition(m1) + validate_serve_exposition(m2)
+    p1, p2 = parse_prometheus_text(m1), parse_prometheus_text(m2)
+    shrank = [k for k, v in p1.items()
+              if (k[0].endswith("_total") or k[0].endswith("_count")
+                  or k[0].endswith("_bucket")) and p2.get(k, -1) < v]
+    spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    mine = {e["name"]: e for e in spans
+            if e["args"].get("request_id") == "p16d-demo"}
+    qw = mine.get("queue_wait", {"args": {}})
+    batch = [e for e in spans if e["name"] == "batch"
+             and e["args"]["span_id"] == qw["args"].get("batch")]
+    dispatch = [e for e in spans if e["name"] == "device_dispatch"
+                and batch and e["args"]["batch"] == batch[0]["args"][
+                    "span_id"]]
+    chain = sorted(mine) + [e["name"] for e in batch + dispatch]
+    pct = {on: (float(np.percentile(v, 50)) * 1e3,
+                float(np.percentile(v, 99)) * 1e3) for on, v in lat.items()}
+    phase(f"16d /metrics: {len(m2.splitlines())} lines, validate "
+          f"{errors or 'clean'}, counters shrunk {shrank}; /trace chain of "
+          f"p16d-demo: {chain}")
+    phase(f"16d HTTP latency at bucket 8 (8 clients, JSON "
+          f"{engine.example_shape[0]} px): tracing "
+          f"on p50={pct[True][0]:.3f} p99={pct[True][1]:.3f} ms "
+          f"({len(lat[True])} requests); off p50={pct[False][0]:.3f} "
+          f"p99={pct[False][1]:.3f} ms ({len(lat[False])} requests)")
+    phase(f"16d render_prometheus: {render_ms}")
+    want = {"http_request", "admission", "queue_wait", "response_write",
+            "batch", "device_dispatch"}
+    if status != 200 or errors or shrank or not want <= set(chain):
+        raise AssertionError(f"16d: status {status}, {errors[:3]}, shrank "
+                             f"{shrank[:3]}, chain {chain}")
+    return {"latency_ms": pct, "render_ms": render_ms}
+
+
+def p16_http_load(base: str, body: bytes, clients: int = 8) -> list:
+    """Closed-loop HTTP clients for P16_LOAD_SECS; each request's seconds."""
+    stop = threading.Event()
+    lat: list = []
+
+    def client(k):
+        n = 0
+        while not stop.is_set():
+            status, _, secs = p16_post(base, body, f"p16d-load-{k}-{n}")
+            if status != 200:
+                raise AssertionError(f"16d: status {status}")
+            lat.append(secs)
+            n += 1
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(clients)]
+    for c in threads:
+        c.start()
+    time.sleep(P16_LOAD_SECS)
+    stop.set()
+    for c in threads:
+        c.join(timeout=P16_TIMEOUT)
+    return lat
+
+
+def p16_render_ms(fleet) -> dict:
+    """render_prometheus of the served fleet (one model) and of a fleet
+    of three (two small models beside it, each after one answer), ms per
+    call over 100."""
+    three = ModelFleet()
+    others = [n for n in ("lenet5", "lenet5_digits", "vit_tiny")
+              if n != fleet.default.name][:2]
+    for name in others:
+        three.add(PredictEngine.from_config(name, device=P16_DEVICE,
+                                            buckets=(1,), verbose=False))
+    three.add(fleet.default.engine)
+    out = {}
+    try:
+        for sm in three:      # one answer each: every histogram has data
+            result_within(sm.submit(np.zeros(
+                (1, *sm.engine.example_shape), sm.engine.input_dtype)), 60.0)
+        for n, f in ((1, fleet), (3, three)):
+            render_prometheus(f)
+            t0 = time.perf_counter()
+            for _ in range(100):
+                render_prometheus(f)
+            out[f"{n}_models_ms"] = (time.perf_counter() - t0) / 100 * 1e3
+    finally:
+        three.drain(timeout=60)
+    return out
+
+
+def p16_start_drain() -> tuple:
+    """16e's server, started first: it takes seconds to reach the card."""
+    port = free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deepvision_tpu_torch.serve", "-m", P16_MODEL,
+         "--device", P16_DEVICE, "--drain-grace", str(P16_DRAIN_GRACE),
+         "--buckets", "1,8", "--port", str(port), "--flush-every", "600"],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=p15_env())
+    return proc, f"http://127.0.0.1:{port}"
+
+
+def check_p16_drain(proc, base: str) -> dict:
+    """16e: SIGTERM under traffic: /healthz reads "draining" at once,
+    every accepted request is answered, the exit code is 0."""
+    try:
+        deadline = time.monotonic() + P16_TIMEOUT
+        while True:
+            try:
+                if p16_get(base, "/healthz")["status"] == "ok":
+                    break
+            except OSError:
+                pass
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"16e: the server did not start: "
+                                     f"{proc.stdout.read()[-3000:]}")
+            time.sleep(0.2)
+        cfg = get_config(P16_MODEL)
+        size = cfg.data.image_size
+        body = json.dumps({"instances": np.zeros(
+            (1, size, size, cfg.data.channels), np.float32).tolist()}
+        ).encode()
+        stop = threading.Event()
+        outcomes: list = []
+
+        def client(k):
+            n = 0
+            while not stop.is_set():
+                try:
+                    status, out, _ = p16_post(base, body, f"p16e-{k}-{n}")
+                    outcomes.append((status, out.get("reason")))
+                except OSError:
+                    outcomes.append(("refused", None))
+                    time.sleep(0.05)
+                n += 1
+
+        threads = [threading.Thread(target=client, args=(k,), daemon=True)
+                   for k in range(4)]
+        for c in threads:
+            c.start()
+        time.sleep(1.0)
+        before = len(outcomes)
+        proc.send_signal(signal.SIGTERM)
+        t0 = time.perf_counter()
+        health = p16_get(base, "/healthz")["status"]
+        while health != "draining" \
+                and time.perf_counter() - t0 < P16_DRAIN_GRACE / 2:
+            health = p16_get(base, "/healthz")["status"]
+        health_s = time.perf_counter() - t0
+        out, _ = proc.communicate(timeout=P16_TIMEOUT)
+        stop.set()
+        for c in threads:
+            c.join(timeout=P16_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    kinds = {}
+    for o in outcomes:
+        kinds[o] = kinds.get(o, 0) + 1
+    bad = [o for o in outcomes
+           if o not in ((200, None), (503, "draining"), ("refused", None))]
+    phase(f"16e SIGTERM under traffic: /healthz {health!r} "
+          f"{1e3 * health_s:.1f} ms after the signal; {before} answers "
+          f"before it; outcomes {kinds}; exit {proc.returncode}")
+    if proc.returncode != 0 or health != "draining" or bad \
+            or "drained cleanly" not in out:
+        raise AssertionError(f"16e: exit {proc.returncode}, healthz "
+                             f"{health}, bad {bad[:5]}: {out[-2000:]}")
+    return {"outcomes": {str(k): v for k, v in kinds.items()}}
+
+
+def check_serve_ops() -> dict:
+    """Phase 16, slice 13: the server's operations on vit_small at full
+    width. K1 runs on 16a's path (the main path, its counts zeroed just
+    before the traffic); the other sub-phases serve too and are not
+    counted."""
+    t0 = time.perf_counter()
+    drain = p16_start_drain()
+    try:
+        stash = p16_checkpoints()
+        out = {"16a": check_p16_promotion(stash)}
+        phase(f"16a: {time.perf_counter() - t0:.1f}s")
+        for tag, run in (("16b", check_p16_breaker),
+                         ("16c", check_p16_autoscale),
+                         ("16d", check_p16_metrics_trace),
+                         ("16e", lambda: check_p16_drain(*drain))):
+            t1 = time.perf_counter()
+            out[tag] = run()
+            phase(f"{tag}: {time.perf_counter() - t1:.1f}s")
+    finally:
+        if drain[0].poll() is None:
+            drain[0].kill()
+            drain[0].wait()
+    phase(f"16: phase 16 took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3689,6 +4391,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     resil = check_resilience()
 
+    # 16. slice 13: running the server (K1 on its main path, 16a: the
+    # counts, zeroed just before its traffic, read just after)
+    torch.cuda.empty_cache()
+    ops = check_serve_ops()
+
     timed_keys = ("shape", "layout", "ms", "device_ms", "plain_ms",
                   "library_ms", "library_device_ms", "bound_ms")
     b32 = main_path[-1]                  # bucket 32, the model's layout
@@ -3707,6 +4414,9 @@ def main() -> int:
         "shapes": [{k: r[k] for k in timed_keys}
                    for r in main_path + [train_k1]],
         "train_launches": vit["launches"],
+        "serve_ops_launches": ops["16a"]["launches"],
+        "serve_ops_dispatches": ops["16a"]["dispatches"],
+        "serve_ops_dispatches_by_generation": ops["16a"]["by_generation"],
         "train_shape": {k: train_k1[k] for k in timed_keys},
         "backward": "the VJP of naive_attention (autograd), as the JAX "
                     "package's _fused_bwd: no backward kernel",

@@ -135,6 +135,12 @@ def build_parser(family: str, models: Sequence[str]) -> argparse.ArgumentParser:
                         "diagnostics when no train step completes for S "
                         "seconds — set S above the first step's time; "
                         "default off (env DEEPVISION_WATCHDOG_SECS)")
+    p.add_argument("--trace-out", default=None, metavar="PATH",
+                   help="write a Chrome/Perfetto trace-event JSON of the "
+                        "run on exit: per log-window spans splitting host "
+                        "data wait from step dispatch, and checkpoint "
+                        "commits, tagged with the prefetcher's transfer "
+                        "ledger")
     p.add_argument("--no-graceful-shutdown", action="store_true",
                    help="disable the SIGTERM/SIGINT handler that commits a "
                         "checkpoint and exits 0 on preemption")
@@ -344,6 +350,8 @@ def _run(family: str, models: Sequence[str], trainer_factory: Callable,
         cfg = _config_from_args(args, synthetic_image_size)
         workdir = args.workdir or os.path.join("runs", cfg.name)
         trainer = trainer_factory(cfg, workdir, device)
+        if args.trace_out:
+            trainer.arm_tracing(args.trace_out)
         train_fn, val_fn = make_data(cfg, args)
         trainer.init_state()
         if args.checkpoint:

@@ -110,19 +110,28 @@ def resilient_batches(batches: Iterable, policy: RetryPolicy,
 
 def log_resilience_event(logger, step: int, metrics: dict,
                          epoch: Optional[int] = None, *,
-                         request_id: Optional[str] = None) -> None:
+                         request_id: Optional[str] = None,
+                         trace_ref: Optional[str] = None) -> None:
     """Write one event onto the `resilience_` metrics stream — the single
-    forensics channel every recovery path shares (sheds and refusals in the
-    serving stack): prefixed keys, float values, no console echo, same
+    forensics channel every recovery path shares (divergence rollbacks,
+    refused reloads, promotion verdicts, breaker transitions and sheds in
+    the serving stack): prefixed keys, float values, no console echo, same
     JSONL stream as the run's ordinary metrics so incidents line up with
-    the serving and training timelines. A None logger is a no-op, so callers without a
-    metrics stream need no guard. `request_id` is written as a string
-    field so an event joins the client log line behind it."""
+    the serving and training timelines. A None logger is a no-op, so
+    callers without a metrics stream need no guard. `request_id` (the HTTP
+    request that triggered the event) and `trace_ref` (``span:<id>`` of
+    the span that produced it, `GET /trace`) are written as string fields,
+    so an event joins the spans and the client log line behind it."""
     if logger is None:
         return
-    extra = {"request_id": str(request_id)} if request_id is not None else None
+    extra = {}
+    if request_id is not None:
+        extra["request_id"] = str(request_id)
+    if trace_ref is not None:
+        extra["trace_ref"] = str(trace_ref)
     logger.log(step, {k: float(v) for k, v in metrics.items()},
-               prefix="resilience_", echo=False, extra=extra, epoch=epoch)
+               prefix="resilience_", echo=False, extra=extra or None,
+               epoch=epoch)
 
 
 class PreemptionExit(Exception):

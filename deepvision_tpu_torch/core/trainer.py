@@ -271,6 +271,9 @@ class Trainer:
         #: the prefetcher's transfer ledger at the end of the last epoch
         self.last_prefetch_ledger: Dict[str, float] = {}
         self._shutdown: Optional[GracefulShutdown] = None
+        #: obs.trace.Tracer once `arm_tracing` ran (`--trace-out`)
+        self.tracer = None
+        self._trace_out: Optional[str] = None
         if self.default_watch is not None:
             self.watch_key, self.watch_mode = self.default_watch
         elif self.plateau and sched.plateau_mode == "min":
@@ -409,12 +412,28 @@ class Trainer:
                                     self.device)
         self._prefetcher = staged
         self._beat()
+        # tracing accumulators (arm_tracing): [host data-wait ns, dispatch
+        # ns, window start ns, steps at the window's start]; None keeps the
+        # untraced loop at one branch per step
+        tacc = ([0, 0, time.monotonic_ns(), 0]
+                if self.tracer is not None else None)
+        steps = 0
         try:
-            for batch in staged:
+            batches = iter(staged)
+            while True:
+                t_wait = time.monotonic_ns() if tacc else 0
+                batch = next(batches, None)
+                if batch is None:
+                    break
                 if self._preempted():
                     break  # the last step has finished; fit() saves
+                t_step = time.monotonic_ns() if tacc else 0
                 metrics = self.run_step(batch)
                 clock.mark()
+                steps += 1
+                if tacc:
+                    tacc[0] += t_step - t_wait
+                    tacc[1] += time.monotonic_ns() - t_step
                 self._host_step = state.step
                 if self._watchdog is not None and clock.progressed():
                     self._watchdog.beat()
@@ -423,6 +442,10 @@ class Trainer:
                 if state.step % log_every == 0:
                     self.logger.log(state.step, metrics, prefix="train_",
                                     epoch=epoch)
+                    if tacc:
+                        self._emit_window_spans(tacc, epoch, steps)
+            if tacc and steps > tacc[3]:
+                self._emit_window_spans(tacc, epoch, steps)
         finally:
             self._prefetcher = None
             self.last_prefetch_ledger = staged.ledger()
@@ -608,9 +631,52 @@ class Trainer:
             host["plateau"] = {"best": self.plateau.best,
                                "num_bad_epochs": self.plateau.num_bad_epochs,
                                "scale": self.plateau.scale}
+        t_ck = time.monotonic_ns() if self.tracer is not None else 0
         self.ckpt.save(epoch, self.state.state_dict(), host_state=host,
                        metric=metric)
+        if self.tracer is not None:
+            # the host-blocking share of the commit (the snapshot and the
+            # enqueue; the writer thread does the rest)
+            self.tracer.add("ckpt_commit", "train", t_ck,
+                            time.monotonic_ns() - t_ck,
+                            args={"epoch": epoch})
         self._last_saved_epoch = epoch
+
+    def arm_tracing(self, trace_out: Optional[str] = None, tracer=None):
+        """Arm span tracing (`--trace-out`): each log_every window of a
+        training epoch emits a `train_window` span split into aggregate
+        `host_data_wait` (time blocked on the prefetcher) and
+        `train_dispatch` (host time in the step calls, which return before
+        the card finishes) child spans, tagged with the prefetcher's
+        transfer ledger; each checkpoint save emits a `ckpt_commit` span.
+        The Chrome trace JSON is written to `trace_out` when the trainer
+        closes. Returns the tracer (tests read it live)."""
+        from ..obs.trace import Tracer
+        # no sampling for training: windows come at the log_every rate
+        self.tracer = tracer if tracer is not None else Tracer(sample=1.0)
+        self._trace_out = trace_out
+        return self.tracer
+
+    def _emit_window_spans(self, tacc: list, epoch: int, steps: int) -> None:
+        """One window's spans (the wall window and its aggregate data-wait
+        and dispatch shares); resets the accumulators."""
+        now_ns = time.monotonic_ns()
+        w0 = tacc[2]
+        pf = self._prefetcher
+        ledger = ({"prefetch_queue_depth": pf.queue_depth,
+                   "prefetch_bytes_staged": float(pf.bytes_staged_total),
+                   "prefetch_stage_ms": round(pf.last_stage_secs * 1e3, 3)}
+                  if pf is not None else {"prefetch_queue_depth": 0})
+        wid = self.tracer.add(
+            "train_window", "train", w0, now_ns - w0,
+            args={"epoch": epoch, "steps": steps - tacc[3], **ledger})
+        self.tracer.add("host_data_wait", "train", w0, tacc[0],
+                        args={"window": wid, "aggregate": True})
+        self.tracer.add("train_dispatch", "train", w0, tacc[1],
+                        args={"window": wid, "aggregate": True})
+        tacc[0] = tacc[1] = 0
+        tacc[2] = now_ns
+        tacc[3] = steps
 
     def _commit_preemption(self, epoch: int) -> None:
         """The graceful preemption tail: wait until the checkpoint of
@@ -650,6 +716,12 @@ class Trainer:
         return got
 
     def close(self) -> None:
+        if self.tracer is not None and self._trace_out:
+            from ..obs.export import write_chrome_trace
+            path, self._trace_out = self._trace_out, None  # idempotent
+            n = write_chrome_trace(self.tracer, path)
+            say(f"[{self.config.name}] wrote {n} trace span(s) to {path} "
+                f"(open in https://ui.perfetto.dev)")
         try:
             self.ckpt.close()
         finally:

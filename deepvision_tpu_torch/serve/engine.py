@@ -31,10 +31,20 @@ its integrity manifest in strict mode (a corrupt checkpoint raises
 `CheckpointCorruptionError` unless `verify=False`, the CLI's
 `--no-verify`), with a provenance record that `/healthz` reports. GAN
 configs are refused: a generator has no single logits forward to serve.
+
+Two weight generations (hot reload and promotion, serve/reload.py and
+serve/promote.py): the live one and, while a promotion runs, a staged
+candidate. Each is its own module, placed and cast to the compute dtype
+once, when it is staged (`stage_candidate`, `swap_variables`); a dispatch
+reads its generation's module once, so a concurrent `promote_candidate`
+or `drop_candidate` (one reference assignment under the engine's lock)
+never mixes two generations inside a batch. No weight of a module that
+serves is ever written in place.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from typing import Any, Callable, Mapping, Optional, Sequence, Tuple
@@ -66,9 +76,20 @@ def check_served(name: str, cfg) -> None:
             f"{', '.join(SERVED_FAMILIES)} models only so far")
 
 
+def config_at(name: str, image_size: Optional[int] = None):
+    """The registered config `name`, served at `image_size` pixels when
+    given (the serving CLI's `--image-size`), else at its own."""
+    cfg = get_config(name)
+    if image_size and image_size != cfg.data.image_size:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data,
+                                                   image_size=image_size))
+    return cfg
+
+
 def load_checkpoint_weights(name: str, workdir: str, *,
                             checkpoint=None, verbose: bool = True,
-                            verify: bool = True
+                            verify: bool = True,
+                            image_size: Optional[int] = None
                             ) -> Tuple[torch.nn.Module, dict, Any]:
     """Restore a config's serving weights from a training workdir
     (deepvision_tpu/serve/engine.py::load_checkpoint_weights): the
@@ -88,7 +109,7 @@ def load_checkpoint_weights(name: str, workdir: str, *,
     whole and restores natively at any world size (no resharding is
     ported)."""
     from ..configs import trainer_class_for_config
-    cfg = get_config(name)
+    cfg = config_at(name, image_size)
     check_served(name, cfg)
     trainer = trainer_class_for_config(name)(cfg, device="cpu",
                                             workdir=workdir)
@@ -149,6 +170,14 @@ def tree_slice(outputs: Any, lo: int, hi: int) -> Any:
 def tree_concat(chunks: Sequence[Any]) -> Any:
     """Same-structure output trees joined along the batch."""
     return tree_map(lambda *xs: np.concatenate(xs), *chunks)
+
+
+def weight_signature(model: torch.nn.Module) -> dict:
+    """{name: (shape, dtype)} of every parameter and buffer: what a
+    generation must share with the live one to be served by the same
+    engine (buckets, kernels and shapes unchanged)."""
+    return {k: (tuple(v.shape), v.dtype)
+            for k, v in model.state_dict().items()}
 
 
 def pick_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -213,16 +242,24 @@ class PredictEngine:
         self.input_dtype = np.dtype(np.uint8 if input_norm is not None
                                     else np.float32)
         self.compute_dtype = model.dtype
-        # weights are placed and cast to the compute dtype ONCE, here: a
-        # per-request cast would read the f32 copy and write a bf16 one on
-        # every dispatch, more weight traffic than the dispatch itself
-        # needs. Norms and f32 heads stay f32 (the model's policy).
-        self.model = model.eval().to(self.device).cast_compute_weights_()
         self.device_name = device_name(self.device)
         self._lock = threading.Lock()
+        # weights are placed and cast to the compute dtype ONCE, when a
+        # generation is staged: a per-request cast would read the f32 copy
+        # and write a bf16 one on every dispatch, more weight traffic than
+        # the dispatch itself needs. Norms and f32 heads stay f32 (the
+        # model's policy).
+        self.model = self._stage(model)
+        self._signature = weight_signature(self.model)
+        #: the staged candidate generation (None outside a promotion)
+        self._candidate: Optional[torch.nn.Module] = None
+        self.candidate_provenance: Optional[dict] = None
+        self._candidate_delay_s = 0.0
         #: bucketed dispatches run so far (warmup included): every one runs
         #: the model once at its bucket's batch size
         self.dispatches = 0
+        #: the same count by weight generation, "live" and "candidate"
+        self.dispatches_by_generation = {"live": 0, "candidate": 0}
 
     @classmethod
     def from_config(cls, name: str, *, device=None,
@@ -230,6 +267,7 @@ class PredictEngine:
                     max_batch: Optional[int] = None,
                     state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                     workdir: Optional[str] = None, checkpoint=None,
+                    image_size: Optional[int] = None,
                     verbose: bool = True,
                     verify: bool = True) -> "PredictEngine":
         """Build an engine for a registered config: weights restored from
@@ -237,14 +275,15 @@ class PredictEngine:
         epoch or "latest"; `verify` False serves a checkpoint that fails
         or skips verification, flagged unverified), or `state_dict` (e.g. JAX params carried over
         by utils/flax_convert.py), or drawn from `cfg.seed` through a
-        `torch.Generator`."""
+        `torch.Generator`. `image_size` serves at that many pixels (default:
+        the config's)."""
         device = resolve_device(device)   # fail before building anything
-        cfg = get_config(name)
+        cfg = config_at(name, image_size)
         check_served(name, cfg)
         if workdir is not None:
             model, provenance, cfg = load_checkpoint_weights(
                 name, workdir, checkpoint=checkpoint, verbose=verbose,
-                verify=verify)
+                verify=verify, image_size=image_size)
         else:
             model = build_model(cfg)
             provenance = {"weights": "random-init", "seed": cfg.seed}
@@ -263,14 +302,119 @@ class PredictEngine:
                                      else None),
                    name=cfg.name, verbose=verbose, provenance=provenance)
 
+    # -- weight generations ------------------------------------------------
+
+    def _stage(self, model: torch.nn.Module) -> torch.nn.Module:
+        """`model` in eval mode, cast to its compute dtype and placed on the
+        device, resident before it returns (the copy is off the request
+        path: a generation goes live only once staged)."""
+        staged = model.eval().cast_compute_weights_().to(self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return staged
+
+    def _check_signature(self, model: torch.nn.Module, what: str) -> None:
+        if model.dtype != self.compute_dtype \
+                or weight_signature(model) != self._signature:
+            raise ValueError(
+                f"refusing to {what} for {self.name!r}: the weights do not "
+                f"match the served ones (parameter names, shapes or dtypes "
+                f"differ) — a changed architecture needs a new engine, not "
+                f"a swap")
+
+    def swap_variables(self, model: torch.nn.Module,
+                       provenance: Optional[dict] = None) -> None:
+        """Atomically make `model` (a module of the same architecture, as
+        `load_checkpoint_weights` returns) the live generation — the hot
+        reload primitive (serve/reload.py). Staged (placed, cast, resident)
+        before the swap; the swap itself is one reference assignment under
+        the lock, so a dispatch in flight finishes on the weights it
+        started with and every later one serves the new ones. A module
+        whose signature differs is refused (ValueError)."""
+        staged = self._stage(model)
+        self._check_signature(staged, "hot swap")
+        with self._lock:
+            self.model = staged
+            if provenance is not None:
+                self.provenance = dict(provenance)
+
+    @property
+    def has_candidate(self) -> bool:
+        return self._candidate is not None
+
+    def stage_candidate(self, model: torch.nn.Module,
+                        provenance: Optional[dict] = None, *,
+                        inject_delay_s: float = 0.0) -> None:
+        """Host a second weight generation beside the live one (the
+        promotion pipeline's candidate), its own module with its own cast
+        copy of the weights. Same signature contract as `swap_variables`.
+        Dispatches keep defaulting to the live generation: only callers
+        that ask for `generation="candidate"` (the shadow eval and the
+        canary-routed batches) see it. `inject_delay_s` is the canary
+        latency fault (DEEPVISION_FAULT_PROMOTE_REGRESS=<epoch>:latency):
+        every candidate dispatch sleeps that long."""
+        staged = self._stage(model)
+        self._check_signature(staged, "stage a candidate")
+        with self._lock:
+            self._candidate = staged
+            self.candidate_provenance = (dict(provenance) if provenance
+                                         else None)
+            self._candidate_delay_s = float(inject_delay_s)
+
+    def promote_candidate(self) -> dict:
+        """Flip the candidate live — one reference assignment under the
+        lock: batches in flight finish on the generation they read, every
+        later dispatch serves the new one. Returns the live provenance."""
+        with self._lock:
+            if self._candidate is None:
+                raise RuntimeError(f"{self.name!r} has no staged candidate "
+                                   f"to promote")
+            self.model = self._candidate
+            if self.candidate_provenance is not None:
+                self.provenance = dict(self.candidate_provenance)
+            self._drop_locked()
+            return self.provenance
+
+    def drop_candidate(self) -> None:
+        """Retreat to the incumbent: unstage the candidate (its memory goes
+        once no dispatch holds it). Later `generation="candidate"`
+        dispatches resolve to the live weights, so a request racing a
+        rollback still gets one generation's answer."""
+        with self._lock:
+            self._drop_locked()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def _drop_locked(self) -> None:
+        self._candidate = None
+        self.candidate_provenance = None
+        self._candidate_delay_s = 0.0
+
+    def _resolve_generation(self, generation: Optional[str]
+                            ) -> Tuple[torch.nn.Module, float, str, dict]:
+        """One read of a generation's (module, injected delay, name,
+        provenance) under the lock: the caller holds the module for its
+        whole dispatch. A candidate that is gone resolves to live."""
+        if generation not in (None, "live", "candidate"):
+            raise ValueError(f"unknown weight generation {generation!r} "
+                             f"(expected 'live' or 'candidate')")
+        with self._lock:
+            if generation == "candidate" and self._candidate is not None:
+                return (self._candidate, self._candidate_delay_s,
+                        "candidate", self.candidate_provenance or {})
+            return self.model, 0.0, "live", self.provenance
+
     # -- dispatch ----------------------------------------------------------
 
-    def _run(self, x: np.ndarray) -> Any:
-        """One forward at exactly x's batch size; the host output tree."""
+    def _run(self, x: np.ndarray,
+             model: Optional[torch.nn.Module] = None) -> Any:
+        """One forward of `model` (default: the live one) at exactly x's
+        batch size; the host output tree."""
+        model = self.model if model is None else model
         with torch.inference_mode():
             images = torch.from_numpy(x).to(self.device)
-            out = self.model(normalize_input(images, self.input_norm,
-                                             self.compute_dtype))
+            out = model(normalize_input(images, self.input_norm,
+                                        self.compute_dtype))
             if self.take_first_output and isinstance(out, (tuple, list)):
                 out = out[0]
             if self.output_transform is not None:
@@ -278,14 +422,26 @@ class PredictEngine:
             return tree_map(lambda t: (t.float() if t.is_floating_point()
                                        else t).cpu().numpy(), out)
 
-    def _dispatch(self, x: np.ndarray) -> Any:
+    def dispatch(self, images, generation: Optional[str] = None
+                 ) -> Tuple[Any, str, dict]:
+        """ONE bucketed dispatch of at most max_batch examples on
+        `generation`'s weights: `(outputs, the generation that served it,
+        that generation's provenance)`, the three read together, so the
+        batcher can label every answer with the weights that computed it
+        even across a concurrent swap, promotion or rollback."""
+        x = self._coerce(images)
+        model, delay_s, resolved, provenance = \
+            self._resolve_generation(generation)
+        if delay_s > 0:
+            time.sleep(delay_s)   # the injected canary latency fault
         n = x.shape[0]
         b = pick_bucket(n, self.buckets)
         if b != n:
             x = np.pad(x, [(0, b - n)] + [(0, 0)] * (x.ndim - 1))
         with self._lock:
             self.dispatches += 1
-        return tree_slice(self._run(x), 0, n)
+            self.dispatches_by_generation[resolved] += 1
+        return tree_slice(self._run(x, model), 0, n), resolved, provenance
 
     def warmup(self) -> None:
         """One blocking dispatch per bucket: absorbs first-call allocation,
@@ -293,7 +449,7 @@ class PredictEngine:
         x = np.zeros((self.max_batch, *self.example_shape), self.input_dtype)
         for b in self.buckets:
             t0 = time.perf_counter()
-            self._dispatch(x[:b])
+            self.dispatch(x[:b])
             if self.verbose:
                 print(f"[serve:{self.name}] bucket {b}: warm in "
                       f"{time.perf_counter() - t0:.2f}s on "
@@ -310,19 +466,22 @@ class PredictEngine:
                 f"(or one bare example), got {x.shape}")
         return x
 
-    def predict(self, images) -> Any:
+    def predict(self, images, generation: Optional[str] = None) -> Any:
         """Host-in host-out bucketed prediction (pads, dispatches, strips).
-        Oversize batches run as max_batch chunks plus one tail bucket."""
+        Oversize batches run as max_batch chunks plus one tail bucket.
+        `generation` selects the weights ('live'/None, or 'candidate' while
+        a promotion has one staged); each dispatch runs one generation."""
         x = self._coerce(images)
-        if x.shape[0] <= self.max_batch:
-            return self._dispatch(x)
-        return tree_concat([self._dispatch(x[i:i + self.max_batch])
-                            for i in range(0, x.shape[0], self.max_batch)])
+        chunks = [self.dispatch(x[i:i + self.max_batch], generation)[0]
+                  for i in range(0, x.shape[0], self.max_batch)]
+        return chunks[0] if len(chunks) == 1 else tree_concat(chunks)
 
-    def reference(self, images) -> Any:
-        """Un-bucketed predict at the exact batch size — the oracle the
-        padding-equivalence checks hold the bucketed path against."""
-        return self._run(self._coerce(images))
+    def reference(self, images, generation: Optional[str] = None) -> Any:
+        """Un-bucketed predict at the exact batch size on `generation`'s
+        weights — the oracle the padding-equivalence checks hold the
+        bucketed path against."""
+        model = self._resolve_generation(generation)[0]
+        return self._run(self._coerce(images), model)
 
     # -- measurement -------------------------------------------------------
 

@@ -1,10 +1,10 @@
 """Multi-model serving fleet: many engines, one process, one front door
-(port of deepvision_tpu/serve/fleet.py without hot reload, promotion,
-autoscaling and the circuit breaker, which arrive later).
+(port of deepvision_tpu/serve/fleet.py).
 
-Each served model gets its OWN `DynamicBatcher` and `ServingMetrics`
-(coalescing only ever combines same-model requests), while the card is
-shared by every batcher's dispatches.
+Each served model gets its OWN `DynamicBatcher`, `ServingMetrics` and
+circuit breaker (coalescing only ever combines same-model requests, and one
+model's broken dispatch path fail-fasts its own requests only), while the
+card is shared by every batcher's dispatches.
 
 Routing contract (served by serve/server.py):
 
@@ -12,13 +12,22 @@ Routing contract (served by serve/server.py):
     POST /predict/<name>     -> that model; unknown names get 404 with the
                                 served-model list in the body
     GET  /stats[/<name>]     -> per-model ServingMetrics + weight provenance
-    GET  /healthz            -> aggregate status, device, per-model records
+    GET  /healthz            -> aggregate status, device, and per model the
+                                provenance, reload outcomes, autoscale
+                                decisions, breaker state, workers and the
+                                promotion record
+
+Hot weight reload (serve/reload.py) works on the `ServedModel`s that carry
+a `workdir`; their `reload_stats` and `autoscale_stats` (guarded by
+`reload_lock`, the control-plane lock) surface on /healthz and /metrics.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Iterator, List, Optional
 
+from .autoscale import CircuitBreaker
 from .batcher import DynamicBatcher
 from .engine import PredictEngine
 from .metrics import ServingMetrics
@@ -40,40 +49,95 @@ class UnknownModel(KeyError):
 
 class ServedModel:
     """One model's serving unit: engine + its own batcher + its own
-    metrics."""
+    metrics, plus the run dir hot reload watches (None = static weights)
+    and, when the deployment gates promotions, its PromotionController."""
 
     def __init__(self, engine: PredictEngine, batcher: DynamicBatcher,
-                 metrics: ServingMetrics):
+                 metrics: ServingMetrics, workdir: Optional[str] = None):
         self.engine = engine
         self.batcher = batcher
         self.metrics = metrics
+        self.workdir = workdir
+        # serve/promote.PromotionController when candidates run shadow and
+        # canary before going live; None = the direct integrity-verified swap
+        self.promoter = None
+        self.reload_lock = threading.Lock()
+        self.reload_stats: Dict[str, float] = {
+            "reloads": 0, "refused_corrupt": 0, "refused_incompatible": 0,
+            "refused_gate": 0, "rolled_back": 0}
+        # the AutoscaleController's decision record (under reload_lock)
+        self.autoscale_stats: Dict[str, float] = {
+            "scale_ups": 0, "scale_downs": 0, "escalations": 0,
+            "wants_scale_out": False,
+            "workers": self.batcher.workers}
+        # the model's p99 contract (max_delay + one max-bucket compute
+        # time, ms), measured by the autoscaler's first sample
+        self.p99_bound_ms: Optional[float] = None
 
     @property
     def name(self) -> str:
         return self.engine.name
 
-    def submit(self, images, *, deadline_s: Optional[float] = None):
-        """Route one request into this model's batcher. `deadline_s` feeds
-        admission control (None = the batcher's configured default)."""
-        return self.batcher.submit(images, deadline_s=deadline_s)
+    @property
+    def breaker(self) -> Optional[CircuitBreaker]:
+        return self.batcher.breaker
+
+    def submit(self, images, *, deadline_s: Optional[float] = None,
+               trace=None):
+        """Route one request into this model's batcher (the promotion
+        canary's fraction onto the candidate generation). `deadline_s`
+        feeds admission control (None = the batcher's configured default);
+        `trace` is a sampled request's TraceContext."""
+        return self.submit_routed(images, deadline_s=deadline_s,
+                                  trace=trace)[0]
+
+    def submit_routed(self, images, *, deadline_s: Optional[float] = None,
+                      trace=None):
+        """`submit` plus the routing verdict: `(future, generation)`, the
+        generation "candidate" when the promotion controller canary-routed
+        this request and "live" otherwise. The generation that computed
+        the answer is the future's `generation` (a rollback between the
+        routing and the dispatch serves a canary-routed request live)."""
+        generation = self.promoter.route() if self.promoter else None
+        fut = self.batcher.submit(images, generation=generation,
+                                  deadline_s=deadline_s, trace=trace)
+        return fut, (generation or "live")
 
     def describe(self) -> dict:
         """The /healthz per-model record."""
+        with self.reload_lock:
+            reload_stats = dict(self.reload_stats)
+            autoscale_stats = dict(self.autoscale_stats)
+        workers = self.batcher.workers
+        autoscale_stats["workers"] = workers
         return {
             "device": self.engine.device_name,
             "buckets": list(self.engine.buckets),
             "max_batch": self.batcher.max_batch,
             "queue_depth": self.batcher.queue_depth,
+            "workers": workers,
             "default_deadline_s": self.batcher.default_deadline_s,
             "weights": self.engine.provenance,
+            "hot_reload": bool(self.workdir),
+            "reload": reload_stats,
+            "autoscale": autoscale_stats,
+            "breaker": (self.breaker.describe() if self.breaker else None),
+            "promotion": (self.promoter.describe()
+                          if self.promoter else None),
         }
 
     def snapshot(self) -> dict:
         """The /stats per-model record."""
-        return {
+        snap = {
             **self.metrics.snapshot(queue_depth=self.batcher.queue_depth),
+            "workers": float(self.batcher.workers),
             "weights": self.engine.provenance,
         }
+        if self.breaker is not None:
+            snap["breaker_state"] = self.breaker.describe()["state"]
+        if self.promoter is not None:
+            snap["promotion"] = self.promoter.describe()
+        return snap
 
 
 class ModelFleet:
@@ -84,13 +148,21 @@ class ModelFleet:
         self._models: Dict[str, ServedModel] = {}  # insertion-ordered
 
     def add(self, engine: PredictEngine, *,
+            workdir: Optional[str] = None,
             max_batch: Optional[int] = None,
             max_delay_ms: float = 5.0,
             max_queue_examples: int = 1024,
-            default_deadline_s: Optional[float] = None) -> ServedModel:
-        """Register an engine under its own name with a fresh batcher and
-        metrics accumulator: one model being hammered sheds ITS requests
-        (429) without starving the others' queues."""
+            workers: int = 1,
+            default_deadline_s: Optional[float] = None,
+            breaker_k: int = 5,
+            breaker_cooldown_s: float = 5.0) -> ServedModel:
+        """Register an engine under its own name with a fresh batcher,
+        metrics accumulator and circuit breaker: one model being hammered
+        sheds ITS requests (429), one model's broken dispatch path
+        fail-fasts ITS requests (503 naming it), and the others keep
+        serving. `workers` sizes the initial dispatcher pool (the
+        autoscaler resizes it live); `workdir` is the run dir hot reload
+        watches."""
         if engine.name in self._models:
             raise ValueError(f"model {engine.name!r} already served — one "
                              f"entry per registry name")
@@ -98,8 +170,10 @@ class ModelFleet:
         batcher = DynamicBatcher(
             engine, max_batch=max_batch, max_delay_ms=max_delay_ms,
             max_queue_examples=max_queue_examples, metrics=metrics,
-            default_deadline_s=default_deadline_s)
-        sm = ServedModel(engine, batcher, metrics)
+            workers=workers, default_deadline_s=default_deadline_s)
+        batcher.breaker = CircuitBreaker(engine.name, k=breaker_k,
+                                         cooldown_s=breaker_cooldown_s)
+        sm = ServedModel(engine, batcher, metrics, workdir=workdir)
         self._models[engine.name] = sm
         return sm
 
@@ -144,7 +218,7 @@ class ModelFleet:
 
     def drain(self, timeout: Optional[float] = None) -> bool:
         """Drain every batcher (reject new work, finish accepted, stop the
-        dispatcher threads). True once ALL dispatchers exited."""
+        dispatcher workers). True once ALL dispatchers exited."""
         ok = True
         for sm in self:
             ok = sm.batcher.drain(timeout) and ok

@@ -1,7 +1,7 @@
-"""Deterministic fault injection for the trainers and the checkpoint layer
-(own copy of the trainer and checkpoint part of
-deepvision_tpu/utils/faults.py: `FaultInjector` with the same environment
-variables and the same parsing).
+"""Deterministic fault injection for the trainers, the checkpoint layer and
+the serving stack (own copy of the trainer, checkpoint, serving-dispatch
+and promotion part of deepvision_tpu/utils/faults.py: `FaultInjector` with
+the same environment variables and the same parsing).
 
 Every recovery path of core/resilience.py and core/checkpoint.py must be
 testable on the CPU without a flaky cluster to provide the faults, so the
@@ -30,11 +30,32 @@ injector fakes the failure classes long runs see:
                                              middle), `delete_manifest` (what
                                              a kill between the data commit
                                              and the manifest commit leaves)
+    DEEPVISION_FAULT_SERVE_DISPATCH_FAIL=k[:n]
+                                             fail n consecutive serving
+                                             dispatches starting at dispatch
+                                             k (0-based, counted per
+                                             DynamicBatcher across all its
+                                             workers; n defaults to 1): the
+                                             batch's futures get the error
+                                             and the model's circuit breaker
+                                             sees exactly n consecutive
+                                             failures
+    DEEPVISION_FAULT_PROMOTE_REGRESS=k:kind  make candidate epoch k a
+                                             regression when the promotion
+                                             controller evaluates it. kind:
+                                             `accuracy` (its shadow score is
+                                             lowered: the gate must refuse),
+                                             `latency` (its dispatches pay an
+                                             injected delay: the canary must
+                                             roll back). Fires for every
+                                             evaluation of epoch k: the
+                                             refusal cache, not the injector,
+                                             stops re-evaluation
 
 `tamper_sharding`, the JAX package's fourth mode, edits a manifest's mesh
 section, which only an elastic (resharding) restore reads; the port keeps
-no such section yet, so the mode is refused by name. The serving, replica,
-quantization, promotion and drift faults arrive with their serve features.
+no such section yet, so the mode is refused by name. The replica,
+quantization and drift faults arrive with their serve features.
 
 An unset environment yields an inert injector (`active` False) whose hooks
 are cheap no-ops.
@@ -44,11 +65,13 @@ from __future__ import annotations
 
 import os
 import sys
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
 
 CORRUPT_MODES = ("truncate", "bitflip", "delete_manifest", "tamper_sharding")
+PROMOTE_REGRESS_KINDS = ("accuracy", "latency")
 
 
 def _parse_step_count(raw: Optional[str]) -> Tuple[Optional[int], int]:
@@ -75,6 +98,18 @@ def _parse_epoch_mode(raw: Optional[str]
     return int(epoch), mode
 
 
+def _parse_promote_regress(raw: Optional[str]
+                           ) -> Tuple[Optional[int], Optional[str]]:
+    if not raw:
+        return None, None
+    epoch, _, kind = raw.partition(":")
+    kind = kind or "accuracy"
+    if kind not in PROMOTE_REGRESS_KINDS:
+        raise ValueError(f"DEEPVISION_FAULT_PROMOTE_REGRESS kind must be one "
+                         f"of {PROMOTE_REGRESS_KINDS}, got {kind!r}")
+    return int(epoch), kind
+
+
 class FaultInjector:
     """Process-local fault state: counters advance as the hooks are called,
     so a fault fires at a deterministic batch or save index and then
@@ -86,7 +121,11 @@ class FaultInjector:
                  ckpt_save_fails: int = 0,
                  ckpt_async_fails: int = 0,
                  ckpt_corrupt_epoch: Optional[int] = None,
-                 ckpt_corrupt_mode: Optional[str] = None):
+                 ckpt_corrupt_mode: Optional[str] = None,
+                 promote_regress_epoch: Optional[int] = None,
+                 promote_regress_kind: Optional[str] = None,
+                 serve_dispatch_fail_at: Optional[int] = None,
+                 serve_dispatch_fail_count: int = 1):
         self.data_io_step = data_io_step
         self.data_io_remaining = (data_io_count if data_io_step is not None
                                   else 0)
@@ -95,9 +134,19 @@ class FaultInjector:
         self.ckpt_async_fails = ckpt_async_fails
         self.ckpt_corrupt_epoch = ckpt_corrupt_epoch
         self.ckpt_corrupt_mode = ckpt_corrupt_mode
+        self.promote_regress_epoch = promote_regress_epoch
+        self.promote_regress_kind = promote_regress_kind
+        self.serve_dispatch_fail_at = serve_dispatch_fail_at
+        self.serve_dispatch_fail_count = (serve_dispatch_fail_count
+                                          if serve_dispatch_fail_at is not None
+                                          else 0)
         self._batch_index = 0   # advances once per batch pulled
         self._save_index = 0
         self._async_index = 0
+        self._serve_dispatch_index = 0
+        # serving dispatches run on a pool of workers: the one hook called
+        # from several threads, so the one whose counter is locked
+        self._serve_lock = threading.Lock()
 
     @classmethod
     def from_env(cls, env=None) -> "FaultInjector":
@@ -107,6 +156,10 @@ class FaultInjector:
         nan_step, _ = _parse_step_count(env.get("DEEPVISION_FAULT_NAN_STEP"))
         corrupt_epoch, corrupt_mode = _parse_epoch_mode(
             env.get("DEEPVISION_FAULT_CKPT_CORRUPT"))
+        regress_epoch, regress_kind = _parse_promote_regress(
+            env.get("DEEPVISION_FAULT_PROMOTE_REGRESS"))
+        dispatch_at, dispatch_count = _parse_step_count(
+            env.get("DEEPVISION_FAULT_SERVE_DISPATCH_FAIL"))
         return cls(data_io_step=io_step, data_io_count=io_count,
                    nan_step=nan_step,
                    ckpt_save_fails=int(
@@ -114,13 +167,19 @@ class FaultInjector:
                    ckpt_async_fails=int(
                        env.get("DEEPVISION_FAULT_CKPT_ASYNC_FAILS", "0")),
                    ckpt_corrupt_epoch=corrupt_epoch,
-                   ckpt_corrupt_mode=corrupt_mode)
+                   ckpt_corrupt_mode=corrupt_mode,
+                   promote_regress_epoch=regress_epoch,
+                   promote_regress_kind=regress_kind,
+                   serve_dispatch_fail_at=dispatch_at,
+                   serve_dispatch_fail_count=dispatch_count)
 
     @property
     def active(self) -> bool:
         return (self.data_io_step is not None or self.nan_step is not None
                 or self.ckpt_save_fails > 0 or self.ckpt_async_fails > 0
-                or self.ckpt_corrupt_epoch is not None)
+                or self.ckpt_corrupt_epoch is not None
+                or self.promote_regress_epoch is not None
+                or self.serve_dispatch_fail_at is not None)
 
     # -- hooks -----------------------------------------------------------
     def before_batch(self) -> None:
@@ -176,6 +235,34 @@ class FaultInjector:
             raise OSError(
                 f"injected async checkpoint-write failure "
                 f"({i + 1}/{self.ckpt_async_fails})")
+
+    def before_serve_dispatch(self) -> None:
+        """Called by DynamicBatcher._dispatch right before the engine call:
+        dispatches [k, k+n) raise, so the batch's futures carry the error
+        and the circuit breaker sees exactly n consecutive failures. The
+        index counts every dispatch of the owning batcher, all workers,
+        under a lock."""
+        if self.serve_dispatch_fail_at is None:
+            return
+        with self._serve_lock:
+            i = self._serve_dispatch_index
+            self._serve_dispatch_index += 1
+        lo = self.serve_dispatch_fail_at
+        if lo <= i < lo + self.serve_dispatch_fail_count:
+            raise RuntimeError(
+                f"injected serving dispatch failure "
+                f"{i - lo + 1}/{self.serve_dispatch_fail_count} "
+                f"(dispatch {i})")
+
+    def promote_regression(self, epoch: Optional[int]) -> Optional[str]:
+        """Called by the promotion controller when candidate `epoch` enters
+        evaluation: the injected regression kind (`accuracy` / `latency`)
+        when `epoch` is the armed one, else None. Not one-shot: the same
+        bad epoch regresses on every evaluation, so a test can prove that
+        the controller's refusal cache stops re-evaluation."""
+        if epoch is None or epoch != self.promote_regress_epoch:
+            return None
+        return self.promote_regress_kind
 
     def corrupt_checkpoint(self, epoch: int, step_dir: str,
                            manifest_name: str = "integrity_manifest.json"

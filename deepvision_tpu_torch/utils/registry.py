@@ -30,6 +30,10 @@ class Registry:
             raise KeyError(f"duplicate {self.kind} registration: {name!r}")
         self._entries[name] = obj
 
+    def items(self):
+        """(name, object) pairs in registration order."""
+        return self._entries.items()
+
     def get(self, name: str):
         try:
             return self._entries[name]

@@ -2,7 +2,11 @@
 small size, the card stood in for by the CPU
 (tests/test_torch_chip_smoke.py::_card_on_the_cpu): yolov3_digits at 64
 px and batch 2 in place of yolov3 at 416 px and batch 16, the train.py
-subprocesses of 15c with `--device cpu`, a 1 s watchdog. Every sub-phase
+subprocesses of 15c with `--device cpu`. The watchdog keeps the card's
+threshold, P15_WATCHDOG_SECS: like the JAX trainer, the trainer does not
+feed it across the end-of-epoch evaluation and checkpoint save, which on a
+loaded CPU (several test workers) can outlast a shorter one before the
+stall is injected. Every sub-phase
 runs end to end: the rollback and its events, K2's plain version counted
 once per train step (the diverged and the retried epoch's included) and
 per eval batch, the save overlap, fallback, strict, fsck's exit codes,
@@ -38,8 +42,7 @@ def tiny_p15(monkeypatch):
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     for name, value in (("YOLO_MODEL", "yolov3_digits"), ("P15_SIZE", 64),
                         ("P15_BATCH", 2), ("P15_DEVICE", "cpu"),
-                        ("P15_TIMED_STEPS", 2), ("P15_WATCHDOG_SECS", 1.0),
-                        ("P15_TIMEOUT", 240)):
+                        ("P15_TIMED_STEPS", 2), ("P15_TIMEOUT", 240)):
         monkeypatch.setattr(chip_smoke, name, value)
 
 

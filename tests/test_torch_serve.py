@@ -270,6 +270,11 @@ class _EchoEngine:
     def predict(self, images):
         return images * 2.0
 
+    def dispatch(self, images, generation=None):
+        """The batcher's call: the answer, the weight generation that
+        computed it and that generation's provenance (one generation)."""
+        return self.predict(images), "live", {}
+
 
 def test_batcher_under_contention_answers_every_row_to_its_owner():
     """16 clients on one dispatcher with a 10 µs switch interval: every
