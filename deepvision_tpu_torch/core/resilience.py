@@ -111,7 +111,8 @@ def resilient_batches(batches: Iterable, policy: RetryPolicy,
 def log_resilience_event(logger, step: int, metrics: dict,
                          epoch: Optional[int] = None, *,
                          request_id: Optional[str] = None,
-                         trace_ref: Optional[str] = None) -> None:
+                         trace_ref: Optional[str] = None,
+                         flywheel_id: Optional[str] = None) -> None:
     """Write one event onto the `resilience_` metrics stream — the single
     forensics channel every recovery path shares (divergence rollbacks,
     refused reloads, promotion verdicts, breaker transitions and sheds in
@@ -121,7 +122,10 @@ def log_resilience_event(logger, step: int, metrics: dict,
     callers without a metrics stream need no guard. `request_id` (the HTTP
     request that triggered the event) and `trace_ref` (``span:<id>`` of
     the span that produced it, `GET /trace`) are written as string fields,
-    so an event joins the spans and the client log line behind it."""
+    so an event joins the spans and the client log line behind it.
+    `flywheel_id` is the third such field: the episode id the flywheel
+    controller (flywheel/controller.py) mints at a drift event and carries
+    through every decision of that drift -> retrain -> promote episode."""
     if logger is None:
         return
     extra = {}
@@ -129,6 +133,8 @@ def log_resilience_event(logger, step: int, metrics: dict,
         extra["request_id"] = str(request_id)
     if trace_ref is not None:
         extra["trace_ref"] = str(trace_ref)
+    if flywheel_id is not None:
+        extra["flywheel_id"] = str(flywheel_id)
     logger.log(step, {k: float(v) for k, v in metrics.items()},
                prefix="resilience_", echo=False, extra=extra or None,
                epoch=epoch)

@@ -35,6 +35,7 @@ import threading
 import time
 import uuid
 from collections import deque
+from contextlib import contextmanager
 from typing import Optional
 
 # default per-request sampling rate: 1-in-10 requests fully traced
@@ -139,6 +140,19 @@ class Tracer:
             self._spans.append(span)
             self.recorded += 1
         return sid
+
+    @contextmanager
+    def span(self, name: str, cat: str = "serve", **args):
+        """Record the wrapped block as one span; yields a mutable args dict
+        (extra tags set inside the block land on the span)."""
+        if not self.enabled:
+            yield args
+            return
+        t0 = time.monotonic_ns()
+        try:
+            yield args
+        finally:
+            self.add(name, cat, t0, time.monotonic_ns() - t0, args=args)
 
     # -- reading -----------------------------------------------------------
 

@@ -37,6 +37,9 @@ _libs: Dict[str, ctypes.CDLL] = {}
 #: name -> {"seconds": build wall time, "ptxas": nvcc's resource report};
 #: empty for a library that loaded from the cache
 BUILD_INFO: Dict[str, dict] = {}
+#: name -> "hit" (loaded from the cache) or "miss" (nvcc built it in this
+#: process), for every library this process loaded: `compile_record`
+LOADED: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -98,4 +101,22 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)))
         with _lock:
             lib = _libs.setdefault(name, lib)
+            LOADED.setdefault(name, "miss" if name in BUILD_INFO else "hit")
     return lib
+
+
+def compile_record() -> dict:
+    """What this process paid to load its kernel libraries: `entries`
+    loaded, `cache_hits` (found in the cache), `cache_misses` (built here
+    by nvcc) and `compile_s` (those builds' nvcc seconds), with each
+    library's outcome. A serving replica puts it on /healthz, where a
+    respawned replica on a warm cache shows `cache_misses == 0`."""
+    with _lock:
+        loaded = dict(LOADED)
+    return {"entries": len(loaded),
+            "cache_hits": sum(v == "hit" for v in loaded.values()),
+            "cache_misses": sum(v == "miss" for v in loaded.values()),
+            "compile_s": round(sum(BUILD_INFO[n]["seconds"]
+                                   for n, v in loaded.items()
+                                   if v == "miss"), 3),
+            "libraries": loaded}

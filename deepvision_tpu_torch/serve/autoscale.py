@@ -1,6 +1,5 @@
 """Shed-driven autoscaling and per-model circuit breaking (port of
-deepvision_tpu/serve/autoscale.py; the replica tier's `scale_out` hook
-waits for the tier).
+deepvision_tpu/serve/autoscale.py).
 
 **AutoscaleController** — a sampling loop over the fleet's per-model
 `ServingMetrics`. A dispatcher worker is a thread plus a reference to the
@@ -17,8 +16,10 @@ queue depth and the rolling p99 against the model's p99 bound
   nothing, a missing one sheds traffic;
 - never leaves `[min_workers, max_workers]`, and waits `cooldown_s`
   between decisions so it measures the effect of the last one;
-- at the ceiling, still shedding, ESCALATES: `escalations` counts it and
-  `wants_scale_out` flags it on /healthz until the pressure is gone.
+- at the ceiling, still shedding, ESCALATES: `escalations` counts it,
+  `wants_scale_out` flags it on /healthz until the pressure is gone, and
+  the `scale_out` hook, when given, is called (a tier supervisor adding a
+  replica, serve/tier.py).
 
 On one card the workers' forwards serialize on the device; a pool helps by
 overlapping host work (the host-to-device copy, the answer's copy back,
@@ -175,6 +176,7 @@ class AutoscaleController:
                  down_after: int = 10,
                  cooldown_s: float = 2.0,
                  p99_factor: float = 2.0,
+                 scale_out=None,
                  logger=None):
         if max_workers < min_workers:
             raise ValueError(f"max_workers={max_workers} below "
@@ -187,6 +189,11 @@ class AutoscaleController:
         self.down_after = max(1, int(down_after))
         self.cooldown_s = float(cooldown_s)
         self.p99_factor = float(p99_factor)
+        # the next lever once the worker ceiling is reached and the model
+        # still sheds: called as scale_out(sm, refused=, queue_depth=), e.g.
+        # by a supervisor that adds a tier replica (serve/tier.py); None
+        # leaves the escalation a flag on /healthz
+        self.scale_out = scale_out
         self.logger = logger
         self._state: Dict[str, dict] = {
             sm.name: {"last": sm.metrics.totals(), "up_streak": 0,
@@ -319,8 +326,10 @@ class AutoscaleController:
         """The worker ceiling is reached and the model still sheds: record
         that the next lever is another replica (`escalations`, and
         `wants_scale_out` on /healthz until a sweep finds the pressure
-        gone). No replica tier is ported yet, so the flag is all there is:
-        nothing is called."""
+        gone; the tier router aggregates it as `scale_out_wanted`), and
+        call whoever owns that lever (`scale_out`). A worker is a thread
+        over the one engine; a replica is a whole process with its own
+        CUDA context, the dearer last resort."""
         self._state[sm.name]["wants_scale_out"] = True
         with sm.reload_lock:
             stats = sm.autoscale_stats
@@ -338,9 +347,17 @@ class AutoscaleController:
         print(f"[serve-autoscale:{sm.name}] escalate: worker ceiling "
               f"{self.max_workers} reached and still shedding ({refused} "
               f"requests refused since last sample, queue depth "
-              f"{queue_depth}) — the next lever is another replica; "
-              f"wants_scale_out flagged on /healthz",
+              f"{queue_depth}) — the next lever is another replica "
+              f"(serve/tier.py); wants_scale_out flagged on /healthz",
               file=sys.stderr, flush=True)
+        if self.scale_out is not None:
+            try:
+                self.scale_out(sm, refused=refused,
+                               queue_depth=queue_depth)
+            except Exception as e:  # noqa: BLE001 — the hook is advisory:
+                # a broken lever must not kill the sampler
+                print(f"[serve-autoscale:{sm.name}] scale_out hook "
+                      f"failed: {e!r}", file=sys.stderr, flush=True)
 
     def _decide(self, sm, decision: str, workers: int, *,
                 refused: int, queue_depth: int) -> None:

@@ -38,13 +38,18 @@
         --runs-root runs --autoscale-every 1 --max-workers 4
     python -m deepvision_tpu_torch.serve --list-models --runs-root runs
 
+    # the drift-triggered flywheel: a confirmed input drift fine-tunes a
+    # bounded candidate into the run dir and ships it through the gate
+    python -m deepvision_tpu_torch.serve -m vit_small --workdir runs/vit \
+        --promote-gate -0.02 --flywheel-every 0.5
+
 The rest of the serving flags: `--workers` (the pool's floor),
 `--breaker-k` / `--breaker-cooldown` (the per-model circuit breaker),
 `--no-trace`, `--drain-grace` (the de-admission window after SIGTERM),
 `--image-size`. Five families serve: classification, detection (YOLO),
 CenterNet, pose and segmentation; GAN configs are refused. The JAX CLI's
-mesh, int8, flywheel and compilation-cache flags are refused by name
-(`LATER_FLAGS`).
+mesh, int8 and compilation-cache flags are refused by name
+(`LATER_FLAGS`). Several replicas behind one router: serve/tier.py.
 """
 
 from __future__ import annotations
@@ -65,7 +70,6 @@ LATER_FLAGS = {
     "--spatial-parallel": "mesh serving (ROADMAP A6)",
     "--hbm-gb": "mesh serving (ROADMAP A6)",
     "--quant-gate": "int8 serving (ROADMAP A7)",
-    "--flywheel-every": "the drift-triggered flywheel (ROADMAP Queue A)",
     "--compilation-cache": "no slice: it sets XLA's persistent compilation "
                            "cache, which the port's eager PyTorch has no "
                            "counterpart of",
@@ -113,8 +117,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "DELTA (e.g. -0.02 = at most 2 points worse), then "
                         "canary a traffic fraction and roll back on a "
                         "dispatch-time or error regression. Needs "
-                        "--reload-every; unset = direct integrity-verified "
-                        "swap (default)")
+                        "--reload-every or --flywheel-every; unset = direct "
+                        "integrity-verified swap (default)")
     p.add_argument("--canary-frac", type=float, default=0.05,
                    metavar="FRAC",
                    help="fraction of live traffic routed to the candidate "
@@ -125,6 +129,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="canary decision window: how long candidate and "
                         "baseline traffic are compared before promote or "
                         "rollback (default 5)")
+    p.add_argument("--flywheel-every", type=float, default=0.0,
+                   metavar="SECS",
+                   help="drift-triggered continuous training: every SECS "
+                        "seconds compare the live inputs and the watched "
+                        "metric against the pinned calibration shard; a "
+                        "drift confirmed over consecutive windows "
+                        "fine-tunes a bounded candidate from the run dir "
+                        "and ships it through the --promote-gate shadow "
+                        "and canary pipeline, with exponential backoff and "
+                        "a circuit after repeated refusals. Needs "
+                        "--promote-gate; 0 disables (default)")
     p.add_argument("--serve-precision", choices=("bf16", "int8"),
                    default="bf16",
                    help="serving precision: bf16, the full-precision rung "
@@ -318,6 +333,10 @@ def _smoke(server, duration: float, n_threads: int) -> dict:
                    for n, s in per_model.items()},
         "requests_total": round(float(requests_total), 1),
         "buckets": list(server.engine.buckets),
+        # a flywheel-armed smoke's state machine and episode outcomes
+        **({"flywheel": {fw.sm.name: {"state": fw.state, **fw.counters}
+                         for fw in server.flywheels}}
+           if server.flywheels else {}),
         **{k: round(float(v), 4) for k, v in snap.items()},
     }), flush=True)
     if not ok:
@@ -328,9 +347,14 @@ def _smoke(server, duration: float, n_threads: int) -> dict:
     return snap
 
 
-def validate_args(parser: argparse.ArgumentParser, args) -> None:
+def validate_args(parser: argparse.ArgumentParser, args,
+                  require_reload_for_gate: bool = True) -> None:
     """The flag-coupling checks of every entry point built on
-    `build_parser`, and the refusal of the flags later slices bring."""
+    `build_parser` (this CLI, the tier replica in serve/replica.py), and
+    the refusal of the flags later slices bring.
+    `require_reload_for_gate=False` lets --promote-gate stand without
+    --reload-every: a tier replica arms the gate but is driven through
+    `POST /reload` by the router's rolling promotion."""
     for flag, why in LATER_FLAGS.items():
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             parser.error(f"{flag} is not ported yet: it arrives with {why}")
@@ -356,9 +380,20 @@ def validate_args(parser: argparse.ArgumentParser, args) -> None:
     if args.canary_window < 0:
         parser.error(f"--canary-window must be >= 0, got "
                      f"{args.canary_window}")
-    if args.promote_gate is not None and not args.reload_every:
-        parser.error("--promote-gate needs --reload-every: promotion "
-                     "evaluates the candidates the hot-reload poller finds")
+    # the gate evaluates the candidates the hot-reload poller finds, or
+    # those the flywheel commits (its own reloader proposes them)
+    if (require_reload_for_gate and args.promote_gate is not None
+            and not args.reload_every and not args.flywheel_every):
+        parser.error("--promote-gate needs --reload-every (or "
+                     "--flywheel-every): promotion evaluates the candidates "
+                     "the hot-reload poller finds")
+    if args.flywheel_every < 0:
+        parser.error(f"--flywheel-every must be >= 0, got "
+                     f"{args.flywheel_every}")
+    if args.flywheel_every and args.promote_gate is None:
+        parser.error("--flywheel-every needs --promote-gate: the flywheel "
+                     "only ships retrained candidates through the shadow/"
+                     "canary promotion pipeline, never a direct swap")
     if args.reload_every < 0:
         parser.error(f"--reload-every must be >= 0, got "
                      f"{args.reload_every}")
@@ -388,9 +423,11 @@ def validate_args(parser: argparse.ArgumentParser, args) -> None:
         parser.error(f"--duration must be > 0, got {args.duration}")
 
 
-def build_server(args):
+def build_server(args, replica_id: Optional[str] = None):
     """Construct the serving stack (engines -> warmup -> fleet ->
-    InferenceServer) from parsed `build_parser` args."""
+    InferenceServer) from parsed `build_parser` args. Shared by `main` and
+    the tier replica (serve/replica.py), so a replica behind the router is
+    the standalone server; `replica_id` is its slot, echoed on /healthz."""
     from .engine import PredictEngine
     from .fleet import ModelFleet
     from .server import InferenceServer
@@ -437,10 +474,12 @@ def build_server(args):
         canary_window_s=args.canary_window,
         max_workers=args.max_workers,
         autoscale_every_s=args.autoscale_every,
+        flywheel_every_s=args.flywheel_every,
         default_deadline_s=args.deadline_ms / 1000.0,
         trace=not args.no_trace,
         trace_sample=args.trace_sample,
-        drain_grace_s=args.drain_grace)
+        drain_grace_s=args.drain_grace,
+        replica_id=replica_id)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

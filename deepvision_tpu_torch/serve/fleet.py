@@ -27,6 +27,7 @@ from __future__ import annotations
 import threading
 from typing import Dict, Iterator, List, Optional
 
+from ..ops import _build
 from .autoscale import CircuitBreaker
 from .batcher import DynamicBatcher
 from .engine import PredictEngine
@@ -61,6 +62,9 @@ class ServedModel:
         # serve/promote.PromotionController when candidates run shadow and
         # canary before going live; None = the direct integrity-verified swap
         self.promoter = None
+        # flywheel/controller.FlywheelController when drift-triggered
+        # continuous training is armed (--flywheel-every); None = none
+        self.flywheel = None
         self.reload_lock = threading.Lock()
         self.reload_stats: Dict[str, float] = {
             "reloads": 0, "refused_corrupt": 0, "refused_incompatible": 0,
@@ -113,17 +117,27 @@ class ServedModel:
         return {
             "device": self.engine.device_name,
             "buckets": list(self.engine.buckets),
+            # the kernel libraries this process loaded, each from the
+            # shared build cache (a hit) or built by nvcc (a miss): the
+            # tier's warm-boot audit, cache_misses == 0 on a respawn
+            "compile": _build.compile_record(),
             "max_batch": self.batcher.max_batch,
             "queue_depth": self.batcher.queue_depth,
             "workers": workers,
             "default_deadline_s": self.batcher.default_deadline_s,
             "weights": self.engine.provenance,
+            # bucketed dispatches since the engine was built (warmup and
+            # shadow evals included), by weight generation
+            "dispatches": {"total": self.engine.dispatches,
+                           **self.engine.dispatches_by_generation},
             "hot_reload": bool(self.workdir),
             "reload": reload_stats,
             "autoscale": autoscale_stats,
             "breaker": (self.breaker.describe() if self.breaker else None),
             "promotion": (self.promoter.describe()
                           if self.promoter else None),
+            "flywheel": (self.flywheel.describe()
+                         if self.flywheel else None),
         }
 
     def snapshot(self) -> dict:

@@ -157,6 +157,11 @@ class PromotionController:
         # canary window accumulators, reset per candidate
         self._obs: dict = {}
         self.shadow_evals = 0          # candidates shadow-scored (test hook)
+        # set by the flywheel controller (flywheel/controller.py) around a
+        # drift-triggered proposal: the decision record and its event carry
+        # the episode id, so the verdict joins the drift event and the
+        # fine-tune spans on one key
+        self.flywheel_id: Optional[str] = None
 
         # wire into the serving unit: routing + the per-batch canary tap
         sm.promoter = self
@@ -184,7 +189,8 @@ class PromotionController:
         """Batcher per-batch tap: accumulate canary-window evidence —
         request latencies, per-batch dispatch times, error counts, each
         attributed to the generation that batch ran on. `sample` (the
-        batch's input/output references) is accepted and ignored."""
+        batch's input/output references) is the flywheel drift monitor's
+        food, accepted and ignored here."""
         if self.state != "canary":
             return
         with self._lock:
@@ -352,6 +358,9 @@ class PromotionController:
                   "unix": time.time(), **(extra or {})}
         if detail:
             record["detail"] = detail
+        flywheel_id = self.flywheel_id
+        if flywheel_id is not None:
+            record["flywheel_id"] = flywheel_id
         with self._lock:
             self.state = "idle"
             self.history.append(record)
@@ -362,7 +371,8 @@ class PromotionController:
         for k in ("metric_delta", "canary_requests"):
             if extra and k in extra:
                 metrics[f"promote_{k}"] = float(extra[k])
-        log_resilience_event(self.logger, step, metrics)
+        log_resilience_event(self.logger, step, metrics,
+                             flywheel_id=flywheel_id)
         # stderr like the reload layer: a promotion decision must be loud
         # on the replica that took it, not only in the metrics stream
         print(f"[serve-promote:{self.sm.name}] epoch {epoch}: {decision} "

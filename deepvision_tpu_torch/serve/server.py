@@ -32,9 +32,11 @@ concurrency the micro-batchers coalesce) over a `ModelFleet`:
                                before the answer {"swapped", "watched",
                                "models"} carries the outcome
     GET  /healthz           -> 200 status ("ok" | "draining"), the device,
-                               per-model buckets, queue, workers,
-                               provenance, reload outcomes, autoscale
-                               decisions, breaker state and promotion record
+                               the tier replica id, per-model buckets,
+                               queue, workers, provenance, reload outcomes,
+                               autoscale decisions, breaker state, the
+                               kernel libraries loaded, the promotion and
+                               flywheel records
     GET  /stats[/<model>]   -> 200 per-model ServingMetrics snapshot(s)
     GET  /metrics           -> 200 Prometheus text exposition (0.0.4):
                                lifetime counters, queue/worker/breaker
@@ -60,7 +62,14 @@ Hot weight reload (serve/reload.py): models built with a workdir are
 watched for new integrity-verified epochs (`reload_every_s > 0` arms the
 poller; `POST /reload` runs one sweep), which swap in atomically; with
 `promote_gate` set each candidate first passes the accuracy gate and a
-canary (serve/promote.py).
+canary (serve/promote.py). With `flywheel_every_s > 0` each gated model
+also gets a drift-triggered flywheel (flywheel/controller.py): a
+confirmed input drift fine-tunes a bounded candidate, commits it to the
+run dir and ships it through the same gate.
+
+Replica faults (utils/faults.py `DEEPVISION_FAULT_REPLICA_CRASH` /
+`_WEDGE`) are consulted at the top of every request, so the tier
+router's ejection paths rehearse against a real replica process.
 
 Graceful drain reuses the resilience SIGTERM/SIGINT contract
 (core/resilience.GracefulShutdown): the first signal flips /healthz to
@@ -87,6 +96,7 @@ from ..core.metrics import MetricsLogger
 from ..core.resilience import GracefulShutdown, log_resilience_event
 from ..obs.export import chrome_trace, render_prometheus
 from ..obs.trace import Tracer, new_request_id
+from ..utils.faults import FaultInjector
 from .autoscale import AutoscaleController
 from .batcher import (CircuitOpen, DeadlineExpired, DeadlineUnmeetable,
                       Draining, Overloaded, result_within)
@@ -125,13 +135,16 @@ class InferenceServer:
                  workers: int = 1,
                  max_workers: int = 4,
                  autoscale_every_s: float = 0.0,
+                 flywheel_every_s: float = 0.0,
                  default_deadline_s: Optional[float] = None,
                  breaker_k: int = 5,
                  breaker_cooldown_s: float = 5.0,
                  trace: bool = True,
                  trace_sample: Optional[float] = None,
                  trace_capacity: int = 16384,
-                 drain_grace_s: float = 0.0):
+                 drain_grace_s: float = 0.0,
+                 replica_id: Optional[str] = None,
+                 faults: Optional[FaultInjector] = None):
         if (engine is None) == (fleet is None):
             raise ValueError("pass exactly one of engine= or fleet=")
         if fleet is None:
@@ -192,6 +205,27 @@ class InferenceServer:
         # how long a drain-requested server keeps accepting and answering
         # after flipping /healthz, before submits start answering 503
         self.drain_grace_s = float(drain_grace_s)
+        # identity within a replica tier (serve/tier.py), echoed on /healthz
+        # so the router knows which process answers a slot's port
+        self.replica_id = replica_id
+        # replica faults (utils/faults.py REPLICA_CRASH / REPLICA_WEDGE),
+        # consulted at the top of every HTTP request; an inert injector
+        # costs two None compares
+        self.faults = (faults if faults is not None
+                       else FaultInjector.from_env())
+        # drift-triggered continuous training (flywheel/), armed by
+        # flywheel_every_s > 0: one controller per promotion-gated,
+        # workdir-backed model, on the server's logger, tracer and fault
+        # injector (DEEPVISION_FAULT_DRIFT_SHIFT)
+        self.flywheels: list = []
+        if flywheel_every_s > 0:
+            from ..flywheel.controller import attach_flywheels
+            attach_flywheels(fleet, logger=self.logger, tracer=self.tracer,
+                             tick_every_s=flywheel_every_s,
+                             faults=self.faults,
+                             warn=lambda msg: print(msg, flush=True))
+            self.flywheels = [sm.flywheel for sm in fleet
+                              if sm.flywheel is not None]
 
     def next_event_step(self) -> int:
         """Monotone step counter for per-request resilience events logged
@@ -218,10 +252,13 @@ class InferenceServer:
     # -- lifecycle ---------------------------------------------------------
 
     def start_control_loops(self) -> None:
-        """Start the reload poller and the autoscaler (each only when its
-        cadence is > 0): `serve()` does, and so does the CLI's `--smoke`."""
+        """Start the reload poller, the autoscaler and the flywheels (each
+        only when its cadence is > 0): `serve()` does, and so does the
+        CLI's `--smoke`."""
         self.reloader.start()
         self.autoscaler.start()
+        for fw in self.flywheels:
+            fw.start()
 
     def stop(self) -> None:
         """Programmatic equivalent of one SIGTERM (tests/embedding use)."""
@@ -238,6 +275,8 @@ class InferenceServer:
         for sm in self.fleet:
             if sm.promoter is not None:
                 sm.promoter.abort()
+        for fw in self.flywheels:
+            fw.stop()
         self.autoscaler.stop()
         self.reloader.stop()
         print(f"[serve:{self.engine.name}] graceful drain: rejecting new "
@@ -250,6 +289,8 @@ class InferenceServer:
         for sm in self.fleet:
             if sm.promoter is not None:
                 sm.promoter.abort()
+        for fw in self.flywheels:
+            fw.stop()
         self.autoscaler.stop()
         self.reloader.stop()
         self.fleet.drain()
@@ -297,6 +338,14 @@ class InferenceServer:
             http_thread.join(timeout=10)
         print(f"[serve:{self.engine.name}] drained cleanly", flush=True)
         return snap
+
+
+def kernel_launches() -> dict:
+    """Each kernel wrapper's launch count in this process (ops/)."""
+    from ..ops.attention import flash_attention
+    from ..ops.best_iou import best_iou
+    return {"flash_attention": flash_attention.launches,
+            "best_iou": best_iou.launches}
 
 
 def _make_handler(server: InferenceServer):
@@ -351,6 +400,7 @@ def _make_handler(server: InferenceServer):
                              "served_models": server.fleet.names()})
 
         def do_GET(self):
+            server.faults.on_replica_request(predict=False)
             self._assign_request_id()
             if self.path == "/metrics":
                 # counters come from lifetime stores: consecutive scrapes
@@ -375,6 +425,9 @@ def _make_handler(server: InferenceServer):
                                    or server.fleet.draining)
                                else "ok"),
                     "device": d.engine.device_name,
+                    # identity and load, read by the tier router's
+                    # least-loaded routing (serve/tier.py)
+                    "replica": server.replica_id,
                     "queue_depth": server.fleet.queue_depth,
                     "model": d.name,
                     "buckets": list(d.engine.buckets),
@@ -382,6 +435,10 @@ def _make_handler(server: InferenceServer):
                     "weights": d.engine.provenance,
                     "served_models": server.fleet.names(),
                     "models": server.fleet.describe(),
+                    # this process's kernel launches since it started:
+                    # with each model's dispatches, the proof that its
+                    # traffic ran through the kernels
+                    "kernel_launches": kernel_launches(),
                 })
             elif self.path == "/stats" or self.path.startswith("/stats/"):
                 sm = self._resolve("/stats")
@@ -397,8 +454,10 @@ def _make_handler(server: InferenceServer):
         def do_POST(self):
             rid = self._assign_request_id()
             if self.path == "/reload":
-                # ONE synchronous reload sweep: the caller reads the
-                # outcome from the answer instead of polling
+                # ONE synchronous reload sweep (the tier's rolling
+                # promotion drives it): the caller reads the outcome from
+                # the answer instead of polling
+                server.faults.on_replica_request(predict=False)
                 try:
                     swapped = server.reloader.check_once()
                 except Exception as e:  # noqa: BLE001 — the control plane
@@ -408,6 +467,8 @@ def _make_handler(server: InferenceServer):
                     "watched": [sm.name for sm in server.reloader.models],
                     "models": server.fleet.describe(),
                 })
+            server.faults.on_replica_request(
+                predict=self.path.startswith("/predict"))
             if not self.path.startswith("/predict"):
                 return self._unknown_path()
             sm = self._resolve("/predict")

@@ -51,11 +51,39 @@ injector fakes the failure classes long runs see:
                                              evaluation of epoch k: the
                                              refusal cache, not the injector,
                                              stops re-evaluation
+    DEEPVISION_FAULT_REPLICA_CRASH=k         the serving replica process
+                                             hard-exits (os._exit(86): no
+                                             drain, no atexit) on the
+                                             predict request after it has
+                                             answered k: the replica that
+                                             died mid-request, which the
+                                             tier router (serve/tier.py)
+                                             ejects on the spot, retries
+                                             elsewhere and respawns
+    DEEPVISION_FAULT_REPLICA_WEDGE=k         after k answered predict
+                                             requests the replica stops
+                                             answering but keeps its
+                                             socket: every later request,
+                                             health probes included, blocks
+                                             forever, which only a
+                                             deadline-bounded probe tells
+                                             from "slow"
+    DEEPVISION_FAULT_DRIFT_SHIFT=w:mag       every serving input the
+                                             flywheel's drift monitor
+                                             (flywheel/drift.py) samples
+                                             from its window w on (0-based)
+                                             is shifted by the constant
+                                             `mag` before it enters the live
+                                             statistics. Not one-shot: real
+                                             drift persists, and the
+                                             monitor's consecutive-window
+                                             hysteresis trips only on a
+                                             shift that stays
 
 `tamper_sharding`, the JAX package's fourth mode, edits a manifest's mesh
 section, which only an elastic (resharding) restore reads; the port keeps
-no such section yet, so the mode is refused by name. The replica,
-quantization and drift faults arrive with their serve features.
+no such section yet, so the mode is refused by name. The quantization fault
+(`DEEPVISION_FAULT_QUANT_REGRESS`) arrives with int8 serving.
 
 An unset environment yields an inert injector (`active` False) whose hooks
 are cheap no-ops.
@@ -66,6 +94,7 @@ from __future__ import annotations
 import os
 import sys
 import threading
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -110,6 +139,34 @@ def _parse_promote_regress(raw: Optional[str]
     return int(epoch), kind
 
 
+def _parse_drift_shift(raw: Optional[str]) -> Tuple[Optional[int], float]:
+    if not raw:
+        return None, 0.0
+    window, _, magnitude = raw.partition(":")
+    try:
+        w = int(window)
+    except ValueError:
+        raise ValueError(
+            f"DEEPVISION_FAULT_DRIFT_SHIFT window must be an int "
+            f"(got {window!r}); expected <window>:<magnitude>")
+    if not magnitude:
+        raise ValueError(
+            "DEEPVISION_FAULT_DRIFT_SHIFT needs an explicit magnitude "
+            "(<window>:<magnitude>) — a zero-magnitude shift would arm a "
+            "fault that can never fire")
+    try:
+        m = float(magnitude)
+    except ValueError:
+        raise ValueError(
+            f"DEEPVISION_FAULT_DRIFT_SHIFT magnitude must be a float "
+            f"(got {magnitude!r}); expected <window>:<magnitude>")
+    if m == 0.0:
+        raise ValueError(
+            "DEEPVISION_FAULT_DRIFT_SHIFT magnitude must be non-zero — a "
+            "zero shift arms a fault that can never fire")
+    return w, m
+
+
 class FaultInjector:
     """Process-local fault state: counters advance as the hooks are called,
     so a fault fires at a deterministic batch or save index and then
@@ -124,8 +181,12 @@ class FaultInjector:
                  ckpt_corrupt_mode: Optional[str] = None,
                  promote_regress_epoch: Optional[int] = None,
                  promote_regress_kind: Optional[str] = None,
+                 drift_shift_window: Optional[int] = None,
+                 drift_shift_magnitude: float = 0.0,
                  serve_dispatch_fail_at: Optional[int] = None,
-                 serve_dispatch_fail_count: int = 1):
+                 serve_dispatch_fail_count: int = 1,
+                 replica_crash_after: Optional[int] = None,
+                 replica_wedge_after: Optional[int] = None):
         self.data_io_step = data_io_step
         self.data_io_remaining = (data_io_count if data_io_step is not None
                                   else 0)
@@ -136,16 +197,24 @@ class FaultInjector:
         self.ckpt_corrupt_mode = ckpt_corrupt_mode
         self.promote_regress_epoch = promote_regress_epoch
         self.promote_regress_kind = promote_regress_kind
+        self.drift_shift_window = drift_shift_window
+        self.drift_shift_magnitude = (float(drift_shift_magnitude)
+                                      if drift_shift_window is not None
+                                      else 0.0)
         self.serve_dispatch_fail_at = serve_dispatch_fail_at
         self.serve_dispatch_fail_count = (serve_dispatch_fail_count
                                           if serve_dispatch_fail_at is not None
                                           else 0)
+        self.replica_crash_after = replica_crash_after
+        self.replica_wedge_after = replica_wedge_after
         self._batch_index = 0   # advances once per batch pulled
         self._save_index = 0
         self._async_index = 0
         self._serve_dispatch_index = 0
-        # serving dispatches run on a pool of workers: the one hook called
-        # from several threads, so the one whose counter is locked
+        self._replica_requests = 0   # predict requests answered so far
+        self._replica_wedged = False
+        # serving dispatches and HTTP handlers run on many threads: the
+        # serving hooks' counters are locked
         self._serve_lock = threading.Lock()
 
     @classmethod
@@ -158,8 +227,12 @@ class FaultInjector:
             env.get("DEEPVISION_FAULT_CKPT_CORRUPT"))
         regress_epoch, regress_kind = _parse_promote_regress(
             env.get("DEEPVISION_FAULT_PROMOTE_REGRESS"))
+        drift_window, drift_magnitude = _parse_drift_shift(
+            env.get("DEEPVISION_FAULT_DRIFT_SHIFT"))
         dispatch_at, dispatch_count = _parse_step_count(
             env.get("DEEPVISION_FAULT_SERVE_DISPATCH_FAIL"))
+        crash_raw = env.get("DEEPVISION_FAULT_REPLICA_CRASH")
+        wedge_raw = env.get("DEEPVISION_FAULT_REPLICA_WEDGE")
         return cls(data_io_step=io_step, data_io_count=io_count,
                    nan_step=nan_step,
                    ckpt_save_fails=int(
@@ -170,8 +243,14 @@ class FaultInjector:
                    ckpt_corrupt_mode=corrupt_mode,
                    promote_regress_epoch=regress_epoch,
                    promote_regress_kind=regress_kind,
+                   drift_shift_window=drift_window,
+                   drift_shift_magnitude=drift_magnitude,
                    serve_dispatch_fail_at=dispatch_at,
-                   serve_dispatch_fail_count=dispatch_count)
+                   serve_dispatch_fail_count=dispatch_count,
+                   replica_crash_after=(int(crash_raw) if crash_raw
+                                        else None),
+                   replica_wedge_after=(int(wedge_raw) if wedge_raw
+                                        else None))
 
     @property
     def active(self) -> bool:
@@ -179,7 +258,10 @@ class FaultInjector:
                 or self.ckpt_save_fails > 0 or self.ckpt_async_fails > 0
                 or self.ckpt_corrupt_epoch is not None
                 or self.promote_regress_epoch is not None
-                or self.serve_dispatch_fail_at is not None)
+                or self.drift_shift_window is not None
+                or self.serve_dispatch_fail_at is not None
+                or self.replica_crash_after is not None
+                or self.replica_wedge_after is not None)
 
     # -- hooks -----------------------------------------------------------
     def before_batch(self) -> None:
@@ -254,6 +336,40 @@ class FaultInjector:
                 f"{i - lo + 1}/{self.serve_dispatch_fail_count} "
                 f"(dispatch {i})")
 
+    def on_replica_request(self, predict: bool = True) -> None:
+        """Called by the HTTP front door (serve/server.py) at the top of
+        every request. Predict requests advance the replica's request
+        counter; once it passes the armed threshold the process either
+        hard-exits (`REPLICA_CRASH`: os._exit, so the client mid-request
+        sees a reset and later connects are refused, which is what a
+        SIGKILLed replica looks like to the tier router) or wedges
+        (`REPLICA_WEDGE`: this and every later handler thread, health
+        probes included, blocks forever while the listener keeps
+        accepting). Other requests never advance the counter, so a
+        router's health-poll cadence does not change when the fault
+        fires, but they hang once the replica is wedged."""
+        crash, wedge = self.replica_crash_after, self.replica_wedge_after
+        if crash is None and wedge is None:
+            return
+        with self._serve_lock:
+            if predict and not self._replica_wedged:
+                n = self._replica_requests   # answered so far
+                self._replica_requests += 1
+                if crash is not None and n >= crash:
+                    print(f"[faults] replica hard-exit after {crash} "
+                          f"answered predict requests", file=sys.stderr,
+                          flush=True)
+                    os._exit(86)
+                if wedge is not None and n >= wedge:
+                    print(f"[faults] replica wedged after {wedge} answered "
+                          f"predict requests — holding the socket, "
+                          f"answering nothing", file=sys.stderr, flush=True)
+                    self._replica_wedged = True
+            hang = self._replica_wedged
+        if hang:
+            while True:      # hold the connection open, never answer
+                time.sleep(3600)
+
     def promote_regression(self, epoch: Optional[int]) -> Optional[str]:
         """Called by the promotion controller when candidate `epoch` enters
         evaluation: the injected regression kind (`accuracy` / `latency`)
@@ -263,6 +379,16 @@ class FaultInjector:
         if epoch is None or epoch != self.promote_regress_epoch:
             return None
         return self.promote_regress_kind
+
+    def drift_shift(self, window_index: int) -> float:
+        """Called by the flywheel's drift monitor as each sampled serving
+        input enters its live window: the constant to add to the sample
+        once window `window_index` has reached the armed one, else 0.0.
+        Not one-shot, as real drift persists."""
+        if (self.drift_shift_window is None
+                or window_index < self.drift_shift_window):
+            return 0.0
+        return self.drift_shift_magnitude
 
     def corrupt_checkpoint(self, epoch: int, step_dir: str,
                            manifest_name: str = "integrity_manifest.json"
