@@ -1754,10 +1754,11 @@ def device_profile(fn, attempts: int = 3) -> tuple:
     unprofiled call. A profile that comes back with no device activity
     at all is taken again, up to `attempts` times: on the H100 one such
     empty capture of CenterNet's decode came between full ones of the
-    same call, whose kernels ran."""
+    same call, whose kernels ran. A capture that needed more than one
+    attempt says so on a phase line of its own."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
+    for attempt in range(1, attempts + 1):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             fn()
@@ -1767,6 +1768,10 @@ def device_profile(fn, attempts: int = 3) -> tuple:
                    and "memcpy" not in e.name.lower()
                    and "memset" not in e.name.lower()]
         if kernels:
+            if attempt > 1:
+                phase(f"device_profile: capture {attempt} of {attempts} "
+                      f"held device kernels, the {attempt - 1} before it "
+                      f"none")
             return (len(kernels),
                     sum(e.time_range.elapsed_us() for e in kernels) / 1e3)
     raise AssertionError(f"the profile holds no device kernel in "
@@ -4239,9 +4244,6 @@ P17_REGRESS_EPOCH = 3          # PROMOTE_REGRESS armed in the replicas
 P17_TIMEOUT = 300              # the tier's boot, a respawn, any wait
 P17_FLYWHEEL_EVERY = 0.5       # 17b's tick
 P17_DRIFT = "0:3.0"            # DEEPVISION_FAULT_DRIFT_SHIFT of 17b
-# the fine-tune: the controller's 1 epoch of 4 batches, at this batch
-# (None: the config's, 256)
-P17_FT_BATCH = None
 P17_CANARY_WINDOW = 1.0
 # 17b's gate: the run's epochs sit near chance on the 1000 classes (a
 # 64-image shard scores 0-2 hits), and so does a candidate fine-tuned for
@@ -4620,11 +4622,6 @@ def check_p17_flywheel(stash: str) -> dict:
     sm = server.fleet.default
     engine, promoter, fw = sm.engine, sm.promoter, sm.flywheel
     fw.max_attempts = P17_MAX_ATTEMPTS
-    if P17_FT_BATCH is not None:
-        fw._data_fn = lambda epoch: SyntheticClassification(
-            P17_FT_BATCH, image_size=shape[0], channels=shape[2],
-            num_classes=cfg.data.num_classes,
-            num_batches=fw.finetune_batches, seed=epoch)
     answers, failures = [], []
     stop = threading.Event()
 
@@ -4683,8 +4680,7 @@ def check_p17_flywheel(stash: str) -> dict:
     spans = server.tracer.spans()
     p16_stop(server, t)
 
-    steps = (fw.counters["retrains"] * fw.finetune_epochs
-             * fw.finetune_batches)
+    steps = fw.finetune_steps
     fw_events = [e for e in p17_jsonl(os.path.join(workdir, "serve.jsonl"))
                  if e.get("flywheel_id") == fid]
     keys = sorted({k for e in fw_events for k in e
@@ -4717,7 +4713,7 @@ def check_p17_flywheel(stash: str) -> dict:
     phase(f"17b {fid}: events {keys}; spans {fw_spans}; /healthz after "
           f"the promotion: flywheel_id {promoted_health['flywheel_id']}, "
           f"counters {promoted_health['counters']}; at the end: state "
-          f"{record['state']}")
+          f"{record['state']}, {record['finetune_steps']} fine-tune steps")
     phase(f"17b main path: {dispatches} dispatches ({by_gen}) + {steps} "
           f"fine-tune steps, {launches} flash_attention launches (depth "
           f"{depth}), best_iou {k2}; {len(answers)} answers by (generation,"
@@ -4744,6 +4740,7 @@ def check_p17_flywheel(stash: str) -> dict:
             "resilience_flywheel_finetuning", "resilience_flywheel_gating",
             "resilience_flywheel_promoted", "resilience_promote_promoted"}
     if not need <= set(keys) or record["state"] != "circuit_open" \
+            or record["finetune_steps"] != steps \
             or promoted_health["flywheel_id"] != fid \
             or not {"flywheel_finetune", "flywheel_train_epoch",
                     "flywheel_gate"} <= set(fw_spans):

@@ -75,7 +75,6 @@ class FlywheelController:
                  backoff_base_s: float = 1.0,
                  backoff_max_s: float = 60.0,
                  tick_every_s: float = 0.5,
-                 data_fn: Optional[Callable[[int], Iterable]] = None,
                  logger=None, tracer=None,
                  faults: Optional[FaultInjector] = None,
                  **monitor_kwargs):
@@ -105,7 +104,6 @@ class FlywheelController:
         self.logger = logger
         self.tracer = tracer
         self.faults = faults if faults is not None else FaultInjector.from_env()
-        self._data_fn = data_fn
         self.monitor = monitor if monitor is not None else DriftMonitor(
             sm, logger=logger, faults=self.faults, **monitor_kwargs)
 
@@ -122,6 +120,8 @@ class FlywheelController:
         self.episodes = 0              # drift events acted on
         self.counters = {"retrains": 0, "promoted": 0, "refused": 0,
                          "rolled_back": 0, "circuit_opened": 0}
+        # optimizer steps the fine-tunes ran, counted as they finish
+        self.finetune_steps = 0
         self.last_decision: Optional[str] = None
         self.last_flywheel_id: Optional[str] = None
         self._backoff_until = 0.0      # monotonic deadline for next attempt
@@ -299,6 +299,8 @@ class FlywheelController:
             for ep in range(start, start + self.finetune_epochs):
                 with self._span("flywheel_train_epoch", fid, epoch=ep):
                     trainer.train_epoch(ep, self._data(ep))
+                with self._lock:
+                    self.finetune_steps += len(trainer.last_epoch_steps)
                 trainer.ckpt.save(ep, trainer.state.state_dict(),
                                   host_state={"best_metric": 0.0})
                 last = ep
@@ -327,12 +329,9 @@ class FlywheelController:
                 cfg.data, image_size=self.sm.engine.example_shape[0]))
 
     def _data(self, epoch: int) -> Iterable:
-        """One epoch's fine-tune batches. Production passes `data_fn` (a
-        real stream reflecting the drifted distribution); the synthetic
-        default keeps the loop closed-loop testable with no data on disk —
-        same philosophy as the pinned shard."""
-        if self._data_fn is not None:
-            return self._data_fn(epoch)
+        """One epoch's fine-tune batches: a synthetic stream at the
+        config's batch, which keeps the loop closed-loop testable with no
+        data on disk — same philosophy as the pinned shard."""
         cfg = self.monitor.cfg
         h = self.sm.engine.example_shape[0]
         if cfg.family == "classification":
@@ -348,8 +347,8 @@ class FlywheelController:
                 num_classes=cfg.data.num_classes,
                 num_batches=self.finetune_batches, seed=epoch)
         raise ValueError(
-            f"no synthetic fine-tune stream for family {cfg.family!r} — "
-            f"pass data_fn= to FlywheelController for {self.sm.name!r}")
+            f"no synthetic fine-tune stream for family {cfg.family!r} "
+            f"({self.sm.name!r})")
 
     # -- operator handles --------------------------------------------------
 
@@ -378,6 +377,7 @@ class FlywheelController:
                 "max_attempts": self.max_attempts,
                 "backoff_s": round(backoff_left, 3),
                 "counters": dict(self.counters),
+                "finetune_steps": self.finetune_steps,
                 "last_decision": self.last_decision,
                 "flywheel_id": self.last_flywheel_id,
                 "drift": self.monitor.describe(),

@@ -143,8 +143,7 @@ class InferenceServer:
                  trace_sample: Optional[float] = None,
                  trace_capacity: int = 16384,
                  drain_grace_s: float = 0.0,
-                 replica_id: Optional[str] = None,
-                 faults: Optional[FaultInjector] = None):
+                 replica_id: Optional[str] = None):
         if (engine is None) == (fleet is None):
             raise ValueError("pass exactly one of engine= or fleet=")
         if fleet is None:
@@ -211,8 +210,7 @@ class InferenceServer:
         # replica faults (utils/faults.py REPLICA_CRASH / REPLICA_WEDGE),
         # consulted at the top of every HTTP request; an inert injector
         # costs two None compares
-        self.faults = (faults if faults is not None
-                       else FaultInjector.from_env())
+        self.faults = FaultInjector.from_env()
         # drift-triggered continuous training (flywheel/), armed by
         # flywheel_every_s > 0: one controller per promotion-gated,
         # workdir-backed model, on the server's logger, tracer and fault

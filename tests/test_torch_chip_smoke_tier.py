@@ -28,6 +28,8 @@ from test_torch_chip_smoke import _card_on_the_cpu  # noqa: E402
 
 @pytest.fixture
 def tiny_p17(monkeypatch):
+    from deepvision_tpu_torch.data.synthetic import SyntheticClassification
+    from deepvision_tpu_torch.flywheel.controller import FlywheelController
     from deepvision_tpu_torch.ops import attention as attention_ops
     _card_on_the_cpu(monkeypatch)
     torch.set_num_threads(1)
@@ -38,12 +40,22 @@ def tiny_p17(monkeypatch):
         return plain(*args, **kwargs)
 
     monkeypatch.setattr(attention_ops, "flash_attention_reference", counted)
+
+    def small_batches(fw, epoch):
+        cfg = fw.monitor.cfg
+        return SyntheticClassification(
+            8, image_size=fw.sm.engine.example_shape[0],
+            channels=cfg.data.channels, num_classes=cfg.data.num_classes,
+            num_batches=fw.finetune_batches, seed=epoch)
+
+    # the fine-tune at batch 8 in place of the config's
+    monkeypatch.setattr(FlywheelController, "_data", small_batches)
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     for name, value in (("P16_MODEL", "vit_tiny"), ("P16_DEVICE", "cpu"),
                         ("P16_TRAIN_BATCH", 4), ("P16_TIMEOUT", 120),
                         ("P17_MODEL", "vit_tiny"), ("P17_DEVICE", "cpu"),
                         ("P17_LOAD_SECS", 1.0), ("P17_CLIENTS", 4),
-                        ("P17_FT_BATCH", 8), ("P17_CANARY_WINDOW", 0.5),
+                        ("P17_CANARY_WINDOW", 0.5),
                         ("P17_TIMEOUT", 120)):
         monkeypatch.setattr(chip_smoke, name, value)
 

@@ -335,6 +335,8 @@ def test_episode_promotes_with_one_id_everywhere_as_jax(jax_side, run_dirs,
                                               "flywheel_gate"}),
                      "keys": keys, "fid": fid.startswith("fw-")}
     assert got["port"] == got["jax"]
+    # the port counts the optimizer steps its fine-tune ran (1 epoch of 2)
+    assert fw.finetune_steps == 2 and health["finetune_steps"] == 2
     assert got["port"]["states"] == ["monitoring", "promoted", "monitoring"]
     assert got["port"]["epoch"] == 2 and got["port"]["record_id"]
     assert got["port"]["spans"] == ["flywheel_finetune", "flywheel_gate",
