@@ -6,9 +6,11 @@ The flags are the JAX entry point's (`CycleGAN/jax/train.py`): `--dataset`
 (`tfrecords/<dataset>/{trainA,trainB}.tfrecord`), `--batch-size`,
 `--epochs`, `--image-size`, `--workdir`, `--resume`, `--synthetic` and
 `--steps-per-epoch` and `--recover-on-divergence`, plus `--device` (cuda
-by default; a host with no card raises). The two-domain TFRecord pipeline
-is not ported yet (it raises by name): train with `--synthetic`, on a
-64 px canvas unless `--image-size` is given. SIGTERM commits a checkpoint
+by default; a host with no card raises) and `--tfrecords-dir` (the root
+that holds `<dataset>/`, `tfrecords` by default). The two-domain records
+decode on the card (data/gan.py); an epoch is every zipped batch (the
+records counted up front, as the JAX entry point counts its batches).
+`--synthetic` trains on a 64 px canvas unless `--image-size` is given. SIGTERM commits a checkpoint
 and exits 0; `--resume` continues. `--profile-dir` and
 `--compilation-cache` are XLA's. For example,
 two steps at the full 256 px and the config's batch of 8:
@@ -26,6 +28,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Train CycleGAN (PyTorch port).")
     p.add_argument("--dataset", help="dataset name under tfrecords/")
+    p.add_argument("--tfrecords-dir", default="tfrecords",
+                   help="the directory of <dataset>/{trainA,trainB}"
+                        ".tfrecord")
     p.add_argument("--batch_size", "--batch-size", type=int, default=None)
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--image-size", type=int, default=None,
@@ -80,10 +85,21 @@ def main(argv=None):
                 cfg.batch_size, image_size=image_size,
                 steps=steps_per_epoch, seed=epoch)
     else:
-        gan_data.build_two_domain_dataset(
-            f"tfrecords/{args.dataset}/trainA.tfrecord",
-            f"tfrecords/{args.dataset}/trainB.tfrecord",
-            batch_size=cfg.batch_size, image_size=image_size)
+        from deepvision_tpu_torch.utils.device import resolve_device
+        root = os.path.join(args.tfrecords_dir, args.dataset)
+        ds = gan_data.build_two_domain_dataset(
+            os.path.join(root, "trainA.tfrecord"),
+            os.path.join(root, "trainB.tfrecord"),
+            batch_size=cfg.batch_size, image_size=image_size, seed=cfg.seed,
+            device=resolve_device(args.device))
+        # the epoch's length anchors LinearDecay (the reference counts
+        # its batches too, train.py:108-120)
+        steps_per_epoch = ds.num_batches()
+        print(f"Batch size: {cfg.batch_size}, "
+              f"Total batches per epoch: {steps_per_epoch}")
+
+        def train_fn(epoch, _ds=ds):
+            return iter(_ds)
 
     trainer = CycleGANTrainer(cfg, workdir=workdir, device=args.device,
                               steps_per_epoch=steps_per_epoch)

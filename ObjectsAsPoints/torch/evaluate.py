@@ -5,14 +5,17 @@ or VOC mAP@0.5 of a trained workdir's weights. Usage:
     # the held-out digits_detect scenes
     python ObjectsAsPoints/torch/evaluate.py -m centernet_digits \
         --workdir runs/centernet_digits --metric voc --device cpu
+    # the VOC/COCO val* TFRecords (the ragged last batch kept)
+    python ObjectsAsPoints/torch/evaluate.py --data-dir dataset/tfrecords
     # smoke: random weights
     python ObjectsAsPoints/torch/evaluate.py -m centernet --synthetic
 
 The weights are the workdir's checkpoint (`-c`, latest by default), its
 EMA weights when it kept them. `--synthetic` evaluates random weights on
-2 synthetic batches of 2 at 128 px. The VOC/COCO TFRecord validation split
-is not ported yet. `--device cpu` runs on the CPU; without it a host with
-no card raises.
+2 synthetic batches of 2 at 128 px. The TFRecord split decodes on the
+card (data/detection.py) and carries the VOC difficult flags;
+`--image-size` (not a JAX flag) evaluates at another size. `--device cpu`
+runs on the CPU; without it a host with no card raises.
 """
 import argparse
 import itertools
@@ -32,6 +35,8 @@ def main(argv=None):
                    help="epoch number or 'latest'")
     p.add_argument("--workdir", default=None)
     p.add_argument("--data-dir", default=None)
+    p.add_argument("--image-size", type=int, default=None,
+                   help="override the config's image size (records only)")
     p.add_argument("--metric", default="coco",
                    choices=["coco", "voc", "voc07"])
     p.add_argument("--score-thresh", type=float, default=0.05)
@@ -50,6 +55,10 @@ def main(argv=None):
                                                      evaluate_map)
 
     cfg = get_config(args.model)
+    if args.image_size:
+        import dataclasses
+        cfg = cfg.replace(data=dataclasses.replace(
+            cfg.data, image_size=args.image_size))
     if args.synthetic:
         from deepvision_tpu_torch.data.detection import synthetic_batches
         size = 128
@@ -65,11 +74,15 @@ def main(argv=None):
                                   n_scenes=cfg.data.val_examples)
         batches = detection_batches(va, batch_size=cfg.batch_size)
     else:
-        raise NotImplementedError(
-            f"{args.model} evaluates on the VOC/COCO TFRecord validation "
-            f"split, which is not ported yet: it reads TFRecords through "
-            f"TensorFlow, which the port does not depend on; use "
-            f"--synthetic, or -m centernet_digits")
+        # the val split with its ragged tail and the difficult flags
+        from deepvision_tpu_torch.data.detection import build_dataset
+        from deepvision_tpu_torch.utils.device import resolve_device
+        data_dir = args.data_dir or cfg.data.data_dir or "dataset/tfrecords"
+        batches = iter(build_dataset(
+            os.path.join(data_dir, "val*"), batch_size=cfg.batch_size,
+            image_size=cfg.data.image_size, training=False,
+            with_difficult=True, drop_remainder=False,
+            device=resolve_device(args.device)))
     if args.max_batches:
         batches = itertools.islice(batches, args.max_batches)
 

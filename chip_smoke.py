@@ -5,6 +5,8 @@ non-zero on any failure and when no card is present. Imports nothing of
 JAX and nothing of the JAX package. Phases, one line each or more:
 
 1. the card (`nvidia-smi` name and power limit) and the torch/CUDA versions;
+   Python's bytecode kept under `.cache/pycache` for the script and every
+   process it starts (`keep_bytecode`);
 2. build every kernel of the port from csrc/ (one nvcc per source, all
    started together) and print the build seconds, ptxas's registers, shared
    memory and spills per kernel function, and the count of tensor-core
@@ -132,24 +134,30 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    `ObjectsAsPoints/torch/train.py`'s `cli.run_centernet` for 2 synthetic
    steps at batch 32 (the config's 64 cut), 2 validation batches and one
    checkpoint — finite losses, the JAX model's parameter count, step_ms,
-   peak memory, the checkpoint restored into a fresh trainer with equal
-   weights, BatchNorm statistics and Adam state, the step alone on a
+   peak memory, the checkpoint restored into a fresh trainer (on a
+   zeroed copy of the model) with equal weights, BatchNorm statistics
+   and Adam state, the step alone on a
    staged batch (CUDA events; kernels and device busy from the profiler),
    and one step on 2 images on the card in f64 and f32 against the same
-   step in f64 on the CPU (phase 9's bounds); the predict step at batch
-   32 split into the forward and decode (CUDA events), decode on the card
-   against the CPU pick for pick on identical coarse heads (ties, zero
-   picks), and `ObjectsAsPoints/torch/evaluate.py -m centernet
-   --synthetic` as a worker (rc 0, a finite mAP). 13b: the same for
-   `hourglass104` (16 joints, 4 stacks, order 4, the config's batch 128
-   cut to 32) through `cli.run_pose`, its predict split into the forward
-   and the per-joint decode, `evaluate_pckh` on the card against the CPU
-   on seeded f32 weights, and `Hourglass/torch/evaluate.py --synthetic`.
-   13c: both served by the engine at buckets {1, 8}: every answer tree
-   (a dict of heads per stack; a heatmap per stack) leaf by leaf against
-   `engine.reference()`, one image against an engine on the CPU,
-   `measure_batch_ms` per bucket. No kernel is on these paths: the K1 and
-   K2 launch counts, zeroed before it, stay 0;
+   step in f64 on the CPU (phase 9's bounds; the CPU's own f32 step is
+   not taken); the
+   predict step at batch 32 split into the forward and decode (CUDA
+   events), decode on the card against the CPU pick for pick on identical
+   coarse heads (ties, zero picks), and `ObjectsAsPoints/torch/
+   evaluate.py -m centernet --synthetic` at full width, as a worker
+   started with the phase (rc 0, a finite mAP). 13b: the same
+   for `hourglass104` (16 joints, 4 stacks, order 4, the config's batch
+   128 cut to 32) through `cli.run_pose`, its predict split into the
+   forward and the per-joint decode, `evaluate_pckh` on the card against
+   the CPU on seeded f32 weights, and `Hourglass/torch/evaluate.py
+   --synthetic` (the worker started beside 13a's). 13c: both served by
+   the engine at buckets {1, 8}: every answer tree (a dict of heads per
+   stack; a heatmap per stack) leaf by leaf against `engine.reference()`,
+   one image against an engine on the CPU, `measure_batch_ms` per bucket.
+   The CPU's halves (the one-step checks' f64 steps, 13c's CPU engines)
+   run on a thread from the phase's start, beside the card's work. No
+   kernel is on these paths: the K1 and K2 launch counts, zeroed before
+   it, stay 0;
 14. slice 11: U-Net segmentation, checkpoint restore, the GANs. 14a:
    `unet_resnet50` (ResNet-50 encoder, 21 classes, 33,759,381 parameters)
    at 224 px and the config's batch of 32, bf16, trained through
@@ -188,17 +196,22 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    train step, the diverged and the retried epoch's included, and per
    eval batch; K1's 0), the host-blocking time of `save()` (the
    snapshot), the writer's write and hash times and the bytes, and
-   step_ms with a save in flight against step_ms with none. 15b: a
+   step_ms with a save in flight against step_ms with none (timed after
+   15c has ended; the first save, which allocates the pinned buffers, is
+   made after 15a). 15b: a
    verified restore timed; the newest epoch bit-flipped; strict mode
-   raises; `python -m deepvision_tpu_torch fsck` exits 1, 1 with
+   raises; `python -m deepvision_tpu_torch fsck` (its `main`, in-process)
+   exits 1, 1 with
    `--quarantine`, then 0; fallback on a copy quarantines `corrupt-2/` and
-   lands on epoch 1. 15c: two runs of `YOLO/torch/train.py` as
+   lands on epoch 1. 15c, started first and run beside 15a, 15b, 15d
+   and 15e: two runs of `YOLO/torch/train.py` (full width, 416 px) as
    subprocesses at once: SIGTERM after the first one's first step line
    (exit 0 with a verified epoch, then `--auto-resume` finishes); SIGKILL
-   to the second while a save is in flight (its resume lands on the
-   newest epoch that verifies). 15d: the
-   trainer's watchdog with an injected abort is quiet through normal
-   steps and fires on a stalled iterator. 15e: 15a's workdir served by
+   to the second while a save is in flight with two epochs committed
+   (its resume lands on the newest epoch that verifies). 15d: the trainer's
+   watchdog (5 s) with an injected abort is quiet through normal steps
+   and fires on a stalled iterator. 15b, 15d and 15e each zero the launch
+   counts and read them after. 15e: 15a's workdir served by
    `serve.cli.build_server --workdir`: provenance `verified: true` with
    the manifest's digest; a corrupted copy refused.
 16. slice 13: running the server, vit_small at full width (224 px) behind
@@ -254,6 +267,30 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    0; every answer against its epoch's reference; one flywheel_id on the
    events, the spans, the decision record and /healthz.
 
+18. slice 15: real datasets, decoded on the card. The script writes its
+   own records (`data/records.py`, the decoder library's nvJPEG encoder)
+   from seeded images at 500x375 and 375x500, 4:2:0 q90, one grayscale in
+   32: ImageNet-format, VOC-format, MPII-format and CycleGAN's two
+   domains. 18a: the committed fixtures (tests/fixtures/jpeg) decoded by
+   nvJPEG and held to their PIL goldens (= libjpeg's INTEGER_ACCURATE)
+   within P18_DECODE_TOL, the gap to TensorFlow's default decode beside
+   it; the fused resample kernel against its plain version; a batch of
+   256 decoded, device ms and images/s, with the decoder's record (its
+   library's build, the backends that exist, the route each image took).
+   18b: `ResNet/torch/train.py -m resnet50_tpu --data-dir <records>` at
+   full width (224 px, batch 256) with `--device-augment` and again with
+   `--device-normalize`, 3 steps and one eval batch each: step_ms,
+   `host_data_wait` a step (`--trace-out`) and after the first batch, 0
+   bytes staged by the prefetcher, the compressed bytes the card
+   received; then the loader alone, images/s. 18c: `vit_small` from the
+   same records, 2 steps at batch 256: K1's launches exactly 8 x (steps +
+   eval batches). 18d: `yolov3` from the VOC-format records (416 px,
+   batch 16, 3 steps): K2 once a step and an eval batch; then
+   `YOLO/torch/evaluate.py` on the val split, its ragged batch kept.
+   18e: `hourglass104` from the MPII-format records (256 px, 2 steps) and
+   `Hourglass/torch/evaluate.py` on their val split; `cyclegan` from the
+   two-domain records (256 px, batch 8, 2 steps).
+
 The line before the last is a JSON object with one record per kernel; the
 last is `{"ok": true, "device": {...}}`.
 """
@@ -263,6 +300,7 @@ from __future__ import annotations
 import atexit
 import copy
 import dataclasses
+import concurrent.futures
 import functools
 import json
 import os
@@ -276,6 +314,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 
@@ -334,6 +373,8 @@ from deepvision_tpu_torch.obs.export import (chrome_trace,
                                              validate_prometheus_text,
                                              validate_serve_exposition)
 from deepvision_tpu_torch.ops import _build
+from deepvision_tpu_torch.data import jpeg, util
+from deepvision_tpu_torch.data import records as recs
 from deepvision_tpu_torch.ops import centernet as cn_ops
 from deepvision_tpu_torch.ops import yolo as yolo_ops
 from deepvision_tpu_torch.ops.attention import (flash_attention,
@@ -1168,25 +1209,30 @@ def no_dropout(model):
 
 
 def check_step_against_f64(cfg, model, batch, name: str, what: str,
-                           make_step=None) -> dict:
+                           make_step=None, cpu_f32: bool = True,
+                           ref: tuple = None) -> dict:
     """One train step of `cfg` (the family's `make_step`, classification's
     by default) on `batch` through `model` on the card in f64 and in f32,
-    each against the same step in f64 on the CPU (and the CPU's own f32
-    step beside them); fails past the ZOO_* bounds."""
+    each against the same step in f64 on the CPU (and, with `cpu_f32`,
+    the CPU's own f32 step beside them, printed, not bounded); fails past
+    the ZOO_* bounds. `ref`, the CPU's f64 (loss, gradients) where the
+    caller computed them already."""
     cpu, card = torch.device("cpu"), torch.device("cuda")
-    ref_loss, ref = train_step_grads(cfg, model, batch, cpu, torch.float64,
-                                     make_step)
+    ref_loss, ref = ref or train_step_grads(cfg, model, batch, cpu,
+                                            torch.float64, make_step)
     loss64, grads64 = train_step_grads(cfg, model, batch, card,
                                        torch.float64, make_step)
     loss32, grads32 = train_step_grads(cfg, model, batch, card,
                                        make_step=make_step)
-    cpu_loss32, cpu_grads32 = train_step_grads(cfg, model, batch, cpu,
-                                               make_step=make_step)
     rec = {"f64_loss": abs(loss64 - ref_loss) / abs(ref_loss),
            "f64_grad": grad_rel(grads64, ref)[0],
            "f32_loss": abs(loss32 - ref_loss) / abs(ref_loss),
-           "cpu_f32_loss": abs(cpu_loss32 - ref_loss) / abs(ref_loss),
-           "cpu_f32_grad": grad_rel(cpu_grads32, ref)[0]}
+           "cpu_f32_loss": float("nan"), "cpu_f32_grad": float("nan")}
+    if cpu_f32:
+        cpu_loss32, cpu_grads32 = train_step_grads(cfg, model, batch, cpu,
+                                                   make_step=make_step)
+        rec["cpu_f32_loss"] = abs(cpu_loss32 - ref_loss) / abs(ref_loss)
+        rec["cpu_f32_grad"] = grad_rel(cpu_grads32, ref)[0]
     rec["f32_grad"], worst = grad_rel(grads32, ref)
     phase(f"{name} one train step on {what}, dropout off, against the same "
           f"step in f64 on the CPU (loss {ref_loss:.6f}); errors of the "
@@ -2127,6 +2173,11 @@ def check_detection_inference(yolo: dict) -> dict:
     return out
 
 
+#: background checks (phase 13's CPU halves and evaluate workers, phase 15c)
+BACKGROUND = concurrent.futures.ThreadPoolExecutor(
+    max_workers=4, thread_name_prefix="chip_smoke")
+
+
 # -- phase 13: CenterNet and stacked-Hourglass pose -------------------------
 
 P13_SIZE = 256
@@ -2181,7 +2232,30 @@ def p13_step_factory(name: str, cfg):
                                            compute_dtype=dt)
 
 
-def check_p13_training(name: str, tag: str) -> dict:
+def p13_cpu_side() -> dict:
+    """The CPU's halves of phase 13, computed on a thread beside the
+    card's work from the phase's start (they depend on no training): per
+    model, the one-step check's config, seeded model and calibration
+    batch with the CPU's f64 step on them, and 13c's engine on the CPU."""
+    out = {}
+    for name in P13_MODELS:
+        cfg = get_config(name)
+        cfg = cfg.replace(dtype="float32", data=dataclasses.replace(
+            cfg.data, image_size=P13_SIZE))
+        trainer_cls = CenterNetTrainer if name == "centernet" else PoseTrainer
+        batch = trainer_cls._calibration_batch(
+            types.SimpleNamespace(config=cfg), (P13_SIZE, P13_SIZE, 3), 2)
+        model = build_model(cfg)
+        ref = train_step_grads(cfg, model, batch, torch.device("cpu"),
+                               torch.float64, p13_step_factory(name, cfg))
+        engine = PredictEngine.from_config(name, device="cpu", buckets=(1,),
+                                           verbose=False)
+        out[name] = {"cfg": cfg, "model": model, "batch": batch, "ref": ref,
+                     "cpu_engine": engine}
+    return out
+
+
+def check_p13_training(name: str, tag: str, cpu_side=None) -> dict:
     """13a/13b: `name` at full width, 256 px, trained through its family's
     entry point for 2 synthetic steps at batch 32, 2 validation batches
     and one checkpoint: finite losses, step_ms, peak memory, the
@@ -2193,6 +2267,7 @@ def check_p13_training(name: str, tag: str) -> dict:
     phase(f"{tag} {name}: the config's batch {full.batch_size} cut to "
           f"{P13_BATCH}, {P13_STEPS} steps, {P13_EVAL_BATCHES} eval batches")
     workdir = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+    marks = [time.perf_counter()]
     try:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2224,7 +2299,11 @@ def check_p13_training(name: str, tag: str) -> dict:
         if result.get("count") != P13_EVAL_BATCHES or not np.isfinite(
                 result.get("loss", np.nan)):
             raise AssertionError(f"{name} validation: {result}")
-        fresh = type(trainer)(ran, device="cuda", workdir=workdir)
+        # the fresh trainer takes a zeroed copy of the architecture (not a
+        # second random init of it: 110M parameters built on the host were
+        # a third of 13a), so every restored value had to come from disk
+        fresh = type(trainer)(ran, device="cuda", workdir=workdir,
+                              model=zeroed_copy(trainer.model))
         fresh.init_state()
         if fresh.resume() != 1:
             raise AssertionError("the epoch-1 checkpoint did not restore")
@@ -2241,22 +2320,38 @@ def check_p13_training(name: str, tag: str) -> dict:
                                  "trained")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    marks.append(time.perf_counter())
     # the step alone (its EMA update included) on a batch already on the
     # card: wall by CUDA events, kernels and device busy by the profiler
     batch = trainer._to_device(next(p13_batches(name, ran, seed=19)))
     alone_ms, _ = event_ms(lambda: trainer.run_step(batch), warmup=1,
                            iters=3)
     kernels, busy = device_profile(lambda: trainer.run_step(batch))
+    marks.append(time.perf_counter())
     phase(f"{tag} {name} train step alone on a staged batch: "
           f"{alone_ms:.3f} ms (CUDA events, median of 3 after 1); {kernels} "
           f"kernels, {busy:.3f} ms device busy (device idle "
           f"{100 * max(0.0, 1 - busy / alone_ms):.1f}%)")
-    cfg = ran.replace(dtype="float32")
-    model = build_model(cfg)
-    batch = trainer._calibration_batch((P13_SIZE, P13_SIZE, 3), 2)
+    # at P13_SIZE: smaller, the check is ill-conditioned even in f64
+    # (CenterNet's focal loss clamps sigmoid(logit) at 1e-6, which some
+    # logits reach at 128 px; hourglass104's BatchNorm at 64 px normalizes
+    # 2 images over a few cells); the CPU's own f32 step is not taken, its
+    # f64 step comes from `p13_cpu_side` where the phase started it
+    if cpu_side is not None:
+        side = cpu_side.result(EVALUATE_TIMEOUT)[name]
+        cfg, model, batch, ref = (side["cfg"], side["model"], side["batch"],
+                                  side["ref"])
+    else:
+        cfg = ran.replace(dtype="float32")
+        model, ref = build_model(cfg), None
+        batch = trainer._calibration_batch((P13_SIZE, P13_SIZE, 3), 2)
     step_err = check_step_against_f64(
         cfg, model, batch, f"{tag} {name}", f"2 images at {P13_SIZE} px",
-        make_step=p13_step_factory(name, cfg))
+        make_step=p13_step_factory(name, cfg), cpu_f32=False, ref=ref)
+    marks.append(time.perf_counter())
+    phase(f"{tag} seconds: training and round trip "
+          f"{marks[1] - marks[0]:.1f}, step alone {marks[2] - marks[1]:.1f}, "
+          f"one-step check {marks[3] - marks[2]:.1f}")
     return {"trainer": trainer, "step_ms": step_ms, "peak_bytes": peak,
             "params": params, "losses": steps, "step_err": step_err,
             "alone_ms": alone_ms, "kernels": kernels, "busy_ms": busy}
@@ -2283,8 +2378,7 @@ def coarse_heads(b: int, g: int, c: int, seed: int) -> dict:
 def check_centernet_predict(trainer) -> dict:
     """13a: the predict step at batch 32 on the trained weights, timed by
     CUDA events and split into the forward and decode; decode on the card
-    against the CPU on identical coarse heads; ObjectsAsPoints/torch/
-    evaluate.py --synthetic as a subprocess."""
+    against the CPU on identical coarse heads."""
     cfg = trainer.config
     dtype = getattr(torch, cfg.dtype)
     state, model = trainer.state, trainer.model
@@ -2344,24 +2438,6 @@ def check_centernet_predict(trainer) -> dict:
             and box_err <= DECODE_SCORE_TOL * g and zeros > 0):
         raise AssertionError("the card's decode differs from the CPU's")
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_cn_eval_")
-    try:
-        out_json, log = f"{root}/eval.json", f"{root}/eval.log"
-        t0 = time.perf_counter()
-        run_workers([[sys.executable,
-                      f"{HERE}/ObjectsAsPoints/torch/evaluate.py",
-                      "-m", "centernet", "--synthetic", "--out", out_json,
-                      "--workdir", f"{root}/wd"]], [dict(os.environ)], [log],
-                    timeout=EVALUATE_TIMEOUT)
-        with open(out_json) as fh:
-            metrics = json.load(fh)
-        phase(f"13a ObjectsAsPoints/torch/evaluate.py -m centernet "
-              f"--synthetic: rc 0 in {time.perf_counter() - t0:.1f}s, "
-              f"mAP={metrics['mAP']:.4f} mAP@0.5={metrics['mAP@0.5']:.4f}")
-        if not np.isfinite(metrics["mAP"]):
-            raise AssertionError(f"evaluate.py wrote {metrics}")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
     return {"step_ms": step_ms, "forward_ms": forward_ms,
             "decode_ms": decode_ms, "forward_busy_ms": forward_busy,
             "decode_busy_ms": decode_busy, "forward_kernels": forward_kernels,
@@ -2378,7 +2454,7 @@ def check_pose_predict(trainer) -> dict:
     """13b: the pose predict (last stack, per-joint decode) at batch 32,
     timed by CUDA events and split into the forward and the decode;
     evaluate_pckh on the card against the CPU on the config's seeded f32
-    weights; Hourglass/torch/evaluate.py --synthetic as a subprocess."""
+    weights."""
     cfg = trainer.config
     dtype = getattr(torch, cfg.dtype)
     model = trainer.model
@@ -2440,29 +2516,61 @@ def check_pose_predict(trainer) -> dict:
     if int(differ.sum()) != undecided or (card != cpu and not undecided):
         raise AssertionError("the card's PCKh differs from the CPU's")
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_pose_eval_")
-    try:
-        log = f"{root}/eval.log"
-        t0 = time.perf_counter()
-        run_workers([[sys.executable, f"{HERE}/Hourglass/torch/evaluate.py",
-                      "--synthetic", "--workdir", f"{root}/wd"]],
-                    [dict(os.environ)], [log], timeout=EVALUATE_TIMEOUT)
-        with open(log) as fh:
-            lines = [ln for ln in fh.read().splitlines()
-                     if ln.startswith("PCKh@0.5: ")]
-        phase(f"13b Hourglass/torch/evaluate.py --synthetic: rc 0 in "
-              f"{time.perf_counter() - t0:.1f}s, {lines}")
-        if len(lines) != 1 or not np.isfinite(float(lines[0].split()[-1])):
-            raise AssertionError(f"evaluate.py printed {lines}")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
     return {"step_ms": step_ms, "forward_ms": forward_ms,
             "decode_ms": decode_ms, "forward_busy_ms": forward_busy,
             "forward_kernels": forward_kernels, "forward_bound_ms": bound_ms,
             "peak_bytes": peak}
 
 
-def check_p13_serving(name: str) -> dict:
+def start_p13_evaluations() -> dict:
+    """13a/13b's `ObjectsAsPoints/torch/evaluate.py -m centernet
+    --synthetic` and `Hourglass/torch/evaluate.py --synthetic` at full
+    width, started together as workers in the background when phase 13
+    starts; `finish_p13_evaluations` reads them."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_p13_eval_")
+    run = {"root": root, "t0": time.perf_counter(),
+           "json": f"{root}/cn.json",
+           "logs": [f"{root}/cn.log", f"{root}/hg.log"]}
+
+    def work():
+        run_workers(
+            [[sys.executable, f"{HERE}/ObjectsAsPoints/torch/evaluate.py",
+              "-m", "centernet", "--synthetic", "--out", run["json"],
+              "--workdir", f"{root}/cn_wd"],
+             [sys.executable, f"{HERE}/Hourglass/torch/evaluate.py",
+              "--synthetic", "--workdir", f"{root}/hg_wd"]],
+            [dict(os.environ)] * 2, run["logs"], timeout=EVALUATE_TIMEOUT)
+        return time.perf_counter() - run["t0"]
+
+    run["job"] = BACKGROUND.submit(work)
+    return run
+
+
+def finish_p13_evaluations(run: dict) -> dict:
+    """Wait for the evaluate workers: rc 0 each, a finite mAP in the
+    CenterNet JSON, one finite `PCKh@0.5` line from Hourglass."""
+    try:
+        seconds = run["job"].result(EVALUATE_TIMEOUT + 60)
+        with open(run["json"]) as fh:
+            metrics = json.load(fh)
+        with open(run["logs"][1]) as fh:
+            lines = [ln for ln in fh.read().splitlines()
+                     if ln.startswith("PCKh@0.5: ")]
+    finally:
+        shutil.rmtree(run["root"], ignore_errors=True)
+    phase(f"13a ObjectsAsPoints/torch/evaluate.py -m centernet --synthetic "
+          f"and 13b Hourglass/torch/evaluate.py --synthetic, full width, as "
+          f"workers started with the phase: rc 0 both, in {seconds:.1f}s; "
+          f"mAP={metrics['mAP']:.4f} mAP@0.5={metrics['mAP@0.5']:.4f}; "
+          f"{lines}")
+    if not np.isfinite(metrics["mAP"]):
+        raise AssertionError(f"evaluate.py wrote {metrics}")
+    if len(lines) != 1 or not np.isfinite(float(lines[0].split()[-1])):
+        raise AssertionError(f"evaluate.py printed {lines}")
+    return {"mAP": metrics["mAP"], "pckh": lines[0], "seconds": seconds}
+
+
+def check_p13_serving(name: str, cpu_engine=None) -> dict:
     """13c: `name` served by the engine on the card at buckets {1, 8} on
     its seeded weights: every answer tree held leaf by leaf against
     `engine.reference()`, one image against an engine on the CPU,
@@ -2480,8 +2588,8 @@ def check_p13_serving(name: str) -> dict:
                                  f"{[np.shape(t) for t in _leaves(got)]}")
         errs.append(leaf_rel_err(got, engine.reference(x)))
     x = rs.randn(1, *engine.example_shape).astype(np.float32)
-    cpu = PredictEngine.from_config(name, device="cpu", buckets=(1,),
-                                    verbose=False)
+    cpu = cpu_engine or PredictEngine.from_config(
+        name, device="cpu", buckets=(1,), verbose=False)
     cpu_err = leaf_rel_err(engine.reference(x), cpu.reference(x))
     shapes = [np.shape(leaf) for leaf in _leaves(engine.reference(x))]
     batch_ms = {b: engine.measure_batch_ms(b, 10) for b in engine.buckets}
@@ -2503,16 +2611,31 @@ def check_centernet_and_pose() -> dict:
     path: the K1 and K2 counts, zeroed here, must stay 0."""
     t0 = time.perf_counter()
     flash_attention.launches = best_iou.launches = 0
-    out = {"centernet": check_p13_training("centernet", "13a")}
+    evaluations = start_p13_evaluations()
+    cpu_side = BACKGROUND.submit(p13_cpu_side)
+    marks = [("start", time.perf_counter())]
+    out = {"centernet": check_p13_training("centernet", "13a", cpu_side)}
+    marks.append(("13a training", time.perf_counter()))
     out["centernet"]["predict"] = check_centernet_predict(
         out["centernet"].pop("trainer"))
+    marks.append(("13a predict", time.perf_counter()))
     torch.cuda.empty_cache()
-    out["hourglass104"] = check_p13_training("hourglass104", "13b")
+    out["hourglass104"] = check_p13_training("hourglass104", "13b",
+                                             cpu_side)
+    marks.append(("13b training", time.perf_counter()))
     out["hourglass104"]["predict"] = check_pose_predict(
         out["hourglass104"].pop("trainer"))
+    marks.append(("13b predict", time.perf_counter()))
     torch.cuda.empty_cache()
     for name in P13_MODELS:
-        out[name]["serve"] = check_p13_serving(name)
+        out[name]["serve"] = check_p13_serving(
+            name, cpu_side.result(EVALUATE_TIMEOUT)[name]["cpu_engine"])
+    marks.append(("13c serving", time.perf_counter()))
+    out["evaluate"] = finish_p13_evaluations(evaluations)
+    marks.append(("the evaluate workers' wait", time.perf_counter()))
+    phase("13: seconds by part: " + ", ".join(
+        f"{name} {t - marks[i][1]:.1f}" for i, (name, t) in
+        enumerate(marks[1:])))
     counts = (flash_attention.launches, best_iou.launches)
     phase(f"13: launches on the CenterNet and pose paths (flash_attention, "
           f"best_iou): {counts}; phase 13 took "
@@ -3138,13 +3261,10 @@ def flip_a_bit(step_dir: str) -> str:
 
 
 def fsck(path: str, *flags) -> tuple:
-    """`python -m deepvision_tpu_torch fsck <path> --format json`: (exit
-    code, its summary)."""
-    proc = subprocess.run(
-        [sys.executable, "-m", "deepvision_tpu_torch", "fsck", path,
-         "--format", "json", *flags], capture_output=True, text=True,
-        cwd=HERE, timeout=300)
-    return proc.returncode, json.loads(proc.stdout)
+    """`python -m deepvision_tpu_torch fsck <path> --format json` in-process
+    (its `fsck_summary`): (exit code, its summary)."""
+    from deepvision_tpu_torch.__main__ import fsck_summary
+    return fsck_summary(path, quarantine="--quarantine" in flags)
 
 
 def check_p15_divergence() -> dict:
@@ -3216,11 +3336,30 @@ def check_p15_divergence() -> dict:
             "events": events, "save": save}
 
 
-def check_p15_save_overlap(trainer) -> dict:
-    """15a, the async save against the step loop: step_ms (host clock
-    around each step and a synchronize) with no write in flight, then a
-    save of the trained state into a manager of its own and the steps run
-    while its writer writes and hashes, then again with none."""
+def start_p15_save_overlap(trainer) -> dict:
+    """15a's save overlap, its first half: a manager of its own saves the
+    trained state once, allocating its pinned buffers (the blocking time
+    is the allocation's); its writer writes and hashes in the background
+    while the phase goes on."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_p15_save_")
+    mgr = CheckpointManager(root, keep=1, keep_best=False)
+    t0 = time.perf_counter()
+    mgr.save(1, trainer.state.state_dict())
+    return {"root": root, "mgr": mgr, "t0": t0,
+            "block_ms": 1e3 * (time.perf_counter() - t0)}
+
+
+def check_p15_save_overlap(trainer, started: dict) -> dict:
+    """15a, the async save against the step loop, alone on the card:
+    step_ms (host clock around each step and a synchronize) with no write
+    in flight, then a second save of the trained state (the pinned
+    buffers reused) and the steps run while its writer writes and hashes,
+    then again with none."""
+    mgr = started["mgr"]
+    mgr.flush()
+    saves = [{"block_ms": started["block_ms"],
+              "save_to_commit_s": time.perf_counter() - started["t0"],
+              **mgr.last_commit}]
     batch = trainer._to_device(next(synthetic_batches(
         batch_size=P15_BATCH, image_size=P15_SIZE,
         num_classes=trainer.config.data.num_classes, steps=1, seed=11)))
@@ -3234,32 +3373,28 @@ def check_p15_save_overlap(trainer) -> dict:
     for _ in range(2):
         step_ms()
     alone = [step_ms() for _ in range(P15_TIMED_STEPS)]
-    root = tempfile.mkdtemp(prefix="chip_smoke_p15_save_")
-    mgr = CheckpointManager(root, keep=1, keep_best=False)
-    saves = []
     during: list = []
-    for epoch in (1, 2):       # the first allocates the pinned buffers
-        t0 = time.perf_counter()
-        mgr.save(epoch, trainer.state.state_dict())
-        block = time.perf_counter() - t0
-        if epoch == 2:
-            while mgr.writing and len(during) < P15_MAX_WRITE_STEPS:
-                during.append(step_ms())
-        still = mgr.writing
-        mgr.flush()
-        saves.append({"block_ms": 1e3 * block,
-                      "save_to_commit_s": time.perf_counter() - t0,
-                      **mgr.last_commit})
+    t0 = time.perf_counter()
+    mgr.save(2, trainer.state.state_dict())
+    block = time.perf_counter() - t0
+    while mgr.writing and len(during) < P15_MAX_WRITE_STEPS:
+        during.append(step_ms())
+    still = mgr.writing
+    mgr.flush()
+    saves.append({"block_ms": 1e3 * block,
+                  "save_to_commit_s": time.perf_counter() - t0,
+                  **mgr.last_commit})
     mgr.close()
-    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(started["root"], ignore_errors=True)
     after = [step_ms() for _ in range(P15_TIMED_STEPS)]
     out = {"alone_ms": statistics.median(alone),
            "during_ms": statistics.median(during) if during else None,
            "after_ms": statistics.median(after), "during_steps": len(during),
            "write_outlasted_steps": still, "saves": saves}
     phase(f"15a async save of the trained state: first save blocked "
-          f"{saves[0]['block_ms']:.1f} ms (pinned buffers allocated), the "
-          f"second {saves[1]['block_ms']:.1f} ms (reused); writer "
+          f"{saves[0]['block_ms']:.1f} ms (pinned buffers allocated; made "
+          f"after 15a, its write beside 15b), the second "
+          f"{saves[1]['block_ms']:.1f} ms (reused); writer "
           f"{saves[1]['write_secs']:.3f}s write + "
           f"{saves[1]['hash_secs']:.3f}s hash of {saves[1]['bytes']} bytes; "
           f"step_ms median {out['alone_ms']:.3f} with no write, "
@@ -3272,16 +3407,29 @@ def check_p15_save_overlap(trainer) -> dict:
     return out
 
 
-def check_p15_integrity(a: dict) -> dict:
+def zeroed_copy(model):
+    """`model`'s architecture with every parameter and buffer zero: a
+    trainer built on it restores every value from disk, and skips a
+    second random init of the model on the host."""
+    blank = copy.deepcopy(model)
+    with torch.no_grad():
+        for t in list(blank.parameters()) + list(blank.buffers()):
+            t.zero_()
+    return blank
+
+
+def check_p15_integrity(a: dict, model) -> dict:
     """15b: a verified restore timed; the newest epoch bit-flipped; strict
     mode raises and quarantines nothing; fsck exits 1, 1 with
     --quarantine, then 0; fallback on a copy of the damaged directory
-    quarantines corrupt-2/ and lands on epoch 1."""
+    quarantines corrupt-2/ and lands on epoch 1. Each trainer takes a
+    zeroed copy of 15a's `model`."""
     cfg, workdir = a["config"], a["workdir"]
     ckpt = os.path.join(workdir, "ckpt")
 
     def trainer_on(wd):
-        t = DetectionTrainer(cfg, device=P15_DEVICE, workdir=wd)
+        t = DetectionTrainer(cfg, device=P15_DEVICE, workdir=wd,
+                             model=zeroed_copy(model))
         t.init_state()
         return t
 
@@ -3355,7 +3503,8 @@ def check_p15_preemption() -> dict:
     second gets SIGKILL while a save is in flight (its temporary directory
     on disk, two epochs committed): its resume lands on the newest epoch
     that verifies. Both relaunches run at once too."""
-    wd_term, wd_kill = p15_workdir("c"), p15_workdir("c2")
+    wd_term = p15_workdir("c")
+    wd_kill = p15_workdir("c2")
     ckpt_term = os.path.join(wd_term, "ckpt")
     ckpt_kill = os.path.join(wd_kill, "ckpt")
     env = p15_env()
@@ -3372,6 +3521,16 @@ def check_p15_preemption() -> dict:
                               args=(term, lines, seen, r"epoch \d+ step \d+"))
     reader.start()
     in_flight: list = []
+    again: list = []
+    epoch = None
+    at: dict = {}               # seconds after the two starts
+
+    def relaunch(workdir: str, epochs: int):
+        return subprocess.Popen(p15_cmd(workdir, epochs, "--auto-resume"),
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, env=env,
+                                cwd=HERE)
+
     try:
         deadline = time.monotonic() + P15_TIMEOUT
         while term.poll() is None or kill.poll() is None:
@@ -3380,42 +3539,50 @@ def check_p15_preemption() -> dict:
                     f"15c: no step line or no save in flight within "
                     f"{P15_TIMEOUT}s: " + "".join(lines[-20:]))
             if seen.is_set() and term.poll() is None:
+                at["SIGTERM"] = time.perf_counter() - t0
                 term.send_signal(signal.SIGTERM)
                 term.wait(timeout=P15_TIMEOUT)
+                # its relaunch starts at once, beside the other run
+                reader.join(timeout=60)
+                out = "".join(lines)
+                m = re.search(r"graceful preemption: checkpoint committed "
+                              r"at epoch (\d+)", out)
+                if term.returncode != 0 or not m:
+                    raise AssertionError(f"15c: SIGTERM exit "
+                                         f"{term.returncode}: {out[-3000:]}")
+                epoch = int(m.group(1))
+                if verified_epochs(ckpt_term)[-1:] != [epoch]:
+                    raise AssertionError(f"15c: epoch {epoch} not verified:"
+                                         f" {integrity.audit(ckpt_term)}")
+                again.append(relaunch(wd_term, epoch + 1))
             if kill.poll() is None and os.path.isdir(ckpt_kill):
                 in_flight = [d for d in os.listdir(ckpt_kill)
                              if d.startswith(".tmp-")]
                 if in_flight and len(
                         integrity.committed_epochs(ckpt_kill)) >= 2:
+                    at["SIGKILL"] = time.perf_counter() - t0
                     kill.send_signal(signal.SIGKILL)
                     kill.wait(timeout=60)
             time.sleep(0.005)
+        if epoch is None:
+            raise AssertionError("15c: the SIGTERM run ended before its "
+                                 "first step line: " + "".join(lines[-20:]))
+        committed = integrity.committed_epochs(ckpt_kill)
+        newest_ok = verified_epochs(ckpt_kill)[-1]
+        again.append(relaunch(wd_kill, committed[-1] + 1))
     finally:
         for proc in (term, kill):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    reader.join(timeout=60)
-    out = "".join(lines)
-    m = re.search(r"graceful preemption: checkpoint committed at epoch "
-                  r"(\d+)", out)
-    if term.returncode != 0 or not m:
-        raise AssertionError(f"15c: SIGTERM exit {term.returncode}: "
-                             f"{out[-3000:]}")
-    epoch = int(m.group(1))
-    if verified_epochs(ckpt_term)[-1:] != [epoch]:
-        raise AssertionError(f"15c: epoch {epoch} not verified: "
-                             f"{integrity.audit(ckpt_term)}")
-    committed = integrity.committed_epochs(ckpt_kill)
-    newest_ok = verified_epochs(ckpt_kill)[-1]
-    signalled_s = time.perf_counter() - t0
-    again = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True, env=env,
-                              cwd=HERE)
-             for cmd in (p15_cmd(wd_term, epoch + 1, "--auto-resume"),
-                         p15_cmd(wd_kill, committed[-1] + 1,
-                                 "--auto-resume"))]
-    outs = [proc.communicate(timeout=P15_TIMEOUT) for proc in again]
+    try:
+        outs = [proc.communicate(timeout=P15_TIMEOUT) for proc in again]
+    finally:
+        for proc in again:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    at["relaunches ended"] = time.perf_counter() - t0
     (out_t, err_t), (out_k, err_k) = outs
     m2 = re.search(r"resumed from epoch (\d+)", out_k)
     left = [d for d in os.listdir(ckpt_kill) if d.startswith(".tmp-")]
@@ -3425,8 +3592,8 @@ def check_p15_preemption() -> dict:
           f"{in_flight} on disk and epochs {committed} committed: newest "
           f"verified {newest_ok}, the resume landed on "
           f"{m2.group(1) if m2 else None} (exit {again[1].returncode}), "
-          f"temporary directories left {left}. Signals sent "
-          f"{signalled_s:.1f}s after the two starts")
+          f"temporary directories left {left}. Seconds after the two "
+          f"starts: " + ", ".join(f"{k} {v:.1f}" for k, v in at.items()))
     if again[0].returncode != 0 or f"resumed from epoch {epoch}" not in \
             out_t or "done: best=" not in out_t:
         raise AssertionError(f"15c: --auto-resume exit "
@@ -3437,17 +3604,23 @@ def check_p15_preemption() -> dict:
         raise AssertionError(f"15c: resume after SIGKILL: {out_k[-2000:]}"
                              f"{err_k[-2000:]}")
     return {"sigterm_epoch": epoch, "sigkill_committed": committed,
-            "sigkill_resumed": newest_ok}
+            "sigkill_resumed": newest_ok, "seconds": at}
 
 
-def check_p15_watchdog(a: dict) -> dict:
-    """15d: `watchdog_secs` armed in a DetectionTrainer on the card, the
-    abort injected: P15_STEPS normal steps keep it quiet; a data iterator
-    that then stalls fires it after the threshold, at the last step."""
+class StallEnded(Exception):
+    """15d's stalled data iterator, ended once the watchdog has fired."""
+
+
+def check_p15_watchdog(a: dict, model) -> dict:
+    """15d: `watchdog_secs` armed in a DetectionTrainer on the card (on a
+    copy of 15a's trained `model`), the abort injected: P15_STEPS normal
+    steps keep it quiet; a data iterator that then stalls fires it after
+    the threshold, at the last step."""
     cfg = a["config"].replace(watchdog_secs=P15_WATCHDOG_SECS,
                               total_epochs=2)
     trainer = DetectionTrainer(cfg, device=P15_DEVICE,
-                               workdir=p15_workdir("d"))
+                               workdir=p15_workdir("d"),
+                               model=copy.deepcopy(model))
     fired = threading.Event()
     at: dict = {}
 
@@ -3468,10 +3641,16 @@ def check_p15_watchdog(a: dict) -> dict:
         at["quiet_through_epoch_1"] = not fired.is_set()
         at["stall"] = time.perf_counter()
         fired.wait(6 * P15_WATCHDOG_SECS)
+        # where the watchdog's real abort ends the process
+        raise StallEnded
 
     trainer.init_state()
-    trainer.fit(data)
-    trainer.close()
+    try:
+        trainer.fit(data)
+    except StallEnded:
+        pass
+    finally:
+        trainer.close()
     waited = at.get("fired", np.inf) - at.get("stall", 0.0)
     phase(f"15d watchdog at {P15_WATCHDOG_SECS:g}s: quiet through "
           f"{P15_STEPS} steps ({at.get('quiet_through_epoch_1')}); fired "
@@ -3531,17 +3710,21 @@ def check_p15_serving(a: dict, b: dict) -> dict:
 def check_resilience() -> dict:
     """Phase 15, slice 12: resilient yolov3 training on the card. K2 runs
     on 15a's path (the main path of this phase, its counts zeroed just
-    before run_detection) and on 15d's steps; K1 on none."""
+    before run_detection) and on 15d's steps; K1 on none. 15c's
+    subprocesses start first and run beside 15a, 15b, 15d and 15e (their
+    launches are their own processes'); 15a's save overlap makes its first
+    save (the pinned buffers' allocation) after 15a and times its steps
+    after 15c has ended, alone on the card."""
     t0 = time.perf_counter()
+    preemption = BACKGROUND.submit(check_p15_preemption)
     out = {"15a": check_p15_divergence()}
     trainer = out["15a"].pop("trainer")
-    out["15a"]["overlap"] = check_p15_save_overlap(trainer)
-    del trainer
-    torch.cuda.empty_cache()
-    expected = {"15b": 0, "15c": 0, "15d": P15_STEPS, "15e": 0}
-    for tag, run in (("15b", lambda: check_p15_integrity(out["15a"])),
-                     ("15c", check_p15_preemption),
-                     ("15d", lambda: check_p15_watchdog(out["15a"])),
+    overlap = start_p15_save_overlap(trainer)
+    expected = {"15b": 0, "15d": P15_STEPS, "15e": 0}
+    for tag, run in (("15b", lambda: check_p15_integrity(out["15a"],
+                                                         trainer.model)),
+                     ("15d", lambda: check_p15_watchdog(out["15a"],
+                                                        trainer.model)),
                      ("15e", lambda: check_p15_serving(out["15a"],
                                                        out["15b"]))):
         flash_attention.launches = best_iou.launches = 0
@@ -3553,6 +3736,13 @@ def check_resilience() -> dict:
         if counts != (0, expected[tag]):
             raise AssertionError(f"phase {tag}: launches {counts}, want "
                                  f"(0, {expected[tag]})")
+    t1 = time.perf_counter()
+    out["15c"] = preemption.result(4 * P15_TIMEOUT)
+    phase(f"15c: waited {time.perf_counter() - t1:.1f}s for it after 15e; "
+          f"{time.perf_counter() - t0:.1f}s into the phase")
+    torch.cuda.empty_cache()
+    out["15a"]["overlap"] = check_p15_save_overlap(trainer, overlap)
+    del trainer
     phase(f"15: phase 15 took {time.perf_counter() - t0:.1f}s")
     return out
 
@@ -4768,10 +4958,545 @@ def check_tier_and_flywheel(stash: str, direct_ms) -> dict:
     return out
 
 
+# -- phase 18: real datasets, the decode on the card --------------------------
+
+P18_DEVICE = "cuda"
+P18_SIZES = ((375, 500), (500, 375))      # (h, w), alternating
+P18_QUALITY = 90                           # 4:2:0
+P18_GRAY_EVERY = 32                        # one grayscale image in 32
+P18_UNIQUE = 64                            # distinct images a dataset
+P18_INET_TRAIN = 512                       # ImageNet-format records: train
+P18_INET_FILES = 2
+P18_INET_VAL = 256                         # one eval batch of 256
+P18_DECODE_BATCH = 256
+P18_DECODE_REPS = 5
+P18_FIXTURES = os.path.join(HERE, "tests", "fixtures", "jpeg")
+# nvJPEG against the fixtures' PIL (= libjpeg ISLOW) goldens: a different
+# IDCT and chroma upsampling, measured at most 4 levels on the H100 (the
+# mean under 0.7); held at 6
+P18_DECODE_TOL = 6
+# the resample kernel against its plain version on the same decoded
+# pixels: f32 within 1e-3 on the [0, 255] scale before normalisation
+# (summation order), uint8 within 1 level (a rounding tie)
+P18_RESAMPLE_TOL = 1e-3
+P18_RESNET_BATCH = 256
+P18_RESNET_STEPS = 3
+P18_VIT_STEPS = 2
+P18_LOADER_BATCHES = 6                     # the loader alone, after 1
+P18_YOLO_BATCH = 16
+P18_YOLO_STEPS = 3
+P18_YOLO_VAL = 20                          # 16 + a ragged 4
+P18_YOLO_LR = "1e-4"
+P18_POSE_BATCH = 16
+P18_POSE_STEPS = 2
+P18_POSE_VAL = 128                         # the config's batch: one batch
+P18_CG_BATCH = 8                           # the config's batch
+P18_CG_STEPS = 2
+P18_SIZE = None                            # the configs' own sizes
+
+
+def p18_image(h: int, w: int, gen: torch.Generator, device,
+              gray: bool = False) -> torch.Tensor:
+    """A seeded (h, w, 3) uint8 image on `device` (one channel when
+    `gray`): gradients, a disc and noise, so the JPEG has edges and flat
+    areas."""
+    y = torch.arange(h, device=device, dtype=torch.float32)[:, None, None]
+    x = torch.arange(w, device=device, dtype=torch.float32)[None, :, None]
+    c = torch.arange(3, device=device, dtype=torch.float32)[None, None, :]
+    phase_ = torch.rand((), generator=gen, device=device) * 6
+    base = 128 + 90 * torch.sin(x / (9 + 4 * c) + c + phase_) \
+        * torch.cos(y / (13 + c))
+    disc = ((y - h / 2) ** 2 + (x - w / 3) ** 2 < (min(h, w) / 4) ** 2)
+    noise = torch.randn((h, w, 3), generator=gen, device=device) * 10
+    img = (base + 60 * disc * (1 - 2 * (c % 2)) + noise).clamp(0, 255)
+    img = img.to(torch.uint8)
+    return img[..., 0].contiguous() if gray else img
+
+
+def p18_jpegs(n: int, seed: int, device) -> list:
+    """n JPEGs at P18_SIZES, 4:2:0 at P18_QUALITY, one grayscale in
+    P18_GRAY_EVERY: P18_UNIQUE seeded images encoded by the decoder
+    library's nvJPEG encoder on the card (PIL on the CPU), repeated."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for i in range(min(n, P18_UNIQUE)):
+        h, w = P18_SIZES[i % len(P18_SIZES)]
+        gray = i % P18_GRAY_EVERY == P18_GRAY_EVERY - 1
+        out.append(jpeg.encode_jpeg(p18_image(h, w, gen, device, gray),
+                                    P18_QUALITY, "gray" if gray else "420"))
+    return [out[i % len(out)] for i in range(n)]
+
+
+def p18_write_imagenet(root: str, split: str, n: int, files: int, seed: int,
+                       device) -> list:
+    """`<split>-0000i-of-0000n` records of the TF-official ImageNet schema
+    (label i % 1000, 1-indexed on disk)."""
+    os.makedirs(root, exist_ok=True)
+    datas = p18_jpegs(n, seed, device)
+    for f in range(files):
+        recs.write_records(
+            os.path.join(root, f"{split}-{f:05d}-of-{files:05d}"),
+            (recs.encode_example({
+                "image/encoded": recs.bytes_feature(datas[i]),
+                "image/class/label": recs.int64_feature(i % 1000 + 1)})
+             for i in range(f, n, files)))
+    return datas
+
+
+def p18_write_voc(root: str, split: str, n: int, seed: int, device) -> None:
+    """VOC-format detection records (Datasets/voc.py's schema): 1-5
+    seeded boxes of 80 classes, difficult flags."""
+    os.makedirs(root, exist_ok=True)
+    rs = np.random.RandomState(seed)
+    examples = []
+    for data in p18_jpegs(n, seed, device):
+        k = rs.randint(1, 6)
+        xy = rs.uniform(0.0, 0.6, (k, 2))
+        wh = rs.uniform(0.1, 0.4, (k, 2))
+        x1y1 = np.minimum(xy + wh, 1.0)
+        examples.append(recs.encode_example({
+            "image/encoded": recs.bytes_feature(data),
+            "image/object/class/label": recs.int64_feature(
+                rs.randint(0, 80, k)),
+            "image/object/bbox/xmin": recs.float_feature(xy[:, 0]),
+            "image/object/bbox/ymin": recs.float_feature(xy[:, 1]),
+            "image/object/bbox/xmax": recs.float_feature(x1y1[:, 0]),
+            "image/object/bbox/ymax": recs.float_feature(x1y1[:, 1]),
+            "image/object/difficult": recs.int64_feature(
+                (rs.rand(k) < 0.1).astype(np.int64))}))
+    recs.write_records(os.path.join(root, f"{split}-00000-of-00001"),
+                       examples)
+
+
+def p18_write_mpii(root: str, split: str, n: int, seed: int,
+                   device) -> None:
+    """MPII-format pose records (Datasets/MPII/tfrecords_mpii.py's
+    schema): 16 joints normalized by the image size, about a fifth
+    missing (-1, visibility 0); the first record has none."""
+    os.makedirs(root, exist_ok=True)
+    rs = np.random.RandomState(seed)
+    examples = []
+    for i, data in enumerate(p18_jpegs(n, seed, device)):
+        missing = (rs.rand(16) < 0.2) | (i == 0)
+        xs = np.where(missing, -1.0, rs.uniform(0.2, 0.8, 16))
+        ys = np.where(missing, -1.0, rs.uniform(0.2, 0.8, 16))
+        examples.append(recs.encode_example({
+            "image/encoded": recs.bytes_feature(data),
+            "image/object/parts/x": recs.float_feature(xs),
+            "image/object/parts/y": recs.float_feature(ys),
+            "image/object/parts/v": recs.int64_feature(
+                np.where(missing, 0, 2))}))
+    recs.write_records(os.path.join(root, f"{split}_0001_of_0001.tfrecords"),
+                       examples)
+
+
+def p18_write_cyclegan(root: str, n: int, seed: int, device) -> None:
+    """`<root>/toy/{trainA,trainB}.tfrecord` (CycleGAN's single-feature
+    records)."""
+    d = os.path.join(root, "toy")
+    os.makedirs(d, exist_ok=True)
+    for k, dom in enumerate("AB"):
+        recs.write_records(
+            os.path.join(d, f"train{dom}.tfrecord"),
+            (recs.encode_example({"image/encoded": recs.bytes_feature(b)})
+             for b in p18_jpegs(n, seed + k, device)))
+
+
+def p18_datasets(root: str, device) -> dict:
+    """Every dataset phase 18 reads, written from seeded images."""
+    t0 = time.perf_counter()
+    inet = os.path.join(root, "imagenet")
+    train = p18_write_imagenet(inet, "train", P18_INET_TRAIN,
+                               P18_INET_FILES, 1, device)
+    p18_write_imagenet(inet, "val", P18_INET_VAL, 1, 2, device)
+    voc = os.path.join(root, "voc")
+    p18_write_voc(voc, "train", P18_YOLO_BATCH * P18_YOLO_STEPS, 3, device)
+    p18_write_voc(voc, "val", P18_YOLO_VAL, 4, device)
+    mpii = os.path.join(root, "mpii")
+    p18_write_mpii(mpii, "train", P18_POSE_BATCH * P18_POSE_STEPS, 5,
+                   device)
+    p18_write_mpii(mpii, "val", P18_POSE_VAL, 6, device)
+    cg = os.path.join(root, "cyclegan")
+    p18_write_cyclegan(cg, P18_CG_BATCH * P18_CG_STEPS, 7, device)
+    nbytes = sum(os.path.getsize(os.path.join(dp, f))
+                 for dp, _, fs in os.walk(root) for f in fs)
+    phase(f"18: records written in {time.perf_counter() - t0:.1f}s "
+          f"({nbytes / 2**20:.1f} MiB): ImageNet {P18_INET_TRAIN} train in "
+          f"{P18_INET_FILES} files + {P18_INET_VAL} val, VOC "
+          f"{P18_YOLO_BATCH * P18_YOLO_STEPS} + {P18_YOLO_VAL}, MPII "
+          f"{P18_POSE_BATCH * P18_POSE_STEPS} + {P18_POSE_VAL}, CycleGAN "
+          f"{P18_CG_BATCH * P18_CG_STEPS} a domain; mean JPEG "
+          f"{np.mean([len(b) for b in train]) / 1024:.1f} KiB")
+    return {"inet": inet, "voc": voc, "mpii": mpii, "cyclegan": cg,
+            "inet_train": train}
+
+
+def check_decoder(datas: list, device) -> dict:
+    """18a: the committed fixtures decoded and held to their goldens (PIL,
+    = TensorFlow's INTEGER_ACCURATE) within P18_DECODE_TOL, with the gap
+    to TensorFlow's default decode reported; the resample kernel against
+    its plain version; one batch of P18_DECODE_BATCH timed."""
+    device = torch.device(device)
+    fixtures = []
+    for name in sorted(f[:-4] for f in os.listdir(P18_FIXTURES)
+                       if f.endswith(".jpg")):
+        with open(os.path.join(P18_FIXTURES, name + ".jpg"), "rb") as fh:
+            data = fh.read()
+        got = jpeg.decode_batch([data], device).image(0).cpu().numpy()
+        row = {"name": name}
+        for golden in ("pil", "tf"):
+            want = np.load(os.path.join(P18_FIXTURES,
+                                        f"{name}.{golden}.npy"))
+            if got.shape != want.shape:
+                raise AssertionError(f"18a {name}: {got.shape} vs "
+                                     f"{want.shape}")
+            diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+            row[golden] = (int(diff.max()), float(diff.mean()))
+        fixtures.append(row)
+    worst = max(r["pil"][0] for r in fixtures)
+    phase("18a decoder vs the fixtures' goldens (max, mean abs levels): "
+          + "; ".join(f"{r['name']}: PIL/INTEGER_ACCURATE {r['pil'][0]}, "
+                      f"{r['pil'][1]:.3f}, TF default {r['tf'][0]}, "
+                      f"{r['tf'][1]:.3f}" for r in fixtures)
+          + f"; bound {P18_DECODE_TOL}")
+    if worst > P18_DECODE_TOL:
+        raise AssertionError(f"18a: decode differs from libjpeg by {worst}")
+
+    batch = datas[:P18_DECODE_BATCH]
+    shapes = [jpeg.extract_jpeg_shape(b)[:2] for b in batch]
+    jpeg.zero_stats()
+    times, walls = [], []
+    cuda = device.type == "cuda"
+    for i in range(P18_DECODE_REPS + 1):
+        sync(device)
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        decoded = jpeg.decode_batch(batch, device, shapes)
+        if cuda:
+            end.record()
+        sync(device)
+        if i:
+            walls.append(time.perf_counter() - t0)
+            times.append(start.elapsed_time(end) if cuda
+                         else float("nan"))
+    routes = dict(jpeg.stats)
+    ms, wall = statistics.median(times), statistics.median(walls)
+    # the resample kernel against its plain version on the same pixels
+    plans = [util.Plan((3, 5, h - 7, w - 11), (256, 256), (16, 16),
+                       bool(i % 2)) for i, (h, w) in enumerate(shapes[:8])]
+    host = [decoded.image(i).cpu() for i in range(8)]
+    cut = (jpeg.Decoded(shapes[:8], images=decoded.images[:8])
+           if decoded.images is not None else
+           jpeg.Decoded(shapes[:8], flat=decoded.flat,
+                        offsets=decoded.offsets[:8]))
+    errs = {}
+    for mode in util.MODES:
+        for how in (util.UINT8, util.Emit(uint8=False, clip=False, div=1.0)):
+            got = jpeg.resample_batch(cut, plans, (224, 224), mode, how)
+            want = util.resample(host, plans, (224, 224), mode, how)
+            errs[(mode, how.uint8)] = float(
+                (got.cpu().float() - want.float()).abs().max())
+    phase(f"18a decode of {len(batch)} JPEGs ({shapes[0]}/{shapes[1]}, "
+          f"4:2:0 q{P18_QUALITY}, one gray in {P18_GRAY_EVERY}): "
+          f"{ms:.3f} device ms a batch (CUDA events, median of "
+          f"{P18_DECODE_REPS} after 1), {wall * 1e3:.3f} ms host wall, "
+          f"{len(batch) / wall:.1f} images/s; routes {routes}; "
+          f"{jpeg.decoder_record()}")
+    phase("18a resample kernel vs its plain version (8 images, 224 px "
+          "window of a 256 resize, half flipped), max abs: "
+          + ", ".join(f"{m} {'u8' if u8 else 'f32'} {e:.3g}"
+                      for (m, u8), e in errs.items()))
+    for (mode, u8), e in errs.items():
+        if e > (1.0 if u8 else P18_RESAMPLE_TOL):
+            raise AssertionError(f"18a resample {mode} u8={u8}: {e}")
+    return {"fixtures": fixtures, "decode_ms": ms, "wall_ms": wall * 1e3,
+            "images_per_sec": len(batch) / wall, "routes": routes,
+            "resample_err": {f"{m}_{'u8' if u8 else 'f32'}": e
+                             for (m, u8), e in errs.items()}}
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def host_data_wait_ms(trainer) -> float:
+    """The trainer's `host_data_wait` spans (--trace-out), summed, in
+    ms."""
+    return sum(s["dur"] for s in trainer.tracer.spans()
+               if s["name"] == "host_data_wait") / 1e6
+
+
+def p18_entry(family: str, model: str, root: str, tag: str, extra: list,
+              device) -> tuple:
+    """One entry point on the records; its trainer, result and wall."""
+    wd = tempfile.mkdtemp(prefix=f"chip_smoke_p18{tag}_")
+    atexit.register(shutil.rmtree, wd, ignore_errors=True)
+    argv = ["-m", model, "--data-dir", root, "--epochs", "1",
+            "--device", str(device), "--workdir", wd,
+            "--trace-out", os.path.join(wd, "trace.json")] + extra
+    if P18_SIZE:
+        argv += ["--image-size", str(P18_SIZE)]
+    t0 = time.perf_counter()
+    trainer, result = family_main(family, argv)
+    steps = trainer.last_epoch_steps
+    if not steps or not all(np.isfinite(v) for s in steps
+                            for v in s.values()):
+        raise AssertionError(f"18{tag} {model}: steps {steps}")
+    return trainer, result, time.perf_counter() - t0, wd
+
+
+def check_records_resnet(paths: dict, device) -> dict:
+    """18b: resnet50_tpu at full width from the ImageNet records, under
+    --device-augment and --device-normalize: step_ms, host_data_wait a
+    step, the prefetcher's staged bytes (0: the batches are built on the
+    card), the compressed bytes the card received; then the loader
+    alone."""
+    from deepvision_tpu_torch.data import imagenet as inet
+    out = {}
+    batch = P18_RESNET_BATCH
+    for flag in ("--device-augment", "--device-normalize"):
+        jpeg.zero_stats()
+        trainer, result, wall, _ = p18_entry(
+            "ResNet", "resnet50_tpu", paths["inet"], "b",
+            [flag, "--batch-size", str(batch), "--eval-batch-size",
+             str(batch), "--steps-per-epoch", str(P18_RESNET_STEPS)],
+            device)
+        steps = trainer.last_epoch_steps
+        step_ms = statistics.median(s["step_ms"] for s in steps[1:])
+        wait = host_data_wait_ms(trainer)
+        ledger = trainer.last_prefetch_ledger
+        staged = ledger.get("bytes_staged_total")
+        # the consumer's wait after the first batch (the pipeline's fill:
+        # the shuffle buffer takes a whole pass of these records first)
+        steady = (ledger["wait_secs_total"] - ledger["first_wait_secs"]) \
+            * 1e3 / max(1, len(steps) - 1)
+        st = dict(jpeg.stats)
+        images = P18_RESNET_STEPS * batch + batch
+        phase(f"18b resnet50_tpu {flag} (224 px, batch {batch}, "
+              f"{P18_RESNET_STEPS} steps + 1 eval batch from records): "
+              f"losses {[round(s['loss'], 4) for s in steps]}, val "
+              f"{result}, step_ms={step_ms:.3f} (median after the first; "
+              f"first {steps[0]['step_ms']:.3f}), host_data_wait "
+              f"{wait / len(steps):.3f} ms a step "
+              f"({100 * wait / sum(s['step_ms'] for s in steps):.1f}% of "
+              f"the steps' time; after the first batch {steady:.3f} ms a "
+              f"step, first wait {ledger['first_wait_secs'] * 1e3:.1f} ms), "
+              f"prefetcher staged {staged} bytes, the "
+              f"card received {st['compressed_bytes']} compressed bytes "
+              f"({st['compressed_bytes'] / images / 1024:.1f} KiB an "
+              f"image) + {st['descriptor_bytes']} bytes of descriptors "
+              f"for {images} images; entry point {wall:.1f}s")
+        if staged != 0 or result.get("count") != batch:
+            raise AssertionError(f"18b {flag}: staged {staged} bytes, "
+                                 f"val {result}")
+        if jpeg.images_decoded() < images:
+            raise AssertionError(f"18b {flag}: decoded {st}")
+        out[flag] = {"step_ms": step_ms, "first_step_ms":
+                     steps[0]["step_ms"], "host_data_wait_ms_per_step":
+                     wait / len(steps), "steady_wait_ms_per_step": steady,
+                     "first_wait_ms": ledger["first_wait_secs"] * 1e3,
+                     "staged_bytes": staged,
+                     "compressed_bytes": st["compressed_bytes"],
+                     "descriptor_bytes": st["descriptor_bytes"],
+                     "images": images, "loss": [s["loss"] for s in steps]}
+        del trainer
+        torch.cuda.empty_cache()
+    alone = {}
+    for name, kw in (("device_augment", dict(host_decode_only=True)),
+                     ("device_normalize", dict(normalize_on_host=False))):
+        ds = inet.build_dataset(os.path.join(paths["inet"], "train*"),
+                                batch_size=batch, training=True,
+                                device=device, **kw)
+        it = ds.batches(0)
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(P18_LOADER_BATCHES):
+            images, labels = next(it)
+        sync(device)
+        dt = time.perf_counter() - t0
+        alone[name] = P18_LOADER_BATCHES * batch / dt
+        if tuple(images.shape[1:3]) != ((256, 256) if name ==
+                                        "device_augment" else (224, 224)) \
+                and not P18_SIZE:
+            raise AssertionError(f"18b loader {name}: {images.shape}")
+    phase(f"18b the ImageNet loader alone on the card ({P18_LOADER_BATCHES} "
+          f"batches of {batch} after 1, read + parse + nvJPEG + resample): "
+          + ", ".join(f"{k} {v:.1f} images/s" for k, v in alone.items())
+          + f" against resnet50_tpu's "
+          f"{batch / out['--device-augment']['step_ms'] * 1e3:.1f} images/s"
+          f" at its step_ms")
+    out["loader_images_per_sec"] = alone
+    return out
+
+
+def check_records_vit(paths: dict, device) -> dict:
+    """18c: vit_small at full width from the same ImageNet records: K1's
+    launches exactly depth x (train steps + eval batches)."""
+    cfg = get_config("vit_small")
+    depth = cfg.model_kwargs["depth"]
+    batch = P18_RESNET_BATCH
+    flash_attention.launches = 0
+    trainer, result, wall, _ = p18_entry(
+        "ViT", "vit_small", paths["inet"], "c",
+        ["--dataset", "imagenet", "--batch-size", str(batch),
+         "--eval-batch-size", str(batch), "--steps-per-epoch",
+         str(P18_VIT_STEPS)], device)
+    launches = flash_attention.launches
+    steps = trainer.last_epoch_steps
+    want = depth * (P18_VIT_STEPS + 1)
+    phase(f"18c vit_small (224 px, batch {batch}) from the ImageNet records: "
+          f"losses {[round(s['loss'], 4) for s in steps]}, val {result}, "
+          f"flash_attention launches {launches} (want {depth} x "
+          f"({P18_VIT_STEPS} steps + 1 eval batch) = {want}); entry point "
+          f"{wall:.1f}s")
+    if launches != want or len(steps) != P18_VIT_STEPS:
+        raise AssertionError(f"18c: {launches} K1 launches, want {want}")
+    return {"launches": launches, "steps": len(steps), "eval_batches": 1}
+
+
+def check_records_yolo(paths: dict, device) -> dict:
+    """18d: yolov3 at 416 px from the VOC-format records, K2 once a step
+    and an eval batch; then YOLO/torch/evaluate.py on the val split with
+    its ragged last batch."""
+    best_iou.launches = 0
+    trainer, result, wall, wd = p18_entry(
+        "YOLO", "yolov3", paths["voc"], "d",
+        ["--batch-size", str(P18_YOLO_BATCH), "--steps-per-epoch",
+         str(P18_YOLO_STEPS), "--learning-rate", P18_YOLO_LR], device)
+    launches = best_iou.launches
+    steps = trainer.last_epoch_steps
+    eval_batches = P18_YOLO_VAL // P18_YOLO_BATCH    # drop_remainder
+    want = P18_YOLO_STEPS + eval_batches
+    phase(f"18d yolov3 (416 px, batch {P18_YOLO_BATCH}) from VOC-format "
+          f"records: losses {[round(s['loss'], 3) for s in steps]}, val "
+          f"{result}, best_iou launches {launches} (want {want}: one a "
+          f"step and an eval batch); step_ms "
+          f"{statistics.median(s['step_ms'] for s in steps[1:]):.3f}; "
+          f"entry point {wall:.1f}s")
+    if launches != want or len(steps) != P18_YOLO_STEPS:
+        raise AssertionError(f"18d: {launches} K2 launches, want {want}")
+    del trainer
+    jpeg.zero_stats()
+    t0 = time.perf_counter()
+    argv = ["-m", "yolov3", "--data-dir", paths["voc"], "--workdir", wd,
+            "--device", str(device), "--metric", "voc"]
+    if P18_SIZE:
+        argv += ["--image-size", str(P18_SIZE)]
+    metrics = runpy.run_path(os.path.join(HERE, "YOLO", "torch",
+                                          "evaluate.py"),
+                             run_name="chip_smoke")["main"](argv)
+    st = dict(jpeg.stats)
+    seen = jpeg.images_decoded()
+    batch = get_config("yolov3").batch_size
+    phase(f"18d YOLO/torch/evaluate.py on the val split: {seen} of "
+          f"{P18_YOLO_VAL} images decoded in {st['decode_calls']} batches "
+          f"of up to {batch} (the ragged last batch kept), mAP "
+          f"{metrics.get('mAP')}, "
+          f"mAP@0.5 {metrics.get('mAP@0.5')}; "
+          f"{time.perf_counter() - t0:.1f}s")
+    if seen != P18_YOLO_VAL or not np.isfinite(metrics.get("mAP", np.nan)):
+        raise AssertionError(f"18d evaluate: {seen} images, {metrics}")
+    return {"launches": launches, "train_steps": len(steps),
+            "eval_batches": eval_batches, "eval_images": seen,
+            "mAP": metrics["mAP"]}
+
+
+def check_records_pose_and_gan(paths: dict, device) -> dict:
+    """18e: hourglass104 from the MPII-format records and
+    Hourglass/torch/evaluate.py on their val split; cyclegan from its
+    two-domain records."""
+    trainer, result, wall, wd = p18_entry(
+        "Hourglass", "hourglass104", paths["mpii"], "e",
+        ["--batch-size", str(P18_POSE_BATCH), "--eval-batch-size",
+         str(P18_POSE_VAL), "--steps-per-epoch", str(P18_POSE_STEPS)],
+        device)
+    steps = trainer.last_epoch_steps
+    phase(f"18e hourglass104 (256 px, batch {P18_POSE_BATCH}) from MPII-"
+          f"format records: losses {[round(s['loss'], 3) for s in steps]},"
+          f" val {result}; entry point {wall:.1f}s")
+    if len(steps) != P18_POSE_STEPS or result.get("count") != 1:
+        raise AssertionError(f"18e hourglass104: {steps} {result}")
+    del trainer
+    argv = ["--data-dir", paths["mpii"], "--workdir", wd, "--device",
+            str(device)]
+    if P18_SIZE:
+        argv += ["--image-size", str(P18_SIZE)]
+    t0 = time.perf_counter()
+    pckh = runpy.run_path(os.path.join(HERE, "Hourglass", "torch",
+                                       "evaluate.py"),
+                          run_name="chip_smoke")["main"](argv)
+    phase(f"18e Hourglass/torch/evaluate.py on the val split: {pckh}; "
+          f"{time.perf_counter() - t0:.1f}s")
+    if not np.isfinite(pckh.get("PCKh@0.5", np.nan)):
+        raise AssertionError(f"18e evaluate: {pckh}")
+    wd_cg = tempfile.mkdtemp(prefix="chip_smoke_p18cg_")
+    atexit.register(shutil.rmtree, wd_cg, ignore_errors=True)
+    t0 = time.perf_counter()
+    cg_trainer, metrics = runpy.run_path(
+        os.path.join(HERE, "CycleGAN", "torch", "train.py"),
+        run_name="chip_smoke")["main"](
+        ["--dataset", "toy", "--tfrecords-dir", paths["cyclegan"],
+         "--batch-size", str(P18_CG_BATCH), "--epochs", "1",
+         "--image-size", str(P18_SIZE or 256), "--device", str(device),
+         "--workdir", wd_cg])
+    cg_steps = cg_trainer.last_epoch_steps
+    phase(f"18e cyclegan ({P18_SIZE or 256} px, batch {P18_CG_BATCH}) from "
+          f"two-domain records: {len(cg_steps)} steps, loss_gen_total "
+          f"{metrics.get('loss_gen_total')}, loss_dis_total "
+          f"{metrics.get('loss_dis_total')}; "
+          f"{time.perf_counter() - t0:.1f}s")
+    if len(cg_steps) != P18_CG_STEPS or not np.isfinite(
+            metrics.get("loss_gen_total", np.nan)):
+        raise AssertionError(f"18e cyclegan: {cg_steps} {metrics}")
+    return {"pose_steps": len(steps), "pckh": pckh,
+            "cyclegan_steps": len(cg_steps)}
+
+
+def check_real_datasets() -> dict:
+    """Phase 18, slice 15: the record pipelines on the card. K1 on 18c's
+    path and K2 on 18d's, each count zeroed just before its entry point
+    and read just after."""
+    t0 = time.perf_counter()
+    device = torch.device(P18_DEVICE)
+    root = tempfile.mkdtemp(prefix="chip_smoke_p18_")
+    atexit.register(shutil.rmtree, root, ignore_errors=True)
+    paths = p18_datasets(root, device)
+    out = {"18a": check_decoder(paths["inet_train"], device)}
+    out["18b"] = check_records_resnet(paths, device)
+    torch.cuda.empty_cache()
+    out["18c"] = check_records_vit(paths, device)
+    torch.cuda.empty_cache()
+    out["18d"] = check_records_yolo(paths, device)
+    torch.cuda.empty_cache()
+    out["18e"] = check_records_pose_and_gan(paths, device)
+    out["decoder"] = jpeg.decoder_record()
+    phase(f"18: phase 18 took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def keep_bytecode() -> None:
+    """Keep the bytecode Python compiles, for this process and every one
+    it starts, under the checkout's .cache/: where the interpreter's
+    packages hold none and PYTHONDONTWRITEBYTECODE is set, each process
+    the script starts (DDP ranks, entry points, evaluate workers, tier
+    replicas) compiles torch's sources anew, 7.5 s of the 20 s a
+    YOLO/torch/train.py start took on the H100 machine's host."""
+    prefix = os.path.join(HERE, ".cache", "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = prefix
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    keep_bytecode()
     # 1. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4784,9 +5509,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 2. build every kernel, in parallel
+    # 2. build every kernel and the decoder's library, in parallel
     t0 = time.perf_counter()
-    libraries = ["flash_attention", "best_iou"]
+    libraries = ["flash_attention", "best_iou", "jpeg_decode"]
     _build.build(libraries)
     phase(f"kernels built in {time.perf_counter() - t0:.1f}s")
     for name, info in _build.BUILD_INFO.items():
@@ -4987,6 +5712,12 @@ def main() -> int:
         ops["stash"], ops["16d"]["latency_ms"][False])
     tier, fly = fleet_ops["17a"], fleet_ops["17b"]
 
+    # 18. slice 15: real datasets from records, decoded on the card (K1 on
+    # 18c's path, K2 on 18d's: each count zeroed just before its entry
+    # point, read just after)
+    torch.cuda.empty_cache()
+    real = check_real_datasets()
+
     # the card again, next to the numbers: a tail of the output keeps it
     print(smi, flush=True)
     timed_keys = ("shape", "layout", "ms", "device_ms", "plain_ms",
@@ -5017,6 +5748,7 @@ def main() -> int:
                      "dispatches_by_generation": fly["by_generation"],
                      "finetune_steps": fly["finetune_steps"]},
         "train_shape": {k: train_k1[k] for k in timed_keys},
+        "records_launches": real["18c"],
         "backward": "the VJP of naive_attention (autograd), as the JAX "
                     "package's _fused_bwd: no backward kernel",
         "grad_max_abs_err": grad_err}, {
@@ -5033,6 +5765,8 @@ def main() -> int:
         "library_device_ms": None, "shape": iou_fused["shape"],
         "segments": iou_fused["segments"], "dtype": "float32",
         "sass": k2_sass,
+        "records_launches": {k: real["18d"][k] for k in (
+            "launches", "train_steps", "eval_batches")},
         "resilience_launches": {
             "launches": resil["15a"]["launches"],
             "train_steps": resil["15a"]["train_steps"],

@@ -55,6 +55,26 @@ def _fmt_mesh(mesh) -> str:
     return ",".join(f"{k}:{v}" for k, v in shown.items())
 
 
+def fsck_summary(path: str, quarantine: bool = False) -> tuple:
+    """(exit code, summary) of auditing every checkpoint directory under
+    `path`, the summary with its per-epoch `reports`: what `fsck --format
+    json` prints, for callers in-process. Prints nothing."""
+    from .core import integrity
+    ckpt_dirs = integrity.find_checkpoint_dirs(os.path.abspath(path))
+    reports = [{"dir": d, "epochs": integrity.audit(d, quarantine=quarantine)}
+               for d in ckpt_dirs]
+    n_corrupt = sum(r["status"] == integrity.CORRUPT
+                    for d in reports for r in d["epochs"])
+    summary = {"fsck": "corrupt" if n_corrupt else "ok",
+               "checkpoint_dirs": len(ckpt_dirs),
+               "epochs_audited": sum(1 for d in reports for r in d["epochs"]
+                                     if r["epoch"] is not None),
+               "corrupt": n_corrupt,
+               "quarantined": quarantine and n_corrupt > 0,
+               "reports": reports}
+    return (1 if n_corrupt else 0), summary
+
+
 def _cmd_fsck(args: argparse.Namespace) -> int:
     from .core import integrity
 
@@ -63,25 +83,18 @@ def _cmd_fsck(args: argparse.Namespace) -> int:
     if not os.path.isdir(path):
         print(f"fsck: {args.path!r} is not a directory", file=sys.stderr)
         return 2
-    ckpt_dirs = integrity.find_checkpoint_dirs(path)
-    if not ckpt_dirs:
-        if machine:
-            print(json.dumps({"fsck": "ok", "checkpoint_dirs": 0,
-                              "epochs_audited": 0, "corrupt": 0,
-                              "quarantined": False, "reports": []}))
-        else:
-            print(f"fsck: no checkpoint directories under {args.path} "
-                  f"(nothing to audit)")
+    rc, summary = fsck_summary(path, args.quarantine)
+    if not summary["checkpoint_dirs"] and not machine:
+        print(f"fsck: no checkpoint directories under {args.path} "
+              f"(nothing to audit)")
         return 0
-    all_records = []
-    n_corrupt = 0
-    for d in ckpt_dirs:
-        records = integrity.audit(d, quarantine=args.quarantine)
-        all_records.append({"dir": d, "epochs": records})
-        if not machine:
-            print(f"== {d}")
-            if not records:
-                print("   (no committed epochs)")
+    for entry in summary["reports"]:
+        d, records = entry["dir"], entry["epochs"]
+        if machine:
+            continue
+        print(f"== {d}")
+        if not records:
+            print("   (no committed epochs)")
         for r in records:
             status = r["status"].upper().replace("_", "-")
             if r["status"] == integrity.OK:
@@ -95,20 +108,11 @@ def _cmd_fsck(args: argparse.Namespace) -> int:
                 if "quarantined_to" in r:
                     detail += f" -> {r['quarantined_to']}"
             epoch = f"epoch {r['epoch']}" if r["epoch"] is not None else ""
-            if not machine:
-                print(f"{status:17s} {epoch:9s} {detail}")
-            n_corrupt += r["status"] == integrity.CORRUPT
-    summary = {"fsck": "corrupt" if n_corrupt else "ok",
-               "checkpoint_dirs": len(ckpt_dirs),
-               "epochs_audited": sum(
-                   1 for d in all_records for r in d["epochs"]
-                   if r["epoch"] is not None),
-               "corrupt": n_corrupt,
-               "quarantined": args.quarantine and n_corrupt > 0}
-    if machine or args.json:
-        summary["reports"] = all_records
+            print(f"{status:17s} {epoch:9s} {detail}")
+    if not (machine or args.json):
+        del summary["reports"]
     print(json.dumps(summary))
-    return 1 if n_corrupt else 0
+    return rc
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

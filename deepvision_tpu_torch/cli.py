@@ -16,14 +16,24 @@ hourglass104 --synthetic --image-size 256` the Stacked Hourglass and
 `python UNet/torch/train.py -m unet_resnet50 --synthetic --image-size 224
 --device-augment` the U-Net segmenter (`-m unet_digits --device cpu` on
 the digit segmentation scenes). The
-flags are the JAX CLI's (`-m`, `-c`, `--data-dir`, `--synthetic`,
+flags are the JAX CLI's (`-m`, `-c`, `--data-dir`, `--dataset`, `--synthetic`,
 `--epochs`, `--batch-size`, `--eval-batch-size`, `--learning-rate`,
-`--accum-steps`, `--no-decay-bn-bias`, `--ema-decay`, `--device-augment`,
+`--accum-steps`, `--no-decay-bn-bias`, `--ema-decay`, `--device-normalize`,
+`--device-augment`,
 `--prefetch-batches`, `--steps-per-epoch`, `--seed`, `--workdir`, and the
 resilience flags `--auto-resume`, `--resume {strict,fallback}`,
 `--recover-on-divergence N`, `--watchdog-secs S` (or
 DEEPVISION_WATCHDOG_SECS) and `--no-graceful-shutdown`), plus `--device`
 and `--image-size`.
+
+Real datasets read the JAX package's on-disk formats: `--data-dir` holds
+the `train*`/`val*` TFRecords of ImageNet (`imagenet`, the classifiers'
+default), VOC/COCO (`detection`: yolov3, centernet) or MPII (`pose`:
+hourglass104), or the flat `train_flatten/`, `val_flatten/` and
+`synsets.txt` of `imagenet_flat` (data/records.py, data/imagenet.py,
+data/imagenet_flat.py, data/detection.py, data/pose.py). On the card the
+records decode on the card (nvJPEG, data/jpeg.py) and batches come out as
+CUDA tensors; `--device cpu` decodes with PIL.
 
 Data parallelism needs no flag, as in the JAX CLI: under
 `torchrun --standalone --nproc_per_node=N ResNet/torch/train.py ...` each
@@ -40,6 +50,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import glob
 import itertools
 import os
 from typing import Callable, Optional, Sequence, Tuple
@@ -68,6 +80,10 @@ def build_parser(family: str, models: Sequence[str]) -> argparse.ArgumentParser:
                    help="resume from this epoch number, or 'latest'")
     p.add_argument("--data-dir", default=None,
                    help="dataset root (idx files for MNIST)")
+    p.add_argument("--dataset", default=None,
+                   help="override the config's dataset flavor (imagenet: "
+                        "TFRecords; imagenet_flat: the reference's "
+                        "flattened directory)")
     p.add_argument("--synthetic", action="store_true",
                    help="train on synthetic data (smoke test, no dataset "
                         "needed; detection, pose and segmentation train on "
@@ -91,6 +107,10 @@ def build_parser(family: str, models: Sequence[str]) -> argparse.ArgumentParser:
                    help="Polyak averaging: validate and pick the best "
                         "checkpoint with the EMA of the weights (typical "
                         "0.999-0.9999)")
+    p.add_argument("--device-normalize", action="store_true",
+                   help="ship raw uint8 pixels and normalize inside the "
+                        "step (a quarter of the bytes; the TFRecord "
+                        "pipelines: ImageNet, detection, pose)")
     p.add_argument("--device-augment", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="classification and segmentation: ship uint8 at "
@@ -158,6 +178,11 @@ def _config_from_args(args, synthetic_image_size: Optional[int]
         cfg = get_config(args.model)
     except ValueError as e:              # a config refused by name
         raise SystemExit(f"error: {e}")
+    if args.dataset:
+        over = {"dataset": args.dataset}
+        if args.dataset == "mnist":
+            over.update(image_size=32, channels=1)   # 28 -> 32, grayscale
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, **over))
     if args.epochs:
         cfg = cfg.replace(total_epochs=args.epochs)
     if args.batch_size:
@@ -179,6 +204,9 @@ def _config_from_args(args, synthetic_image_size: Optional[int]
             raise SystemExit(f"--ema-decay must be in (0, 1), got "
                              f"{args.ema_decay}")
         cfg = cfg.replace(ema_decay=args.ema_decay)
+    if args.device_normalize:
+        cfg = cfg.replace(data=dataclasses.replace(
+            cfg.data, normalize_on_device=True))
     if args.device_augment is not None:
         cfg = cfg.replace(device_augment=args.device_augment)
     if args.prefetch_batches:
@@ -244,7 +272,44 @@ def _array_pair_fns(cfg: TrainConfig, train_xy, test_xy) -> Tuple:
     return train_fn, val_fn
 
 
-def _classification_data(cfg: TrainConfig, args) -> Tuple:
+def _tfrecord_data(build: Callable, cfg: TrainConfig, args, device,
+                   default_dir: str, bounded_train_steps: bool = False,
+                   builder_hint: str = "") -> Tuple:
+    """Train and val epoch factories over the `train*` and `val*` TFRecords
+    of `--data-dir` (the JAX CLI's `_tfrecord_data`): the rank's files and
+    rows in training, global batches over every val file (the trainer
+    splits them). ImageNet repeats its records, so its epoch is bounded to
+    `train_examples // batch_size` steps; the single-pass sets run whole
+    unless `--steps-per-epoch`."""
+    from .data.pipeline import epoch_iterator
+    data = cfg.data
+    data_dir = args.data_dir or data.data_dir or default_dir
+
+    def check(split: str) -> str:
+        pattern = os.path.join(data_dir, f"{split}*")
+        if "://" not in pattern and not glob.glob(pattern):
+            hint = f" Build them with {builder_hint}." if builder_hint else ""
+            raise SystemExit(
+                f"no TFRecords match {pattern!r}: point --data-dir at the "
+                f"dataset (or use --synthetic for a smoke run).{hint}")
+        return pattern
+
+    world, rank = mesh.world_size(), mesh.rank()
+    val_ds = build(check("val"), training=False,
+                   batch_size=cfg.eval_batch_size or cfg.batch_size,
+                   image_size=data.image_size, device=device)
+    train_ds = build(check("train"), training=True,
+                     batch_size=cfg.batch_size // world,
+                     image_size=data.image_size, num_process=world,
+                     process_index=rank, seed=cfg.seed, device=device)
+    steps = args.steps_per_epoch
+    if steps is None and bounded_train_steps:
+        steps = data.train_examples // cfg.batch_size
+    return (lambda epoch: epoch_iterator(train_ds, steps, epoch),
+            lambda epoch: epoch_iterator(val_ds))
+
+
+def _classification_data(cfg: TrainConfig, args, device=None) -> Tuple:
     data = cfg.data
     if (data.normalize_on_device and not cfg.device_augment
             and data.dataset != "imagenet"):
@@ -279,16 +344,52 @@ def _classification_data(cfg: TrainConfig, args) -> Tuple:
         from .data.digits import load_splits
         return _array_pair_fns(cfg, *load_splits(data.image_size))
     if data.dataset in ("imagenet", "imagenet_flat"):
-        raise NotImplementedError(
-            f"dataset {data.dataset!r} is not ported yet (the ImageNet "
-            f"TFRecord and flattened-directory loaders); train with "
-            f"--synthetic")
+        device = device or resolve_device(args.device)
+    if data.dataset == "imagenet":
+        from .data import imagenet as inet
+        return _tfrecord_data(
+            functools.partial(inet.build_dataset,
+                              normalize_on_host=not data.normalize_on_device,
+                              host_decode_only=cfg.device_augment,
+                              mean=data.mean, std=data.std),
+            cfg, args, device, "dataset/tfrecord", bounded_train_steps=True,
+            builder_hint="Datasets/ILSVRC2012/build_imagenet_tfrecord.py")
+    if data.dataset == "imagenet_flat":
+        # the reference's flat layout: dataset/{train_flatten,val_flatten}/
+        # and synsets.txt; the rank's files in training, every file in eval
+        from .data.imagenet_flat import FlatImageNet
+        data_dir = args.data_dir or data.data_dir or "dataset"
+        synsets = os.path.join(data_dir, "synsets.txt")
+        common = dict(image_size=data.image_size,
+                      host_decode_only=cfg.device_augment, device=device)
+        val_ds = FlatImageNet(os.path.join(data_dir, "val_flatten"), synsets,
+                              training=False,
+                              batch_size=cfg.eval_batch_size or cfg.batch_size,
+                              **common)
+        train_ds = FlatImageNet(
+            os.path.join(data_dir, "train_flatten"), synsets, training=True,
+            batch_size=cfg.batch_size // mesh.world_size(),
+            num_shards=mesh.world_size(), shard_index=mesh.rank(),
+            seed=cfg.seed, **common)
+        steps = args.steps_per_epoch
+        return (lambda epoch: itertools.islice(iter(train_ds), steps),
+                lambda epoch: val_ds)
     raise ValueError(f"unknown dataset {data.dataset!r}")
 
 
-def _detection_data(cfg: TrainConfig, args) -> Tuple:
+def _guard_device_normalize_synthetic(cfg: TrainConfig, args) -> None:
+    """--device-normalize needs a pipeline that emits raw uint8; the
+    synthetic generators yield floats that were never [0, 255] pixels."""
+    if cfg.data.normalize_on_device and (args.synthetic
+                                         or cfg.data.dataset == "synthetic"):
+        raise SystemExit("--device-normalize is incompatible with synthetic "
+                         "data (random floats were never raw pixels)")
+
+
+def _detection_data(cfg: TrainConfig, args, device=None) -> Tuple:
     from .data import detection as det
     data = cfg.data
+    _guard_device_normalize_synthetic(cfg, args)
     if args.synthetic or data.dataset == "synthetic":
         return _synthetic_data(cfg, lambda batch, steps, seed, rank:
                                det.synthetic_batches(
@@ -324,14 +425,15 @@ def _detection_data(cfg: TrainConfig, args) -> Tuple:
 
         return train_fn, lambda epoch: detection_batches(
             va, batch_size=cfg.batch_size)
-    if data.dataset == "detection":
-        raise NotImplementedError(
-            "the VOC/COCO TFRecord pipeline (dataset 'detection') is not "
-            "ported yet: it reads TFRecords through TensorFlow, which the "
-            "port does not depend on; train with --synthetic or on "
-            "digits_detect")
-    raise ValueError(f"detection families read 'detection' TFRecords, not "
-                     f"dataset={data.dataset!r}")
+    if data.dataset != "detection":
+        raise ValueError(f"detection families read 'detection' TFRecords, "
+                         f"not dataset={data.dataset!r}")
+    return _tfrecord_data(
+        functools.partial(det.build_dataset,
+                          normalize_on_host=not data.normalize_on_device),
+        cfg, args, device or resolve_device(args.device),
+        "dataset/tfrecords",
+        builder_hint="Datasets/VOC2007|VOC2012|MSCOCO/tfrecords.py")
 
 
 def _run(family: str, models: Sequence[str], trainer_factory: Callable,
@@ -352,7 +454,7 @@ def _run(family: str, models: Sequence[str], trainer_factory: Callable,
         trainer = trainer_factory(cfg, workdir, device)
         if args.trace_out:
             trainer.arm_tracing(args.trace_out)
-        train_fn, val_fn = make_data(cfg, args)
+        train_fn, val_fn = make_data(cfg, args, device)
         trainer.init_state()
         if args.checkpoint:
             trainer.resume(None if args.checkpoint == "latest"
@@ -392,22 +494,25 @@ def run_detection(family: str, models: Sequence[str],
                 _detection_data, argv, synthetic_image_size=64)
 
 
-def _pose_data(cfg: TrainConfig, args) -> Tuple:
+def _pose_data(cfg: TrainConfig, args, device=None) -> Tuple:
     from .data import pose as pose_data
     data = cfg.data
+    _guard_device_normalize_synthetic(cfg, args)
     if args.synthetic or data.dataset == "synthetic":
         return _synthetic_data(cfg, lambda batch, steps, seed, rank:
                                pose_data.synthetic_batches(
                                    batch_size=batch,
                                    image_size=data.image_size, steps=steps,
                                    seed=seed, rank=rank))
-    if data.dataset == "pose":
-        raise NotImplementedError(
-            "the MPII TFRecord pipeline (dataset 'pose') is not ported "
-            "yet: it reads TFRecords through TensorFlow, which the port "
-            "does not depend on; train with --synthetic")
-    raise ValueError(f"pose families read 'pose' TFRecords, not "
-                     f"dataset={data.dataset!r}")
+    if data.dataset != "pose":
+        raise ValueError(f"pose families read 'pose' TFRecords, not "
+                         f"dataset={data.dataset!r}")
+    return _tfrecord_data(
+        functools.partial(pose_data.build_dataset,
+                          normalize_on_host=not data.normalize_on_device),
+        cfg, args, device or resolve_device(args.device),
+        "dataset/tfrecords_mpii",
+        builder_hint="Datasets/MPII/tfrecords_mpii.py")
 
 
 def run_centernet(family: str, models: Sequence[str],
@@ -433,7 +538,7 @@ def run_pose(family: str, models: Sequence[str],
                 _pose_data, argv, synthetic_image_size=64)
 
 
-def _segmentation_data(cfg: TrainConfig, args) -> Tuple:
+def _segmentation_data(cfg: TrainConfig, args, device=None) -> Tuple:
     from .data import segmentation as seg_data
     data = cfg.data
     if args.synthetic or data.dataset in ("synthetic", "seg_synthetic"):

@@ -28,6 +28,7 @@ import torch
 
 from ..ops import centernet as cn_ops
 from ..parallel import mesh
+from ..utils.device import to_device, to_host
 from .config import UNIT_RANGE_NORM, TrainConfig
 from .detection import boxes_calibration_batch
 from .steps import normalize_input
@@ -143,9 +144,10 @@ def evaluate_map(state: TrainState, batches: Iterable, *, num_classes: int,
     for batch in batches:
         images, gt_boxes, gt_classes, gt_valid = batch[:4]
         boxes, scores, classes = (t.cpu().numpy() for t in predict(
-            state, torch.as_tensor(np.asarray(images)).to(device)))
+            state, to_device(images, device)))
         counts = (scores >= score_thresh).sum(axis=1)  # scores descend
-        ev.add_batch(boxes, scores, classes, counts, gt_boxes, gt_classes,
-                     gt_valid,
-                     gt_difficult=batch[4] if len(batch) > 4 else None)
+        ev.add_batch(boxes, scores, classes, counts, to_host(gt_boxes),
+                     to_host(gt_classes), to_host(gt_valid),
+                     gt_difficult=(to_host(batch[4]) if len(batch) > 4
+                                   else None))
     return ev.summarize()

@@ -34,6 +34,7 @@ from ..ops import yolo as yolo_ops
 from ..ops.boxes import xywh_to_x1y1x2y2
 from ..ops.nms import batched_nms
 from ..parallel import mesh
+from ..utils.device import to_device, to_host
 from .config import UNIT_RANGE_NORM, TrainConfig
 from .steps import normalize_input
 from .train_state import TrainState
@@ -178,9 +179,11 @@ def evaluate_map(state: TrainState, batches: Iterable, *, num_classes: int,
     for batch in batches:
         images, boxes, classes, valid = batch[:4]
         difficult = batch[4] if len(batch) > 4 else None  # VOC devkit flags
-        out = predict(state, torch.as_tensor(np.asarray(images)).to(device))
-        ev.add_batch(*(t.cpu().numpy() for t in out), boxes, classes, valid,
-                     gt_difficult=difficult)
+        out = predict(state, to_device(images, device))
+        ev.add_batch(*(t.cpu().numpy() for t in out), to_host(boxes),
+                     to_host(classes), to_host(valid),
+                     gt_difficult=(None if difficult is None
+                                   else to_host(difficult)))
     return ev.summarize()
 
 

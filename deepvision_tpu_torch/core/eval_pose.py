@@ -19,6 +19,8 @@ from typing import Dict, Iterable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.device import to_device, to_host
+
 MPII_UPPER_NECK = 8
 MPII_HEAD_TOP = 9
 
@@ -91,7 +93,8 @@ def evaluate_pckh(state, batches: Iterable, *, num_joints: int = 16,
     with state.ema_weights(), torch.inference_mode():
         model.eval()
         for images, kp_x, kp_y, vis in batches:
-            outputs = model(torch.as_tensor(np.asarray(images)).to(device))
+            outputs = model(to_device(images, device))
             px, py, _ = decode_keypoints(outputs[-1])
-            ev.add_batch(px.cpu().numpy(), py.cpu().numpy(), kp_x, kp_y, vis)
+            ev.add_batch(px.cpu().numpy(), py.cpu().numpy(), to_host(kp_x),
+                         to_host(kp_y), to_host(vis))
     return ev.summarize()

@@ -53,7 +53,7 @@ import torch.nn.functional as F
 from ..models.gan import (CycleGANGenerator, DCGANDiscriminator,
                           DCGANGenerator, PatchGANDiscriminator)
 from ..parallel import mesh
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_device
 from ..utils.faults import FaultInjector
 from ..utils.image_pool import ImagePool
 from .checkpoint import CheckpointManager
@@ -142,9 +142,7 @@ class AdversarialTrainer:
         self.last_epoch_steps: List[Dict[str, float]] = []
 
     def _stage(self, *arrays) -> Tuple[torch.Tensor, ...]:
-        return tuple(torch.as_tensor(np.asarray(a)).to(self.device,
-                                                       non_blocking=True)
-                     for a in arrays)
+        return tuple(to_device(a, self.device) for a in arrays)
 
     def _payload(self) -> dict:
         return {"gen": self.gen_state.state_dict(),

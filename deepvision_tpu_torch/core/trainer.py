@@ -75,7 +75,7 @@ from ..data import device_augment as daug
 from ..models import build_model
 from ..parallel import mesh
 from ..parallel.prefetch import prefetch_to_device
-from ..utils.device import resolve_device
+from ..utils.device import pad_rows, resolve_device, to_device
 from ..utils.faults import FaultInjector
 from .checkpoint import CheckpointManager
 from .config import TrainConfig
@@ -369,9 +369,7 @@ class Trainer:
         return got
 
     def _to_device(self, batch) -> tuple:
-        return tuple(torch.as_tensor(np.asarray(a)).to(self.device,
-                                                       non_blocking=True)
-                     for a in batch)
+        return tuple(to_device(a, self.device) for a in batch)
 
     def _preempted(self) -> bool:
         """Whether a stop was requested, on any rank (every rank calls
@@ -500,10 +498,8 @@ class Trainer:
             mask = np.zeros((target,), np.float32)
             mask[:n] = 1.0
             if target != n:
-                pad = [(0, target - n)]
-                images = np.pad(np.asarray(images),
-                                pad + [(0, 0)] * (np.ndim(images) - 1))
-                labels = np.pad(np.asarray(labels), pad)
+                images, labels = (pad_rows(a, target)
+                                  for a in (images, labels))
             rows = (mesh.shard_rows(a, self.rank, self.world)
                     for a in (images, labels, mask))
             m = self.eval_step(self.state, *self._to_device(rows))

@@ -31,6 +31,14 @@ BUILD_DIR = (Path(__file__).resolve().parents[2] / ".cache"
              / "deepvision_tpu_torch" / "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: a source's own compile flags: the decoder library's host CRC32C takes
+#: SSE4.2, and its resample computes its weights without multiply-add
+#: contraction (data/util.py's float32 roundings, TensorFlow's table)
+SOURCE_FLAGS: Dict[str, tuple] = {
+    "jpeg_decode": ("-Xcompiler", "-msse4.2", "-fmad=false")}
+#: a source's libraries, linked after the source (with an rpath to the
+#: toolkit's lib64, where nvcc found them)
+SOURCE_LIBS: Dict[str, tuple] = {"jpeg_decode": ("-lnvjpeg",)}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -53,10 +61,23 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(name: str) -> tuple:
+    """Everything nvcc is given for `name` besides its output and source:
+    (flags before the source, libraries after it)."""
+    libs = SOURCE_LIBS.get(name, ())
+    if libs:
+        lib_dir = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                               "lib64")
+        libs = ("-L" + lib_dir, *libs, "-Xlinker", "-rpath",
+                "-Xlinker", lib_dir)
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ()), libs
+
+
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
+    before, after = _flags(name)
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(before + after).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -76,7 +97,9 @@ def build(names: Sequence[str]) -> None:
     for name, so in todo:
         tmp = so.with_name(
             f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        before, after = _flags(name)
+        cmd = [nvcc, *before, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+               *after]
         procs.append((name, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

@@ -11,7 +11,11 @@ batch, and `record_stream` tells the caching allocator that the consumer's
 stream uses the staged tensors, so their memory is not handed to the side
 stream again while the step still reads it. A pinned buffer is reused only
 after its copy's event has completed. On the CPU a batch is staged without
-pinning. `size <= 1` stages inline, in the consumer's thread. Staging runs
+pinning. A tensor that already lies on `device` (a batch the record
+loaders decoded on the card) passes through unstaged: no copy, 0 bytes
+in the ledger; on the card an event on the producer's current stream
+still orders it before the consumer's use. `size <= 1` stages inline, in
+the consumer's thread. Staging runs
 with `device` as the current card, so a rank of a data-parallel run puts
 its side stream, events and pinned buffers on its own card, whatever
 card the calling thread has current.
@@ -134,7 +138,14 @@ class DevicePrefetcher:
                 "overlapped_fraction": self.overlapped_fraction,
                 "queue_depth": self.queue_depth}
 
+    def _on_device(self, array) -> bool:
+        return (isinstance(array, torch.Tensor)
+                and array.device.type == self.device.type
+                and (not self._cuda or array.device == self.device))
+
     def _to_device(self, array) -> torch.Tensor:
+        if self._on_device(array):
+            return array
         host = torch.as_tensor(np.asarray(array))
         if not self._cuda:
             return host.to(self.device)
@@ -150,7 +161,8 @@ class DevicePrefetcher:
     def _stage(self, batch) -> tuple:
         """(tensors on the device, the copies' event or None), with the
         ledger updated around it."""
-        nbytes = sum(int(np.asarray(a).nbytes) for a in batch)
+        nbytes = sum(int(np.asarray(a).nbytes) for a in batch
+                     if not self._on_device(a))
         t0 = time.perf_counter()
         with (torch.cuda.device(self.device) if self._cuda
               else contextlib.nullcontext()):
@@ -160,8 +172,12 @@ class DevicePrefetcher:
             event = None
             if self._cuda:
                 event = torch.cuda.Event()
-                event.record(self._stream)
-                event.synchronize()  # the stage time includes the transfer
+                if all(self._on_device(a) for a in batch):
+                    # nothing copied: order after the loader's own work
+                    event.record(torch.cuda.current_stream(self.device))
+                else:
+                    event.record(self._stream)
+                    event.synchronize()  # the stage includes the transfer
         dt = time.perf_counter() - t0
         self.bytes_staged_total += nbytes
         self.batches_staged_total += 1

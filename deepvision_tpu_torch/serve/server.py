@@ -110,6 +110,8 @@ DRAIN_WHAT = ("finishing in-flight batches, rejecting new work, "
 # HTTP-wait bound for requests that carry no deadline and hit a model with
 # no configured default: generous, but BOUNDED
 FALLBACK_DEADLINE_S = 30.0
+#: the longest the main loop sleeps before it looks at the shutdown flag
+MAIN_LOOP_TICK_S = 0.5
 
 
 class InferenceServer:
@@ -317,11 +319,18 @@ class InferenceServer:
                   f"device={self.engine.device_name} "
                   f"max_delay_ms={self.batcher.max_delay * 1000:g}",
                   flush=True)
+            # waits of at most MAIN_LOOP_TICK_S: the kernel may deliver
+            # SIGTERM to a busy handler thread, and its Python handler then
+            # runs only once the main thread wakes on its own
+            quiet_since = time.monotonic()
             while not (gs.requested or self._stop.is_set()):
-                if self._wake.wait(self.flush_every_s):
+                if self._wake.wait(MAIN_LOOP_TICK_S):
                     self._wake.clear()   # signal/stop — re-check the flag
+                    quiet_since = time.monotonic()
                     continue
-                self.flush_metrics()     # quiet period: periodic flush
+                if time.monotonic() - quiet_since >= self.flush_every_s:
+                    self.flush_metrics()  # quiet period: periodic flush
+                    quiet_since = time.monotonic()
             # de-admission grace: /healthz already says "draining", and in
             # this window the server still accepts and answers everything
             self.draining_flag.set()

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from ..parallel import mesh
@@ -44,3 +45,30 @@ def device_name(device: torch.device) -> str:
     if device.type == "cuda":
         return torch.cuda.get_device_name(device)
     return "cpu"
+
+
+def to_device(array, device: torch.device) -> torch.Tensor:
+    """A batch array on `device`: a host array through `torch.as_tensor`,
+    a tensor (the record loaders make theirs on the card) moved only if
+    it lies elsewhere."""
+    if isinstance(array, torch.Tensor):
+        return array.to(device, non_blocking=True)
+    return torch.as_tensor(np.asarray(array)).to(device, non_blocking=True)
+
+
+def to_host(array) -> np.ndarray:
+    """A batch array as numpy (a tensor on any device copied back)."""
+    if isinstance(array, torch.Tensor):
+        return array.detach().cpu().numpy()
+    return np.asarray(array)
+
+
+def pad_rows(array, target: int):
+    """`array` zero-padded along its first axis to `target` rows (numpy
+    or a tensor, kept as it came)."""
+    n = len(array)
+    if isinstance(array, torch.Tensor):
+        pad = array.new_zeros((target - n, *array.shape[1:]))
+        return torch.cat([array, pad])
+    array = np.asarray(array)
+    return np.pad(array, [(0, target - n)] + [(0, 0)] * (array.ndim - 1))

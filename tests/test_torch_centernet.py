@@ -577,9 +577,19 @@ def test_evaluate_cli_synthetic_and_the_refused_tfrecord_split(tmp_path,
     with open(out) as fp:
         assert json.load(fp) == pytest.approx(metrics)
     assert math.isfinite(metrics["mAP"]) and "mAP: " in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="TFRecord"):
-        _script("evaluate.py")["main"](["-m", "centernet", "--device", "cpu",
-                                        "--workdir", str(tmp_path / "wd")])
+    # the once refused VOC/COCO val split: the pinned tiny model on the
+    # records, its ragged batch kept
+    import tensorflow as tf
+    from torch_records_fixtures import write_voc
+    from deepvision_tpu_torch.data import jpeg
+    tf.config.set_visible_devices([], "GPU")
+    data_dir = write_voc(str(tmp_path / "voc"), splits=(("val", 3),))
+    jpeg.zero_stats()
+    metrics = _script("evaluate.py")["main"](
+        ["-m", "centernet", "--device", "cpu", "--data-dir", data_dir,
+         "--image-size", "64", "--workdir", str(tmp_path / "wd"),
+         "--metric", "voc"])
+    assert jpeg.images_decoded() == 3 and math.isfinite(metrics["mAP"])
 
 
 @pytest.mark.parametrize("run,family,name", [

@@ -630,8 +630,8 @@ def test_phase_13_rehearses_on_the_cpu(monkeypatch):
     _tiny_p13(monkeypatch)
     steps = []
     monkeypatch.setattr(chip_smoke, "check_step_against_f64",
-                        lambda cfg, model, batch, name, what, make_step:
-                        steps.append((name, len(batch))) or {})
+                        lambda cfg, model, batch, name, what, make_step,
+                        cpu_f32, ref: steps.append((name, len(batch))) or {})
     out = chip_smoke.check_centernet_and_pose()
     assert steps == [("13a centernet", 4), ("13b hourglass104", 4)]
     for name in ("centernet", "hourglass104"):
@@ -645,7 +645,7 @@ def test_phase_13_rehearses_on_the_cpu(monkeypatch):
 
 
 def test_a_kernel_launch_fails_phase_13(monkeypatch):
-    def launch(name, tag):
+    def launch(name, tag, cpu_side=None):
         chip_smoke.best_iou.launches += 1
         return {"trainer": None}
 
@@ -653,7 +653,13 @@ def test_a_kernel_launch_fails_phase_13(monkeypatch):
     monkeypatch.setattr(chip_smoke, "check_centernet_predict",
                         lambda trainer: {})
     monkeypatch.setattr(chip_smoke, "check_pose_predict", lambda trainer: {})
-    monkeypatch.setattr(chip_smoke, "check_p13_serving", lambda name: {})
+    monkeypatch.setattr(chip_smoke, "check_p13_serving",
+                        lambda name, cpu_engine=None: {})
+    monkeypatch.setattr(chip_smoke, "p13_cpu_side", lambda: {
+        name: {"cpu_engine": None} for name in chip_smoke.P13_MODELS})
+    monkeypatch.setattr(chip_smoke, "start_p13_evaluations", lambda: {})
+    monkeypatch.setattr(chip_smoke, "finish_p13_evaluations",
+                        lambda run: {})
     with pytest.raises(AssertionError, match="a kernel ran"):
         chip_smoke.check_centernet_and_pose()
 

@@ -15,6 +15,7 @@ served provenance and refusal."""
 
 import os
 import sys
+import types
 
 import pytest
 import torch
@@ -64,12 +65,16 @@ def test_phase_15_rehearses_on_the_cpu(tiny_p15):
 
 def test_a_stray_kernel_launch_fails_phase_15(monkeypatch):
     """A sub-phase whose launch counts differ from the expected fails."""
+    trainer = types.SimpleNamespace(model=None)
     monkeypatch.setattr(chip_smoke, "check_p15_divergence",
-                        lambda: {"trainer": None})
-    monkeypatch.setattr(chip_smoke, "check_p15_save_overlap",
+                        lambda: {"trainer": trainer})
+    monkeypatch.setattr(chip_smoke, "start_p15_save_overlap",
                         lambda trainer: {})
+    monkeypatch.setattr(chip_smoke, "check_p15_save_overlap",
+                        lambda trainer, started: {})
+    monkeypatch.setattr(chip_smoke, "check_p15_preemption", lambda: {})
     monkeypatch.setattr(chip_smoke, "check_p15_integrity",
-                        lambda a: chip_smoke.flash_attention.__setattr__(
-                            "launches", 1))
+                        lambda a, model: setattr(chip_smoke.flash_attention,
+                                                 "launches", 1))
     with pytest.raises(AssertionError, match="phase 15b"):
         chip_smoke.check_resilience()

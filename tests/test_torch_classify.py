@@ -357,13 +357,53 @@ def test_trainer_scales_the_lr_by_the_effective_batch(tmp_path):
     trainer.close()
 
 
-def test_datasets_not_ported_raise():
-    args = argparse.Namespace(synthetic=False)
-    for dataset in ("imagenet", "imagenet_flat"):
-        cfg = get_config("vit_small")
-        cfg = cfg.replace(data=dataclasses.replace(cfg.data, dataset=dataset))
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            _classification_data(cfg, args)
+@pytest.mark.parametrize("dataset", ["imagenet", "imagenet_flat"])
+def test_datasets_not_ported_raise(tmp_path, dataset):
+    """Once refused by name, the ImageNet TFRecord and flat-directory
+    datasets now feed the classification CLI: its val batches are the JAX
+    CLI's, the same records in the same order, pixels within the decode
+    and resize gap (tests/test_torch_loaders.py), and its training
+    batches have the rank's shape."""
+    import tensorflow as tf
+    from torch_records_fixtures import write_flat, write_imagenet
+
+    from deepvision_tpu import cli as jax_cli
+    from deepvision_tpu.configs import get_config as jax_get_config
+    tf.config.set_visible_devices([], "GPU")
+    root = str(tmp_path)
+    if dataset == "imagenet":
+        write_imagenet(root, "train", [6, 5], seed=3)
+        write_imagenet(root, "val", [5, 4], seed=4)
+    else:
+        synsets = write_flat(os.path.join(root, "train_flatten"), n=9)
+        write_flat(os.path.join(root, "val_flatten"), n=8, seed=1)
+        with open(os.path.join(root, "synsets.txt"), "w") as fh:
+            fh.write("\n".join(synsets) + "\n")
+    args = argparse.Namespace(synthetic=False, data_dir=root,
+                              steps_per_epoch=2, device="cpu")
+
+    def cut(cfg):
+        return cfg.replace(batch_size=4, data=dataclasses.replace(
+            cfg.data, dataset=dataset, image_size=32))
+
+    train_fn, val_fn = _classification_data(cut(get_config("vit_small")),
+                                            args)
+    jtrain, jval = jax_cli._classification_data(
+        cut(jax_get_config("vit_small")), args)
+    got, want = list(val_fn(0)), list(jval(0))
+    assert len(got) == len(want) == 2
+    for (gi, gl), (wi, wl) in zip(got, want):
+        np.testing.assert_array_equal(gl.numpy(), wl)
+        assert gi.dtype == torch.float32 and gi.shape == wi.shape
+        # TFRecords: TensorFlow's default decode against PIL's, 7 levels,
+        # through the bicubic (its |weights| sum to at most 1.5625);
+        # the flat layout: both decode with PIL, a level apart (PIL rounds
+        # between its two resize passes); normalised by the smallest std
+        levels = 7 * 1.5625 if dataset == "imagenet" else 1.001
+        assert float(np.abs(gi.numpy() - wi).max()) <= levels / 255 / 0.224
+    batches = list(train_fn(1))
+    assert len(batches) == 2
+    assert all(tuple(b[0].shape) == (4, 32, 32, 3) for b in batches)
 
 
 def test_training_raises_val_top1_above_the_untrained(tmp_path):

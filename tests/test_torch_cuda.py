@@ -999,3 +999,88 @@ def test_the_k2_count_across_a_rollback(card, tmp_path, monkeypatch):
     assert hist["epoch_train_loss"]["epochs"] == [1, 2, 2]
     assert trainer.state.step == 4
     assert k2.best_iou.launches - before == 6 + 2 * 2
+
+
+# -- the input path: nvJPEG and the resample kernel --------------------------
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "fixtures", "jpeg")
+# nvJPEG against the fixtures' PIL goldens (= libjpeg's INTEGER_ACCURATE):
+# another IDCT and chroma upsampling, at most 4 levels measured on the
+# H100 (chip_smoke.py P18_DECODE_TOL)
+DECODE_TOL = 6
+
+
+def test_nvjpeg_decodes_the_fixtures_near_libjpeg(card):
+    """Every committed fixture (4:4:4, 4:2:0, 4:2:2 at an odd size,
+    grayscale, progressive, restart markers) decoded on the card, alone
+    and as one batch (the routes differ: the batched backend takes the
+    sequential streams, the default one the progressive), within
+    DECODE_TOL of its PIL golden; never through PIL."""
+    from deepvision_tpu_torch.data import jpeg
+    names = sorted(f[:-4] for f in os.listdir(FIXTURES)
+                   if f.endswith(".jpg"))
+    datas = [open(os.path.join(FIXTURES, n + ".jpg"), "rb").read()
+             for n in names]
+    jpeg.zero_stats()
+    batch = jpeg.decode_batch(datas, card)
+    for i, (name, data) in enumerate(zip(names, datas)):
+        want = np.load(os.path.join(FIXTURES, name + ".pil.npy"))
+        alone = jpeg.decode_batch([data], card).image(0).cpu().numpy()
+        together = batch.image(i).cpu().numpy()
+        for got in (alone, together):
+            assert got.shape == want.shape, name
+            assert np.abs(got.astype(int) - want).max() <= DECODE_TOL, name
+    assert jpeg.stats["cpu_images"] == 0
+    assert jpeg.images_decoded() == 2 * len(names)
+
+
+def test_flat_loader_on_the_card_refuses_a_png(card, tmp_path):
+    """A flat layout of the committed JPEG fixtures loads on the card
+    through nvJPEG; one PNG among them (named .JPEG, as ILSVRC2012's
+    n02105855_2933 is) is refused by name when the loader is built."""
+    import torch_records_fixtures as fx
+    from deepvision_tpu_torch.data import jpeg
+    from deepvision_tpu_torch.data.imagenet_flat import (FlatImageNet,
+                                                         NotJpegError)
+    names = sorted(f for f in os.listdir(FIXTURES) if f.endswith(".jpg"))
+    for i, name in enumerate(names):
+        (tmp_path / f"n0{1 + i % 2}_{i}.JPEG").write_bytes(
+            open(os.path.join(FIXTURES, name), "rb").read())
+    synsets = {"n01": 0, "n02": 1}
+    kw = dict(batch_size=2, training=False, image_size=32, device=card)
+    jpeg.zero_stats()
+    batches = list(FlatImageNet(str(tmp_path), synsets, **kw))
+    assert len(batches) == len(names) // 2
+    assert all(im.is_cuda and im.shape == (2, 32, 32, 3)
+               and bool(torch.isfinite(im).all()) for im, _ in batches)
+    assert jpeg.stats["cpu_images"] == 0
+    (tmp_path / "n01_99.JPEG").write_bytes(fx.png(
+        np.zeros((8, 8, 3), np.uint8)))
+    with pytest.raises(NotJpegError, match=r"1 file\(s\) .*: n01_99\.JPEG"):
+        FlatImageNet(str(tmp_path), synsets, **kw)
+
+
+@pytest.mark.parametrize("mode", ["bicubic", "bilinear", "bilinear_aa"])
+def test_resample_kernel_matches_plain_version(card, mode):
+    """One launch for a batch of mixed sizes, crops, windows and flips:
+    f32 within 1e-3 on the [0, 255] scale of the plain version on the
+    same decoded pixels, uint8 within a level (a rounding tie)."""
+    from deepvision_tpu_torch.data import jpeg, util
+    datas = [open(os.path.join(FIXTURES, n), "rb").read()
+             for n in sorted(os.listdir(FIXTURES)) if n.endswith(".jpg")]
+    decoded = jpeg.decode_batch(datas, card)
+    plans = []
+    for i, (h, w) in enumerate(decoded.shapes):
+        plans.append(util.Plan((i % 3, i % 2, h - 3, w - 2),
+                               (40 + i, 44), (i % 4, 2), bool(i % 2)))
+    host = [decoded.image(i).cpu() for i in range(len(datas))]
+    for how in (util.UINT8, util.Emit(uint8=False, clip=False, div=1.0),
+                util.normalized((0.485, 0.456, 0.406),
+                                (0.229, 0.224, 0.225))):
+        before = jpeg.stats["resample_launches"]
+        got = jpeg.resample_batch(decoded, plans, (36, 40), mode, how)
+        assert jpeg.stats["resample_launches"] == before + 1
+        want = util.resample(host, plans, (36, 40), mode, how)
+        err = float((got.cpu().float() - want.float()).abs().max())
+        assert err <= (1.0 if how.uint8 else 1e-3), (how, err)

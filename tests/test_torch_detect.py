@@ -23,6 +23,7 @@ Bounds:
 - mAP summaries from the two forwards: within 1e-6 where the picks agree.
 """
 
+import dataclasses
 import functools
 import json
 import math
@@ -362,11 +363,32 @@ def test_digits_detect_epochs_are_the_jax_clis(monkeypatch):
     assert len(list(train_fn(1))) == 3
 
 
-def test_tfrecord_detection_data_is_refused_by_name():
-    args = cli.build_parser("YOLO", ["yolov3"]).parse_args(
-        ["-m", "yolov3", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="TFRecord"):
-        cli._detection_data(cli._config_from_args(args, 64), args)
+def test_tfrecord_detection_data_is_refused_by_name(tmp_path):
+    """Once refused by name, the VOC/COCO records now feed the detection
+    CLI: the val batches are the JAX CLI's record for record (one shard),
+    targets equal, pixels within the decode gap (PIL against TensorFlow's
+    default IDCT, 7 levels, through the bilinear resize); the training
+    epoch runs its single pass."""
+    import tensorflow as tf
+    from torch_records_fixtures import write_voc
+    tf.config.set_visible_devices([], "GPU")
+    data_dir = write_voc(str(tmp_path), splits=(("train", 5), ("val", 5)))
+    argv = ["-m", "yolov3_voc", "--device", "cpu", "--data-dir", data_dir,
+            "--batch-size", "2", "--image-size", "64"]
+    args = cli.build_parser("YOLO", ["yolov3_voc"]).parse_args(argv)
+    cfg = cli._config_from_args(args, 64)
+    train_fn, val_fn = cli._detection_data(cfg, args)
+    jcfg = jax_get_config("yolov3_voc")
+    jcfg = jcfg.replace(batch_size=2, data=dataclasses.replace(
+        jcfg.data, image_size=64))
+    jtrain, jval = jax_cli._detection_data(jcfg, args)
+    got, want = list(val_fn(0)), list(jval(0))
+    assert len(got) == len(want) == 2          # drop_remainder, as JAX
+    for g, w in zip(got, want):
+        assert float(np.abs(g[0].numpy() - w[0]).max()) <= 7 / 127.5
+        for a, b in zip(g[1:], w[1:]):
+            np.testing.assert_allclose(a.numpy(), b, atol=1e-6)
+    assert len(list(train_fn(1))) == len(list(jtrain(1))) == 2
 
 
 # -- the entry points --------------------------------------------------------
@@ -499,11 +521,28 @@ def test_evaluate_cli_synthetic_writes_a_finite_map(tmp_path, capsys):
     assert "mAP: " in capsys.readouterr().out
 
 
-def test_evaluate_cli_refuses_the_tfrecord_split(tmp_path):
-    with pytest.raises(NotImplementedError, match="TFRecord"):
-        _script("evaluate.py")["main"](
-            ["-m", "yolov3_voc", "--device", "cpu",
-             "--workdir", str(tmp_path / "wd")])
+def test_evaluate_cli_refuses_the_tfrecord_split(tmp_path, capsys):
+    """Once refused, the VOC/COCO val split now evaluates: the tiny
+    workdir's weights on the records, the ragged batch kept (5 images
+    against the config's batch of 128), the difficult flags carried, a
+    finite mAP written."""
+    import tensorflow as tf
+    from torch_records_fixtures import write_voc
+    tf.config.set_visible_devices([], "GPU")
+    data_dir = write_voc(str(tmp_path / "voc"), splits=(("val", 5),))
+    workdir = _workdir_with_tiny_weights(tmp_path)
+    from deepvision_tpu_torch.data import jpeg
+    jpeg.zero_stats()
+    out = str(tmp_path / "eval.json")
+    metrics = _script("evaluate.py")["main"](
+        ["-m", "yolov3", "--device", "cpu", "--workdir", workdir,
+         "--data-dir", data_dir, "--image-size", "64", "--metric", "voc",
+         "--out", out])
+    assert jpeg.images_decoded() == 5
+    with open(out) as fp:
+        assert json.load(fp) == pytest.approx(metrics)
+    assert math.isfinite(metrics["mAP"])
+    assert "WARNING" not in capsys.readouterr().out   # the checkpoint
 
 
 def test_yolov3_digits_trains_then_evaluates(tmp_path, monkeypatch, capsys):

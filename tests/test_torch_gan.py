@@ -510,7 +510,7 @@ def test_lenet_features_match_jax():
         eval_gan.lenet_feature_fn(model)(np.zeros((1, 36, 36, 1)))
 
 
-def test_synthetic_batches_equal_jax():
+def test_synthetic_batches_equal_jax(tmp_path):
     for a, b in zip(gan_data.synthetic_mnist_batches(3, steps=2, seed=4),
                     jax_gan_data.synthetic_mnist_batches(3, steps=2, seed=4)):
         np.testing.assert_array_equal(a, b)
@@ -519,9 +519,23 @@ def test_synthetic_batches_equal_jax():
                                                               seed=5)):
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
-    with pytest.raises(NotImplementedError, match="--synthetic"):
-        gan_data.build_two_domain_dataset("a.tfrecord", "b.tfrecord",
-                                          batch_size=2)
+    # the once refused two-domain records: JAX's eval batches, the pixels
+    # within the decode gap (PIL against TensorFlow's default IDCT, 7
+    # levels, through the bilinear resize)
+    import tensorflow as tf
+    from torch_records_fixtures import write_cyclegan
+    tf.config.set_visible_devices([], "GPU")
+    root = os.path.join(write_cyclegan(str(tmp_path)), "toy")
+    paths = [os.path.join(root, f"train{d}.tfrecord") for d in "AB"]
+    got = list(gan_data.build_two_domain_dataset(
+        *paths, batch_size=2, image_size=16, training=False))
+    want = list(jax_gan_data.build_two_domain_dataset(
+        *paths, batch_size=2, image_size=16, training=False)
+        .as_numpy_iterator())
+    assert len(got) == len(want) == 2
+    for a, b in zip(got, want):
+        for x, y in zip(a, b):
+            assert float(np.abs(x.numpy() - y).max()) <= 7 / 127.5
 
 
 @pytest.mark.parametrize("gz", [False, True], ids=["raw", "gz"])
@@ -650,8 +664,18 @@ def test_cyclegan_entry_points(tmp_path, capsys):
     with pytest.raises(SystemExit):
         train["main"](["--device", "cpu"])
     assert "--dataset is required" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="--synthetic"):
-        train["main"](["--dataset", "horse2zebra", "--device", "cpu"])
+    # the once refused two-domain records: an epoch is every zipped batch
+    import tensorflow as tf
+    from torch_records_fixtures import write_cyclegan
+    tf.config.set_visible_devices([], "GPU")
+    records = write_cyclegan(str(tmp_path / "records"))
+    trainer, metrics = train["main"](
+        ["--dataset", "toy", "--tfrecords-dir", records, "--image-size",
+         "16", "--batch-size", "2", "--epochs", "1", "--device", "cpu",
+         "--workdir", str(tmp_path / "rec_wd")])
+    assert len(trainer.last_epoch_steps) == 2     # min(5, 4) // 2
+    assert np.isfinite(metrics["loss_gen_total"])
+    assert "Total batches per epoch: 2" in capsys.readouterr().out
     wd = str(tmp_path / "wd")
     trainer, metrics = train["main"](
         ["--synthetic", "--image-size", "16",

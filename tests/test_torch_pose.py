@@ -169,11 +169,42 @@ def test_synthetic_and_calibration_batches_are_the_jax_ones(tmp_path):
         np.testing.assert_array_equal(b, a)
 
 
-def test_mpii_tfrecords_raise_a_named_error():
-    args = cli.build_parser("Hourglass", ["hourglass104"]).parse_args(
-        ["-m", "hourglass104"])
-    with pytest.raises(NotImplementedError, match="MPII TFRecord"):
-        cli._pose_data(get_config("hourglass104"), args)
+def test_mpii_tfrecords_raise_a_named_error(tmp_path):
+    """Once refused by name, the MPII records now feed the pose CLI: its
+    val batches are the JAX CLI's record for record (one shard), the
+    keypoints equal, the pixels within the decode gap (PIL against
+    TensorFlow's default IDCT, 7 levels, through the bilinear resize),
+    and `--device-normalize` ships uint8; synthetic data refuses it."""
+    import tensorflow as tf
+    from torch_records_fixtures import write_mpii
+
+    from deepvision_tpu import cli as jax_cli
+    tf.config.set_visible_devices([], "GPU")
+    data_dir = write_mpii(str(tmp_path), splits=(("train", 4),
+                                                  ("val", 4)))
+    argv = ["-m", "hourglass104", "--device", "cpu", "--data-dir",
+            data_dir, "--batch-size", "2", "--image-size", "32"]
+    parser = cli.build_parser("Hourglass", ["hourglass104"])
+    args = parser.parse_args(argv)
+    cfg = cli._config_from_args(args, 64)
+    train_fn, val_fn = cli._pose_data(cfg, args)
+    jcfg = jax_get_config("hourglass104")
+    jcfg = jcfg.replace(batch_size=2, data=dataclasses.replace(
+        jcfg.data, image_size=32))
+    _, jval = jax_cli._pose_data(jcfg, args)
+    got, want = list(val_fn(0)), list(jval(0))
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert float(np.abs(g[0].numpy() - w[0]).max()) <= 7 / 127.5
+        for a, b in zip(g[1:], w[1:]):
+            np.testing.assert_allclose(a.numpy(), b, atol=1e-6)
+    assert len(list(train_fn(1))) == 2
+    args = parser.parse_args(argv + ["--device-normalize"])
+    _, val_fn = cli._pose_data(cli._config_from_args(args, 64), args)
+    assert next(iter(val_fn(0)))[0].dtype == torch.uint8
+    args = parser.parse_args(argv + ["--device-normalize", "--synthetic"])
+    with pytest.raises(SystemExit, match="synthetic"):
+        cli._pose_data(cli._config_from_args(args, 64), args)
 
 
 # -- the model ----------------------------------------------------------------

@@ -118,3 +118,24 @@ def test_trainer_stages_its_epochs_through_the_prefetcher(tmp_path,
     assert ledger["batches_staged_total"] == 3
     assert ledger["bytes_staged_total"] == 3 * (4 * 32 * 32 * 4 + 4 * 4)
     assert all(not t.is_alive() for t in _threads())
+
+
+@pytest.mark.parametrize("size", [1, 2])
+def test_batches_already_on_the_device_pass_through(size):
+    """A batch the record loaders built on the device is not staged again:
+    the same tensors come out, and the ledger counts 0 bytes for them (a
+    mixed batch counts only its host arrays)."""
+    on_device = [(torch.full((2, 3), i, dtype=torch.uint8),
+                  torch.arange(2, dtype=torch.int32) + i) for i in range(3)]
+    staged = prefetch_to_device(iter(on_device), size, torch.device("cpu"))
+    got = list(staged)
+    staged.close()
+    assert all(a is b for g, w in zip(got, on_device) for a, b in zip(g, w))
+    assert staged.bytes_staged_total == 0
+    assert staged.batches_staged_total == 3
+    mixed = [(torch.zeros((2, 3)), np.zeros((2,), np.int32))]
+    staged = prefetch_to_device(iter(mixed), size, torch.device("cpu"))
+    (x, y), = list(staged)
+    staged.close()
+    assert x is mixed[0][0] and isinstance(y, torch.Tensor)
+    assert staged.bytes_staged_total == 8
