@@ -234,7 +234,10 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    after the cooldown a probe that closes the circuit. 16c: closed-loop
    overload at bucket 8 from one worker: the autoscaler grows the pool
    and shrinks it back when the load stops, the parameter storage
-   unchanged; images/s and p99 at one worker and at the peak, in turns.
+   unchanged; images/s and p99 at one worker and at the peak, in turns;
+   a client whose accepted request is unanswered after P16_PROBE_S prints
+   the batcher's counts and every thread's stack once (the probe of
+   ROADMAP Queue C), then waits out its 60 s deadline.
    16d: `/metrics` valid and monotone, `/trace` with one request's chain,
    HTTP p50/p99 at bucket 8 with tracing on and off in turns,
    `render_prometheus` for one model and three. 16e: `python -m
@@ -267,29 +270,43 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    0; every answer against its epoch's reference; one flywheel_id on the
    events, the spans, the decision record and /healthz.
 
-18. slice 15: real datasets, decoded on the card. The script writes its
-   own records (`data/records.py`, the decoder library's nvJPEG encoder)
-   from seeded images at 500x375 and 375x500, 4:2:0 q90, one grayscale in
-   32: ImageNet-format, VOC-format, MPII-format and CycleGAN's two
-   domains. 18a: the committed fixtures (tests/fixtures/jpeg) decoded by
-   nvJPEG and held to their PIL goldens (= libjpeg's INTEGER_ACCURATE)
-   within P18_DECODE_TOL, the gap to TensorFlow's default decode beside
-   it; the fused resample kernel against its plain version; a batch of
-   256 decoded, device ms and images/s, with the decoder's record (its
-   library's build, the backends that exist, the route each image took).
-   18b: `ResNet/torch/train.py -m resnet50_tpu --data-dir <records>` at
-   full width (224 px, batch 256) with `--device-augment` and again with
-   `--device-normalize`, 3 steps and one eval batch each: step_ms,
-   `host_data_wait` a step (`--trace-out`) and after the first batch, 0
-   bytes staged by the prefetcher, the compressed bytes the card
-   received; then the loader alone, images/s. 18c: `vit_small` from the
-   same records, 2 steps at batch 256: K1's launches exactly 8 x (steps +
-   eval batches). 18d: `yolov3` from the VOC-format records (416 px,
-   batch 16, 3 steps): K2 once a step and an eval batch; then
-   `YOLO/torch/evaluate.py` on the val split, its ragged batch kept.
-   18e: `hourglass104` from the MPII-format records (256 px, 2 steps) and
+18. slices 15-16: real datasets, built by the port's builders and
+   decoded on the card. The script writes raw trees from seeded images at
+   500x375 and 375x500 (nvJPEG 4:2:0 q90, one grayscale in 32): an ILSVRC
+   `train/<synset>/` and `validation/` tree with its label files, a
+   `VOCdevkit/VOC2007` tree (XMLs, `ImageSets/Main`), MPII's
+   `{train,validation}.json`, COCO's `instances_{train,val}2017.json` and
+   CycleGAN's `trainA/trainB`, with the committed gray JPEG and PNG of
+   tests/fixtures/reencode among them. The builders run on the card:
+   `python -m deepvision_tpu_torch.datasets.voc2007` as a subprocess from
+   the start, ImageNet, MPII, COCO and CycleGAN in process; each one's
+   records, bytes and images/s; their re-encodes of the committed sources
+   against PIL's (`<name>.pil95.jpg`) within P18_REENCODE_MAX/_MEAN; a CMYK
+   JPEG refused by name. 18a: the committed fixtures (tests/fixtures/jpeg)
+   decoded by nvJPEG and held to their PIL goldens (= libjpeg's
+   INTEGER_ACCURATE) within P18_DECODE_TOL, the gap to TensorFlow's
+   default decode beside it; the fused resample kernel against its plain
+   version; a batch of 256 decoded, device ms and images/s, with the
+   decoder's record. 18b: `ResNet/torch/train.py -m resnet50_tpu
+   --data-dir <records>` at full width (224 px, batch 256) with
+   `--device-augment` and again with `--device-normalize --cache-val`, 3
+   steps and one eval batch each: step_ms, `host_data_wait` a step
+   (`--trace-out`) and after the first batch, 0 bytes staged by the
+   prefetcher, the compressed bytes the card received; then the loader
+   alone, images/s, and the cached val pipeline (the val file opened
+   once over two passes). 18c: `vit_small` from the same records with
+   `--profile-dir`, 2 steps at batch 256: K1's launches exactly 8 x
+   (steps + eval batches), and K1's kernel named in the trace. 18d:
+   `yolov3 --num-classes 20` from the VOC builder's records (416 px,
+   batch 16, 3 steps): K2 once a step and an eval batch, the run log's
+   first line its provenance header (printed); then `-c latest
+   --eval-only` on the val split through a `file://` URL, K2 once an eval
+   batch, the loss equal to the training run's evaluation; then
+   `YOLO/torch/evaluate.py` on phase 5's checkpoint over the COCO
+   builder's val records, its ragged batch kept. 18e: `hourglass104` from
+   the MPII builder's records (256 px, 2 steps) and
    `Hourglass/torch/evaluate.py` on their val split; `cyclegan` from the
-   two-domain records (256 px, batch 8, 2 steps).
+   CycleGAN builder's records (256 px, batch 8, 2 steps).
 
 The line before the last is a JSON object with one record per kernel; the
 last is `{"ok": true, "device": {...}}`.
@@ -384,7 +401,9 @@ from deepvision_tpu_torch.ops.best_iou import best_iou, best_iou_reference
 from deepvision_tpu_torch.ops.heatmap import decode_keypoints
 from deepvision_tpu_torch.ops.nms import batched_nms
 from deepvision_tpu_torch.parallel import mesh
-from deepvision_tpu_torch.serve.batcher import RequestRejected, result_within
+from deepvision_tpu_torch.serve.batcher import (DeadlineExpired,
+                                                RequestRejected,
+                                                result_within)
 from deepvision_tpu_torch.serve.cli import _smoke, build_parser, build_server
 from deepvision_tpu_torch.serve.engine import (PredictEngine,
                                                load_checkpoint_weights,
@@ -3769,6 +3788,8 @@ P16_LOAD_CLIENTS = 32          # closed-loop in-process clients of 16c
 P16_LOAD_SECS = 2.0            # one measured window
 P16_DRAIN_GRACE = 1.0
 P16_TIMEOUT = 300              # startup of 16e's subprocess, any wait
+P16_DEADLINE = 60.0            # a 16c client's wait for its answer
+P16_PROBE_S = 15.0             # after this wait, every thread's stack
 
 
 def p16_post(base: str, body: bytes, rid: str, path: str = "/predict"):
@@ -4122,10 +4143,19 @@ def p16_load(sm, secs: float, clients: int) -> dict:
     def client():
         while not stop.is_set():
             try:
-                result_within(sm.submit(x), 60.0)
+                fut = sm.submit(x)
             except RequestRejected:
                 refused[0] += 1
                 time.sleep(0.001)
+                continue
+            try:
+                result_within(fut, P16_PROBE_S)
+            except DeadlineExpired:
+                # an accepted request unanswered for P16_PROBE_S: where
+                # every thread sits (once), then the rest of the deadline
+                p16_dump_stacks(sm, f"a request has waited {P16_PROBE_S:g}"
+                                    f"s for its answer")
+                result_within(fut, P16_DEADLINE - P16_PROBE_S)
 
     sm.metrics.snapshot(reset=True)
     threads = [threading.Thread(target=client, daemon=True)
@@ -4141,6 +4171,28 @@ def p16_load(sm, secs: float, clients: int) -> dict:
             "p99_ms": snap.get("p99_ms", float("nan")),
             "mean_batch_fill": snap["mean_batch_fill"],
             "workers": sm.batcher.workers, "refused": refused[0]}
+
+
+P16_DUMPED = threading.Event()
+
+
+def p16_dump_stacks(sm, why: str) -> None:
+    """Print the batcher's counts and every thread's stack, once a
+    process: the probe for an accepted request that goes unanswered
+    (ROADMAP Queue C)."""
+    import traceback
+    if P16_DUMPED.is_set():
+        return
+    P16_DUMPED.set()
+    b = sm.batcher
+    lines = [f"16c probe: {why}; pending {b._pending} examples, "
+             f"{len(b._threads)} worker(s) (target {b._target_workers}), "
+             f"queue {b._q.qsize()}"]
+    names = {t.ident: t.name for t in threading.enumerate()}
+    for ident, frame in sys._current_frames().items():
+        lines.append(f"--- thread {names.get(ident, '?')} ({ident})")
+        lines.extend(ln.rstrip() for ln in traceback.format_stack(frame))
+    print("\n".join(lines), flush=True)
 
 
 def check_p16_autoscale() -> dict:
@@ -4987,12 +5039,36 @@ P18_YOLO_BATCH = 16
 P18_YOLO_STEPS = 3
 P18_YOLO_VAL = 20                          # 16 + a ragged 4
 P18_YOLO_LR = "1e-4"
+# --eval-only's loss against the training run's own evaluation of the same
+# weights on the same val batch (one process, the same kernels)
+P18_EVAL_RTOL = 1e-3
 P18_POSE_BATCH = 16
 P18_POSE_STEPS = 2
 P18_POSE_VAL = 128                         # the config's batch: one batch
 P18_CG_BATCH = 8                           # the config's batch
 P18_CG_STEPS = 2
 P18_SIZE = None                            # the configs' own sizes
+P18_SYNSETS = 8                            # ILSVRC tree: synsets
+P18_COCO_TRAIN = 16
+P18_COCO_VAL = 20                          # evaluate.py: 16 + a ragged 4
+# sources the builders re-encode: committed, with PIL's re-encodes of them
+P18_REENCODE_FIXTURES = os.path.join(HERE, "tests", "fixtures", "reencode")
+P18_ODD_FILES = {
+    "inet": {"n10000001_gray.JPEG": "gray.jpg",
+             "n10000001_png.JPEG": "rgb_png.png"},  # a PNG named .JPEG
+    "mpii": {"gray.jpg": "gray.jpg", "png.png": "rgb_png.png"},
+    "coco": {"000000999000.jpg": "gray.jpg",
+             "000000999001.jpg": "rgb_png.png"},
+    "cyclegan": {"png.png": "rgb_png.png", "gray.jpg": "gray.jpg"},
+}
+P18_ODD = ("gray.jpg", "rgb_png.png")
+# the card's re-encode (nvJPEG, q95 4:2:0) against PIL's of the same
+# sources, both decoded by nvJPEG: measured at most 15 levels, mean 2.15
+# over the six fixtures of tests/fixtures/reencode on the H100; held at
+P18_REENCODE_MAX = 20
+P18_REENCODE_MEAN = 3.0
+# the kernel name the profile of 18c must hold (K1's CUDA kernel)
+P18_K1_KERNEL = "flash_attention_fwd"
 
 
 def p18_image(h: int, w: int, gen: torch.Generator, device,
@@ -5027,108 +5103,333 @@ def p18_jpegs(n: int, seed: int, device) -> list:
     return [out[i % len(out)] for i in range(n)]
 
 
-def p18_write_imagenet(root: str, split: str, n: int, files: int, seed: int,
-                       device) -> list:
-    """`<split>-0000i-of-0000n` records of the TF-official ImageNet schema
-    (label i % 1000, 1-indexed on disk)."""
-    os.makedirs(root, exist_ok=True)
-    datas = p18_jpegs(n, seed, device)
-    for f in range(files):
-        recs.write_records(
-            os.path.join(root, f"{split}-{f:05d}-of-{files:05d}"),
-            (recs.encode_example({
-                "image/encoded": recs.bytes_feature(datas[i]),
-                "image/class/label": recs.int64_feature(i % 1000 + 1)})
-             for i in range(f, n, files)))
+def p18_write(path: str, data: bytes) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as fh:
+        fh.write(data)
+
+
+def p18_odd(name: str) -> bytes:
+    """A committed source the builders re-encode (P18_ODD)."""
+    with open(os.path.join(P18_REENCODE_FIXTURES, name), "rb") as fh:
+        return fh.read()
+
+
+def p18_odd_names(tag: str) -> dict:
+    """{file name in tree `tag`, as `image/filename` records it: the
+    committed source it holds} (P18_ODD_FILES)."""
+    return dict(P18_ODD_FILES[tag])
+
+
+def p18_tree_imagenet(root: str, device) -> list:
+    """An ILSVRC tree: `train/<synset>/<synset>_<i>.JPEG` (P18_INET_TRAIN
+    seeded JPEGs over P18_SYNSETS synsets, plus the gray JPEG and a PNG
+    named .JPEG), `validation/ILSVRC2012_val_<n>.JPEG` (P18_INET_VAL),
+    `synsets.txt`, the metadata file and the validation labels."""
+    synsets = [f"n{10000001 + k:08d}" for k in range(P18_SYNSETS)]
+    datas = p18_jpegs(P18_INET_TRAIN, 1, device)
+    for i, data in enumerate(datas):
+        s = synsets[i % P18_SYNSETS]
+        p18_write(os.path.join(root, "train", s, f"{s}_{i}.JPEG"), data)
+    for name, src in p18_odd_names("inet").items():
+        p18_write(os.path.join(root, "train", name.split("_")[0], name),
+                  p18_odd(src))
+    for i, data in enumerate(p18_jpegs(P18_INET_VAL, 2, device)):
+        p18_write(os.path.join(root, "validation",
+                               f"ILSVRC2012_val_{i + 1:08d}.JPEG"), data)
+    with open(os.path.join(root, "synsets.txt"), "w") as fh:
+        fh.write("".join(f"{s}\n" for s in synsets))
+    with open(os.path.join(root, "metadata.txt"), "w") as fh:
+        fh.write("".join(f"{s}\tclass {k}\n" for k, s in enumerate(synsets)))
+    with open(os.path.join(root, "val_labels.txt"), "w") as fh:
+        fh.write("".join(f"{synsets[i % P18_SYNSETS]}\n"
+                         for i in range(P18_INET_VAL)))
     return datas
 
 
-def p18_write_voc(root: str, split: str, n: int, seed: int, device) -> None:
-    """VOC-format detection records (Datasets/voc.py's schema): 1-5
-    seeded boxes of 80 classes, difficult flags."""
-    os.makedirs(root, exist_ok=True)
-    rs = np.random.RandomState(seed)
-    examples = []
-    for data in p18_jpegs(n, seed, device):
-        k = rs.randint(1, 6)
-        xy = rs.uniform(0.0, 0.6, (k, 2))
-        wh = rs.uniform(0.1, 0.4, (k, 2))
-        x1y1 = np.minimum(xy + wh, 1.0)
-        examples.append(recs.encode_example({
-            "image/encoded": recs.bytes_feature(data),
-            "image/object/class/label": recs.int64_feature(
-                rs.randint(0, 80, k)),
-            "image/object/bbox/xmin": recs.float_feature(xy[:, 0]),
-            "image/object/bbox/ymin": recs.float_feature(xy[:, 1]),
-            "image/object/bbox/xmax": recs.float_feature(x1y1[:, 0]),
-            "image/object/bbox/ymax": recs.float_feature(x1y1[:, 1]),
-            "image/object/difficult": recs.int64_feature(
-                (rs.rand(k) < 0.1).astype(np.int64))}))
-    recs.write_records(os.path.join(root, f"{split}-00000-of-00001"),
-                       examples)
+def p18_boxes(rs: np.random.RandomState, w: int, h: int) -> list:
+    """1-5 seeded pixel boxes (x1, y1, x2, y2) inside a w x h image."""
+    out = []
+    for _ in range(rs.randint(1, 6)):
+        x1, y1 = rs.uniform(0, 0.6, 2) * (w, h)
+        bw, bh = rs.uniform(0.1, 0.4, 2) * (w, h)
+        out.append((int(x1), int(y1), int(min(x1 + bw, w)),
+                    int(min(y1 + bh, h))))
+    return out
 
 
-def p18_write_mpii(root: str, split: str, n: int, seed: int,
-                   device) -> None:
-    """MPII-format pose records (Datasets/MPII/tfrecords_mpii.py's
-    schema): 16 joints normalized by the image size, about a fifth
-    missing (-1, visibility 0); the first record has none."""
-    os.makedirs(root, exist_ok=True)
-    rs = np.random.RandomState(seed)
-    examples = []
-    for i, data in enumerate(p18_jpegs(n, seed, device)):
+def p18_tree_voc(root: str, device) -> str:
+    """`VOCdevkit/VOC2007`: JPEGImages, an XML annotation an image with
+    1-5 boxes of the 20 VOC classes (some difficult) and ImageSets/Main
+    train and val lists (the 4:2:0 JPEGs go in as they are: VOC's builder
+    copies the bytes)."""
+    from deepvision_tpu_torch.data.class_names import VOC_CLASS_NAMES
+    devkit = os.path.join(root, "VOCdevkit", "VOC2007")
+    n_train = P18_YOLO_BATCH * P18_YOLO_STEPS
+    rs = np.random.RandomState(3)
+    split = {"train": [], "val": []}
+    for i, data in enumerate(p18_jpegs(n_train + P18_YOLO_VAL, 3, device)):
+        name = f"{i:06d}"
+        h, w, _ = jpeg.extract_jpeg_shape(data)
+        p18_write(os.path.join(devkit, "JPEGImages", f"{name}.jpg"), data)
+        objs = "".join(
+            f"<object><name>{VOC_CLASS_NAMES[rs.randint(20)]}</name>"
+            f"<difficult>{int(rs.rand() < 0.1)}</difficult><bndbox>"
+            f"<xmin>{x1}</xmin><ymin>{y1}</ymin><xmax>{x2}</xmax>"
+            f"<ymax>{y2}</ymax></bndbox></object>"
+            for x1, y1, x2, y2 in p18_boxes(rs, w, h))
+        p18_write(os.path.join(devkit, "Annotations", f"{name}.xml"), (
+            f"<annotation><filename>{name}.jpg</filename><size><width>{w}"
+            f"</width><height>{h}</height><depth>3</depth></size>{objs}"
+            f"</annotation>").encode())
+        split["train" if i < n_train else "val"].append(name)
+    for s, names in split.items():
+        p18_write(os.path.join(devkit, "ImageSets", "Main", f"{s}.txt"),
+                  "".join(f"{n}\n" for n in names).encode())
+    return devkit
+
+
+def p18_tree_mpii(root: str, device) -> None:
+    """`mpii/images/` and `mpii_human_pose_v1_u12_2/{train,validation}.json`:
+    16 joints in pixels, about a fifth missing (-1, visibility 0); the
+    first image has none; the gray JPEG and the PNG among the train
+    images."""
+    rs = np.random.RandomState(5)
+    n_train = P18_POSE_BATCH * P18_POSE_STEPS
+    items = [(f"{i:05d}.jpg", data) for i, data in enumerate(
+        p18_jpegs(n_train + P18_POSE_VAL, 5, device))]
+    items[1:1] = [(name, p18_odd(src))
+                  for name, src in p18_odd_names("mpii").items()]
+    annos = {"train.json": [], "validation.json": []}
+    for i, (name, data) in enumerate(items):
+        p18_write(os.path.join(root, "mpii", "images", name), data)
+        h, w = images_shape(data)
         missing = (rs.rand(16) < 0.2) | (i == 0)
-        xs = np.where(missing, -1.0, rs.uniform(0.2, 0.8, 16))
-        ys = np.where(missing, -1.0, rs.uniform(0.2, 0.8, 16))
-        examples.append(recs.encode_example({
-            "image/encoded": recs.bytes_feature(data),
-            "image/object/parts/x": recs.float_feature(xs),
-            "image/object/parts/y": recs.float_feature(ys),
-            "image/object/parts/v": recs.int64_feature(
-                np.where(missing, 0, 2))}))
-    recs.write_records(os.path.join(root, f"{split}_0001_of_0001.tfrecords"),
-                       examples)
+        joints = [[-1, -1] if m else [float(rs.uniform(0.2, 0.8) * w),
+                                      float(rs.uniform(0.2, 0.8) * h)]
+                  for m in missing]
+        vis = [0 if m else int(rs.randint(1, 3)) for m in missing]
+        annos["train.json" if i < n_train + len(P18_ODD) else
+              "validation.json"].append(
+            {"image": name, "joints": joints, "joints_vis": vis})
+    for fname, rows in annos.items():
+        p18_write(os.path.join(root, "mpii_human_pose_v1_u12_2", fname),
+                  json.dumps(rows).encode())
 
 
-def p18_write_cyclegan(root: str, n: int, seed: int, device) -> None:
-    """`<root>/toy/{trainA,trainB}.tfrecord` (CycleGAN's single-feature
-    records)."""
-    d = os.path.join(root, "toy")
-    os.makedirs(d, exist_ok=True)
+def images_shape(data: bytes) -> tuple:
+    """(height, width) of a JPEG or PNG from its header."""
+    from deepvision_tpu_torch.datasets.images import probe
+    _, w, h, _ = probe(data, "source")
+    return h, w
+
+
+P18_COCO_CATS = ((1, "person"), (3, "car"), (18, "dog"), (90, "toothbrush"))
+
+
+def p18_tree_coco(root: str, device) -> None:
+    """`annotations/instances_{train,val}2017.json` and the
+    `{train,val}2017/<id>.jpg` images (COCO's (x, y, w, h) boxes, some
+    overhanging the edge, sparse category ids); the PNG among the train
+    images."""
+    rs = np.random.RandomState(8)
+    for split, n, seed in (("train", P18_COCO_TRAIN, 8),
+                           ("val", P18_COCO_VAL, 9)):
+        items = [(7 * i + 1, d) for i, d in enumerate(p18_jpegs(n, seed,
+                                                               device))]
+        if split == "train":
+            items += [(int(name[:-4]), p18_odd(src))
+                      for name, src in p18_odd_names("coco").items()]
+        annos = []
+        for iid, data in items:
+            p18_write(os.path.join(root, f"{split}2017",
+                                   f"{str(iid).rjust(12, '0')}.jpg"), data)
+            h, w = images_shape(data)
+            for x1, y1, x2, y2 in p18_boxes(rs, w, h):
+                annos.append({"image_id": iid, "category_id": int(
+                    P18_COCO_CATS[rs.randint(len(P18_COCO_CATS))][0]),
+                    "bbox": [x1 - 0.5, y1, x2 - x1 + 1.0, y2 - y1]})
+        p18_write(os.path.join(root, "annotations",
+                               f"instances_{split}2017.json"),
+                  json.dumps({"categories": [{"id": i, "name": n} for i, n
+                                             in P18_COCO_CATS],
+                              "annotations": annos}).encode())
+
+
+def p18_tree_cyclegan(root: str, device) -> None:
+    """`datasets/toy/{trainA,trainB}/`: the two domains, the PNG in A and
+    the gray JPEG in B."""
+    odd = list(p18_odd_names("cyclegan").items())   # A's, then B's
     for k, dom in enumerate("AB"):
-        recs.write_records(
-            os.path.join(d, f"train{dom}.tfrecord"),
-            (recs.encode_example({"image/encoded": recs.bytes_feature(b)})
-             for b in p18_jpegs(n, seed + k, device)))
+        d = os.path.join(root, "datasets", "toy", f"train{dom}")
+        for i, data in enumerate(p18_jpegs(P18_CG_BATCH * P18_CG_STEPS,
+                                           7 + k, device)):
+            p18_write(os.path.join(d, f"{i:04d}.jpg"), data)
+        name, src = odd[k]
+        p18_write(os.path.join(d, name), p18_odd(src))
+
+
+def p18_built(tag: str, out: str, seconds: float, crc) -> dict:
+    """What a builder wrote to `out` in `seconds`: records (CRCs checked
+    by `crc`), files, bytes and images/s."""
+    files = recs.list_files(os.path.join(out, "*"), training=False)
+    n = sum(1 for f in files for _ in recs.read_records(f, crc=crc))
+    nbytes = sum(os.path.getsize(f) for f in files)
+    phase(f"18: builder {tag}: {n} records in {len(files)} files, "
+          f"{nbytes / 2**20:.2f} MiB written, {seconds:.2f}s, "
+          f"{n / seconds:.1f} images/s")
+    return {"records": n, "files": len(files), "bytes": nbytes,
+            "seconds": seconds, "images_per_sec": n / seconds}
+
+
+def timed(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def p18_reencodes(outs: dict, device) -> dict:
+    """The builders' re-encodes of the committed sources (found by
+    `image/filename`) against PIL's re-encodes of the same sources
+    (`<name>.pil95.jpg`), both decoded by the same decoder: the largest
+    and mean level difference, held to P18_REENCODE_MAX and _MEAN."""
+    device = torch.device(device)
+    crc = jpeg.host_crc32c(device)
+    found = {}
+    for tag, out in outs.items():
+        names = p18_odd_names(tag)
+        for f in recs.list_files(os.path.join(out, "*"), training=False):
+            for rec in recs.read_records(f, crc=crc):
+                ex = recs.parse_example(rec)
+                fname = recs.feature_values(ex, "image/filename", "bytes")
+                if fname and fname[0].decode() in names:
+                    found[(tag, fname[0].decode())] = (
+                        names[fname[0].decode()],
+                        recs.feature_values(ex, "image/encoded",
+                                            "bytes")[0])
+    want = sum(len(p18_odd_names(t)) for t in outs)
+    if len(found) != want:
+        raise AssertionError(f"18: {len(found)} of {want} re-encoded "
+                             f"sources found in the records: {sorted(found)}")
+    rows = {}
+    for (tag, name), (src, ours) in sorted(found.items()):
+        pil = p18_odd(os.path.splitext(src)[0] + ".pil95.jpg")
+        if jpeg.extract_jpeg_shape(ours)[2] != 3:
+            raise AssertionError(f"18: {tag} {name} is not an RGB JPEG")
+        a, b = (jpeg.decode_batch([x], device).image(0).cpu().numpy()
+                .astype(np.int16) for x in (ours, pil))
+        diff = np.abs(a - b)
+        rows[f"{tag}/{name}"] = (int(diff.max()), float(diff.mean()))
+    worst = max(v[0] for v in rows.values())
+    mean = max(v[1] for v in rows.values())
+    phase("18: the builders' re-encodes against PIL's (quality 95) of the "
+          "same sources, decoded alike (max, mean levels): "
+          + "; ".join(f"{k} {m}, {e:.3f}" for k, (m, e) in rows.items())
+          + f"; bound {P18_REENCODE_MAX}, {P18_REENCODE_MEAN}")
+    if worst > P18_REENCODE_MAX or mean > P18_REENCODE_MEAN:
+        raise AssertionError(f"18: a re-encode differs from PIL's by "
+                             f"{worst} (mean {mean:.3f})")
+    return rows
 
 
 def p18_datasets(root: str, device) -> dict:
-    """Every dataset phase 18 reads, written from seeded images."""
+    """Phase 18's raw trees, written from seeded images, then the port's
+    builders over them on `device`: VOC2007 as a user runs it (`python -m
+    ...voc2007`, started first, in the background), the others in
+    process. Returns the records' directories."""
+    device = torch.device(device)
     t0 = time.perf_counter()
-    inet = os.path.join(root, "imagenet")
-    train = p18_write_imagenet(inet, "train", P18_INET_TRAIN,
-                               P18_INET_FILES, 1, device)
-    p18_write_imagenet(inet, "val", P18_INET_VAL, 1, 2, device)
-    voc = os.path.join(root, "voc")
-    p18_write_voc(voc, "train", P18_YOLO_BATCH * P18_YOLO_STEPS, 3, device)
-    p18_write_voc(voc, "val", P18_YOLO_VAL, 4, device)
-    mpii = os.path.join(root, "mpii")
-    p18_write_mpii(mpii, "train", P18_POSE_BATCH * P18_POSE_STEPS, 5,
-                   device)
-    p18_write_mpii(mpii, "val", P18_POSE_VAL, 6, device)
-    cg = os.path.join(root, "cyclegan")
-    p18_write_cyclegan(cg, P18_CG_BATCH * P18_CG_STEPS, 7, device)
-    nbytes = sum(os.path.getsize(os.path.join(dp, f))
-                 for dp, _, fs in os.walk(root) for f in fs)
-    phase(f"18: records written in {time.perf_counter() - t0:.1f}s "
-          f"({nbytes / 2**20:.1f} MiB): ImageNet {P18_INET_TRAIN} train in "
-          f"{P18_INET_FILES} files + {P18_INET_VAL} val, VOC "
-          f"{P18_YOLO_BATCH * P18_YOLO_STEPS} + {P18_YOLO_VAL}, MPII "
-          f"{P18_POSE_BATCH * P18_POSE_STEPS} + {P18_POSE_VAL}, CycleGAN "
-          f"{P18_CG_BATCH * P18_CG_STEPS} a domain; mean JPEG "
-          f"{np.mean([len(b) for b in train]) / 1024:.1f} KiB")
-    return {"inet": inet, "voc": voc, "mpii": mpii, "cyclegan": cg,
-            "inet_train": train}
+    raw = {k: os.path.join(root, "raw", k)
+           for k in ("imagenet", "voc", "mpii", "coco", "cyclegan")}
+    out = {k: os.path.join(root, k) for k in ("inet", "voc", "mpii", "coco",
+                                              "cyclegan")}
+    # the VOC tree first: its builder starts as a process of its own at
+    # once and runs while the other trees are written and built
+    p18_tree_voc(raw["voc"], device)
+    voc_cmd = [sys.executable, "-m", "deepvision_tpu_torch.datasets.voc2007",
+               "--out", out["voc"], "--device", device.type]
+    t_voc = time.perf_counter()
+    path = os.pathsep.join(p for p in (HERE, os.environ.get("PYTHONPATH"))
+                           if p)
+    voc_proc = subprocess.Popen(voc_cmd, cwd=raw["voc"],
+                                env={**os.environ, "PYTHONPATH": path},
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+    try:
+        train = p18_tree_imagenet(raw["imagenet"], device)
+        p18_tree_mpii(raw["mpii"], device)
+        p18_tree_coco(raw["coco"], device)
+        p18_tree_cyclegan(raw["cyclegan"], device)
+        nbytes = sum(os.path.getsize(os.path.join(dp, f))
+                     for dp, _, fs_ in os.walk(os.path.join(root, "raw"))
+                     for f in fs_)
+        phase(f"18: raw trees written in {time.perf_counter() - t0:.1f}s "
+              f"({nbytes / 2**20:.1f} MiB): ILSVRC {P18_INET_TRAIN} + "
+              f"{len(P18_ODD)} train in {P18_SYNSETS} synsets and "
+              f"{P18_INET_VAL} validation, VOCdevkit "
+              f"{P18_YOLO_BATCH * P18_YOLO_STEPS} + {P18_YOLO_VAL}, MPII "
+              f"{P18_POSE_BATCH * P18_POSE_STEPS} + {len(P18_ODD)} + "
+              f"{P18_POSE_VAL}, COCO {P18_COCO_TRAIN} + 1 + {P18_COCO_VAL}, "
+              f"CycleGAN {P18_CG_BATCH * P18_CG_STEPS} + 1 a domain; the "
+              f"gray JPEG and the PNG of {P18_REENCODE_FIXTURES}; mean JPEG "
+              f"{np.mean([len(b) for b in train]) / 1024:.1f} KiB")
+        from deepvision_tpu_torch.datasets import (coco, cyclegan, imagenet,
+                                                   images, mpii)
+        dev = str(device)
+        r = raw["imagenet"]
+        walls = {"imagenet": timed(lambda: imagenet.main([
+            "--train_directory", os.path.join(r, "train"),
+            "--validation_directory", os.path.join(r, "validation"),
+            "--output_directory", out["inet"],
+            "--labels_file", os.path.join(r, "synsets.txt"),
+            "--imagenet_metadata_file", os.path.join(r, "metadata.txt"),
+            "--validation_labels_file", os.path.join(r, "val_labels.txt"),
+            "--train_shards", str(P18_INET_FILES), "--validation_shards",
+            "1", "--num_workers", "1", "--device", dev]))}
+        walls["mpii"] = timed(lambda: mpii.convert(
+            os.path.join(raw["mpii"], "mpii_human_pose_v1_u12_2"),
+            os.path.join(raw["mpii"], "mpii", "images"), out["mpii"],
+            device=dev, num_workers=1))
+        walls["coco"] = timed(lambda: coco.convert(
+            os.path.join(raw["coco"], "annotations"), out["coco"], "2017",
+            raw["coco"], device=dev, num_workers=1))
+        walls["cyclegan"] = timed(lambda: cyclegan.convert(
+            "toy", os.path.join(raw["cyclegan"], "datasets"),
+            out["cyclegan"], dev))
+        # a CMYK JPEG is refused by name on the card (nvJPEG decodes none
+        # to RGB); the CPU re-encodes it with PIL
+        if device.type == "cuda":
+            try:
+                images.load(os.path.join(P18_REENCODE_FIXTURES, "cmyk.jpg"),
+                            "cuda")
+            except images.UnsupportedImageError as e:
+                phase(f"18: refused by name on the card: {e}")
+            else:
+                raise AssertionError("18: a CMYK JPEG was not refused")
+        rows = p18_reencodes(
+            {"inet": out["inet"], "mpii": out["mpii"], "coco": out["coco"],
+             "cyclegan": os.path.join(out["cyclegan"], "toy")}, device)
+    finally:
+        try:
+            voc_out, _ = voc_proc.communicate(timeout=P16_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            voc_proc.kill()
+            voc_out, _ = voc_proc.communicate()
+    walls["voc2007"] = time.perf_counter() - t_voc
+    if voc_proc.returncode != 0:
+        raise AssertionError(f"18: {' '.join(voc_cmd)} exited "
+                             f"{voc_proc.returncode}: {voc_out[-2000:]}")
+    crc = jpeg.host_crc32c(device)
+    built = {tag: p18_built(tag, d, walls[tag], crc) for tag, d in (
+        ("imagenet", out["inet"]), ("mpii", out["mpii"]),
+        ("coco", out["coco"]),
+        ("cyclegan", os.path.join(out["cyclegan"], "toy")),
+        ("voc2007", out["voc"]))}
+    phase("18: voc2007 ran as `python -m deepvision_tpu_torch.datasets."
+          "voc2007` in the background from the start (its wall includes "
+          "the interpreter's start)")
+    phase(f"18: trees and builders took {time.perf_counter() - t0:.1f}s")
+    return {**out, "inet_train": train, "builders": built, "reencode": rows}
 
 
 def check_decoder(datas: list, device) -> dict:
@@ -5260,11 +5561,17 @@ def check_records_resnet(paths: dict, device) -> dict:
     batch = P18_RESNET_BATCH
     for flag in ("--device-augment", "--device-normalize"):
         jpeg.zero_stats()
+        # --cache-val: the val records kept in host RAM after the first
+        # pass (the cache itself is shown on the loader below)
+        cache = ["--cache-val"] if flag == "--device-normalize" else []
         trainer, result, wall, _ = p18_entry(
             "ResNet", "resnet50_tpu", paths["inet"], "b",
             [flag, "--batch-size", str(batch), "--eval-batch-size",
-             str(batch), "--steps-per-epoch", str(P18_RESNET_STEPS)],
-            device)
+             str(batch), "--steps-per-epoch", str(P18_RESNET_STEPS)]
+            + cache, device)
+        if trainer.config.data.cache_val != bool(cache):
+            raise AssertionError(f"18b {flag}: cache_val "
+                                 f"{trainer.config.data.cache_val}")
         steps = trainer.last_epoch_steps
         step_ms = statistics.median(s["step_ms"] for s in steps[1:])
         wait = host_data_wait_ms(trainer)
@@ -5330,7 +5637,47 @@ def check_records_resnet(paths: dict, device) -> dict:
           f"{batch / out['--device-augment']['step_ms'] * 1e3:.1f} images/s"
           f" at its step_ms")
     out["loader_images_per_sec"] = alone
+    out["cache_val"] = p18_cached_val(paths, device)
     return out
+
+
+def p18_cached_val(paths: dict, device) -> dict:
+    """The ImageNet val pipeline as `--cache-val` builds it, on the card:
+    two passes, the validation file opened once, the batches equal."""
+    from deepvision_tpu_torch.data import imagenet as inet
+    opened = []
+    read = recs.read_records
+
+    def counting(path, **kw):
+        opened.append(path)
+        return read(path, **kw)
+
+    ds = inet.build_dataset(os.path.join(paths["inet"], "val*"),
+                            batch_size=P18_RESNET_BATCH, training=False,
+                            normalize_on_host=False, cache=True,
+                            device=device)
+    recs.read_records = counting
+    try:
+        t0 = time.perf_counter()
+        first = [b[0] for b in ds.batches(0)]
+        sync(device)
+        t1 = time.perf_counter()
+        second = [b[0] for b in ds.batches(1)]
+        sync(device)
+        t2 = time.perf_counter()
+    finally:
+        recs.read_records = read
+    same = len(first) == len(second) and all(
+        torch.equal(a, b) for a, b in zip(first, second))
+    phase(f"18b --cache-val's pipeline on the card: 2 passes of "
+          f"{len(first)} batch(es), the val file opened {len(opened)} "
+          f"time(s), batches equal {same}; first pass {1e3 * (t1 - t0):.1f}"
+          f" ms, cached pass {1e3 * (t2 - t1):.1f} ms")
+    if len(opened) != 1 or not same or not first:
+        raise AssertionError(f"18b --cache-val: opened {opened}, equal "
+                             f"{same}")
+    return {"opened": len(opened), "first_ms": 1e3 * (t1 - t0),
+            "cached_ms": 1e3 * (t2 - t1)}
 
 
 def check_records_vit(paths: dict, device) -> dict:
@@ -5339,13 +5686,24 @@ def check_records_vit(paths: dict, device) -> dict:
     cfg = get_config("vit_small")
     depth = cfg.model_kwargs["depth"]
     batch = P18_RESNET_BATCH
+    prof = tempfile.mkdtemp(prefix="chip_smoke_p18prof_")
+    atexit.register(shutil.rmtree, prof, ignore_errors=True)
     flash_attention.launches = 0
     trainer, result, wall, _ = p18_entry(
         "ViT", "vit_small", paths["inet"], "c",
         ["--dataset", "imagenet", "--batch-size", str(batch),
          "--eval-batch-size", str(batch), "--steps-per-epoch",
-         str(P18_VIT_STEPS)], device)
+         str(P18_VIT_STEPS), "--profile-dir", prof], device)
     launches = flash_attention.launches
+    trace = os.path.join(prof, "vit_small.pt.trace.json")
+    with open(trace) as fh:
+        events = json.load(fh)["traceEvents"]
+    k1 = [e for e in events if P18_K1_KERNEL in e.get("name", "")]
+    phase(f"18c --profile-dir: {os.path.getsize(trace) / 2**20:.1f} MiB "
+          f"trace of the first epoch, {len(events)} events, {len(k1)} "
+          f"named {P18_K1_KERNEL!r} ({k1[0]['name'][:80] if k1 else ''})")
+    if not k1:
+        raise AssertionError(f"18c: the profile names no {P18_K1_KERNEL}")
     steps = trainer.last_epoch_steps
     want = depth * (P18_VIT_STEPS + 1)
     phase(f"18c vit_small (224 px, batch {batch}) from the ImageNet records: "
@@ -5358,32 +5716,70 @@ def check_records_vit(paths: dict, device) -> dict:
     return {"launches": launches, "steps": len(steps), "eval_batches": 1}
 
 
-def check_records_yolo(paths: dict, device) -> dict:
-    """18d: yolov3 at 416 px from the VOC-format records, K2 once a step
-    and an eval batch; then YOLO/torch/evaluate.py on the val split with
-    its ragged last batch."""
+def check_records_yolo(paths: dict, device, yolo_workdir: str) -> dict:
+    """18d: yolov3 at 416 px from the VOC builder's records with
+    `--num-classes 20`, K2 once a step and an eval batch; then
+    `YOLO/torch/train.py -c latest --eval-only` on the val split read
+    through a `file://` URL, K2 once an eval batch; then
+    `YOLO/torch/evaluate.py` on phase 5's checkpoint (80 classes) over the
+    COCO builder's val records, its ragged last batch kept."""
     best_iou.launches = 0
     trainer, result, wall, wd = p18_entry(
         "YOLO", "yolov3", paths["voc"], "d",
         ["--batch-size", str(P18_YOLO_BATCH), "--steps-per-epoch",
-         str(P18_YOLO_STEPS), "--learning-rate", P18_YOLO_LR], device)
+         str(P18_YOLO_STEPS), "--learning-rate", P18_YOLO_LR,
+         "--num-classes", "20"], device)
     launches = best_iou.launches
     steps = trainer.last_epoch_steps
+    classes = (trainer.config.data.num_classes, trainer.model.num_classes)
     eval_batches = P18_YOLO_VAL // P18_YOLO_BATCH    # drop_remainder
     want = P18_YOLO_STEPS + eval_batches
-    phase(f"18d yolov3 (416 px, batch {P18_YOLO_BATCH}) from VOC-format "
-          f"records: losses {[round(s['loss'], 3) for s in steps]}, val "
-          f"{result}, best_iou launches {launches} (want {want}: one a "
-          f"step and an eval batch); step_ms "
+    phase(f"18d yolov3 --num-classes 20 (416 px, batch {P18_YOLO_BATCH}) "
+          f"from the VOC builder's records: losses "
+          f"{[round(s['loss'], 3) for s in steps]}, val {result}, "
+          f"best_iou launches {launches} (want {want}: one a step and an "
+          f"eval batch); step_ms "
           f"{statistics.median(s['step_ms'] for s in steps[1:]):.3f}; "
           f"entry point {wall:.1f}s")
-    if launches != want or len(steps) != P18_YOLO_STEPS:
-        raise AssertionError(f"18d: {launches} K2 launches, want {want}")
+    if launches != want or len(steps) != P18_YOLO_STEPS \
+            or classes != (20, 20):
+        raise AssertionError(f"18d: {launches} K2 launches, want {want}; "
+                             f"classes {classes}")
     del trainer
+    with open(os.path.join(wd, "yolov3.jsonl")) as fh:
+        header = json.loads(fh.readline())
+    meta = header.get("meta", {})
+    phase(f"18d the run log's first line: {json.dumps(header)}")
+    kind = (torch.cuda.get_device_name(device)
+            if torch.device(device).type == "cuda" else "cpu")
+    if list(meta) != ["platform", "device_kind", "n_devices", "process",
+                      "torch_version", "started_at"] \
+            or meta["device_kind"] != kind:
+        raise AssertionError(f"18d: the run log's header is {header}")
+    url = "file://" + os.path.abspath(paths["voc"])
+    argv = ["-m", "yolov3", "--data-dir", url, "--workdir", wd, "-c",
+            "latest", "--eval-only", "--num-classes", "20", "--batch-size",
+            str(P18_YOLO_BATCH), "--device", str(device)]
+    if P18_SIZE:
+        argv += ["--image-size", str(P18_SIZE)]
+    best_iou.launches = 0
+    t0 = time.perf_counter()
+    _, evaluated = family_main("YOLO", argv)
+    eval_launches = best_iou.launches
+    phase(f"18d YOLO/torch/train.py -c latest --eval-only on {url}/val*: "
+          f"{evaluated}, best_iou launches {eval_launches} (want "
+          f"{eval_batches}), the training run's own evaluation {result}; "
+          f"{time.perf_counter() - t0:.1f}s")
+    if eval_launches != eval_batches or evaluated.get("count") != \
+            result.get("count") or not np.isclose(
+                evaluated.get("loss", np.nan), result.get("loss"),
+                rtol=P18_EVAL_RTOL):
+        raise AssertionError(f"18d --eval-only: {evaluated} against "
+                             f"{result}, {eval_launches} K2 launches")
     jpeg.zero_stats()
     t0 = time.perf_counter()
-    argv = ["-m", "yolov3", "--data-dir", paths["voc"], "--workdir", wd,
-            "--device", str(device), "--metric", "voc"]
+    argv = ["-m", "yolov3", "--data-dir", paths["coco"], "--workdir",
+            yolo_workdir, "--device", str(device), "--metric", "coco"]
     if P18_SIZE:
         argv += ["--image-size", str(P18_SIZE)]
     metrics = runpy.run_path(os.path.join(HERE, "YOLO", "torch",
@@ -5392,16 +5788,16 @@ def check_records_yolo(paths: dict, device) -> dict:
     st = dict(jpeg.stats)
     seen = jpeg.images_decoded()
     batch = get_config("yolov3").batch_size
-    phase(f"18d YOLO/torch/evaluate.py on the val split: {seen} of "
-          f"{P18_YOLO_VAL} images decoded in {st['decode_calls']} batches "
-          f"of up to {batch} (the ragged last batch kept), mAP "
-          f"{metrics.get('mAP')}, "
-          f"mAP@0.5 {metrics.get('mAP@0.5')}; "
-          f"{time.perf_counter() - t0:.1f}s")
-    if seen != P18_YOLO_VAL or not np.isfinite(metrics.get("mAP", np.nan)):
+    phase(f"18d YOLO/torch/evaluate.py (phase 5's checkpoint) on the COCO "
+          f"builder's val records: {seen} of {P18_COCO_VAL} images decoded "
+          f"in {st['decode_calls']} batches of up to {batch} (the ragged "
+          f"last batch kept), mAP {metrics.get('mAP')}, mAP@0.5 "
+          f"{metrics.get('mAP@0.5')}; {time.perf_counter() - t0:.1f}s")
+    if seen != P18_COCO_VAL or not np.isfinite(metrics.get("mAP", np.nan)):
         raise AssertionError(f"18d evaluate: {seen} images, {metrics}")
     return {"launches": launches, "train_steps": len(steps),
-            "eval_batches": eval_batches, "eval_images": seen,
+            "eval_batches": eval_batches, "eval_only_launches":
+            eval_launches, "eval_only": evaluated, "eval_images": seen,
             "mAP": metrics["mAP"]}
 
 
@@ -5456,10 +5852,11 @@ def check_records_pose_and_gan(paths: dict, device) -> dict:
             "cyclegan_steps": len(cg_steps)}
 
 
-def check_real_datasets() -> dict:
-    """Phase 18, slice 15: the record pipelines on the card. K1 on 18c's
-    path and K2 on 18d's, each count zeroed just before its entry point
-    and read just after."""
+def check_real_datasets(yolo_workdir: str) -> dict:
+    """Phase 18, slices 15-16: raw trees built into records by the port's
+    builders, and the record pipelines on the card. K1 on 18c's path and
+    K2 on 18d's, each count zeroed just before its entry point and read
+    just after. `yolo_workdir` holds phase 5's yolov3 checkpoint."""
     t0 = time.perf_counter()
     device = torch.device(P18_DEVICE)
     root = tempfile.mkdtemp(prefix="chip_smoke_p18_")
@@ -5470,10 +5867,12 @@ def check_real_datasets() -> dict:
     torch.cuda.empty_cache()
     out["18c"] = check_records_vit(paths, device)
     torch.cuda.empty_cache()
-    out["18d"] = check_records_yolo(paths, device)
+    out["18d"] = check_records_yolo(paths, device, yolo_workdir)
     torch.cuda.empty_cache()
     out["18e"] = check_records_pose_and_gan(paths, device)
     out["decoder"] = jpeg.decoder_record()
+    out["builders"] = paths["builders"]
+    out["reencode"] = paths["reencode"]
     phase(f"18: phase 18 took {time.perf_counter() - t0:.1f}s")
     return out
 
@@ -5716,7 +6115,7 @@ def main() -> int:
     # 18c's path, K2 on 18d's: each count zeroed just before its entry
     # point, read just after)
     torch.cuda.empty_cache()
-    real = check_real_datasets()
+    real = check_real_datasets(yolo["workdir"])
 
     # the card again, next to the numbers: a tail of the output keeps it
     print(smi, flush=True)
@@ -5766,7 +6165,8 @@ def main() -> int:
         "segments": iou_fused["segments"], "dtype": "float32",
         "sass": k2_sass,
         "records_launches": {k: real["18d"][k] for k in (
-            "launches", "train_steps", "eval_batches")},
+            "launches", "train_steps", "eval_batches",
+            "eval_only_launches")},
         "resilience_launches": {
             "launches": resil["15a"]["launches"],
             "train_steps": resil["15a"]["train_steps"],

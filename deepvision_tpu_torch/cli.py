@@ -20,11 +20,16 @@ flags are the JAX CLI's (`-m`, `-c`, `--data-dir`, `--dataset`, `--synthetic`,
 `--epochs`, `--batch-size`, `--eval-batch-size`, `--learning-rate`,
 `--accum-steps`, `--no-decay-bn-bias`, `--ema-decay`, `--device-normalize`,
 `--device-augment`,
-`--prefetch-batches`, `--steps-per-epoch`, `--seed`, `--workdir`, and the
-resilience flags `--auto-resume`, `--resume {strict,fallback}`,
-`--recover-on-divergence N`, `--watchdog-secs S` (or
-DEEPVISION_WATCHDOG_SECS) and `--no-graceful-shutdown`), plus `--device`
-and `--image-size`.
+`--prefetch-batches`, `--steps-per-epoch`, `--seed`, `--workdir`,
+`--num-classes`, `--no-halt-on-nonfinite`, `--cache-val`, `--profile-dir`
+(a `torch.profiler` trace of the first epoch), `--eval-only` (restore,
+evaluate once, print `eval: ...`), and the resilience flags
+`--auto-resume`, `--resume {strict,fallback}`, `--recover-on-divergence
+N`, `--watchdog-secs S` (or DEEPVISION_WATCHDOG_SECS) and
+`--no-graceful-shutdown`), plus `--device` and `--image-size`. The JAX
+CLI's `--multihost` and `--compilation-cache` are refused by name
+(`REFUSED_FLAGS`); its mixup, cutmix, grad-norm, mesh, multistep and
+epoch-on-device flags are not ported yet (ROADMAP A1, A6).
 
 Real datasets read the JAX package's on-disk formats: `--data-dir` holds
 the `train*`/`val*` TFRecords of ImageNet (`imagenet`, the classifiers'
@@ -62,6 +67,17 @@ from .parallel import mesh
 from .utils.device import resolve_device
 
 SYNTH_STEPS_DEFAULT = 8
+
+# flags of the JAX training CLI that have no counterpart in the port: each
+# is refused by name with the reason, never accepted and ignored
+REFUSED_FLAGS = {
+    "--multihost": "it forces jax.distributed.initialize(); the port's "
+                   "ranks join a process group under torchrun, which sets "
+                   "the environment parallel/mesh.py reads",
+    "--compilation-cache": "it sets XLA's persistent compilation cache, "
+                           "which the port's eager PyTorch has no "
+                           "counterpart of",
+}
 
 
 def _positive_int(s: str) -> int:
@@ -164,6 +180,26 @@ def build_parser(family: str, models: Sequence[str]) -> argparse.ArgumentParser:
     p.add_argument("--no-graceful-shutdown", action="store_true",
                    help="disable the SIGTERM/SIGINT handler that commits a "
                         "checkpoint and exits 0 on preemption")
+    p.add_argument("--num-classes", type=int, default=None,
+                   help="override output classes/keypoints (e.g. MPII=16 "
+                        "heatmaps, custom VOC subsets)")
+    p.add_argument("--no-halt-on-nonfinite", action="store_true",
+                   help="keep training after a NaN/inf epoch loss instead "
+                        "of halting with the last-good checkpoint")
+    p.add_argument("--cache-val", action="store_true",
+                   help="cache the validation records in host RAM after "
+                        "the first epoch (classification ImageNet "
+                        "TFRecords)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the first epoch "
+                        "here (<config>.pt.trace.json, Chrome/Perfetto)")
+    p.add_argument("--eval-only", action="store_true",
+                   help="restore (-c/--auto-resume) and run validation "
+                        "once; no training")
+    p.add_argument("--multihost", action="store_true",
+                   help=f"refused: {REFUSED_FLAGS['--multihost']}")
+    p.add_argument("--compilation-cache", default=None, metavar="DIR|off",
+                   help=f"refused: {REFUSED_FLAGS['--compilation-cache']}")
     p.add_argument("--image-size", type=int, default=None,
                    help="override the image size; the JAX CLI has no such "
                         "flag. With --synthetic it replaces the 64 px "
@@ -178,6 +214,9 @@ def _config_from_args(args, synthetic_image_size: Optional[int]
         cfg = get_config(args.model)
     except ValueError as e:              # a config refused by name
         raise SystemExit(f"error: {e}")
+    if args.num_classes:
+        cfg = cfg.replace(data=dataclasses.replace(
+            cfg.data, num_classes=args.num_classes))
     if args.dataset:
         over = {"dataset": args.dataset}
         if args.dataset == "mnist":
@@ -209,6 +248,10 @@ def _config_from_args(args, synthetic_image_size: Optional[int]
             cfg.data, normalize_on_device=True))
     if args.device_augment is not None:
         cfg = cfg.replace(device_augment=args.device_augment)
+    if args.cache_val:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, cache_val=True))
+    if args.no_halt_on_nonfinite:
+        cfg = cfg.replace(halt_on_nonfinite=False)
     if args.prefetch_batches:
         cfg = cfg.replace(prefetch_batches=args.prefetch_batches)
     if args.seed is not None:
@@ -298,6 +341,8 @@ def _tfrecord_data(build: Callable, cfg: TrainConfig, args, device,
     val_ds = build(check("val"), training=False,
                    batch_size=cfg.eval_batch_size or cfg.batch_size,
                    image_size=data.image_size, device=device)
+    if getattr(args, "eval_only", False):
+        return _no_train_data, lambda epoch: epoch_iterator(val_ds)
     train_ds = build(check("train"), training=True,
                      batch_size=cfg.batch_size // world,
                      image_size=data.image_size, num_process=world,
@@ -307,6 +352,10 @@ def _tfrecord_data(build: Callable, cfg: TrainConfig, args, device,
         steps = data.train_examples // cfg.batch_size
     return (lambda epoch: epoch_iterator(train_ds, steps, epoch),
             lambda epoch: epoch_iterator(val_ds))
+
+
+def _no_train_data(epoch):
+    raise RuntimeError("training data was not built (--eval-only)")
 
 
 def _classification_data(cfg: TrainConfig, args, device=None) -> Tuple:
@@ -347,11 +396,17 @@ def _classification_data(cfg: TrainConfig, args, device=None) -> Tuple:
         device = device or resolve_device(args.device)
     if data.dataset == "imagenet":
         from .data import imagenet as inet
+
+        def build(pattern, *, training, **kw):
+            # the val records cached after the first epoch (--cache-val)
+            return inet.build_dataset(
+                pattern, training=training,
+                normalize_on_host=not data.normalize_on_device,
+                host_decode_only=cfg.device_augment, mean=data.mean,
+                std=data.std, cache=data.cache_val and not training, **kw)
+
         return _tfrecord_data(
-            functools.partial(inet.build_dataset,
-                              normalize_on_host=not data.normalize_on_device,
-                              host_decode_only=cfg.device_augment,
-                              mean=data.mean, std=data.std),
+            build,
             cfg, args, device, "dataset/tfrecord", bounded_train_steps=True,
             builder_hint="Datasets/ILSVRC2012/build_imagenet_tfrecord.py")
     if data.dataset == "imagenet_flat":
@@ -366,6 +421,8 @@ def _classification_data(cfg: TrainConfig, args, device=None) -> Tuple:
                               training=False,
                               batch_size=cfg.eval_batch_size or cfg.batch_size,
                               **common)
+        if getattr(args, "eval_only", False):
+            return _no_train_data, lambda epoch: val_ds
         train_ds = FlatImageNet(
             os.path.join(data_dir, "train_flatten"), synsets, training=True,
             batch_size=cfg.batch_size // mesh.world_size(),
@@ -444,7 +501,11 @@ def _run(family: str, models: Sequence[str], trainer_factory: Callable,
     fit's result, so a caller can read the trained state. A process group
     this call brought up is destroyed at its end; one that was up before
     is adopted and left up."""
-    args = build_parser(family, models).parse_args(argv)
+    parser = build_parser(family, models)
+    args = parser.parse_args(argv)
+    for flag, why in REFUSED_FLAGS.items():
+        if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
+            parser.error(f"{flag} has no counterpart in the port: {why}")
     owned = not mesh.is_initialized() and mesh.maybe_init_distributed(
         "gloo" if args.device == "cpu" else None)
     try:
@@ -456,20 +517,44 @@ def _run(family: str, models: Sequence[str], trainer_factory: Callable,
             trainer.arm_tracing(args.trace_out)
         train_fn, val_fn = make_data(cfg, args, device)
         trainer.init_state()
+        restored = None
         if args.checkpoint:
-            trainer.resume(None if args.checkpoint == "latest"
-                           else int(args.checkpoint))
+            restored = trainer.resume(None if args.checkpoint == "latest"
+                                      else int(args.checkpoint))
         elif args.auto_resume:
             # preemption recovery: the latest checkpoint if there is one,
             # a fresh start otherwise
-            trainer.resume()
+            restored = trainer.resume()
         from .core.trainer import fit_and_close, say
-        result = fit_and_close(trainer, train_fn, val_fn)
-        say(f"done: best={result.get('best_metric')}")
+        if args.eval_only:
+            result = _evaluate_only(trainer, restored, val_fn)
+        else:
+            result = fit_and_close(trainer, train_fn, val_fn,
+                                   profile_dir=args.profile_dir)
+            say(f"done: best={result.get('best_metric')}")
     finally:
         if owned:
             mesh.destroy()
     return trainer, result
+
+
+def _evaluate_only(trainer, restored: Optional[int], val_fn) -> dict:
+    """`--eval-only`: one evaluation of the restored weights (the tail of a
+    migration: import a checkpoint, then `train.py -m <model> -c latest
+    --eval-only`); refused when nothing was restored, since random
+    weights would print a plausible-looking number."""
+    from .core.trainer import say
+    try:
+        if restored is None:
+            raise SystemExit(
+                "--eval-only requires a restored checkpoint: pass -c "
+                f"latest|N (and check --workdir; nothing restorable in "
+                f"{trainer.workdir!r})")
+        result = trainer.evaluate(val_fn(0))
+    finally:
+        trainer.close()
+    say("eval: " + " ".join(f"{k}={v:.4f}" for k, v in result.items()))
+    return result
 
 
 def run_classification(family: str, models: Sequence[str],

@@ -79,6 +79,9 @@ class DataConfig:
     # Ship raw uint8 pixels to the device and normalize ((x/255-mean)/std)
     # there instead of on the host (core/steps.normalize_input).
     normalize_on_device: bool = False
+    # keep the validation records in host RAM after the first epoch
+    # (the ImageNet TFRecord pipeline, `--cache-val`)
+    cache_val: bool = False
     mean: Tuple[float, ...] = IMAGENET_MEAN
     std: Tuple[float, ...] = IMAGENET_STD
 

@@ -126,7 +126,8 @@ class AdversarialTrainer:
         self.config = config
         self.device = resolve_device(device)
         self.workdir = workdir
-        self.logger = MetricsLogger(workdir, name=config.name)
+        self.logger = MetricsLogger(workdir, name=config.name,
+                                     device=self.device)
         self.faults = FaultInjector.from_env()
         self.retry_policy = RetryPolicy.from_env()
         self._recovery_scale = 1.0

@@ -148,6 +148,36 @@ def divergence_halt(config: TrainConfig, ckpt: CheckpointManager, epoch: int,
         f"grad_clip_norm. (Set halt_on_nonfinite=False to keep going anyway.)")
 
 
+@contextlib.contextmanager
+def epoch_profile(profile_dir: Optional[str], device: torch.device,
+                  name: str):
+    """A `torch.profiler` trace (host and, on the card, CUDA activity) of
+    the block, written as `<profile_dir>/<name>.pt.trace.json` (a rank's
+    `<name>.rank<r>.pt.trace.json` under a process group) when the block
+    ends, however it ends; nothing when `profile_dir` is None (the
+    JAX trainer's `jax.profiler` trace of the first epoch)."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        prof.stop()
+        rank = f".rank{mesh.rank()}" if mesh.world_size() > 1 else ""
+        path = os.path.join(profile_dir, f"{name}{rank}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        say(f"[{name}] profile of the first epoch: {path}")
+
+
 def fit_and_close(trainer: "Trainer", *args, **kwargs) -> dict:
     """`trainer.fit(...)` then `close()`, with the entry point's divergence
     UX: a TrainingDivergedError becomes a one-line remedy and a nonzero
@@ -249,7 +279,8 @@ class Trainer:
         self.plateau = PlateauState(
             patience=sched.plateau_patience, factor=sched.plateau_factor,
             mode=sched.plateau_mode) if sched.name == "plateau" else None
-        self.logger = MetricsLogger(self.workdir, name=config.name)
+        self.logger = MetricsLogger(self.workdir, name=config.name,
+                                     device=self.device)
         # resilience: the environment's fault injector (inert unless a
         # DEEPVISION_FAULT_* variable is set) and the transient-I/O retry
         # policy of the checkpoint and the host data pull
@@ -520,12 +551,15 @@ class Trainer:
     def fit(self, train_data_fn: Callable[[int], Iterable],
             val_data_fn: Optional[Callable[[int], Iterable]] = None,
             resume: bool = False,
-            total_epochs: Optional[int] = None) -> dict:
+            total_epochs: Optional[int] = None,
+            profile_dir: Optional[str] = None) -> dict:
         """Per epoch: train, evaluate, watch the metric, step the plateau,
         save. A non-finite epoch rolls back and retries under
         `config.recover_on_divergence`; SIGTERM/SIGINT finish the step in
         flight, commit the epoch and raise PreemptionExit. Ends with the
-        last save committed (`flush()`)."""
+        last save committed (`flush()`). `profile_dir` takes a
+        `torch.profiler` trace of the first trained epoch there
+        (`epoch_profile`), also when that epoch fails."""
         cfg = self.config
         total_epochs = total_epochs or cfg.total_epochs
         if self.state is None:
@@ -551,15 +585,17 @@ class Trainer:
                     cfg.watchdog_secs, diagnostics=self._watchdog_diagnostics,
                     name=cfg.name, _abort=self.watchdog_abort))
             stack.callback(self._clear_resilience_handles)
-            epoch = self.start_epoch
+            epoch = first_epoch = self.start_epoch
             while epoch <= total_epochs:
                 if self._preempted() and self._last_saved_epoch is not None:
                     # the signal landed between epochs: the last save
                     # already holds everything trained
                     self._commit_preemption(self._last_saved_epoch)
                 try:
-                    train_metrics = self.train_epoch(epoch,
-                                                     train_data_fn(epoch))
+                    with epoch_profile(profile_dir if epoch == first_epoch
+                                       else None, self.device, cfg.name):
+                        train_metrics = self.train_epoch(
+                            epoch, train_data_fn(epoch))
                 except TrainingDivergedError:
                     # bounded recovery: roll back to the last committed
                     # epoch, scale the LR down, retry; the halt fires once

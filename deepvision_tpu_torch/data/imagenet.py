@@ -158,11 +158,12 @@ def build_dataset(file_pattern: str, *, batch_size: int,
                   shuffle_buffer: int = 10000, num_process: int = 1,
                   process_index: int = 0, seed: int = 0,
                   normalize_on_host: bool = True, mean=None, std=None,
-                  host_decode_only: bool = False, device="cpu"
-                  ) -> ImageNetRecords:
+                  host_decode_only: bool = False, cache: bool = False,
+                  device="cpu") -> ImageNetRecords:
     """The per-rank pipeline over sharded TFRecords (the JAX
     `build_dataset`'s arguments, `device` added). `batch_size` is the
-    rank's batch; training shuffles and repeats; eval is JAX's order;
+    rank's batch; training shuffles and repeats; eval is JAX's order, its
+    records kept in host RAM after the first pass under `cache`;
     `drop_remainder` in both."""
     return ImageNetRecords(
         file_pattern, batch_size=batch_size, image_size=image_size,
@@ -170,4 +171,4 @@ def build_dataset(file_pattern: str, *, batch_size: int,
         num_process=num_process, process_index=process_index, seed=seed,
         normalize_on_host=normalize_on_host, mean=mean, std=std,
         host_decode_only=host_decode_only, drop_remainder=True,
-        repeat=True, device=device)
+        repeat=True, cache=cache, device=device)

@@ -18,17 +18,21 @@ that holds anything else (`NotJpegError`, naming the files): a `.png`,
 or ILSVRC2012's train image n02105855_2933.JPEG, which is a PNG. Re-encode
 those as JPEG, or read the layout with `--device cpu`, where PIL decodes
 them as the JAX loader does.
+
+A remote directory (gs://, memory://, ...) is listed and read through
+fsspec (`data/fs.py`), and refused by name where the package of its
+protocol is absent.
 """
 
 from __future__ import annotations
 
-import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import fs
 from .jpeg import (Decoded, decode_batch, decode_cpu, extract_jpeg_shape,
                    resample_batch)
 from .pipeline import on_side_stream, side_stream
@@ -51,7 +55,7 @@ def not_jpeg(root_dir: str, files) -> list:
     """The names in `files` whose first bytes are not a JPEG stream's
     start-of-image marker (one 2-byte read a file, 16 at a time)."""
     def head(name):
-        with open(os.path.join(root_dir, name), "rb") as f:
+        with fs.open(fs.join(root_dir, name), "rb") as f:
             return f.read(len(JPEG_SOI))
     with ThreadPoolExecutor(16) as pool:
         return [f for f, h in zip(files, pool.map(head, files))
@@ -60,8 +64,9 @@ def not_jpeg(root_dir: str, files) -> list:
 
 def load_synsets(path: str) -> dict:
     """synset id → contiguous class index, in file order."""
-    with open(path) as fp:
-        return {line.strip(): i for i, line in enumerate(fp) if line.strip()}
+    with fs.open(path, "rb") as fp:
+        lines = fp.read().decode().splitlines()
+    return {line.strip(): i for i, line in enumerate(lines) if line.strip()}
 
 
 class FlatImageNet:
@@ -94,7 +99,7 @@ class FlatImageNet:
         self.drop_remainder = (training if drop_remainder is None
                                else drop_remainder)
         all_files = sorted(
-            f for f in os.listdir(root_dir)
+            f for f in fs.listdir(root_dir)
             if f.lower().endswith(IMG_EXTS) and "_" in f
             and f.split("_", 1)[0] in self.synset_to_idx)
         self.files = all_files[shard_index::num_shards]
@@ -138,7 +143,7 @@ class FlatImageNet:
     def _batch(self, names, rngs) -> Tuple[torch.Tensor, torch.Tensor]:
         datas = []
         for fname in names:
-            with open(os.path.join(self.root_dir, fname), "rb") as f:
+            with fs.open(fs.join(self.root_dir, fname), "rb") as f:
                 datas.append(f.read())
         decoded = self._decode(datas)
         draws = [self.transform.draw(s, r)

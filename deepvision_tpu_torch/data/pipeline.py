@@ -46,7 +46,7 @@ class RecordPipeline:
                  training: bool, seed: int = 0, num_process: int = 1,
                  process_index: int = 0, shuffle_buffer: int = 512,
                  drop_remainder: bool = True, repeat: bool = False,
-                 device="cpu"):
+                 cache: bool = False, device="cpu"):
         self.device = torch.device(device)
         self.files = records.list_files(file_pattern, training=training,
                                         seed=seed, world=num_process,
@@ -58,6 +58,10 @@ class RecordPipeline:
         self.shuffle_buffer = shuffle_buffer
         self.drop_remainder = drop_remainder
         self.repeat = repeat and training
+        # eval: the records of the first whole pass, replayed after it
+        # (`Dataset.cache()` before the map)
+        self.cache = cache and not training
+        self._cached: Optional[List[bytes]] = None
         self._crc = host_crc32c(self.device)
         self._stream = side_stream(self.device)
         self.epoch = 0
@@ -86,6 +90,16 @@ class RecordPipeline:
         passes = itertools.count() if self.repeat else range(1)
         for _ in passes:
             files = self.files
+            if self.cache and self._cached is not None:
+                yield from self._cached
+                continue
+            if self.cache:
+                seen = []
+                for rec in self._one_pass(files):
+                    seen.append(rec)
+                    yield rec
+                self._cached = seen     # kept once a pass is whole
+                continue
             if not self.training:
                 yield from self._one_pass(files)
                 continue

@@ -21,18 +21,21 @@ File order follows the JAX pipelines' `list_files(pattern, shuffle=
 training, seed=seed)` then `.shard(world, rank)` (`list_files`): sorted in
 eval, so a rank's files equal JAX's; shuffled by the port's own seeded
 generator in training (TF's shuffle of the names cannot be reproduced),
-where the ranks' files are disjoint and cover the pattern. Paths are
-local: a remote pattern (gs://, s3://) is refused by name.
+where the ranks' files are disjoint and cover the pattern. A remote
+pattern or file (gs://, s3://, memory://, file://) is read and written
+through fsspec (`data/fs.py`), and refused by name where the package of
+its protocol is absent.
 """
 
 from __future__ import annotations
 
-import glob
 import struct
 from typing import Callable, Dict, Iterable, Iterator, List, NamedTuple, \
     Optional, Sequence, Tuple, Union
 
 import numpy as np
+
+from . import fs
 
 # -- CRC32C (Castagnoli), as TFRecord masks it ------------------------------
 
@@ -72,7 +75,7 @@ def read_records(path: str, crc: Callable[[bytes], int] = crc32c_py,
     """The records of one TFRecord file, in order. Raises
     `CorruptRecordError` (file and byte offset) on a bad length CRC, a
     truncated record or a bad data CRC."""
-    with open(path, "rb") as f:
+    with fs.open(path, "rb") as f:
         offset = 0
         while True:
             head = f.read(12)
@@ -102,19 +105,23 @@ def read_records(path: str, crc: Callable[[bytes], int] = crc32c_py,
             offset += 12 + length + 4
 
 
-def frame_record(data: bytes) -> bytes:
-    """One record as TFRecordWriter frames it."""
+def frame_record(data: bytes,
+                 crc: Callable[[bytes], int] = crc32c_py) -> bytes:
+    """One record as TFRecordWriter frames it (`crc` computes the data's
+    CRC32C, as in `read_records`)."""
     length = struct.pack("<Q", len(data))
     return (length + struct.pack("<I", masked_crc(crc32c_py(length)))
-            + data + struct.pack("<I", masked_crc(crc32c_py(data))))
+            + data + struct.pack("<I", masked_crc(crc(data))))
 
 
-def write_records(path: str, records: Iterable[bytes]) -> int:
-    """Write `records` to one TFRecord file; returns how many."""
+def write_records(path: str, records: Iterable[bytes],
+                  crc: Callable[[bytes], int] = crc32c_py) -> int:
+    """Write `records` to one TFRecord file (local or remote); returns
+    how many."""
     n = 0
-    with open(path, "wb") as f:
+    with fs.open(path, "wb") as f:
         for data in records:
-            f.write(frame_record(data))
+            f.write(frame_record(data, crc))
             n += 1
     return n
 
@@ -313,13 +320,9 @@ def list_files(pattern: str, *, training: bool, seed: int = 0,
                world: int = 1, rank: int = 0) -> List[str]:
     """The files of `pattern` this rank reads: sorted, shuffled by
     `np.random.default_rng(seed)` when training, then every `world`-th
-    from `rank` (`files.shard(world, rank)`). Raises on a remote pattern
-    and on a pattern that matches nothing."""
-    if "://" in pattern:
-        raise ValueError(
-            f"remote file systems are not ported (pattern {pattern!r}): "
-            f"copy the records to a local directory")
-    files = sorted(glob.glob(pattern))
+    from `rank` (`files.shard(world, rank)`). A remote pattern lists
+    through fsspec (`fs.glob`); a pattern that matches nothing raises."""
+    files = fs.glob(pattern)
     if not files:
         raise FileNotFoundError(f"no files match {pattern!r}")
     if training:

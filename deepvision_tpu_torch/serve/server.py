@@ -163,7 +163,8 @@ class InferenceServer:
         self.engine = default.engine
         self.batcher = default.batcher
         self.metrics = default.metrics
-        self.logger = MetricsLogger(log_dir or workdir, name="serve")
+        self.logger = MetricsLogger(log_dir or workdir, name="serve",
+                                     device=self.engine.device)
         if promote_gate is not None:
             from .promote import attach_promoters
             attach_promoters(fleet, gate_min_delta=promote_gate,

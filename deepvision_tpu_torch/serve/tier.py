@@ -387,7 +387,8 @@ class TierRouter:
                  roll_timeout_s: float = 600.0,
                  log_dir: Optional[str] = None,
                  logger: Optional[MetricsLogger] = None,
-                 tracer: Optional[Tracer] = None):
+                 tracer: Optional[Tracer] = None,
+                 device: Optional[str] = None):
         if not replicas:
             raise ValueError("a tier needs at least one replica slot")
         self.replicas = list(replicas)
@@ -407,7 +408,9 @@ class TierRouter:
         self.roll_every_s = float(roll_every_s)
         for h in self.replicas:
             h.backoff_s = self.restart_backoff_s
-        self.logger = logger or (MetricsLogger(log_dir, name="tier")
+        # the log's header names the replicas' device
+        self.logger = logger or (MetricsLogger(log_dir, name="tier",
+                                               device=device)
                                  if log_dir else None)
         self.tracer = tracer if tracer is not None else Tracer()
         self.roll = RollingPromotion(self, model=roll_model,
@@ -1056,7 +1059,7 @@ def build_tier(args) -> TierRouter:
         attempt_timeout_s=args.attempt_timeout or None,
         restart_backoff_s=args.restart_backoff,
         roll_model=first_model, roll_every_s=args.roll_every,
-        log_dir=args.log_dir)
+        log_dir=args.log_dir, device=args.device)
 
 
 def _smoke_payload(model: str) -> bytes:

@@ -1,12 +1,15 @@
 """chip_smoke.py's phase 18 (real datasets from records) rehearsed on the
-CPU at a small size: the records written by the port's own writer from
-seeded images (PIL encodes where the card's nvJPEG would), the decoder
+CPU at a small size: the records written by the port's builders from
+seeded raw trees (PIL encodes where the card's nvJPEG would; the trees
+and builders alone: test_torch_chip_smoke_builders.py), the decoder
 against the committed fixtures' goldens (PIL is their golden: exact
 here), the resample against its plain version, resnet50_tpu from the
-ImageNet records under --device-augment and --device-normalize (0 bytes
-staged by the prefetcher), vit_small with K1's plain version counted as
-the kernel counts its launches, yolov3 with K2's the same way and
-evaluate.py on the val split, hourglass104 (2 stacks of order 2, at a
+ImageNet records under --device-augment and --device-normalize
+--cache-val (0 bytes staged by the prefetcher; the cached val pipeline),
+vit_small with --profile-dir and K1's plain version counted as the kernel
+counts its launches, yolov3 --num-classes 20 with K2's the same way,
+--eval-only through a file:// URL, and evaluate.py on a yolov3 checkpoint
+over the COCO records, hourglass104 (2 stacks of order 2, at a
 sixteenth of the width, batch 4) and evaluate.py on its split, and
 cyclegan: every entry point at 64 px (cyclegan 64), the card's sizes
 only on the card."""
@@ -60,12 +63,27 @@ def tiny_p18(monkeypatch):
             ("P18_LOADER_BATCHES", 1), ("P18_YOLO_BATCH", 2),
             ("P18_YOLO_STEPS", 2), ("P18_YOLO_VAL", 3),
             ("P18_POSE_BATCH", 2), ("P18_POSE_STEPS", 2),
-            ("P18_POSE_VAL", 4), ("P18_CG_BATCH", 2), ("P18_CG_STEPS", 2)):
+            ("P18_POSE_VAL", 4), ("P18_CG_BATCH", 2), ("P18_CG_STEPS", 2),
+            ("P18_SYNSETS", 3), ("P18_COCO_TRAIN", 3), ("P18_COCO_VAL", 3),
+            # the plain version's softmax stands in the CPU's profile for
+            # K1's kernel
+            ("P18_K1_KERNEL", "softmax")):
         monkeypatch.setattr(chip_smoke, name, value)
 
 
-def test_phase_18_rehearses_on_the_cpu(tiny_p18):
-    out = chip_smoke.check_real_datasets()
+@pytest.fixture
+def yolo_workdir(tmp_path):
+    """A yolov3 checkpoint at 64 px and 80 classes (phase 5's, small)."""
+    wd = str(tmp_path / "yolo")
+    chip_smoke.run_detection("YOLO", ["yolov3"], [
+        "-m", "yolov3", "--synthetic", "--image-size", "64",
+        "--batch-size", "2", "--steps-per-epoch", "1", "--epochs", "1",
+        "--device", "cpu", "--workdir", wd])
+    return wd
+
+
+def test_phase_18_rehearses_on_the_cpu(tiny_p18, yolo_workdir):
+    out = chip_smoke.check_real_datasets(yolo_workdir)
     assert all(r["pil"][0] == 0 for r in out["18a"]["fixtures"])
     assert max(out["18a"]["resample_err"].values()) == 0.0
     for flag in ("--device-augment", "--device-normalize"):
@@ -74,6 +92,9 @@ def test_phase_18_rehearses_on_the_cpu(tiny_p18):
     depth = chip_smoke.get_config("vit_small").model_kwargs["depth"]
     assert out["18c"]["launches"] == depth * (2 + 1)
     assert out["18d"]["launches"] == 2 + 1 and out["18d"]["eval_images"] == 3
+    assert out["18d"]["eval_only_launches"] == 1
+    assert out["18b"]["cache_val"]["opened"] == 1
+    assert all(v == (0, 0.0) for v in out["reencode"].values())
     assert out["18e"]["pose_steps"] == 2 and out["18e"]["cyclegan_steps"] == 2
 
 

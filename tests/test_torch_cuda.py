@@ -1084,3 +1084,132 @@ def test_resample_kernel_matches_plain_version(card, mode):
         want = util.resample(host, plans, (36, 40), mode, how)
         err = float((got.cpu().float() - want.float()).abs().max())
         assert err <= (1.0 if how.uint8 else 1e-3), (how, err)
+
+
+# -- the dataset builders' re-encode on the card (slice 16) ------------------
+
+REENCODE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "fixtures", "reencode")
+REENCODED = ["gray.jpg", "gray_png.png", "rgb_png.png", "rgba_png.png",
+             "palette_png.png"]
+
+
+def _nvjpeg(data, device):
+    from deepvision_tpu_torch.data import jpeg
+    return jpeg.decode_batch([data], device).image(0).cpu().numpy().astype(
+        np.int16)
+
+
+@pytest.mark.parametrize("name", REENCODED)
+def test_reencode_on_the_card_is_within_the_bound_of_pils(card, name):
+    """A gray JPEG or an 8-bit PNG re-encoded by nvJPEG (q95, 4:2:0)
+    against PIL's re-encode of the same source (`<name>.pil95.jpg`), both
+    decoded by nvJPEG: within chip_smoke's measured bound."""
+    from chip_smoke import P18_REENCODE_MAX, P18_REENCODE_MEAN
+    from deepvision_tpu_torch.data import jpeg
+    from deepvision_tpu_torch.datasets import images
+    path = os.path.join(REENCODE, name)
+    placeholder, w, h = images.load(path, "cuda")
+    assert isinstance(placeholder, images.Reencode)
+    (ex,) = images.finish([{"image/encoded": placeholder}], card)
+    ours = ex["image/encoded"].values[0]
+    assert jpeg.extract_jpeg_shape(ours) == (h, w, 3)
+    pil = open(os.path.join(REENCODE, name.rsplit(".", 1)[0]
+                            + ".pil95.jpg"), "rb").read()
+    diff = np.abs(_nvjpeg(ours, card) - _nvjpeg(pil, card))
+    assert diff.max() <= P18_REENCODE_MAX
+    assert diff.mean() <= P18_REENCODE_MEAN
+
+
+@pytest.mark.parametrize("name", [n for n in REENCODED if n.endswith(".png")])
+def test_png_reader_equals_its_cpu_decode(card, name):
+    """The PNG reader's pixels, uploaded to the card, equal PIL's
+    `convert("RGB")` of the source (the committed `<name>.rgb.npy`)."""
+    from deepvision_tpu_torch.data.png import read_png
+    data = open(os.path.join(REENCODE, name), "rb").read()
+    want = np.load(os.path.join(REENCODE, name.rsplit(".", 1)[0]
+                                + ".rgb.npy"))
+    got = torch.from_numpy(read_png(data)).to(card)
+    assert torch.equal(got.cpu(), torch.from_numpy(want))
+
+
+def test_cmyk_jpeg_is_refused_on_the_card(card):
+    """nvJPEG decodes no CMYK JPEG to RGB: the builders refuse it by name
+    before the decoder sees it."""
+    from deepvision_tpu_torch.datasets import images
+    with pytest.raises(images.UnsupportedImageError,
+                       match=r"cmyk\.jpg: a 4-component \(CMYK or YCCK\)"):
+        images.load(os.path.join(REENCODE, "cmyk.jpg"), "cuda")
+
+
+def _records(path):
+    """Each record's features as {key: (kind, list or bytes of values)}."""
+    from deepvision_tpu_torch.data import records
+    return [{k: (f.kind, list(f.values) if f.kind == "bytes"
+                 else f.values.tobytes())
+             for k, f in records.parse_example(r).items()}
+            for r in records.read_records(path)]
+
+
+def test_builds_on_the_card_equal_the_cpu_builds(card, tmp_path):
+    """The VOC builder on the card equals its CPU build feature for
+    feature (VOC copies its JPEGs); the ImageNet builder over three-
+    component JPEGs, a gray JPEG and a PNG equals its CPU build but for
+    the re-encoded images' bytes, which stay within the bound."""
+    pytest.importorskip("PIL", reason="the CPU build re-encodes with PIL")
+    from chip_smoke import P18_REENCODE_MAX, P18_REENCODE_MEAN
+    from deepvision_tpu_torch.datasets import imagenet, voc
+    jpgs = [open(os.path.join(FIXTURES, n), "rb").read()
+            for n in sorted(os.listdir(FIXTURES)) if n.endswith(".jpg")]
+    devkit = tmp_path / "VOCdevkit" / "VOC2007"
+    for d in ("Annotations", "JPEGImages", "ImageSets/Main"):
+        (devkit / d).mkdir(parents=True)
+    from deepvision_tpu_torch.data.jpeg import extract_jpeg_shape
+    for i, data in enumerate(jpgs):
+        h, w, _ = extract_jpeg_shape(data)
+        (devkit / "JPEGImages" / f"{i:06d}.jpg").write_bytes(data)
+        (devkit / "Annotations" / f"{i:06d}.xml").write_text(
+            f"<annotation><filename>{i:06d}.jpg</filename><size><width>{w}"
+            f"</width><height>{h}</height><depth>3</depth></size><object>"
+            f"<name>dog</name><bndbox><xmin>1</xmin><ymin>2</ymin><xmax>"
+            f"{w - 1}</xmax><ymax>{h}</ymax></bndbox></object>"
+            f"</annotation>")
+    (devkit / "ImageSets" / "Main" / "train.txt").write_text(
+        "".join(f"{i:06d}\n" for i in range(len(jpgs))))
+    for dev in ("cuda", "cpu"):
+        voc.convert(str(devkit), str(tmp_path / f"voc_{dev}"), 2,
+                    splits=("train",), device=dev, num_workers=1)
+    for name in sorted(os.listdir(tmp_path / "voc_cpu")):
+        assert _records(str(tmp_path / "voc_cuda" / name)) == _records(
+            str(tmp_path / "voc_cpu" / name))
+    train = tmp_path / "train" / "n01440764"
+    train.mkdir(parents=True)
+    sources = jpgs + [open(os.path.join(REENCODE, n), "rb").read()
+                      for n in ("gray.jpg", "rgb_png.png")]
+    for i, data in enumerate(sources):
+        (train / f"n01440764_{i}.JPEG").write_bytes(data)
+    (tmp_path / "synsets.txt").write_text("n01440764\n")
+    (tmp_path / "meta.txt").write_text("n01440764\ttench\n")
+    for dev in ("cuda", "cpu"):
+        imagenet.main(["--train_directory", str(tmp_path / "train"),
+                       "--validation_directory", str(tmp_path / "none"),
+                       "--output_directory", str(tmp_path / f"in_{dev}"),
+                       "--labels_file", str(tmp_path / "synsets.txt"),
+                       "--imagenet_metadata_file", str(tmp_path / "meta.txt"),
+                       "--train_shards", "2", "--num_workers", "1",
+                       "--device", dev])
+    reencoded = 0
+    for name in sorted(os.listdir(tmp_path / "in_cpu")):
+        got = _records(str(tmp_path / "in_cuda" / name))
+        want = _records(str(tmp_path / "in_cpu" / name))
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            a, b = g.pop("image/encoded"), w.pop("image/encoded")
+            assert g == w
+            if a != b:
+                reencoded += 1
+                diff = np.abs(_nvjpeg(a[1][0], card)
+                              - _nvjpeg(b[1][0], card))
+                assert diff.max() <= P18_REENCODE_MAX
+                assert diff.mean() <= P18_REENCODE_MEAN
+    assert reencoded == 3      # the two gray JPEGs and the PNG

@@ -1,9 +1,12 @@
 """The port's TFRecord reader and writer, its `tf.train.Example` codec and
 its file lists (deepvision_tpu_torch/data/records.py) against TensorFlow's
 own, on the CPU: records exact both ways, every feature kind round trips,
-a flipped byte raises naming the file and the offset, remote paths are
-refused, and the ranks' files partition the pattern as JAX's
+a flipped byte raises naming the file and the offset, a remote path
+whose protocol's package is absent is refused by name, and the ranks'
+files partition the pattern as JAX's
 `files.shard` does."""
+
+import sys
 
 import numpy as np
 import pytest
@@ -149,9 +152,17 @@ def test_crc32c_matches_known_values():
         records.crc32c_py(length)).to_bytes(4, "little")
 
 
-def test_remote_patterns_are_refused_by_name(tmp_path):
-    for pattern in ("gs://bucket/train-*", "s3://bucket/val*"):
-        with pytest.raises(ValueError, match="remote file systems"):
+def test_remote_patterns_are_refused_by_name(tmp_path, monkeypatch):
+    """A remote pattern goes through fsspec (tests/test_torch_remote.py);
+    one whose protocol's package is absent is refused by name, before any
+    host is contacted (both packages made absent here)."""
+    from deepvision_tpu_torch.data.fs import RemotePathError
+    for package in ("gcsfs", "s3fs"):
+        monkeypatch.setitem(sys.modules, package, None)
+    for pattern, package in (("gs://bucket/train-*", "gcsfs"),
+                             ("s3://bucket/val*", "s3fs")):
+        with pytest.raises(RemotePathError,
+                           match=f"needs the '{package}' package"):
             records.list_files(pattern, training=False)
     with pytest.raises(FileNotFoundError, match="no files match"):
         records.list_files(str(tmp_path / "train*"), training=False)

@@ -105,7 +105,7 @@ NOT_CARRIED = {
                     "remat", "spatial_backend", "spatial_parallel",
                     "steps_per_dispatch"},
     "OptimizerConfig": set(), "ScheduleConfig": set(),
-    "DataConfig": {"cache_val", "num_parallel_calls", "shuffle_buffer"},
+    "DataConfig": {"num_parallel_calls", "shuffle_buffer"},
 }
 
 
