@@ -308,6 +308,32 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    `Hourglass/torch/evaluate.py` on their val split; `cyclegan` from the
    CycleGAN builder's records (256 px, batch 8, 2 steps).
 
+19. slice 17: the training step's levers. 19a: vit_small at full width
+   (224 px, batch 256, dropout 0.1) through the Trainer with `remat`,
+   mixup (0.2) and `log_grad_norm`, 3 steps on batches drawn on the card,
+   and the same 3 steps without remat from the same seed: the losses and `grad_norm` within
+   P19_REMAT_RTOL, `grad_norm` finite and in the run log, K1 counted
+   exactly in both runs (depth x steps without remat; the recompute's
+   launches on top with it), the peak memory of each. 19b:
+   `ViT/torch/train.py -m vit_small --synthetic --cutmix-alpha 1.0
+   --steps-per-dispatch 2`, 10 steps at batch 64: 5 dispatches of 2, the run log's
+   records at dispatch ends only, K1 exactly depth x (steps + eval
+   batches). 19c: `YOLO/torch/train.py -m yolov3 --synthetic --image-size
+   416 --epoch-on-device --log-grad-norm --epochs 2` (batch 16, 3 steps):
+   epoch 2 pulls no host batch, K2 exactly once a step and an eval batch,
+   the shuffle a permutation, the epoch cache's bytes; then 1 epoch with
+   DEEPVISION_EPOCH_CACHE_MAX_BYTES small: EpochCacheOverflowWarning by
+   name and the epoch trained by the staged loop. 19d: resnet50_tpu (its
+   EMA, the device augment, batch 256) through the Trainer, 8 steps on
+   batches drawn on the card with `steps_per_dispatch` 4 against k = 1
+   twice: the parameters and EMA
+   within P19_K_RTOL of k = 1 (the two k = 1 runs give cuDNN's own
+   spread), a dispatch's device and host ms. 19e: `python -m
+   deepvision_tpu_torch.tools.classify -m vit_small --workdir <19b's run>
+   <a JPEG>` (nvJPEG): K1 exactly depth, the top-5 the served engine's
+   for the same preprocessed image (a difference only between near
+   ties).
+
 The line before the last is a JSON object with one record per kernel; the
 last is `{"ok": true, "device": {...}}`.
 """
@@ -5877,6 +5903,404 @@ def check_real_datasets(yolo_workdir: str) -> dict:
     return out
 
 
+P19_DEVICE = "cuda"
+P19_MODEL = MODEL
+P19_BATCH = 256
+P19_STEPS = 3
+P19_MIXUP = 0.2
+# 19a: remat against no remat, the largest relative difference of a
+# step's loss and grad_norm (bf16 on the card; the recompute is the same
+# arithmetic, and the card gave it bit for bit: 0 measured, PERF.md)
+P19_REMAT_RTOL = 1e-4
+P19_B_STEPS = 10               # 19b: 5 dispatches of 2
+P19_B_BATCH = 64               # 19b's host synthetic batches
+P19_K = 2
+P19_YOLO_SIZE = 416
+P19_YOLO_BATCH = 16
+P19_YOLO_STEPS = 3
+P19_YOLO_LR = "1e-3"
+P19_OVERFLOW_BYTES = 1 << 20   # 19c's overflow run: a 1 MiB budget
+P19_RESNET_BATCH = 256
+P19_RESNET_STEPS = 8
+P19_RESNET_K = 4
+# 19d: k = 4 against k = 1, the parameters' largest difference over their
+# largest entry (cuDNN's backward need not be bitwise deterministic; the
+# card gave 0 between two k = 1 runs and between k = 4 and k = 1, PERF.md)
+P19_K_RTOL = 1e-3
+P19_JPEG = os.path.join(HERE, "tests", "fixtures", "jpeg", "q90_420.jpg")
+# 19e: a top-5 place where the tool and the engine differ must be a near
+# tie: their probabilities within this much
+P19_TIE = 1e-3
+
+
+def p19_jsonl(workdir: str, name: str) -> list:
+    with open(os.path.join(workdir, f"{name}.jsonl")) as fh:
+        return [json.loads(line) for line in fh]
+
+
+def p19_batches(n: int, batch: int, size: int, classes: int, device,
+                uint8: bool = False, seed: int = 1) -> list:
+    """`n` (images, labels) batches drawn on `device` from a seeded
+    generator: the card's steps are timed without the host's synthetic
+    generator in front of them (at batch 256 and 224 px it makes about
+    one batch a second)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (batch, size, size, 3)
+    out = []
+    for _ in range(n):
+        images = (torch.randint(0, 256, shape, generator=gen, device=device,
+                                dtype=torch.uint8) if uint8 else
+                  torch.randn(shape, generator=gen, device=device))
+        out.append((images, torch.randint(0, classes, (batch,),
+                                          generator=gen, device=device,
+                                          dtype=torch.int32)))
+    return out
+
+
+def p19_vit(remat: bool, workdir: str, device, batches: list) -> dict:
+    """19a's run: P19_STEPS steps of vit_small through the Trainer with
+    mixup and the gradient norm, with or without remat, from the config's
+    seed; its per-step metrics, K1's launches and the peak memory."""
+    cfg = get_config(P19_MODEL)
+    cfg = cfg.replace(remat=remat, mixup_alpha=P19_MIXUP, log_grad_norm=True,
+                      batch_size=P19_BATCH, log_every_steps=1,
+                      data=dataclasses.replace(
+                          cfg.data, dataset="synthetic",
+                          train_examples=P19_BATCH * P19_STEPS))
+    trainer = Trainer(cfg, device=device, workdir=workdir)
+    trainer.init_state()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    out = trainer.train_epoch(1, batches)
+    wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0)
+    trainer.close()
+    logged = [r["train_grad_norm"] for r in p19_jsonl(workdir, cfg.name)
+              if "train_grad_norm" in r]
+    return {"steps": trainer.last_epoch_steps, "launches": launches,
+            "peak_bytes": peak, "logged_grad_norm": logged, "out": out,
+            "wall": wall}
+
+
+def check_p19_remat(device) -> dict:
+    """19a: remat, mixup and the gradient norm on vit_small."""
+    cfg = get_config(P19_MODEL)
+    depth = cfg.model_kwargs["depth"]
+    batches = p19_batches(P19_STEPS, P19_BATCH, cfg.data.image_size,
+                          cfg.data.num_classes, device)
+    runs = {}
+    for remat in (False, True):
+        wd = tempfile.mkdtemp(prefix=f"chip_smoke_p19a{int(remat)}_")
+        atexit.register(shutil.rmtree, wd, ignore_errors=True)
+        runs[remat] = p19_vit(remat, wd, device, batches)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    plain, rem = runs[False], runs[True]
+    rel = {k: max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                  for a, b in zip(rem["steps"], plain["steps"]))
+           for k in ("loss", "grad_norm")}
+    for remat, r in runs.items():
+        phase(f"19a vit_small remat={remat}: losses "
+              f"{[round(s['loss'], 5) for s in r['steps']]} grad_norm "
+              f"{[round(s['grad_norm'], 5) for s in r['steps']]} (logged "
+              f"{len(r['logged_grad_norm'])}), K1 {r['launches']}, step_ms "
+              f"{r['out'].get('step_ms', float('nan')):.3f}, peak "
+              f"{r['peak_bytes'] / 2**30:.3f} GiB, {r['wall']:.1f}s")
+    phase(f"19a remat vs none: loss relative {rel['loss']:.3g}, grad_norm "
+          f"relative {rel['grad_norm']:.3g} (bound {P19_REMAT_RTOL:g}); K1 "
+          f"{plain['launches']} -> {rem['launches']}, "
+          f"{(rem['launches'] - plain['launches']) / P19_STEPS:g} more a "
+          f"step")
+    for r in runs.values():
+        norms = [s["grad_norm"] for s in r["steps"]]
+        if len(norms) != P19_STEPS or not all(
+                np.isfinite(v) and v > 0 for v in norms):
+            raise AssertionError(f"19a: grad_norm {norms}")
+        if len(r["logged_grad_norm"]) != P19_STEPS:
+            raise AssertionError(f"19a: grad_norm logged "
+                                 f"{r['logged_grad_norm']}")
+    if max(rel.values()) > P19_REMAT_RTOL:
+        raise AssertionError(f"19a: remat differs from none by {rel}")
+    if plain["launches"] != depth * P19_STEPS \
+            or rem["launches"] != 2 * depth * P19_STEPS:
+        raise AssertionError(
+            f"19a: K1 launches {plain['launches']} and {rem['launches']}, "
+            f"want {depth * P19_STEPS} and {2 * depth * P19_STEPS} (the "
+            f"recompute runs every block's attention again)")
+    return {"launches": {"plain": plain["launches"],
+                         "remat": rem["launches"]},
+            "steps": P19_STEPS, "rel": rel,
+            "peak_bytes": {"plain": plain["peak_bytes"],
+                           "remat": rem["peak_bytes"]},
+            "step_ms": {"plain": plain["out"].get("step_ms"),
+                        "remat": rem["out"].get("step_ms")}}
+
+
+def check_p19_dispatch(device) -> dict:
+    """19b: CutMix and k steps per dispatch through ViT/torch/train.py;
+    the workdir is kept for 19e."""
+    cfg = get_config(P19_MODEL)
+    depth = cfg.model_kwargs["depth"]
+    wd = tempfile.mkdtemp(prefix="chip_smoke_p19b_")
+    atexit.register(shutil.rmtree, wd, ignore_errors=True)
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    trainer, result = family_main("ViT", [
+        "-m", P19_MODEL, "--synthetic", "--cutmix-alpha", "1.0",
+        "--steps-per-dispatch", str(P19_K), "--batch-size", str(P19_B_BATCH),
+        "--steps-per-epoch", str(P19_B_STEPS), "--epochs", "1",
+        "--device", str(device), "--workdir", wd])
+    wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    records = [r for r in p19_jsonl(wd, cfg.name) if "train_loss" in r]
+    ends = list(range(P19_K, P19_B_STEPS + 1, P19_K))
+    log_every = trainer.config.log_every_steps
+    want_logged = [e for e in ends if e // log_every > (e - P19_K)
+                   // log_every]
+    dispatches = trainer.last_epoch_dispatches
+    evals = int(result.get("count", 0)) // P19_B_BATCH
+    want = depth * (P19_B_STEPS + evals)
+    phase(f"19b vit_small --cutmix-alpha 1.0 --steps-per-dispatch {P19_K}: "
+          f"{trainer.dispatches_total} dispatches of "
+          f"{sorted({d['steps'] for d in dispatches})} steps, train records "
+          f"at steps {[r['step'] for r in records]} (log_every "
+          f"{log_every}), losses "
+          f"{[round(s['loss'], 4) for s in trainer.last_epoch_steps]}, K1 "
+          f"{launches} (want {depth} x ({P19_B_STEPS} steps + {evals} eval "
+          f"batches) = {want}); {wall:.1f}s")
+    if (trainer.dispatches_total != P19_B_STEPS // P19_K
+            or [d["steps"] for d in dispatches]
+            != [float(P19_K)] * (P19_B_STEPS // P19_K)
+            or [r["step"] for r in records] != want_logged
+            or evals != 2 or not all(np.isfinite(s["loss"])
+                                     for s in trainer.last_epoch_steps)):
+        raise AssertionError(f"19b: {trainer.dispatches_total} dispatches "
+                             f"{dispatches}, records {records}, {result}")
+    if launches != want:
+        raise AssertionError(f"19b: {launches} K1 launches, want {want}")
+    return {"launches": launches, "steps": P19_B_STEPS, "eval_batches": evals,
+            "dispatches": trainer.dispatches_total, "workdir": wd}
+
+
+class P19Pulls:
+    """Counts the synthetic detection batches pulled, by seed (the train
+    epoch's seed is the epoch, the validation set's 10**6)."""
+
+    def __init__(self):
+        from deepvision_tpu_torch.data import detection as det
+        self.module, self.real = det, det.synthetic_batches
+        self.pulls: dict = {}
+
+    def __enter__(self):
+        def counted(*args, seed: int = 0, **kwargs):
+            for b in self.real(*args, seed=seed, **kwargs):
+                self.pulls[seed] = self.pulls.get(seed, 0) + 1
+                yield b
+        self.module.synthetic_batches = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module.synthetic_batches = self.real
+
+
+def p19_yolo(device, epochs: int, tag: str) -> tuple:
+    wd = tempfile.mkdtemp(prefix=f"chip_smoke_p19{tag}_")
+    atexit.register(shutil.rmtree, wd, ignore_errors=True)
+    best_iou.launches = 0
+    t0 = time.perf_counter()
+    with P19Pulls() as pulls:
+        trainer, result = family_main("YOLO", [
+            "-m", "yolov3", "--synthetic", "--image-size", str(P19_YOLO_SIZE),
+            "--epoch-on-device", "--log-grad-norm", "--epochs", str(epochs),
+            "--batch-size", str(P19_YOLO_BATCH), "--steps-per-epoch",
+            str(P19_YOLO_STEPS), "--learning-rate", P19_YOLO_LR,
+            "--device", str(device), "--workdir", wd])
+    return trainer, result, best_iou.launches, pulls.pulls, \
+        time.perf_counter() - t0
+
+
+def check_p19_epoch(device) -> dict:
+    """19c: yolov3 on the whole-epoch path, then the cache's overflow."""
+    import warnings
+
+    from deepvision_tpu_torch.core.steps import draw_epoch_permutation
+    from deepvision_tpu_torch.data.device_cache import \
+        EpochCacheOverflowWarning
+    trainer, result, launches, pulls, wall = p19_yolo(device, 2, "c")
+    cache = trainer._epoch_cache
+    evals = 2 * int(result.get("count", 0))
+    want = 2 * P19_YOLO_STEPS + evals
+    n = P19_YOLO_STEPS * P19_YOLO_BATCH
+    perm = draw_epoch_permutation(trainer.config.seed, 2, n, device)
+    is_perm = sorted(perm.tolist()) == list(range(n))
+    norms = [s["grad_norm"] for s in trainer.last_epoch_steps]
+    phase(f"19c yolov3 --epoch-on-device (416 px, batch {P19_YOLO_BATCH}, "
+          f"{P19_YOLO_STEPS} steps x 2 epochs): host batches pulled by "
+          f"epoch {pulls}, cache {cache.steps} steps x "
+          f"{cache.examples_per_step}, {cache.nbytes / 2**20:.1f} MiB staged "
+          f"in {cache.stage_secs:.3f}s, {trainer.dispatches_total} "
+          f"dispatches, epoch 2 losses "
+          f"{[round(s['loss'], 3) for s in trainer.last_epoch_steps]} "
+          f"grad_norm {[round(v, 3) for v in norms]}, K2 {launches} (want "
+          f"{2 * P19_YOLO_STEPS} steps + {evals} eval batches = {want}), "
+          f"epoch 2's shuffle a permutation: {is_perm}; {wall:.1f}s")
+    if (pulls.get(1) != P19_YOLO_STEPS or pulls.get(2, 0) != 0
+            or trainer.dispatches_total != 2 or not is_perm
+            or len(norms) != P19_YOLO_STEPS
+            or not all(np.isfinite(v) for v in norms)):
+        raise AssertionError(f"19c: pulls {pulls}, dispatches "
+                             f"{trainer.dispatches_total}, {norms}")
+    if launches != want:
+        raise AssertionError(f"19c: {launches} K2 launches, want {want}")
+    os.environ["DEEPVISION_EPOCH_CACHE_MAX_BYTES"] = str(P19_OVERFLOW_BYTES)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            over, res2, launches2, pulls2, wall2 = p19_yolo(device, 1, "c2")
+    finally:
+        del os.environ["DEEPVISION_EPOCH_CACHE_MAX_BYTES"]
+    named = [w for w in caught
+             if issubclass(w.category, EpochCacheOverflowWarning)]
+    evals2 = int(res2.get("count", 0))
+    want2 = P19_YOLO_STEPS + evals2
+    for w in named:
+        phase(f"19c {w.category.__name__}: {w.message}")
+    phase(f"19c with a {P19_OVERFLOW_BYTES} B budget: "
+          f"{len(named)} EpochCacheOverflowWarning, staged loop "
+          f"{over._epoch_fallback}, {over.dispatches_total} dispatches, "
+          f"pulls {pulls2}, K2 {launches2} (want {want2}); {wall2:.1f}s")
+    if (len(named) != 1 or not over._epoch_fallback
+            or over.dispatches_total != P19_YOLO_STEPS
+            or pulls2.get(1) != P19_YOLO_STEPS or launches2 != want2):
+        raise AssertionError(f"19c overflow: {len(named)} warnings, "
+                             f"{over.dispatches_total} dispatches, "
+                             f"{launches2} K2 launches")
+    return {"launches": launches, "train_steps": 2 * P19_YOLO_STEPS,
+            "eval_batches": evals, "cache_bytes": cache.nbytes,
+            "stage_secs": cache.stage_secs, "pulls": pulls,
+            "overflow_launches": launches2}
+
+
+def p19_resnet(device, k: int, tag: str, batches: list) -> tuple:
+    """19d's run: resnet50_tpu (its EMA, the device augment) through the
+    Trainer, one epoch of `batches` at k steps a dispatch."""
+    cfg = get_config("resnet50_tpu")
+    cfg = cfg.replace(steps_per_dispatch=k, device_augment=True,
+                      batch_size=P19_RESNET_BATCH,
+                      data=dataclasses.replace(
+                          cfg.data, dataset="synthetic",
+                          train_examples=P19_RESNET_BATCH * len(batches)))
+    wd = tempfile.mkdtemp(prefix=f"chip_smoke_p19{tag}_")
+    atexit.register(shutil.rmtree, wd, ignore_errors=True)
+    trainer = Trainer(cfg, device=device, workdir=wd)
+    trainer.init_state()
+    trainer.train_epoch(1, batches)
+    trainer.close()
+    state = trainer.state
+    return trainer, ([p.detach() for p in state.model.parameters()]
+                     + list(state.ema))
+
+
+def p19_rel(a: list, b: list) -> float:
+    return max(((x.float() - y.float()).abs().max()
+                / y.float().abs().max().clamp_min(1e-30)).item()
+               for x, y in zip(a, b))
+
+
+def check_p19_resnet(device) -> dict:
+    """19d: resnet50_tpu with k = 4 against k = 1 (twice)."""
+    launches0 = (flash_attention.launches, best_iou.launches)
+    size = decode_image_size(get_config("resnet50_tpu").data.image_size)
+    batches = p19_batches(P19_RESNET_STEPS, P19_RESNET_BATCH, size, 1000,
+                          device, uint8=True)
+    one, w1 = p19_resnet(device, 1, "d1", batches)
+    again, w1b = p19_resnet(device, 1, "d1b", batches)
+    four, w4 = p19_resnet(device, P19_RESNET_K, "d4", batches)
+    spread, rel = p19_rel(w1b, w1), p19_rel(w4, w1)
+    d4 = four.last_epoch_dispatches
+    d1 = one.last_epoch_dispatches
+    per = {k: statistics.median(d[k] for d in d4[1:]) for k in ("ms",
+                                                                 "host_ms")}
+    per1 = {k: statistics.median(d[k] for d in d1[1:]) for k in ("ms",
+                                                                 "host_ms")}
+    phase(f"19d resnet50_tpu (batch {P19_RESNET_BATCH}, {P19_RESNET_STEPS} "
+          f"steps, EMA): k={P19_RESNET_K} vs k=1 parameters and EMA, "
+          f"largest difference over largest entry {rel:.3g} (bound "
+          f"{P19_K_RTOL:g}; k=1 vs k=1 {spread:.3g}); a dispatch of "
+          f"{P19_RESNET_K}: {per['ms']:.3f} device ms, {per['host_ms']:.3f} "
+          f"host ms to issue; of 1: {per1['ms']:.3f}, {per1['host_ms']:.3f}; "
+          f"dispatches {four.dispatches_total} vs {one.dispatches_total}")
+    if (four.dispatches_total != P19_RESNET_STEPS // P19_RESNET_K
+            or four.state.step != one.state.step or rel > P19_K_RTOL):
+        raise AssertionError(f"19d: k={P19_RESNET_K} differs by {rel:g}")
+    if (flash_attention.launches, best_iou.launches) != launches0:
+        raise AssertionError("19d: a kernel ran on resnet50_tpu's path")
+    return {"rel": rel, "spread": spread, "dispatch_ms": per,
+            "step_ms_k1": per1}
+
+
+def check_p19_classify(device, workdir: str) -> dict:
+    """19e: the classifier tool on 19b's checkpoint, against the served
+    engine."""
+    from deepvision_tpu_torch.core.classify import Classifier
+    from deepvision_tpu_torch.tools import classify as classify_tool
+    depth = get_config(P19_MODEL).model_kwargs["depth"]
+    routes = ("cpu_images",) if device.type == "cpu" else (
+        "hw_images", "gpu_images", "sw_images")
+    decoded0 = sum(jpeg.stats[k] for k in routes)
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    top = classify_tool.main(["-m", P19_MODEL, "--workdir", workdir,
+                              "--device", str(device), P19_JPEG])[P19_JPEG]
+    wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    decoded = sum(jpeg.stats[k] for k in routes) - decoded0
+    clf = Classifier(P19_MODEL, workdir=workdir, device=device)
+    x = clf.preprocess(P19_JPEG).cpu().numpy()
+    clf.close()
+    engine = PredictEngine.from_config(P19_MODEL, device=device, buckets=(1,),
+                                       workdir=workdir, verbose=False)
+    probs = torch.softmax(torch.from_numpy(engine.predict(x)[0]).double(),
+                          -1).numpy()
+    served = [(f"class {i}", float(probs[i]))
+              for i in np.argsort(probs)[::-1][:5]]
+    # where the two differ, the engine's own probabilities of the two
+    # classes must be a near tie
+    ties = [abs(probs[int(n.split()[-1])] - q) for (n, _), (m, q) in
+            zip(top, served) if n != m]
+    phase(f"19e tools.classify on 19b's epoch "
+          f"{engine.provenance.get('checkpoint_epoch')}"
+          f": top-5 {[(n, round(p, 5)) for n, p in top]}; served "
+          f"{[(n, round(p, 5)) for n, p in served]}; K1 {launches} (want "
+          f"{depth}); {decoded} image(s) decoded on {device.type}; "
+          f"{wall:.1f}s")
+    if launches != depth or decoded != 1 or len(top) != 5:
+        raise AssertionError(f"19e: K1 {launches}, decoded {decoded}")
+    if ties and max(ties) > P19_TIE:
+        raise AssertionError(f"19e: the top-5 differs from the engine's "
+                             f"beyond a near tie: {top} vs {served}")
+    return {"launches": launches, "top5": top, "served": served}
+
+
+def check_levers() -> dict:
+    """Phase 19, slice 17: the training step's levers, each kernel's count
+    zeroed just before its entry point and read just after."""
+    t0 = time.perf_counter()
+    device = torch.device(P19_DEVICE)
+    out = {"19a": check_p19_remat(device)}
+    out["19b"] = check_p19_dispatch(device)
+    out["19c"] = check_p19_epoch(device)
+    out["19d"] = check_p19_resnet(device)
+    out["19e"] = check_p19_classify(device, out["19b"]["workdir"])
+    phase(f"19: phase 19 took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def keep_bytecode() -> None:
     """Keep the bytecode Python compiles, for this process and every one
     it starts, under the checkout's .cache/: where the interpreter's
@@ -5896,6 +6320,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     keep_bytecode()
+    t_start = time.perf_counter()
+
+    def ended(what: str) -> None:
+        phase(f"timing: {what} ended at "
+              f"{time.perf_counter() - t_start:.1f}s")
+
     # 1. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6036,6 +6466,7 @@ def main() -> int:
     for name, ms in prof["top"]:
         phase(f"profile top kernel: {ms:.4f} ms/dispatch {name}")
 
+    ended("phases 1-4")
     # 5. slice 2: yolov3 training
     yolo = check_yolo_slice()
     k2_ms = iou_fused["device_ms"]
@@ -6054,6 +6485,7 @@ def main() -> int:
           f"({100 * depth * train_k1['device_ms'] / vit['step_ms']:.2f}%, "
           f"its device time at the training shape)")
 
+    ended("phases 5-6")
     # 7-8. slice 6: lenet5 and resnet50_tpu training (no kernel on these
     # paths: every launch count below stays as phases 4-6 left it)
     check_lenet_training()
@@ -6071,37 +6503,44 @@ def main() -> int:
         raise AssertionError(f"a kernel ran on the zoo's paths: "
                              f"{zoo_launches}")
 
+    ended("phases 7-10")
     # 11. slice 8: data parallelism (the launch counts are each rank's,
     # zeroed in the rank before each entry point)
     torch.cuda.empty_cache()        # the workers share the card
     ddp = check_data_parallel(smi, yolo, resnet)
 
+    ended("phase 11")
     # 12. slice 9: yolov3 inference on phase 5's checkpoint (no kernel on
     # this path: the launch counts, zeroed there, must stay 0)
     torch.cuda.empty_cache()
     check_detection_inference(yolo)
 
+    ended("phase 12")
     # 13. slice 10: CenterNet and stacked-Hourglass pose (no kernel on
     # these paths: the launch counts, zeroed there, must stay 0)
     torch.cuda.empty_cache()
     check_centernet_and_pose()
 
+    ended("phase 13")
     # 14. slice 11: U-Net segmentation, checkpoint restore into the
     # engine, DCGAN and CycleGAN (no kernel on these paths: the launch
     # counts, zeroed at each sub-phase, must stay 0)
     torch.cuda.empty_cache()
     check_segmentation_and_gans(yolo)
 
+    ended("phase 14")
     # 15. slice 12: resilient training (K2 on its main path, 15a: the
     # counts, zeroed there, read just after run_detection)
     torch.cuda.empty_cache()
     resil = check_resilience()
 
+    ended("phase 15")
     # 16. slice 13: running the server (K1 on its main path, 16a: the
     # counts, zeroed just before its traffic, read just after)
     torch.cuda.empty_cache()
     ops = check_serve_ops()
 
+    ended("phase 16")
     # 17. slice 14: the replica tier over phase 16's run (K1 in every
     # replica, its launches read from each replica's /healthz) and the
     # flywheel in-process (K1 on its main path, 17b: the counts zeroed
@@ -6111,11 +6550,19 @@ def main() -> int:
         ops["stash"], ops["16d"]["latency_ms"][False])
     tier, fly = fleet_ops["17a"], fleet_ops["17b"]
 
+    ended("phase 17")
     # 18. slice 15: real datasets from records, decoded on the card (K1 on
     # 18c's path, K2 on 18d's: each count zeroed just before its entry
     # point, read just after)
     torch.cuda.empty_cache()
     real = check_real_datasets(yolo["workdir"])
+
+    ended("phase 18")
+    # 19. slice 17: the training step's levers (K1 in 19a, 19b and 19e,
+    # K2 in 19c: each count zeroed just before its run, read just after)
+    torch.cuda.empty_cache()
+    levers = check_levers()
+    ended("phase 19")
 
     # the card again, next to the numbers: a tail of the output keeps it
     print(smi, flush=True)
@@ -6148,6 +6595,12 @@ def main() -> int:
                      "finetune_steps": fly["finetune_steps"]},
         "train_shape": {k: train_k1[k] for k in timed_keys},
         "records_launches": real["18c"],
+        "levers_launches": {
+            "remat": levers["19a"]["launches"],
+            "remat_steps": levers["19a"]["steps"],
+            "cutmix_k2": {k: levers["19b"][k] for k in (
+                "launches", "steps", "eval_batches", "dispatches")},
+            "classify": levers["19e"]["launches"]},
         "backward": "the VJP of naive_attention (autograd), as the JAX "
                     "package's _fused_bwd: no backward kernel",
         "grad_max_abs_err": grad_err}, {
@@ -6167,6 +6620,8 @@ def main() -> int:
         "records_launches": {k: real["18d"][k] for k in (
             "launches", "train_steps", "eval_batches",
             "eval_only_launches")},
+        "epoch_on_device_launches": {k: levers["19c"][k] for k in (
+            "launches", "train_steps", "eval_batches", "overflow_launches")},
         "resilience_launches": {
             "launches": resil["15a"]["launches"],
             "train_steps": resil["15a"]["train_steps"],

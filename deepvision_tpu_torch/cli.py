@@ -23,13 +23,16 @@ flags are the JAX CLI's (`-m`, `-c`, `--data-dir`, `--dataset`, `--synthetic`,
 `--prefetch-batches`, `--steps-per-epoch`, `--seed`, `--workdir`,
 `--num-classes`, `--no-halt-on-nonfinite`, `--cache-val`, `--profile-dir`
 (a `torch.profiler` trace of the first epoch), `--eval-only` (restore,
-evaluate once, print `eval: ...`), and the resilience flags
-`--auto-resume`, `--resume {strict,fallback}`, `--recover-on-divergence
-N`, `--watchdog-secs S` (or DEEPVISION_WATCHDOG_SECS) and
-`--no-graceful-shutdown`), plus `--device` and `--image-size`. The JAX
-CLI's `--multihost` and `--compilation-cache` are refused by name
-(`REFUSED_FLAGS`); its mixup, cutmix, grad-norm, mesh, multistep and
-epoch-on-device flags are not ported yet (ROADMAP A1, A6).
+evaluate once, print `eval: ...`), the step's levers `--log-grad-norm`,
+`--mixup-alpha`, `--cutmix-alpha`, `--steps-per-dispatch` and
+`--epoch-on-device/--no-epoch-on-device` (the in-memory datasets only, as
+in the JAX CLI), and the resilience flags `--auto-resume`, `--resume
+{strict,fallback}`, `--recover-on-divergence N`, `--watchdog-secs S` (or
+DEEPVISION_WATCHDOG_SECS) and `--no-graceful-shutdown`), plus `--device`
+and `--image-size`. Remat has no flag, as in the JAX CLI: it is the
+config's `remat`. The JAX CLI's `--multihost` and `--compilation-cache`
+are refused by name (`REFUSED_FLAGS`); its mesh flags are not ported yet
+(ROADMAP A6).
 
 Real datasets read the JAX package's on-disk formats: `--data-dir` holds
 the `train*`/`val*` TFRecords of ImageNet (`imagenet`, the classifiers'
@@ -116,6 +119,30 @@ def build_parser(family: str, models: Sequence[str]) -> argparse.ArgumentParser:
                    help="gradient accumulation: average grads over k "
                         "micro-batches per optimizer update (effective "
                         "batch = batch-size * k)")
+    p.add_argument("--log-grad-norm", action="store_true",
+                   help="log the global L2 gradient norm per step "
+                        "(divergence forensics; informs grad_clip_norm)")
+    p.add_argument("--mixup-alpha", type=float, default=None,
+                   help="mixup augmentation strength (classification; "
+                        "lam ~ Beta(a, a), typical 0.1-0.4)")
+    p.add_argument("--cutmix-alpha", type=float, default=None,
+                   help="CutMix augmentation strength (classification; "
+                        "pasted-box blending, typical 1.0; exclusive with "
+                        "--mixup-alpha)")
+    p.add_argument("--steps-per-dispatch", type=_positive_int, default=None,
+                   help="run k train steps per host dispatch, issued back "
+                        "to back with no host sync; metrics surface as the "
+                        "k-step mean; incompatible with --accum-steps")
+    p.add_argument("--epoch-on-device", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="whole-epoch training from the device: stage the "
+                        "first epoch on the card once and run every epoch "
+                        "from it with no host batch. In-memory datasets "
+                        "only (synthetic/mnist/digits/seg scenes); the "
+                        "per-epoch reshuffle happens on the device, drawn "
+                        "from (seed, epoch); an epoch over the memory "
+                        "budget falls back to the staged path with a "
+                        "named warning")
     p.add_argument("--no-decay-bn-bias", action="store_true",
                    help="exclude 1-D params (norm scales, biases) from "
                         "weight decay")
@@ -235,6 +262,8 @@ def _config_from_args(args, synthetic_image_size: Optional[int]
     if args.accum_steps:
         cfg = cfg.replace(optimizer=dataclasses.replace(
             cfg.optimizer, accum_steps=args.accum_steps))
+    if args.log_grad_norm:
+        cfg = cfg.replace(log_grad_norm=True)
     if args.no_decay_bn_bias:
         cfg = cfg.replace(optimizer=dataclasses.replace(
             cfg.optimizer, no_decay_bn_bias=True))
@@ -243,6 +272,19 @@ def _config_from_args(args, synthetic_image_size: Optional[int]
             raise SystemExit(f"--ema-decay must be in (0, 1), got "
                              f"{args.ema_decay}")
         cfg = cfg.replace(ema_decay=args.ema_decay)
+    if args.mixup_alpha is not None:
+        if args.mixup_alpha < 0.0:
+            raise SystemExit(f"--mixup-alpha must be >= 0, got "
+                             f"{args.mixup_alpha}")
+        cfg = cfg.replace(mixup_alpha=args.mixup_alpha)
+    if args.cutmix_alpha is not None:
+        if args.cutmix_alpha < 0.0:
+            raise SystemExit(f"--cutmix-alpha must be >= 0, got "
+                             f"{args.cutmix_alpha}")
+        cfg = cfg.replace(cutmix_alpha=args.cutmix_alpha)
+    if cfg.mixup_alpha > 0.0 and cfg.cutmix_alpha > 0.0:
+        raise SystemExit("--mixup-alpha and --cutmix-alpha are mutually "
+                         "exclusive; pass one of them")
     if args.device_normalize:
         cfg = cfg.replace(data=dataclasses.replace(
             cfg.data, normalize_on_device=True))
@@ -252,8 +294,12 @@ def _config_from_args(args, synthetic_image_size: Optional[int]
         cfg = cfg.replace(data=dataclasses.replace(cfg.data, cache_val=True))
     if args.no_halt_on_nonfinite:
         cfg = cfg.replace(halt_on_nonfinite=False)
+    if args.steps_per_dispatch:
+        cfg = cfg.replace(steps_per_dispatch=args.steps_per_dispatch)
     if args.prefetch_batches:
         cfg = cfg.replace(prefetch_batches=args.prefetch_batches)
+    if args.epoch_on_device is not None:
+        cfg = cfg.replace(epoch_on_device=args.epoch_on_device)
     if args.seed is not None:
         cfg = cfg.replace(seed=args.seed)
     if args.resume:
@@ -280,7 +326,34 @@ def _config_from_args(args, synthetic_image_size: Optional[int]
     if args.image_size:
         cfg = cfg.replace(data=dataclasses.replace(
             cfg.data, image_size=args.image_size))
+    if cfg.epoch_on_device:
+        check_epoch_on_device(cfg)
     return cfg
+
+
+# the datasets the epoch cache may hold: in memory and epoch-stationary
+CACHEABLE = {"synthetic", "seg_synthetic", "mnist", "digits", "digits_seg",
+             "digits_detect"}
+
+
+def check_epoch_on_device(cfg: TrainConfig) -> None:
+    """`--epoch-on-device` on an in-memory, epoch-stationary dataset only,
+    with the JAX CLI's refusal and its note on the scene datasets."""
+    if cfg.data.dataset not in CACHEABLE:
+        raise SystemExit(
+            f"--epoch-on-device caches one epoch device-resident and "
+            f"needs an in-memory, epoch-stationary dataset "
+            f"({', '.join(sorted(CACHEABLE))}); dataset="
+            f"{cfg.data.dataset!r} streams from disk — use the default "
+            f"double-buffered staged path (--prefetch-batches) there")
+    if cfg.data.dataset in ("digits_seg", "digits_detect") and \
+            mesh.is_main_process():
+        # these pipelines compose new scenes each epoch; under the cache
+        # that becomes "epoch 1's scenes, reshuffled on the device"
+        print(f"[{cfg.name}] --epoch-on-device: {cfg.data.dataset} "
+              f"normally re-composes scenes per epoch; the cache replays "
+              f"epoch 1's scenes with a device-side (seed, epoch) "
+              f"reshuffle instead", flush=True)
 
 
 def _synthetic_data(cfg: TrainConfig, make_batches: Callable) -> Tuple:

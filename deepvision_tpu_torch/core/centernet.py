@@ -15,8 +15,10 @@ of the ranks' means is the global batch's) and returns the global means.
 The predict step decodes the LAST stack's heads (the earlier ones are
 train-time supervision) by peak picking and top-k, in inference mode on
 the EMA weights when the state keeps them; `evaluate_map` feeds it to the
-mAP evaluator (core/eval_detection.py). The spatial shard_map step and
-remat of the JAX package are not ported.
+mAP evaluator (core/eval_detection.py). Remat comes with the state
+(core/remat.py) and `log_grad_norm` adds the step metric `grad_norm`
+(core/steps.py::maybe_grad_norm); the spatial shard_map step of the JAX
+package is not ported.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from ..parallel import mesh
 from ..utils.device import to_device, to_host
 from .config import UNIT_RANGE_NORM, TrainConfig
 from .detection import boxes_calibration_batch
-from .steps import normalize_input
+from .steps import maybe_grad_norm, normalize_input
 from .train_state import TrainState
 from .trainer import LossWatchedTrainer
 
@@ -40,7 +42,8 @@ Step = Callable[..., Dict[str, torch.Tensor]]
 
 def make_centernet_train_step(*, num_classes: int, grid: int,
                               compute_dtype: torch.dtype = torch.bfloat16,
-                              input_norm=None) -> Step:
+                              input_norm=None,
+                              log_grad_norm: bool = False) -> Step:
     """(state, images, boxes, classes, valid) -> metrics, updating `state`
     in place. boxes (B, N, 4) normalized corners padded to MAX_BOXES;
     classes (B, N) int; valid (B, N) 0/1."""
@@ -54,12 +57,13 @@ def make_centernet_train_step(*, num_classes: int, grid: int,
         loss = comp["total"].mean()
         state.optimizer.zero_grad()
         loss.backward()
+        norm = maybe_grad_norm(log_grad_norm, state.model.parameters())
         state.optimizer.step()
         state.step += 1
         return mesh.global_means({
             "loss": loss.detach(),
             **{f"{k}_loss": v.detach().mean() for k, v in comp.items()
-               if k != "total"}})
+               if k != "total"}, **norm})
 
     return step
 
@@ -95,7 +99,8 @@ class CenterNetTrainer(LossWatchedTrainer):
                   compute_dtype=getattr(torch, config.dtype),
                   input_norm=(UNIT_RANGE_NORM
                               if config.data.normalize_on_device else None))
-        self.train_step = make_centernet_train_step(**kw)
+        self.train_step = make_centernet_train_step(
+            **kw, log_grad_norm=config.log_grad_norm)
         self.eval_step = make_centernet_eval_step(**kw)
 
     def _calibration_batch(self, sample_shape, batch_size: int,

@@ -1,8 +1,8 @@
 """Typed configs: the fields of deepvision_tpu/core/config.py that the
 port's serve path and its trainers read (own copy), and
-`decode_image_size`. Defaults equal the JAX package's. Fields
-of the JAX configs that no ported path reads yet (mesh, mixup and
-dispatch levers) arrive with the slice that needs them.
+`decode_image_size`. Defaults equal the JAX package's. The mesh's model
+and spatial axes (`model_parallel`, `spatial_parallel`,
+`spatial_backend`) are the JAX fields no ported path reads yet.
 """
 
 from __future__ import annotations
@@ -124,6 +124,33 @@ class TrainConfig:
     # training batches staged ahead on the device by a producer thread
     # (parallel/prefetch.py); 1 stages inline
     prefetch_batches: int = 2
+    # recompute the train forward's activations in the backward
+    # (`torch.utils.checkpoint`, core/remat.py): the dense layers' matmuls
+    # are kept, everything else is recomputed, as JAX's
+    # dots_with_no_batch_dims_saveable policy does
+    remat: bool = False
+    # mixup (classification): each step blends the batch with a
+    # permutation of itself, lam ~ Beta(a, a); 0 is off
+    mixup_alpha: float = 0.0
+    # CutMix (classification): a box of the permuted batch pasted in, lam
+    # the exact kept fraction; exclusive with mixup_alpha
+    cutmix_alpha: float = 0.0
+    # the global L2 norm of the gradients as the step metric `grad_norm`
+    # (under accumulation, the micro-batch's)
+    log_grad_norm: bool = False
+    # k train steps per host dispatch: the metrics come back as the k
+    # steps' mean, the EMA advances after each step; not with
+    # accum_steps > 1
+    steps_per_dispatch: int = 1
+    # stage the first trained epoch on the device once (data/
+    # device_cache.py) and run every later epoch from it with no host
+    # batch; an epoch over the budget trains through the staged loop with
+    # EpochCacheOverflowWarning. Not with steps_per_dispatch > 1 or
+    # accum_steps > 1
+    epoch_on_device: bool = False
+    # the on-device epoch's permutation of the examples, a function of
+    # (seed, epoch); off replays the cached order
+    epoch_shuffle: bool = True
     # divergence recovery (core/resilience.py): when an epoch's mean loss
     # is non-finite, roll back to the last committed checkpoint, scale the
     # LR by recovery_lr_factor and retry the epoch, up to this many times a

@@ -11,7 +11,8 @@ the Adam update. Nothing in a step waits for the device. Under a process
 group the train step runs the state's DDP wrapper on the rank's rows
 (`yolo_loss` is per image, so the mean of the ranks' means is the global
 batch's) and returns the global means; the eval step runs the unwrapped
-model.
+model. Remat comes with the state (core/remat.py), and `log_grad_norm`
+adds the step metric `grad_norm` (core/steps.py::maybe_grad_norm).
 
 The predict step is inference end to end on the device: the decoded
 forward (eval mode, images cast to the compute dtype; the heads come out
@@ -36,7 +37,7 @@ from ..ops.nms import batched_nms
 from ..parallel import mesh
 from ..utils.device import to_device, to_host
 from .config import UNIT_RANGE_NORM, TrainConfig
-from .steps import normalize_input
+from .steps import maybe_grad_norm, normalize_input
 from .train_state import TrainState
 from .trainer import LossWatchedTrainer
 
@@ -77,7 +78,8 @@ def _encode(boxes: torch.Tensor, classes: torch.Tensor, valid: torch.Tensor,
 
 def make_yolo_train_step(*, num_classes: int, grid_sizes: Sequence[int],
                          compute_dtype: torch.dtype = torch.bfloat16,
-                         input_norm=None) -> Step:
+                         input_norm=None,
+                         log_grad_norm: bool = False) -> Step:
     """(state, images, boxes, classes, valid) -> metrics, updating `state`
     in place. boxes: (B, N, 4) normalized corner ground truth padded to
     N = MAX_BOXES; classes (B, N) int; valid (B, N) 0/1. Metrics are device
@@ -92,12 +94,13 @@ def make_yolo_train_step(*, num_classes: int, grid_sizes: Sequence[int],
         loss = comp["total"].mean()
         state.optimizer.zero_grad()
         loss.backward()
+        norm = maybe_grad_norm(log_grad_norm, state.model.parameters())
         state.optimizer.step()
         state.step += 1
         return mesh.global_means({
             "loss": loss.detach(),
             **{f"{k}_loss": v.detach().mean() for k, v in comp.items()
-               if k != "total"}})
+               if k != "total"}, **norm})
 
     return step
 
@@ -200,5 +203,6 @@ class DetectionTrainer(LossWatchedTrainer):
                   compute_dtype=getattr(torch, config.dtype),
                   input_norm=(UNIT_RANGE_NORM
                               if config.data.normalize_on_device else None))
-        self.train_step = make_yolo_train_step(**kw)
+        self.train_step = make_yolo_train_step(
+            **kw, log_grad_norm=config.log_grad_norm)
         self.eval_step = make_yolo_eval_step(**kw)

@@ -117,6 +117,13 @@ class AdversarialTrainer:
 
     def _init_common(self, config: TrainConfig, workdir: str,
                      device) -> None:
+        if config.steps_per_dispatch > 1:
+            # an error beats silently dispatching one step at a time
+            raise ValueError(
+                "steps_per_dispatch > 1 is not supported by adversarial "
+                "trainers: the CycleGAN step round-trips through the host "
+                "ImagePool between its two phases, and DCGAN keeps one "
+                "dispatch per step for the same two-optimizer shape")
         if mesh.world_size() > 1:
             raise ValueError(
                 f"{type(self).__name__} runs in one process in the port: "

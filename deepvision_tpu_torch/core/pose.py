@@ -10,8 +10,10 @@ A step is a plain function on device tensors that updates the state in
 place; nothing in it waits for the device. Under a process group the
 train step runs the state's DDP wrapper on the rank's rows (each rank's
 loss is a mean over as many elements, so the mean of the ranks' means is
-the global batch's) and returns the global mean. The spatial shard_map
-step and remat of the JAX package are not ported.
+the global batch's) and returns the global mean. Remat comes with the state (core/remat.py) and
+`log_grad_norm` adds the step metric `grad_norm`
+(core/steps.py::maybe_grad_norm); the spatial shard_map step of the JAX
+package is not ported.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from ..models.common import at_least_f32
 from ..ops.heatmap import render_gaussian_heatmaps
 from ..parallel import mesh
 from .config import UNIT_RANGE_NORM, TrainConfig
-from .steps import normalize_input
+from .steps import maybe_grad_norm, normalize_input
 from .train_state import TrainState
 from .trainer import LossWatchedTrainer
 
@@ -48,7 +50,8 @@ def weighted_mse_loss(labels: torch.Tensor,
 
 def make_pose_train_step(*, heatmap_size: Tuple[int, int],
                          compute_dtype: torch.dtype = torch.bfloat16,
-                         input_norm=None) -> Step:
+                         input_norm=None,
+                         log_grad_norm: bool = False) -> Step:
     """(state, images, kp_x, kp_y, visibility) -> {"loss"}, updating
     `state` in place. kp_x, kp_y: (B, K) normalized keypoints (< 0:
     missing); visibility (B, K)."""
@@ -61,9 +64,10 @@ def make_pose_train_step(*, heatmap_size: Tuple[int, int],
         loss = weighted_mse_loss(labels, state.train_model(images))
         state.optimizer.zero_grad()
         loss.backward()
+        norm = maybe_grad_norm(log_grad_norm, state.model.parameters())
         state.optimizer.step()
         state.step += 1
-        return mesh.global_means({"loss": loss.detach()})
+        return mesh.global_means({"loss": loss.detach(), **norm})
 
     return step
 
@@ -97,7 +101,8 @@ class PoseTrainer(LossWatchedTrainer):
         kw = dict(heatmap_size=hm, compute_dtype=getattr(torch, config.dtype),
                   input_norm=(UNIT_RANGE_NORM
                               if config.data.normalize_on_device else None))
-        self.train_step = make_pose_train_step(**kw)
+        self.train_step = make_pose_train_step(
+            **kw, log_grad_norm=config.log_grad_norm)
         self.eval_step = make_pose_eval_step(**kw)
 
     def _calibration_batch(self, sample_shape, batch_size: int,

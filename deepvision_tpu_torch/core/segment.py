@@ -19,9 +19,11 @@ place; nothing in it waits for the device. Under a process group the
 train step runs the DDP wrapper on the rank's rows (every rank holds as
 many pixels, so the mean of the ranks' losses is the global batch's) and
 returns the global means; evaluation splits each global batch over the
-ranks and all-reduces the confusion counts. The shard_map step over a
-spatial mesh and remat are not ported (ROADMAP A6); mixup and cutmix are
-not carried by the port's configs, so there is nothing to refuse.
+ranks and all-reduces the confusion counts. Remat comes with the state
+(core/remat.py) and `log_grad_norm` adds the step metric `grad_norm`
+(core/steps.py::maybe_grad_norm); mixup and CutMix are refused, as in the
+JAX trainer. The shard_map step over a spatial mesh is not ported
+(ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from ..models.common import at_least_f32
 from ..parallel import mesh
 from . import metrics as metrics_lib
 from .config import TrainConfig
-from .steps import _check_norm, normalize_input
+from .steps import _check_norm, maybe_grad_norm, normalize_input
 from .train_state import TrainState
 from .trainer import Trainer
 
@@ -95,8 +97,10 @@ def pixel_accuracy(logits: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
 def make_segmentation_train_step(*, compute_dtype: torch.dtype = torch.bfloat16,
                                  input_norm=None,
                                  device_augment: Optional[Callable] = None,
-                                 dice_weight: float = 0.0) -> Step:
-    """(state, images, masks) -> {loss, pixel_acc, ce_loss[, dice_loss]},
+                                 dice_weight: float = 0.0,
+                                 log_grad_norm: bool = False) -> Step:
+    """(state, images, masks) -> {loss, pixel_acc, ce_loss[, dice_loss,
+    grad_norm]},
     updating `state` in place. `device_augment` is the paired train stage
     (it replaces `input_norm`)."""
     _check_norm(input_norm, device_augment)
@@ -114,6 +118,7 @@ def make_segmentation_train_step(*, compute_dtype: torch.dtype = torch.bfloat16,
         loss = comp["total"]
         state.optimizer.zero_grad()
         loss.backward()
+        norm = maybe_grad_norm(log_grad_norm, state.model.parameters())
         state.optimizer.step()
         state.step += 1
         with torch.no_grad():
@@ -121,7 +126,7 @@ def make_segmentation_train_step(*, compute_dtype: torch.dtype = torch.bfloat16,
                 "loss": loss.detach(),
                 "pixel_acc": pixel_accuracy(logits, masks),
                 **{f"{k}_loss": v.detach() for k, v in comp.items()
-                   if k != "total"}})
+                   if k != "total"}, **norm})
 
     return step
 
@@ -179,6 +184,13 @@ class SegmentationTrainer(Trainer):
     def __init__(self, config: TrainConfig, *, device=None,
                  workdir: Optional[str] = None,
                  model: Optional[torch.nn.Module] = None):
+        if config.mixup_alpha or config.cutmix_alpha:
+            # blending class-id masks is meaningless; an error beats a
+            # silent no-op
+            raise ValueError(
+                "mixup_alpha/cutmix_alpha are classification-only; "
+                "SegmentationTrainer trains on per-pixel class ids — use "
+                "the paired device augmentation (--device-augment) instead")
         super().__init__(config, device=device, workdir=workdir, model=model)
         compute_dtype = getattr(torch, config.dtype)
         data = config.data
@@ -196,7 +208,8 @@ class SegmentationTrainer(Trainer):
         dice_weight = dice_weight_for(config)
         self.train_step = make_segmentation_train_step(
             compute_dtype=compute_dtype, input_norm=input_norm,
-            device_augment=train_augment, dice_weight=dice_weight)
+            device_augment=train_augment, dice_weight=dice_weight,
+            log_grad_norm=config.log_grad_norm)
         self.eval_step = make_segmentation_eval_step(
             num_classes=data.num_classes, compute_dtype=compute_dtype,
             input_norm=input_norm, device_augment=eval_augment,

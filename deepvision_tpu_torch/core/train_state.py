@@ -12,7 +12,12 @@ parameters with the *current* BatchNorm statistics.
 The random draws of a step (dropout masks, device augmentation) come from
 generators on the model's device reseeded from (`seed`, `step`) and a
 stream tag, the counterpart of the JAX step's `fold_in(rng, state.step)`:
-they repeat on resume.
+they repeat on resume. The host draws of a step (mixup and CutMix's lam,
+permutation and box, core/steps.py) come from a numpy generator seeded
+from the same hash (`step_numpy_rng`).
+
+With `remat` the train forward runs through `core/remat.py::Remat`, its
+activations recomputed in the backward.
 
 Under a process group (parallel/mesh.py) the train steps run `train_model`,
 the model wrapped in `DistributedDataParallel`, which broadcasts rank 0's
@@ -31,10 +36,12 @@ import hashlib
 import inspect
 from typing import Dict, Iterator, List, Optional
 
+import numpy as np
 import torch
 
 from ..parallel import mesh
 from .optim import Optimizer
+from .remat import Remat
 
 
 @torch.no_grad()
@@ -59,22 +66,28 @@ class TrainState:
     ema: Optional[List[torch.Tensor]] = None
     generators: Dict[str, torch.Generator] = dataclasses.field(
         default_factory=dict)
+    #: recompute the train forward's activations in the backward
+    remat: bool = False
 
     #: the model wrapped for data parallelism under a process group
     ddp: Optional[torch.nn.Module] = dataclasses.field(default=None,
                                                        init=False)
+    #: the model or its `Remat` wrapper: what DDP wraps
+    _forward: Optional[torch.nn.Module] = dataclasses.field(default=None,
+                                                            init=False)
 
     def __post_init__(self):
         if self.ema_decay is not None and self.ema is None:
             self.ema = [p.detach().clone() for p in self.model.parameters()]
+        self._forward = Remat(self.model) if self.remat else self.model
         if mesh.is_initialized():
-            self.ddp = wrap_ddp(self.model)
+            self.ddp = wrap_ddp(self._forward)
 
     @property
     def train_model(self) -> torch.nn.Module:
         """What a train step runs: the DDP wrapper under a process group,
-        else the model."""
-        return self.model if self.ddp is None else self.ddp
+        else the model (each through `Remat` under `remat`)."""
+        return self._forward if self.ddp is None else self.ddp
 
     def step_generator(self, stream: str = "") -> torch.Generator:
         """The generator of this step's draws on `stream` ("" for dropout,
@@ -87,10 +100,19 @@ class TrainState:
         gen = self.generators.get(stream)
         if gen is None or gen.device != device:
             gen = self.generators[stream] = torch.Generator(device=device)
+        return gen.manual_seed(self._stream_seed(stream))
+
+    def step_numpy_rng(self, stream: str) -> np.random.Generator:
+        """A host generator of this step's draws on `stream`, seeded from
+        the hash `step_generator` uses: the draws repeat per (seed, step,
+        stream, rank) and reach the card without a device sync."""
+        return np.random.default_rng(self._stream_seed(stream))
+
+    def _stream_seed(self, stream: str) -> int:
         key = (f"{self.seed}:{self.step}" + (f":{stream}" if stream else "")
                + (f"@{mesh.rank()}" if mesh.rank() else ""))
         digest = hashlib.blake2b(key.encode(), digest_size=8).digest()
-        return gen.manual_seed(int.from_bytes(digest, "little") >> 1)
+        return int.from_bytes(digest, "little") >> 1
 
     def dropout_generator(self) -> torch.Generator:
         """The generator of this step's dropout masks."""

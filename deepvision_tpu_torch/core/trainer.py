@@ -52,8 +52,19 @@ the JAX trainer's:
   completed (polled without blocking), never at its enqueue;
 - every recovery writes a `resilience_*` event to the metrics stream.
 
-The model and spatial axes, grad calibration, the epoch cache,
-multi-step dispatch and tracing are not ported yet.
+The training step's levers, as the JAX trainer's: `remat` (the state's
+`Remat`), `mixup_alpha` / `cutmix_alpha` and `log_grad_norm` (the
+classification step; every family's step takes the gradient norm),
+`steps_per_dispatch` (k staged batches a dispatch, metrics read and
+logged per dispatch as the k steps' mean, the EMA after each step, a
+tail shorter than k as single steps) and `epoch_on_device` (the first
+trained epoch staged on the device by data/device_cache.py, then every
+epoch one pass over it with no host batch and no host sync until its end,
+permuted per (seed, epoch) under `epoch_shuffle`; an epoch the cache
+refuses trains through the staged loop, and so does the rest of the run).
+`dispatches_total` counts the train dispatches (a step, k steps, an
+epoch). The model and spatial axes of the mesh and the grad calibration
+are not ported yet (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -85,8 +96,9 @@ from .resilience import (GracefulShutdown, PreemptionExit, RetryPolicy,
                          StepWatchdog, log_resilience_event,
                          resilient_batches, stop_agreed)
 from .schedules import PlateauState
-from .steps import (make_classification_eval_step,
-                    make_classification_train_step)
+from .steps import (draw_epoch_permutation, make_classification_eval_step,
+                    make_classification_train_step, make_epoch_train_step,
+                    make_multistep_train_step, step_and_ema)
 from .train_state import TrainState, param_count
 
 # The port's steps update the state in place and donate nothing; jaxlint's
@@ -232,6 +244,30 @@ class _StepClock:
         return [(b - a) * 1e3 for a, b in pairs]
 
 
+def check_dispatch_levers(config: TrainConfig) -> None:
+    """The JAX trainer's refusals of the dispatch levers: each pair would
+    desync the EMA and the accumulation cycle, or stack two levers over
+    the same loop."""
+    accum = config.optimizer.accum_steps
+    if config.steps_per_dispatch > 1 and accum > 1:
+        raise ValueError(
+            "steps_per_dispatch > 1 is incompatible with accum_steps > 1 "
+            "(the k-step dispatch would desync the EMA/accumulation "
+            "cadence) — pick one lever")
+    if config.epoch_on_device:
+        if config.steps_per_dispatch > 1:
+            raise ValueError(
+                "epoch_on_device and steps_per_dispatch > 1 are both "
+                "dispatch-amortization levers over the same loop — the "
+                "epoch pass already runs every step in one dispatch; "
+                "pick one")
+        if accum > 1:
+            raise ValueError(
+                "epoch_on_device is incompatible with accum_steps > 1 "
+                "(the epoch pass would desync the EMA/accumulation "
+                "cadence, same as steps_per_dispatch)")
+
+
 class Trainer:
     """`fit(train_data_fn, val_data_fn)` where each returns an epoch's
     iterable of numpy batch tuples, forwarded positionally to the family's
@@ -266,6 +302,7 @@ class Trainer:
             say(f"[{config.name}] gradient accumulation: "
                 f"{opt_cfg.accum_steps} micro-steps -> effective batch "
                 f"{effective_batch}")
+        check_dispatch_levers(config)
         if (opt_cfg.base_batch_size
                 and effective_batch != opt_cfg.base_batch_size):
             scaled = (opt_cfg.learning_rate * effective_batch
@@ -305,6 +342,19 @@ class Trainer:
         #: obs.trace.Tracer once `arm_tracing` ran (`--trace-out`)
         self.tracer = None
         self._trace_out: Optional[str] = None
+        # the dispatch levers: the k-step dispatch and the epoch pass,
+        # built at first use (a family installs its train_step after this
+        # __init__); the epoch cache, and the sticky fallback to the staged
+        # loop once the cache refused an epoch
+        self._multi_step = None
+        self._epoch_step = None
+        self._epoch_cache = None
+        self._epoch_fallback = False
+        #: train dispatches so far (a step, k steps or an epoch each count 1)
+        self.dispatches_total = 0
+        #: each dispatch of the last staged epoch: its steps, device ms
+        #: (CUDA events) and the host's ms issuing it
+        self.last_epoch_dispatches: List[Dict[str, float]] = []
         if self.default_watch is not None:
             self.watch_key, self.watch_mode = self.default_watch
         elif self.plateau and sched.plateau_mode == "min":
@@ -331,7 +381,9 @@ class Trainer:
                 label_smoothing=config.label_smoothing,
                 aux_weight=config.aux_loss_weight,
                 compute_dtype=compute_dtype, input_norm=input_norm,
-                augment=train_augment)
+                augment=train_augment, mixup_alpha=config.mixup_alpha,
+                cutmix_alpha=config.cutmix_alpha,
+                log_grad_norm=config.log_grad_norm)
         self.eval_step: Callable[..., Dict[str, torch.Tensor]] = \
             make_classification_eval_step(compute_dtype=compute_dtype,
                                           input_norm=input_norm,
@@ -345,7 +397,8 @@ class Trainer:
                                     self.steps_per_epoch,
                                     self.config.total_epochs)
         self.state = TrainState(self.model, optimizer, seed=self.config.seed,
-                                ema_decay=self.config.ema_decay)
+                                ema_decay=self.config.ema_decay,
+                                remat=self.config.remat)
         world = (f" world={self.world} batch/rank="
                  f"{self.config.batch_size // self.world}"
                  if mesh.is_initialized() else "")
@@ -412,31 +465,44 @@ class Trainer:
         """The train step on a batch already on the device, then the EMA
         update when the step applied an optimizer update (once per
         accumulation cycle under `accum_steps`)."""
-        state = self.state
-        applied = state.optimizer.count
-        metrics = self.train_step(state, *batch)
-        if state.ema is not None and state.optimizer.count != applied:
-            with torch.profiler.record_function("ema_update"):
-                state.update_ema()
-        return metrics
+        return step_and_ema(self.train_step, self.state, batch)
 
     def train_epoch(self, epoch: int, data: Iterable) -> dict:
-        """The staged per-batch loop: host batches staged on the device by
-        the prefetcher → step → EMA. Returns the epoch's mean metrics (of
-        the global batches), `images_per_sec` of the whole job over the
-        whole epoch (and, under a process group, `images_per_sec_rank`)
-        and `step_ms`, the median step time after the first (which also
-        pays for the first use of every kernel)."""
+        """One training epoch: the whole-epoch pass over the epoch cache
+        under `config.epoch_on_device` (unless the cache refused an epoch
+        of this run), else the staged loop."""
+        if self.config.epoch_on_device and not self._epoch_fallback:
+            return self._train_epoch_on_device(epoch, data)
+        return self._train_epoch_staged(epoch, data)
+
+    def _train_epoch_staged(self, epoch: int, data: Iterable,
+                            wrapped: bool = False) -> dict:
+        """The staged loop: host batches staged on the device by the
+        prefetcher → dispatches of one step (or of k under
+        `steps_per_dispatch`, a tail shorter than k as single steps), each
+        step followed by its EMA update. The metrics stay on the device;
+        a dispatch that crosses a `log_every_steps` boundary is logged
+        (the mean of its steps), and everything is read once at the end.
+        Returns the epoch's mean metrics (of the global batches),
+        `images_per_sec` of the whole job over the whole epoch (and, under
+        a process group, `images_per_sec_rank`) and `step_ms`, the median
+        step time after the first dispatch (which also pays for the first
+        use of every kernel). `wrapped`: `data` already went through
+        `resilient_batches` (the epoch cache's fallback stream)."""
         t0 = time.time()
         log_every = self.config.log_every_steps
+        k = self.config.steps_per_dispatch
         device_metrics: List[Dict[str, torch.Tensor]] = []
+        sizes: List[int] = []            # steps of each dispatch
+        host_ms: List[float] = []        # host time issuing each dispatch
         n_img = 0
         clock = _StepClock(self.device)
         state = self.state
-        data = resilient_batches(
-            data, self.retry_policy,
-            injector=self.faults if self.faults.active else None,
-            on_retry=self._log_retry)
+        if not wrapped:
+            data = resilient_batches(
+                data, self.retry_policy,
+                injector=self.faults if self.faults.active else None,
+                on_retry=self._log_retry)
         staged = prefetch_to_device(data, self.config.prefetch_batches,
                                     self.device)
         self._prefetcher = staged
@@ -447,6 +513,39 @@ class Trainer:
         tacc = ([0, 0, time.monotonic_ns(), 0]
                 if self.tracer is not None else None)
         steps = 0
+
+        def run(dispatch: list) -> None:
+            nonlocal steps, n_img
+            prev = state.step
+            t_d = time.monotonic_ns()
+            if len(dispatch) == 1:
+                per_step = [self.run_step(dispatch[0])]
+                logged = per_step[0]
+            else:
+                if self._multi_step is None:
+                    self._multi_step = make_multistep_train_step(
+                        self.train_step, k)
+                per_step, logged = self._multi_step(state, dispatch)
+            dt_ns = time.monotonic_ns() - t_d
+            host_ms.append(dt_ns / 1e6)
+            if tacc:
+                tacc[1] += dt_ns
+            clock.mark()
+            self.dispatches_total += 1
+            steps += len(per_step)
+            sizes.append(len(per_step))
+            self._host_step = state.step
+            if self._watchdog is not None and clock.progressed():
+                self._watchdog.beat()
+            device_metrics.extend(per_step)
+            n_img += sum(len(b[0]) for b in dispatch)
+            if state.step // log_every > prev // log_every:
+                self.logger.log(state.step, logged, prefix="train_",
+                                epoch=epoch)
+                if tacc:
+                    self._emit_window_spans(tacc, epoch, steps)
+
+        group: list = []
         try:
             batches = iter(staged)
             while True:
@@ -456,54 +555,140 @@ class Trainer:
                     break
                 if self._preempted():
                     break  # the last step has finished; fit() saves
-                t_step = time.monotonic_ns() if tacc else 0
-                metrics = self.run_step(batch)
-                clock.mark()
-                steps += 1
                 if tacc:
-                    tacc[0] += t_step - t_wait
-                    tacc[1] += time.monotonic_ns() - t_step
-                self._host_step = state.step
-                if self._watchdog is not None and clock.progressed():
-                    self._watchdog.beat()
-                device_metrics.append(metrics)
-                n_img += len(batch[0])
-                if state.step % log_every == 0:
-                    self.logger.log(state.step, metrics, prefix="train_",
-                                    epoch=epoch)
-                    if tacc:
-                        self._emit_window_spans(tacc, epoch, steps)
+                    tacc[0] += time.monotonic_ns() - t_wait
+                if k > 1:
+                    group.append(batch)
+                    if len(group) == k:
+                        dispatch, group = group, []
+                        run(dispatch)
+                else:
+                    run([batch])
+            if not self._preempted():
+                for batch in group:      # the tail shorter than k
+                    run([batch])
+            group = []
             if tacc and steps > tacc[3]:
                 self._emit_window_spans(tacc, epoch, steps)
         finally:
+            # a failing step must not pin staged batches in a traceback
+            group = None
             self._prefetcher = None
             self.last_prefetch_ledger = staged.ledger()
             staged.close()
-        out: Dict[str, float] = {}
-        self.last_epoch_steps = []
-        if device_metrics:
-            keys = list(device_metrics[0])
-            stacked = torch.stack([torch.stack([m[k].float() for k in keys])
-                                   for m in device_metrics]).cpu()
-            self._beat()
-            step_ms = clock.step_ms()
-            self.last_epoch_steps = [
-                {**dict(zip(keys, row.tolist())), "step_ms": ms}
-                for row, ms in zip(stacked, step_ms)]
-            out = dict(zip(keys, stacked.mean(dim=0).tolist()))
-            if len(step_ms) > 1:
-                out["step_ms"] = statistics.median(step_ms[1:])
+        dispatch_ms = clock.step_ms() if device_metrics else []
+        self.last_epoch_dispatches = [
+            {"steps": float(n), "ms": ms, "host_ms": h}
+            for n, ms, h in zip(sizes, dispatch_ms, host_ms)]
+        step_ms = [ms / n for n, ms in zip(sizes, dispatch_ms)
+                   for _ in range(n)]
+        out = self._epoch_metrics(device_metrics, step_ms,
+                                  skip=sizes[0] if sizes else 0)
         dt = time.time() - t0
         out["images_per_sec"] = n_img * self.world / dt if dt > 0 else 0.0
         if mesh.is_initialized():
             out["images_per_sec_rank"] = n_img / dt if dt > 0 else 0.0
+        self._halt_if_nonfinite(out, epoch)
+        return out
+
+    def _train_epoch_on_device(self, epoch: int, data: Iterable) -> dict:
+        """The whole epoch from the device: the first call stages the
+        epoch's batches on the device once (data/device_cache.py), and
+        every epoch is one pass over them (`make_epoch_train_step`),
+        permuted per (seed, epoch) under `config.epoch_shuffle`, with no
+        host batch and no host sync until the end, where the per-step
+        metrics are read at once and the epoch is logged. An epoch the
+        cache refuses (its budget, a ragged or empty stream; a named
+        EpochCacheOverflowWarning) trains through the staged loop, and so
+        does the rest of the run."""
+        from ..data import device_cache
+        cfg = self.config
+        if self._epoch_cache is None:
+            src = resilient_batches(
+                data, self.retry_policy,
+                injector=self.faults if self.faults.active else None,
+                on_retry=self._log_retry)
+            cache, fallback = device_cache.build_epoch_cache(
+                src, self.device, shuffle=cfg.epoch_shuffle, name=cfg.name)
+            if cache is None:
+                self._epoch_fallback = True
+                return self._train_epoch_staged(epoch, fallback,
+                                                wrapped=True)
+            self._epoch_cache = cache
+            say(f"[{cfg.name}] epoch cache: {cache.steps} steps x "
+                f"{cache.examples_per_step} examples on the device "
+                f"({cache.nbytes / 1e6:.1f} MB staged once in "
+                f"{cache.stage_secs:.2f}s), one pass an epoch"
+                + (", shuffled per (seed, epoch)" if cfg.epoch_shuffle
+                   else ""))
+        cache = self._epoch_cache
+        if self._epoch_step is None:
+            self._epoch_step = make_epoch_train_step(self.train_step)
+        t0 = time.time()
+        state = self.state
+        clock = _StepClock(self.device)
+        perm = (draw_epoch_permutation(
+            cfg.seed, epoch, cache.steps * cache.examples_per_step,
+            self.device) if cfg.epoch_shuffle else None)
+
+        def on_step() -> None:
+            clock.mark()
+            self._host_step = state.step
+            if self._watchdog is not None and clock.progressed():
+                self._watchdog.beat()
+
+        self._beat()
+        t_d = time.monotonic_ns()
+        per_step = self._epoch_step(state, cache.arrays, perm, on_step)
+        dispatch_ns = time.monotonic_ns() - t_d
+        self.dispatches_total += 1
+        out = self._epoch_metrics(per_step, clock.step_ms(), skip=1)
+        self._beat()
+        dt = time.time() - t0
+        n_img = cache.steps * cache.examples_per_step
+        out["images_per_sec"] = n_img * self.world / dt if dt > 0 else 0.0
+        if mesh.is_initialized():
+            out["images_per_sec_rank"] = n_img / dt if dt > 0 else 0.0
+        if self.tracer is not None:
+            wid = self.tracer.add(
+                "train_window", "train", t_d, dispatch_ns,
+                args={"epoch": epoch, "steps": cache.steps})
+            self.tracer.add("train_dispatch", "train", t_d, dispatch_ns,
+                            args={"window": wid, "aggregate": True})
+        self.logger.log(state.step, {k: v for k, v in out.items()
+                                     if k not in ("images_per_sec",
+                                                  "images_per_sec_rank")},
+                        prefix="train_", epoch=epoch)
+        self._halt_if_nonfinite(out, epoch)
+        return out
+
+    def _epoch_metrics(self, device_metrics: List[Dict[str, torch.Tensor]],
+                       step_ms: List[float], skip: int) -> Dict[str, float]:
+        """The steps' metrics read back at once: `last_epoch_steps` (each
+        step's, with its `step_ms`) and the epoch's means, with `step_ms`
+        the median after the first `skip` steps."""
+        self.last_epoch_steps = []
+        if not device_metrics:
+            return {}
+        keys = list(device_metrics[0])
+        stacked = torch.stack([torch.stack([m[k].float() for k in keys])
+                               for m in device_metrics]).cpu()
+        self._beat()
+        self.last_epoch_steps = [
+            {**dict(zip(keys, row.tolist())), "step_ms": ms}
+            for row, ms in zip(stacked, step_ms)]
+        out = dict(zip(keys, stacked.mean(dim=0).tolist()))
+        if len(step_ms) > skip:
+            out["step_ms"] = statistics.median(step_ms[skip:])
+        return out
+
+    def _halt_if_nonfinite(self, out: dict, epoch: int) -> None:
         if self.config.halt_on_nonfinite and not math.isfinite(
                 out.get("loss", 0.0)):
             self.logger.log(self.state.step, out, prefix="epoch_train_",
                             epoch=epoch)
             divergence_halt(self.config, self.ckpt, epoch,
                             f"mean train loss is {out['loss']}")
-        return out
 
     def evaluate(self, data: Iterable) -> dict:
         """The family's evaluation (`_evaluate`) with the EMA parameters
@@ -768,6 +953,13 @@ class LossWatchedTrainer(Trainer):
     default_watch = ("loss", "min")
 
     def __init__(self, config: TrainConfig, *args, **kwargs):
+        if config.mixup_alpha or config.cutmix_alpha:
+            # the family's steps never see mixup or CutMix: an error beats
+            # a silent no-op
+            raise ValueError(
+                "mixup_alpha/cutmix_alpha are classification-only; the "
+                f"{type(self).__name__} ignores them — use the task's own "
+                "augmentations (flip/crop in the data pipeline) instead")
         if config.device_augment:
             # the family's steps never call the augment: they would train
             # on the raw padded uint8

@@ -14,11 +14,11 @@ Everything downstream of detection is REUSE, not reimplementation:
 
 - **Fine-tune**: a bounded number of epochs through the existing trainer
   family (`trainer_class_for_config`) on the engine's device, resumed from
-  the newest committed epoch in the served model's own run dir, through
-  the staged per-batch loop (`Trainer.train_epoch`; the port carries no
-  whole-epoch on-device path, so this is the JAX controller's fallback
-  branch). Each retry commits a NEW epoch, so the reloader's permanent
-  per-epoch refusal cache never blocks a retry.
+  the newest committed epoch in the served model's own run dir, on the
+  whole-epoch path from the device (`epoch_on_device`, in the cached
+  order), or through the staged per-batch loop where the trainer refuses
+  that path (`Trainer.train_epoch`). Each retry commits a NEW epoch, so
+  the reloader's permanent per-epoch refusal cache never blocks a retry.
 - **Gate + canary + rollback**: the committed candidate goes through a
   private `WeightReloader.check_once()` over exactly this model, which
   verifies integrity, restores, and delegates to the
@@ -287,10 +287,17 @@ class FlywheelController:
             raise ValueError(f"config {self.sm.name!r} has no supervised "
                              f"trainer — the flywheel cannot fine-tune it")
         trainer = None
+        device = self.sm.engine.device
         try:
-            trainer = trainer_cls(self._finetune_config(base),
-                                  device=self.sm.engine.device,
-                                  workdir=self.sm.workdir)
+            try:
+                trainer = trainer_cls(self._finetune_config(base),
+                                      device=device, workdir=self.sm.workdir)
+            except ValueError:
+                # the whole-epoch path is ineligible for this config
+                # (accumulation, ...): the staged per-batch loop always works
+                trainer = trainer_cls(
+                    self._finetune_config(base, on_device=False),
+                    device=device, workdir=self.sm.workdir)
             if self.tracer is not None:
                 trainer.arm_tracing(tracer=self.tracer)
             trainer.init_state()
@@ -313,10 +320,12 @@ class FlywheelController:
                 trainer.close()
         return last
 
-    def _finetune_config(self, base: int):
+    def _finetune_config(self, base: int, on_device: bool = True):
         """The bounded-budget training config: the model's own config with
         just enough epochs for this episode, a constant LR (a fine-tune
-        must not replay the cosine ramp), at the served resolution."""
+        must not replay the cosine ramp), the whole-epoch path from the
+        device when the trainer deems it eligible (in the cached order),
+        at the served resolution."""
         import dataclasses
 
         from ..configs import get_config
@@ -324,6 +333,8 @@ class FlywheelController:
         cfg = get_config(self.sm.name)
         return cfg.replace(
             total_epochs=base + self.finetune_epochs,
+            epoch_on_device=on_device,
+            epoch_shuffle=False,
             schedule=ScheduleConfig(name="constant"),
             data=dataclasses.replace(
                 cfg.data, image_size=self.sm.engine.example_shape[0]))

@@ -45,8 +45,10 @@ a Flax `params` + `batch_stats` pair onto a port module leaf for leaf.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import List, Optional, Sequence, Tuple, Union
+import threading
+from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -329,6 +331,27 @@ class ComputeWeights:
         return self
 
 
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing() -> Iterator[None]:
+    """Marks the body as the recompute of a train forward in the backward
+    (core/remat.py) on this thread: a train-mode `BatchNorm` there
+    normalizes as in the forward but leaves its running statistics as
+    the forward left them (one update a step, as JAX's `batch_stats`)."""
+    prev = getattr(_recompute, "on", False)
+    _recompute.on = True
+    try:
+        yield
+    finally:
+        _recompute.on = prev
+
+
+def in_recompute() -> bool:
+    return getattr(_recompute, "on", False)
+
+
 class BatchNorm(nn.BatchNorm2d):
     """Flax `nn.BatchNorm(momentum, epsilon)` on NCHW or (B, C): f32
     normalization (f64 for an f64 input), output in `dtype` (f32 unless a
@@ -350,6 +373,8 @@ class BatchNorm(nn.BatchNorm2d):
             return self._global_batch_norm(x).to(self.dtype)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
+        if in_recompute():
+            return y.to(self.dtype)
         # the running statistics take the biased batch variance, as Flax's
         # do (torch's own update would fold in var * n / (n - 1))
         with torch.no_grad():
@@ -364,6 +389,8 @@ class BatchNorm(nn.BatchNorm2d):
         running statistics from its mean and biased variance."""
         y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
                                               self.eps)
+        if in_recompute():
+            return y
         with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)

@@ -96,14 +96,11 @@ def test_bridge_raises_on_a_missing_extra_or_misshapen_leaf(fault):
         params_to_state_dict(params, ViT(**SMALL, image_size=32))
 
 
-# fields of the JAX configs that no ported path reads yet (mesh,
-# mixup/cutmix, dispatch and resilience levers; the on-disk input
-# pipelines' settings)
+# fields of the JAX configs that no ported path reads yet (the mesh's
+# model and spatial axes; the on-disk input pipelines' settings)
 NOT_CARRIED = {
-    "TrainConfig": {"cutmix_alpha", "epoch_on_device", "epoch_shuffle",
-                    "log_grad_norm", "mixup_alpha", "model_parallel",
-                    "remat", "spatial_backend", "spatial_parallel",
-                    "steps_per_dispatch"},
+    "TrainConfig": {"model_parallel", "spatial_backend",
+                    "spatial_parallel"},
     "OptimizerConfig": set(), "ScheduleConfig": set(),
     "DataConfig": {"num_parallel_calls", "shuffle_buffer"},
 }
