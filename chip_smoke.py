@@ -94,8 +94,9 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    counts, zeroed before them, stay 0;
 11. slice 8: data parallelism over torch.distributed. 11a: the yolov3 and
    resnet50_tpu entry points (`YOLO/torch/train.py`,
-   `ResNet/torch/train.py`) with phases 5 and 8's batch, steps and cuts,
-   under a torchrun launch of one process (NCCL): finite losses, the
+   `ResNet/torch/train.py`) with phases 5 and 8's batch and cuts, 2
+   steps each, under a torchrun launch of one process (NCCL): finite
+   losses, the
    best-IoU launch count (at least one per step and eval batch) and
    `step_ms` beside phases 5 and 8's — the cost of the DDP wrap and the
    BatchNorm all-reduces at world 1. 11b: two ranks on the one card over
@@ -119,7 +120,8 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    picks of each image matched greedily; phase 5's weights overflow the
    box decode's exp()); `evaluate_map` (coco) over 2 synthetic batches,
    every summary value finite. 12b: `YOLO/torch/
-   evaluate.py -m yolov3 --synthetic` as a subprocess on the card (rc 0, a
+   evaluate.py -m yolov3 --synthetic` as a subprocess on the card, started
+   once 12a's timings are taken and read at the phase's end (rc 0, a
    finite mAP in its JSON), and detect.py's chunk-to-lines function on 2
    synthetic scenes in its chunk of 8. 12c: yolov3 served at full width by
    `serve.cli.build_server` at buckets {1, 8}: synthetic `_smoke` load,
@@ -263,9 +265,9 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    the router: exit 0, no 5xx. 17b: the server in-process with the gate
    and `--flywheel-every`, DEEPVISION_FAULT_DRIFT_SHIFT armed, under
    in-process traffic: one episode promoted (drift over 3 windows, a
-   fine-tune of 1 epoch x 4 batches at batch 256 on the card, commit,
-   gate, canary), then a new drift with every candidate regressing: two
-   refusals, backoff, the circuit open at max_attempts 2; K1's launches
+   fine-tune of 1 epoch x 2 batches at batch 256 on the card, commit,
+   gate, canary), then a new drift with every candidate regressing: one
+   refusal and the circuit open at max_attempts 1; K1's launches
    equal depth x (fine-tune steps + dispatches of both generations), K2's
    0; every answer against its epoch's reference; one flywheel_id on the
    events, the spans, the decision record and /healthz.
@@ -333,6 +335,34 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    <a JPEG>` (nvJPEG): K1 exactly depth, the top-5 the served engine's
    for the same preprocessed image (a difference only between near
    ties).
+
+20. slice 18: int8 serving. 20a: vit_small at full width served at int8
+   by `serve/quantize.py::arm_int8` on its 64-image pinned shard, at
+   buckets 1, 8 and 32: the plan (49 quantized, 1 f32 head, 8 attention
+   calls left on K1) and one calibration; one int8 dispatch per bucket
+   with K1's launches (depth a dispatch), the int8 products
+   (`ops/quant.py::int8_matmul`, `int8_depthwise`) and the dispatches by
+   precision counted, zeroed just before and read just after; int8 against
+   bf16 on the shard (argmax agreement, the largest difference over the
+   largest logit, at most P20_REL_MAX); the int32 accumulator of the first
+   query projection from the operands the int8 forward gives it on the
+   card, bit for bit the CPU's; `measure_batch_ms` per bucket at bf16 and
+   at int8; the f32 master, int8 and staged byte counts, the bytes
+   resident per precision and what arming added to the card's allocated
+   memory. 20b: resnet50_tpu the same (53 / 1 / 0), the accumulators of
+   the 7x7 stem (k = 147) and of a 1x1 conv. 20c: mobilenet_v1 at bucket
+   1 (27 / 1 / 0): the depthwise path runs, the stem's and a depthwise
+   conv's accumulators card vs CPU. 20d: the serving stack, vit_small:
+   DEEPVISION_FAULT_QUANT_REGRESS=1 on 20a's engine, gated on the pinned
+   images labelled by its own bf16 answers (seeded random weights score
+   about 0 on 1000 classes, and the fault's drop is clipped at 0):
+   `refused_regression`, bf16 serving on, int8 requests refused; `--serve-precision int8` through
+   `build_server` on phase 16's epoch 1, armed before traffic; over HTTP
+   the default answer (int8) and a `"precision": "bf16"` override against
+   the engine, /healthz `precision` and `quant`, /metrics with its int8
+   series valid; epoch 2 hot-reloaded by `POST /reload`: its answer
+   within P20_RELOAD_TOL of epoch 2's own int8 under the same quantizer,
+   one calibration in the whole of 20d.
 
 The line before the last is a JSON object with one record per kernel; the
 last is `{"ok": true, "device": {...}}`.
@@ -426,15 +456,17 @@ from deepvision_tpu_torch.ops.attention import (flash_attention,
 from deepvision_tpu_torch.ops.best_iou import best_iou, best_iou_reference
 from deepvision_tpu_torch.ops.heatmap import decode_keypoints
 from deepvision_tpu_torch.ops.nms import batched_nms
+from deepvision_tpu_torch.ops import quant
 from deepvision_tpu_torch.parallel import mesh
 from deepvision_tpu_torch.serve.batcher import (DeadlineExpired,
                                                 RequestRejected,
                                                 result_within)
 from deepvision_tpu_torch.serve.cli import _smoke, build_parser, build_server
-from deepvision_tpu_torch.serve.engine import (PredictEngine,
+from deepvision_tpu_torch.serve.engine import (PredictEngine, config_at,
                                                load_checkpoint_weights,
                                                pick_bucket)
 from deepvision_tpu_torch.serve.fleet import ModelFleet
+from deepvision_tpu_torch.serve.quantize import arm_int8
 from deepvision_tpu_torch.serve.server import InferenceServer
 from deepvision_tpu_torch.utils.device import resolve_device
 from deepvision_tpu_torch.utils.faults import FaultInjector
@@ -1464,12 +1496,16 @@ def post(url: str, x: np.ndarray) -> np.ndarray:
 
 # phase 11a: the normal entry points under a torchrun launch of one process
 # (NCCL), at phases 5 and 8's batch, steps and cuts
+# phase 11a: 2 steps each (phases 5 and 8 take 3): the one-process step
+# times compare with the median after the first
+DDP_YOLO_STEPS, DDP_RESNET_STEPS = 2, 2
 DDP_YOLO_ARGS = ["-m", YOLO_MODEL, "--synthetic", "--image-size", "416",
                  "--batch-size", str(YOLO_BATCH), "--steps-per-epoch",
-                 str(YOLO_STEPS), "--epochs", "1", "--device", "cuda"]
+                 str(DDP_YOLO_STEPS), "--epochs", "1", "--device", "cuda"]
 DDP_RESNET_ARGS = ["-m", RESNET_MODEL, "--synthetic", "--device-augment",
                    "--batch-size", str(RESNET_BATCH), "--steps-per-epoch",
-                   str(RESNET_STEPS), "--epochs", "1", "--device", "cuda"]
+                   str(DDP_RESNET_STEPS), "--epochs", "1", "--device",
+                   "cuda"]
 # phase 11b: two ranks on the one card over gloo (NCCL refuses two ranks on
 # one GPU), each launched as the only process of its host, so each drives
 # card 0; global batches, each rank taking half
@@ -1731,7 +1767,7 @@ def check_data_parallel(smi: str, yolo: dict, resnet: dict) -> dict:
               f"device_count={rank['device_count']} card: {smi}")
         ms = [check_ddp_run("phase 11a", rec, rank, n, eval_batches, batch)
               for rec, n, eval_batches, batch in zip(
-                  rank["runs"], (YOLO_STEPS, RESNET_STEPS),
+                  rank["runs"], (DDP_YOLO_STEPS, DDP_RESNET_STEPS),
                   (YOLO_EVAL_BATCHES, RESNET_EVAL_BATCHES),
                   (YOLO_BATCH, RESNET_BATCH))]
         phase(f"phase 11a: step_ms under DDP at world 1 ({rank['backend']}) "
@@ -2076,26 +2112,50 @@ def check_predict(trainer, cfg) -> dict:
             "map": summary["mAP"]}
 
 
-def check_detection_entry_points(trainer, cfg) -> None:
-    """12b: `YOLO/torch/evaluate.py --synthetic` as a subprocess on the
-    card, and detect.py's chunk-to-lines function on synthetic scenes."""
+#: background checks (phase 12b's and 13's evaluate workers, phase 13's CPU
+#: halves, phase 15c)
+BACKGROUND = concurrent.futures.ThreadPoolExecutor(
+    max_workers=4, thread_name_prefix="chip_smoke")
+
+
+def start_p12_evaluation() -> dict:
+    """12b's `YOLO/torch/evaluate.py --synthetic`, a worker on the card
+    started in the background once 12a's timings are taken, beside 12b's
+    detect lines and 12c; `finish_p12_evaluation` reads it."""
     root = tempfile.mkdtemp(prefix="chip_smoke_eval_")
-    try:
-        out, log = f"{root}/eval.json", f"{root}/eval.log"
-        t0 = time.perf_counter()
+    run = {"root": root, "t0": time.perf_counter(),
+           "json": f"{root}/eval.json"}
+
+    def work():
         run_workers([[sys.executable, f"{HERE}/YOLO/torch/evaluate.py",
-                      "-m", YOLO_MODEL, "--synthetic", "--out", out,
-                      "--workdir", f"{root}/wd"]], [dict(os.environ)], [log],
-                    timeout=EVALUATE_TIMEOUT)
-        with open(out) as fh:
+                      "-m", YOLO_MODEL, "--synthetic", "--out", run["json"],
+                      "--workdir", f"{root}/wd"]], [dict(os.environ)],
+                    [f"{root}/eval.log"], timeout=EVALUATE_TIMEOUT)
+        return time.perf_counter() - run["t0"]
+
+    run["job"] = BACKGROUND.submit(work)
+    return run
+
+
+def finish_p12_evaluation(run: dict) -> dict:
+    """Wait for 12b's evaluate worker: rc 0, a finite mAP in its JSON."""
+    try:
+        seconds = run["job"].result(EVALUATE_TIMEOUT + 60)
+        with open(run["json"]) as fh:
             metrics = json.load(fh)
-        phase(f"12b YOLO/torch/evaluate.py -m {YOLO_MODEL} --synthetic: rc 0 "
-              f"in {time.perf_counter() - t0:.1f}s, mAP={metrics['mAP']:.4f} "
-              f"mAP@0.5={metrics['mAP@0.5']:.4f}")
-        if not np.isfinite(metrics["mAP"]):
-            raise AssertionError(f"evaluate.py wrote {metrics}")
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(run["root"], ignore_errors=True)
+    phase(f"12b YOLO/torch/evaluate.py -m {YOLO_MODEL} --synthetic: rc 0 "
+          f"in {seconds:.1f}s (beside 12b's detect lines and 12c), "
+          f"mAP={metrics['mAP']:.4f} mAP@0.5={metrics['mAP@0.5']:.4f}")
+    if not np.isfinite(metrics["mAP"]):
+        raise AssertionError(f"evaluate.py wrote {metrics}")
+    return {"mAP": metrics["mAP"], "seconds": seconds}
+
+
+def check_detection_entry_points(trainer, cfg) -> None:
+    """12b: detect.py's chunk-to-lines function on synthetic scenes (its
+    evaluate.py runs as a worker, `start_p12_evaluation`)."""
     detect = runpy.run_path(f"{HERE}/YOLO/torch/detect.py",
                             run_name="not_main")
     size = cfg.data.image_size
@@ -2207,20 +2267,17 @@ def check_detection_inference(yolo: dict) -> dict:
     if trainer.resume() != 1:
         raise AssertionError("phase 5's checkpoint did not restore")
     out = check_predict(trainer, cfg)
+    evaluation = start_p12_evaluation()
     check_detection_entry_points(trainer, cfg)
     trainer.close()
     out["serve"] = check_detection_serving()
+    out["evaluate"] = finish_p12_evaluation(evaluation)
     counts = (flash_attention.launches, best_iou.launches)
     phase(f"12: launches on the inference path (flash_attention, best_iou): "
           f"{counts}; phase 12 took {time.perf_counter() - t0:.1f}s")
     if counts != (0, 0):
         raise AssertionError(f"a kernel ran on the inference path: {counts}")
     return out
-
-
-#: background checks (phase 13's CPU halves and evaluate workers, phase 15c)
-BACKGROUND = concurrent.futures.ThreadPoolExecutor(
-    max_workers=4, thread_name_prefix="chip_smoke")
 
 
 # -- phase 13: CenterNet and stacked-Hourglass pose -------------------------
@@ -4498,7 +4555,7 @@ P17_DEVICE = "cuda"
 P17_REPLICAS = 2
 P17_BUCKETS = "1,8"
 P17_CLIENTS = 8                # closed-loop HTTP clients of 1 image: bucket 8
-P17_LOAD_SECS = 3.0            # each measured window of 17a
+P17_LOAD_SECS = 1.0            # each measured window of 17a
 # the router's probe and attempt caps. A 224 px request is 150,528 floats
 # of JSON whose parse holds a replica's GIL for tens of ms, and a /healthz
 # answer waits behind the parses in flight: with 8 HTTP clients phase 16d
@@ -4518,7 +4575,9 @@ P17_CANARY_WINDOW = 1.0
 # 4 steps; -0.1 lets a chance-level candidate through (PERF.md)
 P17_GATE = -0.1
 P17_DRIFT_AGAIN = "0:-3.0"     # a new drift after the promotion
-P17_MAX_ATTEMPTS = 2
+P17_MAX_ATTEMPTS = 2           # refusals that open 17b's circuit
+P17_FINETUNE_BATCHES = 2       # each 17b fine-tune: 1 epoch of this many
+P17_BACKOFF_S = 0.5            # 17b's backoff after its first refusal
 P17_CLIENTS_B = 3              # in-process clients of 17b
 
 
@@ -4863,9 +4922,10 @@ def check_p17_flywheel(stash: str) -> dict:
     """17b: epoch 1 of phase 16's run served in-process over HTTP with the
     promotion gate and the flywheel ticking (`--flywheel-every`),
     DEEPVISION_FAULT_DRIFT_SHIFT armed; under in-process traffic one
-    episode runs through drift, a fine-tune of 1 epoch x 4 batches at
+    episode runs through drift, a fine-tune of 1 epoch x 2 batches at
     the config's batch on the card, commit, gate, canary and promotion;
-    then every candidate regresses and the refusals back off and open the
+    then every candidate regresses: the first refusal backs off, the drift
+    is re-confirmed and a second fine-tune is refused, which opens the
     circuit at P17_MAX_ATTEMPTS. K1's launches equal depth x (fine-tune
     steps + dispatches of both generations), K2's 0; every answer equals
     its epoch's reference; one flywheel_id on the events, the spans, the
@@ -4890,6 +4950,8 @@ def check_p17_flywheel(stash: str) -> dict:
     sm = server.fleet.default
     engine, promoter, fw = sm.engine, sm.promoter, sm.flywheel
     fw.max_attempts = P17_MAX_ATTEMPTS
+    fw.finetune_batches = P17_FINETUNE_BATCHES
+    fw.backoff_base_s = P17_BACKOFF_S
     answers, failures = [], []
     stop = threading.Event()
 
@@ -4949,8 +5011,14 @@ def check_p17_flywheel(stash: str) -> dict:
     p16_stop(server, t)
 
     steps = fw.finetune_steps
-    fw_events = [e for e in p17_jsonl(os.path.join(workdir, "serve.jsonl"))
-                 if e.get("flywheel_id") == fid]
+    events = p17_jsonl(os.path.join(workdir, "serve.jsonl"))
+    fw_events = [e for e in events if e.get("flywheel_id") == fid]
+    # each refusal but the last backs off before the circuit opens
+    opened = [i for i, e in enumerate(events)
+              if "resilience_flywheel_circuit_open" in e]
+    backoffs = [e["resilience_flywheel_backoff_s"]
+                for e in events[:opened[0] if opened else len(events)]
+                if "resilience_flywheel_backoff_s" in e]
     keys = sorted({k for e in fw_events for k in e
                    if k.startswith("resilience_")})
     fw_spans = sorted({s["name"] for s in spans
@@ -4973,11 +5041,13 @@ def check_p17_flywheel(stash: str) -> dict:
            "by_generation": by_gen, "finetune_steps": steps,
            "counters": dict(fw.counters), "decisions": states,
            "timings": timings, "served_err": served_err,
-           "by_epoch": by_epoch, "flywheel_id": fid}
+           "by_epoch": by_epoch, "flywheel_id": fid,
+           "backoffs": backoffs}
     phase(f"17b flywheel: promoted epoch {promoted_epoch} "
           f"{timings['episode_s']:.1f}s after the traffic started, circuit "
           f"open {timings['refusals_s']:.1f}s later; counters "
-          f"{fw.counters}; decisions {states}")
+          f"{fw.counters}; decisions {states}; backoffs before the "
+          f"circuit opened {backoffs} s")
     phase(f"17b {fid}: events {keys}; spans {fw_spans}; /healthz after "
           f"the promotion: flywheel_id {promoted_health['flywheel_id']}, "
           f"counters {promoted_health['counters']}; at the end: state "
@@ -5001,9 +5071,10 @@ def check_p17_flywheel(stash: str) -> dict:
             for i, (d, e, f) in enumerate(states)] != [
             (d, e, True if i == 0 else None)
             for i, (d, e, _) in enumerate(want)] \
-            or fw.counters["circuit_opened"] != 1:
+            or fw.counters["circuit_opened"] != 1 or not opened \
+            or len(backoffs) != P17_MAX_ATTEMPTS - 1:
         raise AssertionError(f"17b: decisions {states}, counters "
-                             f"{fw.counters}")
+                             f"{fw.counters}, backoffs {backoffs}")
     need = {"resilience_flywheel_drift_detected",
             "resilience_flywheel_finetuning", "resilience_flywheel_gating",
             "resilience_flywheel_promoted", "resilience_promote_promoted"}
@@ -6301,6 +6372,334 @@ def check_levers() -> dict:
     return out
 
 
+# -- phase 20: int8 serving ---------------------------------------------------
+
+P20_DEVICE = "cuda"
+P20_VIT = MODEL                    # 20a
+P20_RESNET = RESNET_MODEL          # 20b
+P20_MOBILE = "mobilenet_v1"        # 20c, at bucket 1
+P20_BUCKETS = BUCKETS
+P20_SIZE = None                    # the configs' own sizes
+# the plans JAX traces for these configs: quantized / skipped_head /
+# fused_attention (vit_small's attention in interpret mode)
+P20_PLANS = {"vit_small": (49, 1, 8), "resnet50_tpu": (53, 1, 0),
+             "mobilenet_v1": (27, 1, 0), "vit_tiny": (25, 1, 4)}
+P20_ITERS = 5                      # measure_batch_ms, each precision
+# int8 against bf16 on the 64-image pinned shard: the largest |difference|
+# over the largest bf16 logit (seeded random weights; measured at most
+# 0.045, vit_small, on the H100)
+P20_REL_MAX = 0.15
+P20_RELOAD_TOL = 1e-3              # relative to the largest logit
+# 20d's fault lowers the int8 score by a fixed 0.5 clipped at 0, as in the
+# JAX package: on seeded random weights, which score about 0 of 64 on 1000
+# classes, it could not show. 20d gates on the pinned images labelled with
+# the bf16 rung's own answers (a bf16 score of 1)
+
+
+class P20Grab(quant.Int8Mode):
+    """The int8 forward, keeping the arguments of the conv and dense calls
+    at `positions` (planned ops' call positions)."""
+
+    def __init__(self, plan, qweights, positions):
+        super().__init__(plan, qweights)
+        self.want = set(positions)
+        self.grabbed = {}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in quant.HEAVY and self.calls in self.want:
+            self.grabbed[self.calls] = (args, dict(kwargs or {}))
+        return super().__torch_function__(func, types, args, kwargs)
+
+
+def p20_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(p20_cpu(t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: p20_cpu(v) for k, v in tree.items()}
+    return tree
+
+
+def p20_accumulators(engine, picks: dict, x: np.ndarray) -> dict:
+    """For the first planned op each of `picks` accepts (label ->
+    predicate on a `quant.QuantOp`): its int32 accumulator from the
+    operands the int8 forward of `x` gives it on the card, against the
+    same function on the CPU, bit for bit."""
+    quantizer = engine._quantizer
+    plan, qweights = quantizer.plan, engine._qweights
+    picks = {label: next(i for i, op in enumerate(plan.ops) if want(op))
+             for label, want in picks.items()}
+    grab = P20Grab(plan, qweights, [plan.ops[i].position
+                                    for i in picks.values()])
+    with torch.inference_mode():
+        with grab:
+            engine.forward(engine.model, x)
+        grab.check()
+        out = {}
+        for label, i in picks.items():
+            op = plan.ops[i]
+            args, kwargs = grab.grabbed[op.position]
+            s_x = plan.act_scales[i]
+            card = quant.int8_accumulate(op.prim, args, kwargs, qweights[i],
+                                         s_x)
+            cpu = quant.int8_accumulate(op.prim, p20_cpu(args),
+                                        p20_cpu(kwargs),
+                                        qweights[i].to("cpu"), s_x)
+            out[label] = {"op": i, "prim": op.prim,
+                          "weight": list(op.weight_shape),
+                          "acc_shape": list(card.shape),
+                          "equal": bool(torch.equal(card.cpu(), cpu))}
+    return out
+
+
+def p20_sync() -> None:
+    if P20_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def check_p20_model(name: str, buckets, picks, keep: bool = False):
+    """20a-c: one config at full width served at int8: `arm_int8` on its
+    64-image pinned shard (the plan, one calibration), the main path at
+    every bucket with K1's launches and the int8 products counted, int8
+    against bf16 on the shard, accumulators card vs CPU, and each
+    bucket's `measure_batch_ms` at both precisions with the byte counts.
+    Returns the record, and with `keep` the engine too."""
+    t0 = time.perf_counter()
+    cfg = config_at(name, P20_SIZE)
+    engine = PredictEngine.from_config(name, device=P20_DEVICE,
+                                       buckets=buckets, image_size=P20_SIZE,
+                                       verbose=False)
+    engine.warmup()
+    cuda = P20_DEVICE == "cuda"
+    mem0 = torch.cuda.memory_allocated() if cuda else 0
+    passes = quant.calibrate.passes
+    t1 = time.perf_counter()
+    decision = arm_int8(engine, faults=FaultInjector(), verbose=False)
+    p20_sync()
+    arm_s = time.perf_counter() - t1
+    mem1 = torch.cuda.memory_allocated() if cuda else 0
+    plan = decision["plan"]
+    got_plan = (plan["quantized"], plan["skipped_head"],
+                plan["fused_attention"])
+    images, _ = scoring.pinned_shard(
+        cfg, image_size=engine.example_shape[0],
+        input_dtype=engine.input_dtype, examples=64)
+    depth = (cfg.model_kwargs.get("depth", 0) if cfg.model == "vit" else 0)
+
+    # the main path: one int8 dispatch per bucket, the counts zeroed just
+    # before and read just after
+    flash_attention.launches = best_iou.launches = 0
+    quant.int8_matmul.calls = quant.int8_depthwise.calls = 0
+    engine.dispatches = 0
+    engine.dispatches_by_precision.update(bf16=0, int8=0)
+    outs = {b: engine.dispatch(images[:b])[0] for b in buckets}
+    p20_sync()
+    counts = {"flash_attention": flash_attention.launches,
+              "best_iou": best_iou.launches,
+              "int8_matmul": quant.int8_matmul.calls,
+              "int8_depthwise": quant.int8_depthwise.calls,
+              "dispatches": dict(engine.dispatches_by_precision)}
+
+    q = engine.predict(images, precision="int8")
+    f = engine.predict(images, precision="bf16")
+    agree = float((q.argmax(-1) == f.argmax(-1)).mean())
+    rel = float(np.abs(q - f).max() / max(np.abs(f).max(), 1e-12))
+    acc = p20_accumulators(engine, picks, images[:1])
+    ms = {}
+    for b in buckets:
+        ms[b] = {p: engine.measure_batch_ms(b, P20_ITERS, precision=p)
+                 for p in ("bf16", "int8")}
+    per_chip = engine.weight_bytes_per_chip()
+    out = {"decision": decision["decision"], "plan": got_plan,
+           "calibrations": quant.calibrate.passes - passes,
+           "counts": counts, "argmax_agree": agree, "rel_err": rel,
+           "accumulators": acc, "measure_batch_ms": ms,
+           "bytes": {k: decision[k] for k in (
+               "weight_bytes_bf16", "weight_bytes_int8",
+               "weight_bytes_staged")},
+           "per_chip": per_chip, "armed_bytes_on_card": mem1 - mem0,
+           "arm_s": arm_s, "delta": decision["delta"],
+           "secs": time.perf_counter() - t0}
+    tag = {P20_VIT: "20a", P20_RESNET: "20b", P20_MOBILE: "20c"}[name]
+    phase(f"{tag} {name} int8: {decision['decision']} (watch "
+          f"{decision['watch']} bf16 {decision['metric_bf16']} int8 "
+          f"{decision['metric_int8']}), plan {got_plan} "
+          f"(quantized/skipped_head/fused_attention), armed in "
+          f"{arm_s:.2f}s, {out['calibrations']} calibration")
+    phase(f"{tag} main path, one int8 dispatch per bucket {list(buckets)}: "
+          f"{counts}; flash_attention per dispatch "
+          f"{counts['flash_attention'] / len(buckets):g} (depth {depth})")
+    phase(f"{tag} int8 vs bf16 on the 64-image shard: argmax agreement "
+          f"{agree:.4f}, max |int8 - bf16| / max |bf16| = {rel:.4g}; "
+          f"int32 accumulators card vs CPU: "
+          + ", ".join(f"{k} {v['prim']} {v['weight']} -> {v['acc_shape']} "
+                      f"equal={v['equal']}" for k, v in acc.items()))
+    phase(f"{tag} measure_batch_ms (bf16 / int8): "
+          + ", ".join(f"bucket {b} {v['bf16']:.3f} / {v['int8']:.3f}"
+                      for b, v in ms.items())
+          + f"; bytes: f32 masters {out['bytes']['weight_bytes_bf16']}, "
+          f"int8 tree {out['bytes']['weight_bytes_int8']}, staged "
+          f"{out['bytes']['weight_bytes_staged']}; resident per precision "
+          f"{per_chip}; memory_allocated grew {mem1 - mem0} bytes arming")
+    if decision["decision"] != "int8_enabled" \
+            or got_plan != P20_PLANS[name] or out["calibrations"] != 1:
+        raise AssertionError(f"{tag}: {decision}")
+    if counts["flash_attention"] != depth * len(buckets) \
+            or counts["best_iou"] != 0 \
+            or counts["dispatches"]["int8"] != len(buckets) \
+            or counts["int8_matmul"] + counts["int8_depthwise"] < \
+            got_plan[0] * len(buckets):
+        raise AssertionError(f"{tag}: the main path's counts {counts}")
+    if not (np.isfinite(q).all() and q.shape == f.shape) \
+            or rel > P20_REL_MAX:
+        raise AssertionError(f"{tag}: int8 vs bf16 {rel:g}, {q.shape}")
+    if not all(v["equal"] for v in acc.values()):
+        raise AssertionError(f"{tag}: accumulators {acc}")
+    if keep:
+        return out, engine
+    del engine
+    if P20_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_p20_stack(stash: str, engine) -> dict:
+    """20d: the serving stack at int8, vit_small. 20a's `engine` armed
+    again under the fault (on the shard labelled by its bf16 answers):
+    refused, bf16 serving on; `--serve-precision int8` through
+    `build_server` on
+    phase 16's epoch 1 (armed before traffic); over HTTP the default
+    answer (int8) and a `"precision": "bf16"` override against the engine,
+    /healthz and /metrics; epoch 2 hot-reloaded by `POST /reload`: one
+    calibration in all, the answers those of epoch 2's own int8."""
+    t0 = time.perf_counter()
+    cfg = config_at(P16_MODEL)
+    rs = np.random.RandomState(20)
+    x = rs.rand(1, cfg.data.image_size, cfg.data.image_size,
+                cfg.data.channels).astype(np.float32)
+    body = json.dumps({"instances": x.tolist()}).encode()
+    images, _ = scoring.pinned_shard(
+        cfg, image_size=engine.example_shape[0],
+        input_dtype=engine.input_dtype, examples=64)
+    own = np.asarray(engine.predict(images, precision="bf16")).argmax(-1)
+    fault = arm_int8(engine, shard=(images, (own,)), verbose=False,
+                     faults=FaultInjector.from_env(
+                         {"DEEPVISION_FAULT_QUANT_REGRESS": "1"}))
+    still = engine.predict(x)
+    try:
+        engine.predict(x, precision="int8")
+        unarmed = "served"
+    except ValueError:
+        unarmed = "refused"
+    del engine
+    if P20_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    workdir = p15_workdir("20d")
+    p16_commit(stash, workdir, 1)
+    passes = quant.calibrate.passes
+    server = build_server(p16_args("--workdir", workdir, "-c", "1",
+                                   "--buckets", "1,8", "--trace-sample",
+                                   "0", "--serve-precision", "int8"))
+    engine = server.fleet.default.engine
+    armed = (engine.precision, engine.quant_decision["decision"],
+             quant.calibrate.passes - passes)
+    t, base = p16_serve(server)
+    try:
+        _, default, _ = p16_post(base, body, "p20-int8")
+        _, forced, _ = p16_post(base, json.dumps(
+            {"instances": x.tolist(), "precision": "bf16"}).encode(),
+            "p20-bf16")
+        want_q = engine.predict(x)
+        want_f = engine.predict(x, precision="bf16")
+        health = p16_get(base, "/healthz")
+        metrics = p16_get(base, "/metrics")
+        p16_commit(stash, workdir, 2)
+        _, reload_rec, reload_s = p16_post(base, b"", "p20-reload",
+                                           "/reload")
+        _, after, _ = p16_post(base, body, "p20-after")
+        quantizer = engine._quantizer
+    finally:
+        p16_stop(server, t)
+    fresh = PredictEngine.from_config(P16_MODEL, device=P16_DEVICE,
+                                      workdir=stash, checkpoint=2,
+                                      buckets=(1,), verbose=False)
+    fresh.enable_int8(quantizer, verbose=False)
+    want_2 = fresh.predict(x, precision="int8")
+    del fresh
+    got = {k: np.asarray(v["predictions"], np.float32)
+           for k, v in (("default", default), ("bf16", forced),
+                        ("after", after))}
+    scale = max(float(np.abs(want_q).max()), 1e-12)
+    err = {"default_vs_int8": float(np.abs(got["default"] - want_q).max()),
+           "override_vs_bf16": float(np.abs(got["bf16"] - want_f).max()),
+           "reloaded_vs_epoch2_int8": float(
+               np.abs(got["after"] - want_2).max())}
+    calibrations = quant.calibrate.passes - passes
+    out = {"fault": fault["decision"], "unarmed_int8": unarmed,
+           "armed": armed, "errors": err, "calibrations": calibrations,
+           "reload": reload_rec.get("swapped"), "reload_s": reload_s,
+           "after_epoch": after.get("weights_epoch"),
+           "secs": time.perf_counter() - t0}
+    valid = validate_serve_exposition(metrics)
+    int8_series = 'precision="int8"' in metrics
+    phase(f"20d DEEPVISION_FAULT_QUANT_REGRESS=1 on {P16_MODEL}, its shard "
+          f"labelled by its bf16 answers: {fault['decision']} (watch bf16 "
+          f"{fault['metric_bf16']}, delta {fault['delta']}), bf16 serving "
+          f"on, an int8 request "
+          f"{unarmed}; --serve-precision int8: precision, decision, "
+          f"calibrations {armed}")
+    phase(f"20d HTTP: default vs engine int8 {err['default_vs_int8']:.3g}, "
+          f"precision bf16 override vs engine bf16 "
+          f"{err['override_vs_bf16']:.3g}; /healthz precision "
+          f"{health['precision']} quant {health['quant']['decision']}; "
+          f"/metrics int8 series {int8_series}, "
+          f"validator {valid}")
+    phase(f"20d POST /reload epoch 2 at int8: swapped {out['reload']} in "
+          f"{reload_s:.2f}s, answer of epoch {out['after_epoch']}, vs epoch "
+          f"2's own int8 {err['reloaded_vs_epoch2_int8']:.3g} (logit scale "
+          f"{scale:.3g}); calibrations in all {calibrations}")
+    if fault["decision"] != "refused_regression" or unarmed != "refused" \
+            or not np.isfinite(still).all():
+        raise AssertionError(f"20d: the fault {fault}, int8 {unarmed}")
+    if armed != ("int8", "int8_enabled", 1) or calibrations != 1:
+        raise AssertionError(f"20d: armed {armed}, {calibrations} "
+                             f"calibrations")
+    if health["precision"] != "int8" \
+            or health["quant"]["decision"] != "int8_enabled" or valid \
+            or not int8_series:
+        raise AssertionError(f"20d: /healthz {health.get('quant')}, "
+                             f"/metrics {valid}")
+    if out["reload"] != 1 or out["after_epoch"] != 2 \
+            or err["reloaded_vs_epoch2_int8"] > P20_RELOAD_TOL * scale \
+            or max(err["default_vs_int8"], err["override_vs_bf16"]) \
+            > P20_RELOAD_TOL * scale:
+        raise AssertionError(f"20d: {out}")
+    return out
+
+
+def check_int8_serving(stash: str) -> dict:
+    """Phase 20, slice 18: int8 serving. 20a vit_small (K1 8 a dispatch
+    at int8), 20b resnet50_tpu, 20c mobilenet_v1 (the depthwise path), 20d
+    the serving stack; each count zeroed just before its main path and
+    read just after."""
+    t0 = time.perf_counter()
+    out = {}
+    out["20a"], vit = check_p20_model(P20_VIT, P20_BUCKETS, {
+        "query": lambda op: op.prim == "linear"}, keep=True)
+    out["20b"] = check_p20_model(P20_RESNET, P20_BUCKETS, {
+        "stem": lambda op: True,
+        "1x1": lambda op: op.weight_shape[2:] == (1, 1)})
+    out["20c"] = check_p20_model(P20_MOBILE, (1,), {
+        "stem": lambda op: True,
+        "depthwise": lambda op: op.prim == "conv2d"
+        and op.weight_shape[1] == 1})
+    out["20d"] = check_p20_stack(stash, vit)
+    phase(f"20: phase 20 took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def keep_bytecode() -> None:
     """Keep the bytecode Python compiles, for this process and every one
     it starts, under the checkout's .cache/: where the interpreter's
@@ -6563,6 +6962,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     levers = check_levers()
     ended("phase 19")
+    # 20. slice 18: int8 serving (K1 in 20a at int8: the count zeroed just
+    # before its main path, read just after)
+    torch.cuda.empty_cache()
+    int8 = check_int8_serving(ops["stash"])
+    ended("phase 20")
 
     # the card again, next to the numbers: a tail of the output keeps it
     print(smi, flush=True)
@@ -6601,6 +7005,9 @@ def main() -> int:
             "cutmix_k2": {k: levers["19b"][k] for k in (
                 "launches", "steps", "eval_batches", "dispatches")},
             "classify": levers["19e"]["launches"]},
+        "int8_launches": {
+            "launches": int8["20a"]["counts"]["flash_attention"],
+            "dispatches": int8["20a"]["counts"]["dispatches"]["int8"]},
         "backward": "the VJP of naive_attention (autograd), as the JAX "
                     "package's _fused_bwd: no backward kernel",
         "grad_max_abs_err": grad_err}, {

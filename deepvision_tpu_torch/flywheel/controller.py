@@ -23,7 +23,10 @@ Everything downstream of detection is REUSE, not reimplementation:
   private `WeightReloader.check_once()` over exactly this model, which
   verifies integrity, restores, and delegates to the
   `PromotionController` (serve/promote.py) — shadow eval on the pinned
-  shard, metric-delta gate, canary window, auto-rollback.
+  shard, metric-delta gate, canary window, auto-rollback. When the engine
+  serves int8, the staged candidate is re-quantized under the pinned
+  calibration plan (serve/quantize.py), as in any hot reload: never
+  recalibrated.
 - **Backoff + circuit**: a refused or rolled-back candidate schedules the
   next attempt at `backoff_base_s * 2^(failures-1)` (capped at
   `backoff_max_s`); `max_attempts` consecutive failures open the retrain

@@ -220,12 +220,13 @@ def render_prometheus(fleet) -> str:
               "Accuracy-gated promotion decisions (shadow/canary verdicts)",
               promo_samples)
 
-    # the precision ladder's active rung, one-hot: every dispatch runs the
-    # full-precision rung, named "bf16" as in the JAX package whatever the
-    # config's compute dtype ("int8" arrives with quantized serving)
+    # the precision ladder's active rung, one-hot: the rung dispatches that
+    # ask for none run at (the int8 gate's outcome as a scrapeable fact);
+    # the full-precision rung is named "bf16" as in the JAX package,
+    # whatever the config's compute dtype
     precision_samples = []
     for sm in models:
-        active = "bf16"
+        active = sm.engine.precision
         for p in _PRECISIONS:
             precision_samples.append(
                 ("", {"model": sm.name, "precision": p},
@@ -239,6 +240,15 @@ def render_prometheus(fleet) -> str:
     _emit(lines, PREFIX + "mesh_devices", "gauge",
           "Devices the engine's dispatches span (1 = single card)",
           [("", {"model": sm.name}, 1) for sm in models])
+    # the weight bytes resident on the card per precision (int8 once armed)
+    byte_samples = [("", {"model": sm.name, "precision": precision}, nbytes)
+                    for sm in models
+                    for precision, nbytes in sorted(
+                        sm.engine.weight_bytes_per_chip().items())
+                    if nbytes is not None]
+    _emit(lines, PREFIX + "weight_bytes_per_chip", "gauge",
+          "Resident weight bytes on the busiest device, per compiled "
+          "precision", byte_samples)
 
     for hist_name, help_text in (
             ("request_latency_seconds",
@@ -523,7 +533,9 @@ _PRECISION_LABELED = ("deepvision_serve_request_latency_seconds",
 
 # gauges with required labels beyond `model` (the mesh-serving slice adds
 # its axis and per-chip byte gauges here)
-_MESH_LABELED = {"deepvision_serve_mesh_devices": ("model",)}
+_MESH_LABELED = {"deepvision_serve_mesh_devices": ("model",),
+                 "deepvision_serve_weight_bytes_per_chip": ("model",
+                                                            "precision")}
 
 
 def validate_serve_exposition(text: str) -> List[str]:

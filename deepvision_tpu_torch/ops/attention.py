@@ -31,6 +31,7 @@ import threading
 from typing import Optional
 
 import torch
+from torch.overrides import handle_torch_function, has_torch_function
 
 from ._build import load_library
 
@@ -232,7 +233,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     `_vector_copies_ok` allows it, else with scalar copies in the same
     kernel. On a CPU tensor it returns `flash_attention_reference`. Any
     other device raises. The backward is the naive VJP and launches no
-    kernel of its own."""
+    kernel of its own. A torch function mode sees each call as one call
+    of this function (the int8 plan counts it as fused attention)."""
+    if has_torch_function((q, k, v)):
+        return handle_torch_function(flash_attention, (q, k, v), q, k, v,
+                                     scale=scale)
     _check(q, k, v)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu, got "

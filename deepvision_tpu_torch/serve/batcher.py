@@ -14,9 +14,11 @@ the card's current stream: their forwards serialize on the device, and
 what a second worker overlaps is host work (batch assembly, the
 host-to-device copy, the answer's copy back).
 
-A batch runs ONE weight generation: requests tagged for the promotion
-canary's candidate (`generation="candidate"`) never share a batch with
-live ones (the collect loop flushes at a generation boundary).
+A batch runs ONE weight generation and ONE precision: requests tagged
+for the promotion canary's candidate (`generation="candidate"`) never
+share a batch with live ones, nor requests pinned to "int8" with those
+pinned to "bf16" or to the model's active precision (the collect loop
+flushes at either boundary).
 
 Overload control at the door (`submit` refuses BEFORE accepting — nothing
 partial ever happens):
@@ -60,12 +62,6 @@ import numpy as np
 from ..core.resilience import log_resilience_event
 from ..utils.faults import FaultInjector
 from .engine import PredictEngine, pick_bucket, tree_slice
-
-#: the precision label of every batch: the ladder's full-precision rung,
-#: named "bf16" as in the JAX package whatever the config's compute dtype
-#: ("int8" arrives with quantized serving)
-PRECISION = "bf16"
-
 
 class RequestRejected(RuntimeError):
     """Base: the request was NOT accepted — nothing partial happened."""
@@ -124,16 +120,20 @@ def result_within(future: Future, deadline_s: Optional[float], *,
 
 
 class _Request:
-    __slots__ = ("images", "n", "future", "t_submit", "generation", "trace")
+    __slots__ = ("images", "n", "future", "t_submit", "generation",
+                 "precision", "trace")
 
     def __init__(self, images: np.ndarray, generation: Optional[str] = None,
-                 trace=None):
+                 precision: Optional[str] = None, trace=None):
         self.images = images
         self.n = images.shape[0]
         self.future: Future = Future()
         self.t_submit = time.monotonic()
         # weight generation this request is pinned to (None = live)
         self.generation = generation
+        # precision it is pinned to (None = the model's active one at
+        # dispatch time)
+        self.precision = precision
         # obs.trace.TraceContext of a SAMPLED request (None otherwise)
         self.trace = trace
 
@@ -264,6 +264,7 @@ class DynamicBatcher:
     # -- client side -------------------------------------------------------
 
     def submit(self, images, *, generation: Optional[str] = None,
+               precision: Optional[str] = None,
                deadline_s: Optional[float] = None, trace=None) -> Future:
         x = self.engine._coerce(images)
         n = x.shape[0]
@@ -271,6 +272,10 @@ class DynamicBatcher:
             raise ValueError(
                 f"request of {n} examples exceeds max_batch="
                 f"{self.max_batch}; split client batches")
+        if precision is not None:
+            # an unknown or unarmed precision is refused at the door (400),
+            # not in a batch of doomed futures
+            self.engine._resolve_precision(precision)
         breaker = self.breaker
         if breaker is not None:
             wait_s = breaker.reject_for()
@@ -315,7 +320,8 @@ class DynamicBatcher:
             # enqueued under the lock: drain() flips `_draining` under it
             # before its stop token, so no accepted request can land behind
             # the token and go unanswered
-            req = _Request(x, generation=generation, trace=trace)
+            req = _Request(x, generation=generation, precision=precision,
+                           trace=trace)
             self._q.put(req)
         return req.future
 
@@ -368,9 +374,11 @@ class DynamicBatcher:
                     self._q.put(nxt)        # control token mid-collect:
                     break                   # hand it back, flush this batch
                 if total + nxt.n > self.max_batch \
-                        or nxt.generation != first.generation:
+                        or nxt.generation != first.generation \
+                        or nxt.precision != first.precision:
                     carry = nxt             # first request of the NEXT batch:
-                    break                   # full, or a generation boundary
+                    break                   # full, or a generation or
+                                            # precision boundary
                 batch.append(nxt)
                 total += nxt.n
             self._dispatch(batch, total, t_collect)
@@ -383,11 +391,17 @@ class DynamicBatcher:
                   t_collect: Optional[float] = None) -> None:
         images = (batch[0].images if len(batch) == 1
                   else np.concatenate([r.images for r in batch]))
-        generation = batch[0].generation   # the whole batch shares it
+        generation = batch[0].generation   # the whole batch shares both
+        precision = batch[0].precision
+        # the label metrics and spans carry: the request's precision, else
+        # the model's active one as the dispatch starts
+        label = precision or self.engine.precision
         t0 = time.monotonic()
         try:
             self.faults.before_serve_dispatch()
-            out, served, weights = self.engine.dispatch(images, generation)
+            # None runs the engine's active rung
+            out, served, weights = self.engine.dispatch(
+                images, generation, precision=precision)
         except Exception as e:  # noqa: BLE001 — must reach the futures,
             now = time.monotonic()   # not kill the dispatcher worker
             with self._lock:
@@ -396,7 +410,7 @@ class DynamicBatcher:
             if self.metrics is not None:
                 self.metrics.observe_dispatch_error()
             trace_ref = self._trace_batch(batch, total, t_collect, t0, now,
-                                          generation, error=repr(e))
+                                          generation, label, error=repr(e))
             if self.breaker is not None:
                 # the failing batch's span is the breaker's evidence: a
                 # breaker_opened event joins back to it
@@ -429,15 +443,15 @@ class DynamicBatcher:
                 dispatch_s=now - t0,
                 request_latencies_s=latencies,
                 queue_waits_s=[t0 - r.t_submit for r in batch],
-                precision=PRECISION)
+                precision=label)
         trace_ref = self._trace_batch(batch, total, t_collect, t0, now,
-                                      generation)
+                                      generation, label)
         self._observe(generation, latencies, now - t0, None,
                       trace_ref=trace_ref, images=images, outputs=out)
 
     def _trace_batch(self, batch: List[_Request], total: int,
                      t_collect: Optional[float], t0: float, now: float,
-                     generation: Optional[str],
+                     generation: Optional[str], precision: str = "bf16",
                      error: Optional[str] = None) -> Optional[str]:
         """Record the batch-level spans (one `batch` span naming its
         sampled requests, plus the `device_dispatch` child) and each
@@ -459,7 +473,7 @@ class DynamicBatcher:
         args = {"model": name,
                 "bucket": pick_bucket(total, self.engine.buckets),
                 "generation": generation or "live", "worker": worker,
-                "precision": PRECISION,
+                "precision": precision,
                 "n_real": total, "n_requests": len(batch),
                 "requests": [r.trace.request_id for r in traced]}
         if error is not None:

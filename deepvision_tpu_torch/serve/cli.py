@@ -48,8 +48,17 @@ The rest of the serving flags: `--workers` (the pool's floor),
 `--no-trace`, `--drain-grace` (the de-admission window after SIGTERM),
 `--image-size`. Five families serve: classification, detection (YOLO),
 CenterNet, pose and segmentation; GAN configs are refused. The JAX CLI's
-mesh, int8 and compilation-cache flags are refused by name
-(`LATER_FLAGS`). Several replicas behind one router: serve/tier.py.
+mesh and compilation-cache flags are refused by name (`LATER_FLAGS`).
+Several replicas behind one router: serve/tier.py.
+
+int8 serving: `--serve-precision int8` calibrates each model on its
+pinned shard before any traffic and serves int8 only if the accuracy gate
+passes (`--quant-gate`, default 0.02 of the watched metric); a refusal
+keeps that model on bf16, a family with nothing to quantize prints
+`int8 skipped` (serve/quantize.py):
+
+    python -m deepvision_tpu_torch.serve -m vit_small \
+        --serve-precision int8 --quant-gate 0.02
 """
 
 from __future__ import annotations
@@ -69,7 +78,6 @@ LATER_FLAGS = {
     "--model-parallel": "mesh serving (ROADMAP A6)",
     "--spatial-parallel": "mesh serving (ROADMAP A6)",
     "--hbm-gb": "mesh serving (ROADMAP A6)",
-    "--quant-gate": "int8 serving (ROADMAP A7)",
     "--compilation-cache": "no slice: it sets XLA's persistent compilation "
                            "cache, which the port's eager PyTorch has no "
                            "counterpart of",
@@ -143,9 +151,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve-precision", choices=("bf16", "int8"),
                    default="bf16",
                    help="serving precision: bf16, the full-precision rung "
-                        "(default; a config pinned to f32 computes in f32). "
-                        "int8 is refused: it arrives with int8 serving "
-                        "(ROADMAP A7)")
+                        "(default; a config pinned to f32 computes in f32), "
+                        "or int8: each model is calibrated on its pinned "
+                        "shard and flipped to int8 ONLY if the accuracy "
+                        "gate passes; a regression beyond --quant-gate "
+                        "refuses loudly and keeps serving bf16 (decision "
+                        "on /healthz and the resilience_ stream). "
+                        "Per-request override: body {'precision': "
+                        "'bf16'|'int8'}")
+    p.add_argument("--quant-gate", type=float, default=0.02,
+                   metavar="DELTA",
+                   help="int8 accuracy gate: the watched metric (top-1 / "
+                        "mIoU / box count / PCK) may be at most DELTA "
+                        "worse at int8 than bf16 on the pinned shard "
+                        "(default 0.02 = 2 points); beyond it the model "
+                        "serves bf16 and the refusal is logged")
     for flag, why in LATER_FLAGS.items():
         p.add_argument(flag, default=None, metavar="VALUE",
                        help=f"refused: {why}")
@@ -358,9 +378,6 @@ def validate_args(parser: argparse.ArgumentParser, args,
     for flag, why in LATER_FLAGS.items():
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             parser.error(f"{flag} is not ported yet: it arrives with {why}")
-    if args.serve_precision == "int8":
-        parser.error("--serve-precision int8 is not ported yet: it arrives "
-                     "with int8 serving (ROADMAP A7)")
     if not args.model:
         parser.error("-m/--model is required (see --list-models)")
     names = [s.strip() for s in args.model.split(",") if s.strip()]
@@ -421,6 +438,8 @@ def validate_args(parser: argparse.ArgumentParser, args,
         parser.error(f"--image-size must be >= 1, got {args.image_size}")
     if args.duration <= 0:
         parser.error(f"--duration must be > 0, got {args.duration}")
+    if args.quant_gate < 0:
+        parser.error(f"--quant-gate must be >= 0, got {args.quant_gate}")
 
 
 def build_server(args, replica_id: Optional[str] = None):
@@ -465,7 +484,7 @@ def build_server(args, replica_id: Optional[str] = None):
                   default_deadline_s=args.deadline_ms / 1000.0,
                   breaker_k=args.breaker_k,
                   breaker_cooldown_s=args.breaker_cooldown)
-    return InferenceServer(
+    server = InferenceServer(
         fleet=fleet, flush_every_s=args.flush_every,
         reload_every_s=args.reload_every,
         log_dir=args.log_dir or args.workdir or args.runs_root,
@@ -480,6 +499,18 @@ def build_server(args, replica_id: Optional[str] = None):
         trace_sample=args.trace_sample,
         drain_grace_s=args.drain_grace,
         replica_id=replica_id)
+    if args.serve_precision == "int8":
+        # arm and gate int8 for every model BEFORE traffic: calibration is
+        # startup cost, never request cost. A refusal keeps that model on
+        # bf16, loudly (stderr, the resilience_ stream, /healthz)
+        from .quantize import arm_int8
+        for sm in fleet:
+            try:
+                arm_int8(sm.engine, gate=args.quant_gate,
+                         logger=server.logger)
+            except ValueError as e:
+                print(f"[serve:{sm.name}] int8 skipped: {e}", flush=True)
+    return server
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

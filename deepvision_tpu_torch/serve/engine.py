@@ -40,6 +40,18 @@ reads its generation's module once, so a concurrent `promote_candidate`
 or `drop_candidate` (one reference assignment under the engine's lock)
 never mixes two generations inside a batch. No weight of a module that
 serves is ever written in place.
+
+The precision axis (`PRECISIONS`): "bf16", the config's compute policy,
+and "int8", calibrated post-training quantization (serve/quantize.py,
+ops/quant.py), armed by `enable_int8` and made the active precision by
+the accuracy gate (`set_precision`). Each dispatch runs one precision,
+the model's active one unless it asks for the other. Quantization reads
+the f32 masters of each generation, kept from before the staging cast
+(`_masters_of`): every staged generation, a swapped or promoted one
+included, is re-quantized under the pinned activation scales, never
+recalibrated. At int8 the staged module runs under the quantizer's
+`Int8Mode` with its generation's int8 weights; its own float weights
+serve the calls the plan keeps in float.
 """
 
 from __future__ import annotations
@@ -55,8 +67,13 @@ import torch
 from ..configs import get_config
 from ..core.steps import normalize_input
 from ..models import build_model
+from ..ops import quant
 from ..utils.device import device_name, resolve_device
 
+
+#: the engine's precision axis: "bf16" is the config's compute policy
+#: (f32 for configs that pin f32), "int8" its calibrated quantization
+PRECISIONS = ("bf16", "int8")
 
 #: the config families the engine can build and serve
 SERVED_FAMILIES = ("classification", "detection", "pose", "centernet",
@@ -249,6 +266,7 @@ class PredictEngine:
         # and write a bf16 one on every dispatch, more weight traffic than
         # the dispatch itself needs. Norms and f32 heads stay f32 (the
         # model's policy).
+        self._masters = self._masters_of(model)
         self.model = self._stage(model)
         self._signature = weight_signature(self.model)
         #: the staged candidate generation (None outside a promotion)
@@ -260,6 +278,17 @@ class PredictEngine:
         self.dispatches = 0
         #: the same count by weight generation, "live" and "candidate"
         self.dispatches_by_generation = {"live": 0, "candidate": 0}
+        #: and by precision
+        self.dispatches_by_precision = {p: 0 for p in PRECISIONS}
+        # -- the int8 axis (serve/quantize.py): the dispatches' default
+        # precision, the gate's last decision record, and, once armed, the
+        # quantizer and each generation's int8 weights
+        self.precision = "bf16"
+        self.quant_decision: Optional[dict] = None
+        self._quantizer = None
+        self._qweights = None
+        self._qcandidate = None
+        self._candidate_masters: Optional[dict] = None
 
     @classmethod
     def from_config(cls, name: str, *, device=None,
@@ -304,6 +333,15 @@ class PredictEngine:
 
     # -- weight generations ------------------------------------------------
 
+    @staticmethod
+    def _masters_of(model: torch.nn.Module) -> dict:
+        """{name: the f32 parameter} of an unstaged module: references to
+        the master weights that the staging cast replaces, the source every
+        quantization of this generation reads. No copy is made, but the
+        references keep the f32 tensors alive beside the staged copy (host
+        memory on a card: 4 bytes per parameter of each generation)."""
+        return {n: p.detach() for n, p in model.named_parameters()}
+
     def _stage(self, model: torch.nn.Module) -> torch.nn.Module:
         """`model` in eval mode, cast to its compute dtype and placed on the
         device, resident before it returns (the copy is off the request
@@ -330,13 +368,21 @@ class PredictEngine:
         before the swap; the swap itself is one reference assignment under
         the lock, so a dispatch in flight finishes on the weights it
         started with and every later one serves the new ones. A module
-        whose signature differs is refused (ValueError)."""
+        whose signature differs is refused (ValueError). With int8 armed the
+        new generation is quantized from its f32 masters first, under the
+        pinned activation scales, and its int8 weights go live with it."""
+        masters = self._masters_of(model)
         staged = self._stage(model)
         self._check_signature(staged, "hot swap")
-        with self._lock:
+
+        def install(qweights):
             self.model = staged
+            self._masters = masters
+            self._qweights = qweights
             if provenance is not None:
                 self.provenance = dict(provenance)
+
+        self._install_quantized(masters, install)
 
     @property
     def has_candidate(self) -> bool:
@@ -352,14 +398,22 @@ class PredictEngine:
         that ask for `generation="candidate"` (the shadow eval and the
         canary-routed batches) see it. `inject_delay_s` is the canary
         latency fault (DEEPVISION_FAULT_PROMOTE_REGRESS=<epoch>:latency):
-        every candidate dispatch sleeps that long."""
+        every candidate dispatch sleeps that long. With int8 armed the
+        candidate exists at both precisions: the canary runs it at the
+        model's active precision."""
+        masters = self._masters_of(model)
         staged = self._stage(model)
         self._check_signature(staged, "stage a candidate")
-        with self._lock:
+
+        def install(qweights):
             self._candidate = staged
+            self._candidate_masters = masters
+            self._qcandidate = qweights
             self.candidate_provenance = (dict(provenance) if provenance
                                          else None)
             self._candidate_delay_s = float(inject_delay_s)
+
+        self._install_quantized(masters, install)
 
     def promote_candidate(self) -> dict:
         """Flip the candidate live — one reference assignment under the
@@ -370,6 +424,8 @@ class PredictEngine:
                 raise RuntimeError(f"{self.name!r} has no staged candidate "
                                    f"to promote")
             self.model = self._candidate
+            self._masters = self._candidate_masters
+            self._qweights = self._qcandidate   # int8 in lockstep
             if self.candidate_provenance is not None:
                 self.provenance = dict(self.candidate_provenance)
             self._drop_locked()
@@ -387,51 +443,196 @@ class PredictEngine:
 
     def _drop_locked(self) -> None:
         self._candidate = None
+        self._candidate_masters = None
+        self._qcandidate = None
         self.candidate_provenance = None
         self._candidate_delay_s = 0.0
 
-    def _resolve_generation(self, generation: Optional[str]
-                            ) -> Tuple[torch.nn.Module, float, str, dict]:
-        """One read of a generation's (module, injected delay, name,
-        provenance) under the lock: the caller holds the module for its
-        whole dispatch. A candidate that is gone resolves to live."""
+    # -- the int8 precision axis (serve/quantize.py) -----------------------
+
+    @property
+    def int8_enabled(self) -> bool:
+        return self._quantizer is not None
+
+    def _quantize(self, quantizer, masters: dict) -> list:
+        """One generation's int8 weights from its f32 masters, placed on
+        the device, resident before they return."""
+        qweights = [q.to(self.device) for q in quantizer.quantize(masters)]
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return qweights
+
+    def _install_quantized(self, masters: dict, install) -> None:
+        """`install(qweights)` under the lock, `qweights` the int8 weights
+        of `masters` under the quantizer armed at that moment (None while
+        int8 is off). The quantization runs outside the lock; if int8 was
+        armed or disarmed meanwhile it runs again, so a generation never
+        goes live beside another quantizer's weights."""
+        with self._lock:
+            quantizer = self._quantizer
+        while True:
+            qweights = (self._quantize(quantizer, masters)
+                        if quantizer is not None else None)
+            with self._lock:
+                if quantizer is self._quantizer:
+                    install(qweights)
+                    return
+                quantizer = self._quantizer
+
+    def enable_int8(self, quantizer, verbose: bool = True) -> None:
+        """Arm the int8 twin beside bf16, the one-time arm cost
+        (serve/quantize.arm_int8 drives it and gates the result before it
+        flips `precision`): each generation's weights quantized from its
+        f32 masters, and the plan checked at every bucket (a bucket whose
+        forward plans another op sequence raises ValueError). The active
+        precision is not changed here."""
+        for b in self.buckets:
+            t0 = time.perf_counter()
+            x = np.zeros((b, *self.example_shape), self.input_dtype)
+            with torch.inference_mode():
+                quantizer.check_plan(self.model,
+                                     lambda: self.forward(self.model, x))
+            if self.verbose and verbose:
+                print(f"[serve:{self.name}] int8 bucket {b}: planned in "
+                      f"{time.perf_counter() - t0:.2f}s", flush=True)
+        # quantize both generations outside the lock; a swap or a staging
+        # that lands meanwhile makes the ones it replaced stale: again
+        with self._lock:
+            live, cand = self._masters, self._candidate_masters
+        while True:
+            qlive = self._quantize(quantizer, live)
+            qcand = (self._quantize(quantizer, cand) if cand is not None
+                     else None)
+            with self._lock:
+                if live is self._masters \
+                        and cand is self._candidate_masters:
+                    self._quantizer, self._qweights = quantizer, qlive
+                    self._qcandidate = qcand
+                    return
+                live, cand = self._masters, self._candidate_masters
+
+    def disable_int8(self) -> None:
+        """Back to bf16 only (the gate's refusal): the quantizer and the
+        int8 weights go, the active precision is bf16. `quant_decision`
+        stays: /healthz shows why int8 is off."""
+        with self._lock:
+            self.precision = "bf16"
+            self._quantizer = None
+            self._qweights = None
+            self._qcandidate = None
+
+    def _check_precision_locked(self, precision: str) -> None:
+        if precision not in PRECISIONS:
+            raise ValueError(f"unknown precision {precision!r} "
+                             f"(expected one of {PRECISIONS})")
+        if precision == "int8" and self._quantizer is None:
+            raise ValueError(
+                f"int8 serving is not armed for {self.name!r} — the "
+                f"calibration gate has not passed (see /healthz quant; "
+                f"serve/quantize.arm_int8, or --serve-precision int8)")
+
+    def set_precision(self, precision: str) -> None:
+        """Flip the ACTIVE precision (of dispatches that ask for none).
+        int8 needs the int8 twin armed."""
+        with self._lock:
+            self._check_precision_locked(precision)
+            self.precision = precision
+
+    def _resolve_precision(self, precision: Optional[str]) -> str:
+        """`precision`, or the active one for None; raises ValueError for
+        an unknown or unarmed one (the batcher's check at the door)."""
+        with self._lock:
+            precision = self.precision if precision is None else precision
+            self._check_precision_locked(precision)
+            return precision
+
+    def weight_bytes_per_chip(self) -> dict:
+        """Weight bytes resident on the card per precision: "bf16" the
+        staged module's floating leaves, "int8" (None until armed) the
+        int8 weights with their scales plus the staged leaves the plan
+        keeps in float. Both stay resident while int8 is armed."""
+        with self._lock:
+            model, quantizer, qweights = (self.model, self._quantizer,
+                                          self._qweights)
+        floats = {k: v for k, v in model.state_dict().items()
+                  if v.is_floating_point()}
+        int8 = None
+        if quantizer is not None:
+            planned = quantizer.plan.params
+            int8 = (quant.tree_nbytes(t for q in qweights for t in (q.w, q.s))
+                    + quant.tree_nbytes(v for k, v in floats.items()
+                                        if k not in planned))
+        return {"bf16": quant.tree_nbytes(floats.values()), "int8": int8}
+
+    # -- dispatch ----------------------------------------------------------
+
+    def forward(self, model: torch.nn.Module, x: np.ndarray) -> Any:
+        """`model`'s eval forward of the host batch `x` on the device, as
+        served (normalized input, first output, output transform): the
+        device output tree. Call it under `torch.inference_mode()`."""
+        images = torch.from_numpy(x).to(self.device)
+        out = model(normalize_input(images, self.input_norm,
+                                    self.compute_dtype))
+        if self.take_first_output and isinstance(out, (tuple, list)):
+            out = out[0]
+        if self.output_transform is not None:
+            out = self.output_transform(out)
+        return out
+
+    def _run(self, x: np.ndarray,
+             model: Optional[torch.nn.Module] = None,
+             int8: Optional[tuple] = None) -> Any:
+        """One forward of `model` (default: the live one) at exactly x's
+        batch size, in int8 when `int8` is a (quantizer, int8 weights)
+        pair; the host output tree."""
+        model = self.model if model is None else model
+        with torch.inference_mode():
+            if int8 is None:
+                out = self.forward(model, x)
+            else:
+                quantizer, qweights = int8
+                out = quantizer.run(lambda: self.forward(model, x), qweights)
+            return tree_map(lambda t: (t.float() if t.is_floating_point()
+                                       else t).cpu().numpy(), out)
+
+    def _resolve(self, generation: Optional[str], precision: Optional[str]
+                 ) -> Tuple[torch.nn.Module, float, str, dict, str,
+                            Optional[tuple]]:
+        """One read, under the lock, of what a dispatch runs: the
+        generation's (module, injected delay, name, provenance), the
+        precision, and at int8 the (quantizer, that generation's int8
+        weights) pair, so a concurrent swap, promotion, rollback or
+        disarm never mixes two states inside a batch. A candidate that is
+        gone resolves to live."""
         if generation not in (None, "live", "candidate"):
             raise ValueError(f"unknown weight generation {generation!r} "
                              f"(expected 'live' or 'candidate')")
         with self._lock:
+            precision = self.precision if precision is None else precision
+            self._check_precision_locked(precision)
             if generation == "candidate" and self._candidate is not None:
-                return (self._candidate, self._candidate_delay_s,
-                        "candidate", self.candidate_provenance or {})
-            return self.model, 0.0, "live", self.provenance
+                model, delay_s, name = (self._candidate,
+                                        self._candidate_delay_s, "candidate")
+                provenance = self.candidate_provenance or {}
+                qweights = self._qcandidate
+            else:
+                model, delay_s, name = self.model, 0.0, "live"
+                provenance, qweights = self.provenance, self._qweights
+            int8 = ((self._quantizer, qweights) if precision == "int8"
+                    else None)
+        return model, delay_s, name, provenance, precision, int8
 
-    # -- dispatch ----------------------------------------------------------
-
-    def _run(self, x: np.ndarray,
-             model: Optional[torch.nn.Module] = None) -> Any:
-        """One forward of `model` (default: the live one) at exactly x's
-        batch size; the host output tree."""
-        model = self.model if model is None else model
-        with torch.inference_mode():
-            images = torch.from_numpy(x).to(self.device)
-            out = model(normalize_input(images, self.input_norm,
-                                        self.compute_dtype))
-            if self.take_first_output and isinstance(out, (tuple, list)):
-                out = out[0]
-            if self.output_transform is not None:
-                out = self.output_transform(out)
-            return tree_map(lambda t: (t.float() if t.is_floating_point()
-                                       else t).cpu().numpy(), out)
-
-    def dispatch(self, images, generation: Optional[str] = None
-                 ) -> Tuple[Any, str, dict]:
+    def dispatch(self, images, generation: Optional[str] = None,
+                 precision: Optional[str] = None) -> Tuple[Any, str, dict]:
         """ONE bucketed dispatch of at most max_batch examples on
-        `generation`'s weights: `(outputs, the generation that served it,
-        that generation's provenance)`, the three read together, so the
-        batcher can label every answer with the weights that computed it
-        even across a concurrent swap, promotion or rollback."""
+        `generation`'s weights at `precision` (None: the active one):
+        `(outputs, the generation that served it, that generation's
+        provenance)`, read together, so the batcher can label every answer
+        with the weights that computed it even across a concurrent swap,
+        promotion or rollback."""
         x = self._coerce(images)
-        model, delay_s, resolved, provenance = \
-            self._resolve_generation(generation)
+        model, delay_s, resolved, provenance, precision, int8 = \
+            self._resolve(generation, precision)
         if delay_s > 0:
             time.sleep(delay_s)   # the injected canary latency fault
         n = x.shape[0]
@@ -441,7 +642,9 @@ class PredictEngine:
         with self._lock:
             self.dispatches += 1
             self.dispatches_by_generation[resolved] += 1
-        return tree_slice(self._run(x, model), 0, n), resolved, provenance
+            self.dispatches_by_precision[precision] += 1
+        return (tree_slice(self._run(x, model, int8), 0, n), resolved,
+                provenance)
 
     def warmup(self) -> None:
         """One blocking dispatch per bucket: absorbs first-call allocation,
@@ -466,34 +669,41 @@ class PredictEngine:
                 f"(or one bare example), got {x.shape}")
         return x
 
-    def predict(self, images, generation: Optional[str] = None) -> Any:
+    def predict(self, images, generation: Optional[str] = None,
+                precision: Optional[str] = None) -> Any:
         """Host-in host-out bucketed prediction (pads, dispatches, strips).
         Oversize batches run as max_batch chunks plus one tail bucket.
         `generation` selects the weights ('live'/None, or 'candidate' while
-        a promotion has one staged); each dispatch runs one generation."""
+        a promotion has one staged), `precision` the ladder's rung ('bf16'
+        or 'int8'; None: the active one); each dispatch runs one of each."""
         x = self._coerce(images)
-        chunks = [self.dispatch(x[i:i + self.max_batch], generation)[0]
+        chunks = [self.dispatch(x[i:i + self.max_batch], generation,
+                                precision)[0]
                   for i in range(0, x.shape[0], self.max_batch)]
         return chunks[0] if len(chunks) == 1 else tree_concat(chunks)
 
     def reference(self, images, generation: Optional[str] = None) -> Any:
         """Un-bucketed predict at the exact batch size on `generation`'s
         weights — the oracle the padding-equivalence checks hold the
-        bucketed path against."""
-        model = self._resolve_generation(generation)[0]
+        bucketed path against. Always the bf16 rung: the accuracy
+        reference the int8 gate scores against."""
+        model = self._resolve(generation, "bf16")[0]
         return self._run(self._coerce(images), model)
 
     # -- measurement -------------------------------------------------------
 
     def measure_batch_ms(self, bucket: Optional[int] = None,
-                         iters: int = 5) -> float:
+                         iters: int = 5,
+                         precision: Optional[str] = None) -> float:
         """Steady-state wall time of one dispatch of `bucket` (default
-        max_batch), host input to host output, in ms — the "one batch
-        compute time" term of the serving latency contract."""
+        max_batch) at `precision` (default: the active one), host input
+        to host output, in ms — the "one batch compute time" term of the
+        serving latency contract."""
         b = pick_bucket(bucket or self.max_batch, self.buckets)
         x = np.zeros((b, *self.example_shape), self.input_dtype)
-        self._run(x)  # warm; _run ends in a device-to-host copy, so each
-        t0 = time.perf_counter()  # timed call includes the device work
-        for _ in range(iters):
-            self._run(x)
+        model, _, _, _, _, int8 = self._resolve(None, precision)
+        self._run(x, model, int8)  # warm; _run ends in a device-to-host
+        t0 = time.perf_counter()   # copy, so each timed call includes the
+        for _ in range(iters):     # device work
+            self._run(x, model, int8)
         return (time.perf_counter() - t0) / iters * 1000.0

@@ -87,16 +87,18 @@ class ServedModel:
         return self.batcher.breaker
 
     def submit(self, images, *, deadline_s: Optional[float] = None,
-               trace=None):
+               precision: Optional[str] = None, trace=None):
         """Route one request into this model's batcher (the promotion
         canary's fraction onto the candidate generation). `deadline_s`
         feeds admission control (None = the batcher's configured default);
-        `trace` is a sampled request's TraceContext."""
+        `precision` pins the request to "bf16" or "int8" (None = the
+        model's active precision); `trace` is a sampled request's
+        TraceContext."""
         return self.submit_routed(images, deadline_s=deadline_s,
-                                  trace=trace)[0]
+                                  precision=precision, trace=trace)[0]
 
     def submit_routed(self, images, *, deadline_s: Optional[float] = None,
-                      trace=None):
+                      precision: Optional[str] = None, trace=None):
         """`submit` plus the routing verdict: `(future, generation)`, the
         generation "candidate" when the promotion controller canary-routed
         this request and "live" otherwise. The generation that computed
@@ -104,6 +106,7 @@ class ServedModel:
         routing and the dispatch serves a canary-routed request live)."""
         generation = self.promoter.route() if self.promoter else None
         fut = self.batcher.submit(images, generation=generation,
+                                  precision=precision,
                                   deadline_s=deadline_s, trace=trace)
         return fut, (generation or "live")
 
@@ -126,10 +129,18 @@ class ServedModel:
             "workers": workers,
             "default_deadline_s": self.batcher.default_deadline_s,
             "weights": self.engine.provenance,
+            # the int8 axis: the precision dispatches default to, the
+            # gate's last decision (why int8 is on or off) and the weight
+            # bytes resident per precision
+            "precision": self.engine.precision,
+            "quant": self.engine.quant_decision,
+            "weight_bytes_per_chip": self.engine.weight_bytes_per_chip(),
             # bucketed dispatches since the engine was built (warmup and
-            # shadow evals included), by weight generation
+            # shadow evals included), by weight generation and precision
             "dispatches": {"total": self.engine.dispatches,
-                           **self.engine.dispatches_by_generation},
+                           **self.engine.dispatches_by_generation,
+                           "by_precision":
+                               dict(self.engine.dispatches_by_precision)},
             "hot_reload": bool(self.workdir),
             "reload": reload_stats,
             "autoscale": autoscale_stats,
@@ -146,6 +157,7 @@ class ServedModel:
             **self.metrics.snapshot(queue_depth=self.batcher.queue_depth),
             "workers": float(self.batcher.workers),
             "weights": self.engine.provenance,
+            "precision": self.engine.precision,
         }
         if self.breaker is not None:
             snap["breaker_state"] = self.breaker.describe()["state"]

@@ -217,7 +217,9 @@ class PromotionController:
         logits, mIoU from class-id masks, box-count agreement from decoded
         detections / CenterNet peaks, PCK from pose heatmaps —
         core/scoring.score_serving_outputs), scored on the exact payloads
-        clients get."""
+        clients get. Runs at the model's ACTIVE precision: when the quant
+        gate flipped serving to int8, candidates are shadow-scored at int8
+        too, on the int8 weights staged with them."""
         images, targets = self._eval_shard()
         out = self.sm.engine.predict(images, generation=generation)
         return scoring.score_serving_outputs(self.cfg, out, targets)

@@ -213,6 +213,8 @@ class WeightReloader:
                       f"verified={provenance.get('verified')}"
                       + (", promoted through the shadow/canary gate"
                          if promoter is not None else "")
+                      + (", re-quantized under the pinned int8 scales"
+                         if sm.engine.int8_enabled else "")
                       + ")")
         return True
 

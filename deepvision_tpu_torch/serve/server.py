@@ -100,7 +100,7 @@ from ..utils.faults import FaultInjector
 from .autoscale import AutoscaleController
 from .batcher import (CircuitOpen, DeadlineExpired, DeadlineUnmeetable,
                       Draining, Overloaded, result_within)
-from .engine import PredictEngine, tree_map
+from .engine import PRECISIONS, PredictEngine, tree_map
 from .fleet import ModelFleet, UnknownModel
 from .reload import WeightReloader
 
@@ -441,6 +441,11 @@ def _make_handler(server: InferenceServer):
                     "buckets": list(d.engine.buckets),
                     "max_batch": d.batcher.max_batch,
                     "weights": d.engine.provenance,
+                    # the int8 axis: the active precision and the gate's
+                    # last decision, a refusal visible here and not only
+                    # on stderr
+                    "precision": d.engine.precision,
+                    "quant": d.engine.quant_decision,
                     "served_models": server.fleet.names(),
                     "models": server.fleet.describe(),
                     # this process's kernel launches since it started:
@@ -520,6 +525,13 @@ def _make_handler(server: InferenceServer):
                 length = int(self.headers.get("Content-Length", "0"))
                 payload = json.loads(self.rfile.read(length) or b"{}")
                 x = np.asarray(payload["instances"], np.float32)
+                # per-request precision ("bf16" / "int8"; absent = the
+                # model's active one); an unarmed one answers 400 at submit
+                precision = payload.get("precision")
+                if precision is not None and precision not in PRECISIONS:
+                    raise ValueError(
+                        f"precision must be 'bf16' or 'int8', got "
+                        f"{precision!r}")
                 # request deadline: body "deadline_ms", else the
                 # X-Deadline-Ms header, else the model's configured
                 # default, else the server fallback — ALWAYS bounded
@@ -543,7 +555,8 @@ def _make_handler(server: InferenceServer):
                 # routed through the promotion controller when one is
                 # attached; admission control, backpressure and the
                 # circuit breaker all refuse HERE, before anything queues
-                fut = sm.submit(x, deadline_s=deadline_s, trace=ctx)
+                fut = sm.submit(x, deadline_s=deadline_s,
+                                precision=precision, trace=ctx)
                 if ctx is not None:
                     tracer.add("admission", "serve", int(t_adm * 1e9),
                                int((time.monotonic() - t_adm) * 1e9),

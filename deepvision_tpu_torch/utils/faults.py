@@ -79,11 +79,21 @@ injector fakes the failure classes long runs see:
                                              monitor's consecutive-window
                                              hysteresis trips only on a
                                              shift that stays
+    DEEPVISION_FAULT_QUANT_REGRESS=1         the int8 quantization gate
+                                             (serve/quantize.py) sees a
+                                             REGRESSED int8 score: its
+                                             int8 side is lowered by a
+                                             fixed amount, so the gate must
+                                             refuse int8 and keep bf16
+                                             serving (a
+                                             resilience_quant_refused event
+                                             and the /healthz decision).
+                                             Fires on every gate
+                                             evaluation while set
 
 `tamper_sharding`, the JAX package's fourth mode, edits a manifest's mesh
 section, which only an elastic (resharding) restore reads; the port keeps
-no such section yet, so the mode is refused by name. The quantization fault
-(`DEEPVISION_FAULT_QUANT_REGRESS`) arrives with int8 serving.
+no such section yet, so the mode is refused by name.
 
 An unset environment yields an inert injector (`active` False) whose hooks
 are cheap no-ops.
@@ -183,6 +193,7 @@ class FaultInjector:
                  promote_regress_kind: Optional[str] = None,
                  drift_shift_window: Optional[int] = None,
                  drift_shift_magnitude: float = 0.0,
+                 quant_regress: bool = False,
                  serve_dispatch_fail_at: Optional[int] = None,
                  serve_dispatch_fail_count: int = 1,
                  replica_crash_after: Optional[int] = None,
@@ -201,6 +212,7 @@ class FaultInjector:
         self.drift_shift_magnitude = (float(drift_shift_magnitude)
                                       if drift_shift_window is not None
                                       else 0.0)
+        self.quant_regress = bool(quant_regress)
         self.serve_dispatch_fail_at = serve_dispatch_fail_at
         self.serve_dispatch_fail_count = (serve_dispatch_fail_count
                                           if serve_dispatch_fail_at is not None
@@ -229,6 +241,8 @@ class FaultInjector:
             env.get("DEEPVISION_FAULT_PROMOTE_REGRESS"))
         drift_window, drift_magnitude = _parse_drift_shift(
             env.get("DEEPVISION_FAULT_DRIFT_SHIFT"))
+        quant_regress = env.get("DEEPVISION_FAULT_QUANT_REGRESS",
+                                "") not in ("", "0")
         dispatch_at, dispatch_count = _parse_step_count(
             env.get("DEEPVISION_FAULT_SERVE_DISPATCH_FAIL"))
         crash_raw = env.get("DEEPVISION_FAULT_REPLICA_CRASH")
@@ -245,6 +259,7 @@ class FaultInjector:
                    promote_regress_kind=regress_kind,
                    drift_shift_window=drift_window,
                    drift_shift_magnitude=drift_magnitude,
+                   quant_regress=quant_regress,
                    serve_dispatch_fail_at=dispatch_at,
                    serve_dispatch_fail_count=dispatch_count,
                    replica_crash_after=(int(crash_raw) if crash_raw
@@ -259,6 +274,7 @@ class FaultInjector:
                 or self.ckpt_corrupt_epoch is not None
                 or self.promote_regress_epoch is not None
                 or self.drift_shift_window is not None
+                or self.quant_regress
                 or self.serve_dispatch_fail_at is not None
                 or self.replica_crash_after is not None
                 or self.replica_wedge_after is not None)
@@ -389,6 +405,13 @@ class FaultInjector:
                 or window_index < self.drift_shift_window):
             return 0.0
         return self.drift_shift_magnitude
+
+    def quant_regression(self) -> bool:
+        """Called by the int8 quantization gate (serve/quantize.py) when it
+        scores int8 against bf16: True while
+        DEEPVISION_FAULT_QUANT_REGRESS is armed, and the gate then lowers
+        the int8 score by `FAULT_SCORE_DROP`."""
+        return self.quant_regress
 
     def corrupt_checkpoint(self, epoch: int, step_dir: str,
                            manifest_name: str = "integrity_manifest.json"

@@ -288,11 +288,11 @@ def test_phase_11_workers_get_the_entry_points_argv(tmp_path):
             _flag(yolo, "--batch-size"), _flag(yolo, "--steps-per-epoch"),
             _flag(yolo, "--device")) == (
         chip_smoke.YOLO_MODEL, "416", str(chip_smoke.YOLO_BATCH),
-        str(chip_smoke.YOLO_STEPS), "cuda")
+        str(chip_smoke.DDP_YOLO_STEPS), "cuda")
     assert (_flag(resnet, "-m"), _flag(resnet, "--batch-size"),
             _flag(resnet, "--steps-per-epoch"), _flag(resnet, "--device")
             ) == (chip_smoke.RESNET_MODEL, str(chip_smoke.RESNET_BATCH),
-                  str(chip_smoke.RESNET_STEPS), "cuda")
+                  str(chip_smoke.DDP_RESNET_STEPS), "cuda")
     assert "--device-augment" in resnet
     assert _flag(yolo, "--workdir") != _flag(resnet, "--workdir")
 
@@ -444,6 +444,9 @@ def _fake_phase_12(monkeypatch, restored=1, fail=None, launch=None):
                         sub("entry", None))
     monkeypatch.setattr(chip_smoke, "check_detection_serving",
                         sub("serve", {}))
+    monkeypatch.setattr(chip_smoke, "start_p12_evaluation", lambda: {})
+    monkeypatch.setattr(chip_smoke, "finish_p12_evaluation",
+                        sub("evaluate", {}))
     monkeypatch.setattr(chip_smoke.best_iou, "launches", 7)
     monkeypatch.setattr(chip_smoke.flash_attention, "launches", 9)
     return calls
@@ -453,12 +456,13 @@ def test_phase_12_runs_every_sub_phase_with_the_counts_zeroed(monkeypatch):
     calls = _fake_phase_12(monkeypatch)
     out = chip_smoke.check_detection_inference(
         {"config": None, "workdir": "wd"})
-    assert calls == ["predict", "entry", "serve"] and "serve" in out
+    assert calls == ["predict", "entry", "serve", "evaluate"]
+    assert "serve" in out and "evaluate" in out
     assert (chip_smoke.flash_attention.launches,
             chip_smoke.best_iou.launches) == (0, 0)
 
 
-@pytest.mark.parametrize("fail", ["predict", "entry", "serve"])
+@pytest.mark.parametrize("fail", ["predict", "entry", "serve", "evaluate"])
 def test_a_failing_sub_phase_fails_phase_12(monkeypatch, fail):
     _fake_phase_12(monkeypatch, fail=fail)
     with pytest.raises(AssertionError, match=f"{fail} failed"):
@@ -466,7 +470,8 @@ def test_a_failing_sub_phase_fails_phase_12(monkeypatch, fail):
                                               "workdir": "wd"})
 
 
-@pytest.mark.parametrize("launch", ["predict", "entry", "serve"])
+@pytest.mark.parametrize("launch", ["predict", "entry", "serve",
+                                    "evaluate"])
 def test_a_kernel_launch_on_the_inference_path_fails_phase_12(monkeypatch,
                                                               launch):
     _fake_phase_12(monkeypatch, launch=launch)
@@ -587,6 +592,7 @@ def test_phase_12_rehearses_on_the_cpu(monkeypatch, tmp_path):
         {"config": trainer.config, "workdir": workdir})
     assert out["nms_ms"] > 0 and out["forward_ms"] > 0
     assert set(out["serve"]["batch_ms"]) == {1, 8}
+    assert out["evaluate"]["seconds"] > 0
     assert (chip_smoke.flash_attention.launches,
             chip_smoke.best_iou.launches) == (0, 0)
 

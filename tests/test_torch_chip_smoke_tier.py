@@ -70,9 +70,11 @@ def test_phase_17_rehearses_on_the_cpu(tiny_p17):
     assert a["answers"] > 0 and a["stats"]["responses_5xx"] == 0
     depth = chip_smoke.get_config("vit_tiny").model_kwargs["depth"]
     assert b["launches"] == depth * (b["finetune_steps"] + b["dispatches"])
-    assert b["finetune_steps"] == 3 * 4       # 3 fine-tunes of 4 batches
+    # 3 fine-tunes: the promoted one and two refusals, the first backing off
+    assert b["finetune_steps"] == 3 * chip_smoke.P17_FINETUNE_BATCHES
     assert [d for d, _, _ in b["decisions"]] == [
         "promoted", "refused_gate", "refused_gate"]
+    assert b["backoffs"] == [chip_smoke.P17_BACKOFF_S]
     assert b["counters"]["circuit_opened"] == 1
 
 

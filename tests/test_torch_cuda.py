@@ -41,6 +41,12 @@ the card at its full size, padded buckets against `reference()` within
 5e-2 of the largest logit (bf16 on both sides) and against an engine on
 the CPU on the same seeded weights within 5e-2.
 
+int8 serving has no TPU kernel either (JAX's int8 conv and dot are XLA
+ops): `ops/quant.py`'s int8 products on the card (the padded
+`torch._int_mm`, im2col convs at k = 25, 27 and 147, a 1x1, depthwise and
+grouped convs) give the CPU's int32 accumulators bit for bit, and int8
+vit_small keeps K1 at 8 launches a dispatch with its plan 49 / 1 / 8.
+
 Detection inference has no kernel: greedy NMS on the card against NMS on
 the CPU on identical inputs at the yolov3 shape (exact picks, counts and
 gathered rows), and a reduced yolov3's candidates before NMS on the card
@@ -1213,3 +1219,61 @@ def test_builds_on_the_card_equal_the_cpu_builds(card, tmp_path):
                 assert diff.max() <= P18_REENCODE_MAX
                 assert diff.mean() <= P18_REENCODE_MEAN
     assert reencoded == 3      # the two gray JPEGs and the PNG
+
+
+# -- int8 serving (ops/quant.py) ----------------------------------------------
+
+def _int8(rs, *shape):
+    return torch.from_numpy(rs.randint(-127, 128, shape).astype(np.int8))
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 25, 6), (17, 27, 6), (64, 147, 64),
+                                   (197, 384, 1152), (8, 120, 84)])
+def test_int8_matmul_on_the_card_equals_the_cpu(card, m, k, n):
+    """The padded `torch._int_mm` product: int32 accumulators bit for bit
+    the CPU's, at the shapes the card pads (k = 25 and 27, n = 6, m = 1)."""
+    from deepvision_tpu_torch.ops import quant
+    rs = np.random.RandomState(m + k + n)
+    a, w = _int8(rs, m, k), _int8(rs, n, k)
+    got = quant.int8_matmul(a.to(card), w.to(card))
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    assert torch.equal(got.cpu(), quant.int8_matmul(a, w))
+
+
+@pytest.mark.parametrize("c,o,k,stride,pad,groups", [
+    (1, 6, 5, 1, 0, 1),           # lenet's first conv: k = 25, n = 6
+    (3, 64, 7, 2, 3, 1),          # the resnet stem: k = 147
+    (3, 32, 3, 2, 1, 1),          # a 3-channel stem: k = 27
+    (64, 256, 1, 1, 0, 1),        # a 1x1 conv
+    (32, 32, 3, 1, 1, 32),        # depthwise
+    (240, 240, 3, 2, 1, 240),     # depthwise, strided
+    (24, 60, 1, 1, 0, 3),         # shufflenet's grouped 1x1
+])
+def test_int8_conv_on_the_card_equals_the_cpu(card, c, o, k, stride, pad,
+                                              groups):
+    from deepvision_tpu_torch.ops import quant
+    rs = np.random.RandomState(c + o + k)
+    x, w = _int8(rs, 2, c, 17, 17), _int8(rs, o, c // groups, k, k)
+    got = quant.int8_conv2d(x.to(card), w.to(card), stride, pad, 1, groups)
+    want = quant.int8_conv2d(x, w, stride, pad, 1, groups)
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+
+
+def test_int8_vit_small_launches_k1_per_layer(card):
+    """int8 vit_small on the card: attention stays on K1, 8 launches a
+    dispatch, and the plan is 49 / 1 / 8."""
+    from deepvision_tpu_torch.serve.quantize import arm_int8
+    from deepvision_tpu_torch.utils.faults import FaultInjector
+    engine = PredictEngine.from_config("vit_small", buckets=(1, 8),
+                                       verbose=False)
+    decision = arm_int8(engine, verbose=False, faults=FaultInjector(),
+                        examples=8)
+    plan = decision["plan"]
+    assert (plan["quantized"], plan["skipped_head"],
+            plan["fused_attention"]) == (49, 1, 8)
+    x = np.zeros((8, *engine.example_shape), engine.input_dtype)
+    before = port.flash_attention.launches
+    engine.dispatch(x, precision="int8")
+    torch.cuda.synchronize()
+    assert port.flash_attention.launches - before == 8

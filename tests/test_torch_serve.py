@@ -262,6 +262,7 @@ class _EchoEngine:
     max_batch = 8
     buckets = (1, 8)
     example_shape = (2,)
+    precision = "bf16"
 
     def _coerce(self, images):
         x = np.asarray(images, np.float32)
@@ -270,7 +271,7 @@ class _EchoEngine:
     def predict(self, images):
         return images * 2.0
 
-    def dispatch(self, images, generation=None):
+    def dispatch(self, images, generation=None, precision=None):
         """The batcher's call: the answer, the weight generation that
         computed it and that generation's provenance (one generation)."""
         return self.predict(images), "live", {}

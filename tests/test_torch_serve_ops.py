@@ -610,9 +610,9 @@ class _Paced:
     def __getattr__(self, name):
         return getattr(self._inner, name)
 
-    def dispatch(self, images, generation=None):
+    def dispatch(self, images, generation=None, precision=None):
         time.sleep(self._delay)
-        return self._inner.dispatch(images, generation)
+        return self._inner.dispatch(images, generation, precision=precision)
 
 
 def test_autoscaler_scales_up_on_shed_then_down_when_idle(engine):
@@ -892,8 +892,6 @@ def test_cli_flag_contract(argv):
     ("--model-parallel", "2", "mesh serving"),
     ("--spatial-parallel", "2", "mesh serving"),
     ("--hbm-gb", "16", "mesh serving"),
-    ("--serve-precision", "int8", "int8 serving"),
-    ("--quant-gate", "0.02", "int8 serving"),
     ("--flywheel-every", "5", "flywheel"),
     ("--compilation-cache", "off", "compilation cache"),
 ])
