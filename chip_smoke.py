@@ -364,6 +364,30 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    within P20_RELOAD_TOL of epoch 2's own int8 under the same quantizer,
    one calibration in the whole of 20d.
 
+21. slice 19: model export and the PyTorch checkpoint importer. 21a:
+   `python -m deepvision_tpu_torch.tools.export -m vit_small` on phase 6's
+   run at `--batch-size 8` with `--saved-model` and `--tflite`, started
+   as a process on the card when phase 6 ends (two inductor compile
+   workers) and collected here: the program (`load_program`) and the
+   AOTInductor package (`load_package`) each run once on the card, K1's
+   launches zeroed before and read after each call (depth, 8, each: the
+   package calls the operator through its proxy executor), both against
+   the engine's eager answer on the same restored weights; the export,
+   compile and load seconds and the ms a call of the eager module, the
+   program and the package. 21b: `CycleGAN/torch/convert.py` on phase
+   14d's cyclegan run at 256 px, started when phase 14 ends: no
+   transposed convolution left in its program, no operator of the port
+   in its package, K1 and K2 idle, the package against the eager
+   generator; the eager generator's, the raw export's, the rewritten
+   program's and the package's ms a call (the rewrite's cost). 21c:
+   `Hourglass/torch/main.py` on phase 18e's hourglass104 run with
+   `--checkpoint latest` and the epochs it has: nothing trains, the best
+   epoch's directory copied file for file, output.txt naming it. 21d: a
+   reference-named ResNet-50 `.pt` from seeded tensors through
+   `python -m deepvision_tpu_torch.tools.import_torch_checkpoint`, served
+   in process at bucket 8 from the workdir on the card and on the CPU:
+   the pins, the verified epoch, card against CPU.
+
 The line before the last is a JSON object with one record per kernel; the
 last is `{"ok": true, "device": {...}}`.
 """
@@ -374,6 +398,7 @@ import atexit
 import copy
 import dataclasses
 import concurrent.futures
+import filecmp
 import functools
 import json
 import os
@@ -408,6 +433,7 @@ from deepvision_tpu_torch.core.centernet import (CenterNetTrainer,
                                                  make_centernet_predict_step,
                                                  make_centernet_train_step,
                                                  predict_heads)
+from deepvision_tpu_torch.core import export as model_export
 from deepvision_tpu_torch.core import integrity, scoring
 from deepvision_tpu_torch.core.checkpoint import (CheckpointCorruptionError,
                                                   CheckpointManager)
@@ -470,6 +496,7 @@ from deepvision_tpu_torch.serve.quantize import arm_int8
 from deepvision_tpu_torch.serve.server import InferenceServer
 from deepvision_tpu_torch.utils.device import resolve_device
 from deepvision_tpu_torch.utils.faults import FaultInjector
+from deepvision_tpu_torch.tools import import_torch_checkpoint
 from deepvision_tpu_torch.tools.gan_images import tile_grid
 from deepvision_tpu_torch.tools.build_report import (count_opcodes,
                                                      demangle, loop_report,
@@ -1019,69 +1046,68 @@ def vit_grad_rel(card: dict, cpu: dict) -> float:
 
 
 def check_vit_training() -> dict:
-    """Slice 5: vit_small training through the port's own entry point."""
+    """Slice 5: vit_small training through the port's own entry point.
+    The run dir stays until the script ends: phase 21 exports it."""
     cfg = get_config(MODEL)
     depth = cfg.model_kwargs["depth"]
     workdir = tempfile.mkdtemp(prefix="chip_smoke_vit_")
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        flash_attention.launches = 0     # counts of the main path only
-        t0 = time.perf_counter()
-        trainer, result = run_classification("ViT", [MODEL], [
-            "-m", MODEL, "--synthetic", "--batch-size", str(VIT_BATCH),
-            "--steps-per-epoch", str(VIT_STEPS), "--epochs", "1",
-            "--device", "cuda", "--workdir", workdir])
-        wall = time.perf_counter() - t0
-        launches = flash_attention.launches
-        peak = torch.cuda.max_memory_allocated()
-        ran = trainer.config
-        if (ran.data.image_size, ran.data.num_classes, ran.batch_size,
-                ran.label_smoothing, ran.optimizer.name,
-                ran.schedule.name) != (224, 1000, VIT_BATCH, 0.1, "adam",
-                                       "cosine"):
-            raise AssertionError(f"vit_small ran as {ran}")
-        steps = trainer.last_epoch_steps
-        for i, s in enumerate(steps):
-            phase(f"vit_small step {i + 1}: " + " ".join(
-                f"{k}={v:.4f}" for k, v in s.items()))
-        if len(steps) != VIT_STEPS or not all(
-                np.isfinite(v) for s in steps for v in s.values()):
-            raise AssertionError(f"vit_small steps not all finite: {steps}")
-        if result.get("count") != VIT_EVAL_BATCHES * VIT_BATCH or not all(
-                np.isfinite(result.get(k, np.nan))
-                for k in ("loss", "top1", "top5")):
-            raise AssertionError(f"vit_small validation: {result}")
-        dispatches = VIT_STEPS + VIT_EVAL_BATCHES
-        phase(f"main path: {VIT_STEPS} train steps + {VIT_EVAL_BATCHES} "
-              f"eval batches of {VIT_BATCH}, {launches} flash_attention "
-              f"launches (depth {depth}); val loss={result['loss']:.4f} "
-              f"top1={result['top1']:.4f}; run_classification {wall:.1f}s")
-        if launches != depth * dispatches:
-            raise AssertionError(f"flash_attention ran {launches} times for "
-                                 f"{dispatches} forward passes of depth "
-                                 f"{depth}")
-        step_ms = statistics.median(s["step_ms"] for s in steps[1:])
-        phase(f"vit_small train step (batch {VIT_BATCH}, 224 px, bf16): "
-              f"step_ms={step_ms:.3f} (median after the first; first "
-              f"{steps[0]['step_ms']:.3f}) images_per_sec="
-              f"{VIT_BATCH / step_ms * 1e3:.2f} peak_memory_allocated="
-              f"{peak / 2**30:.3f} GiB")
+    atexit.register(shutil.rmtree, workdir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0     # counts of the main path only
+    t0 = time.perf_counter()
+    trainer, result = run_classification("ViT", [MODEL], [
+        "-m", MODEL, "--synthetic", "--batch-size", str(VIT_BATCH),
+        "--steps-per-epoch", str(VIT_STEPS), "--epochs", "1",
+        "--device", "cuda", "--workdir", workdir])
+    wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    ran = trainer.config
+    if (ran.data.image_size, ran.data.num_classes, ran.batch_size,
+            ran.label_smoothing, ran.optimizer.name,
+            ran.schedule.name) != (224, 1000, VIT_BATCH, 0.1, "adam",
+                                   "cosine"):
+        raise AssertionError(f"vit_small ran as {ran}")
+    steps = trainer.last_epoch_steps
+    for i, s in enumerate(steps):
+        phase(f"vit_small step {i + 1}: " + " ".join(
+            f"{k}={v:.4f}" for k, v in s.items()))
+    if len(steps) != VIT_STEPS or not all(
+            np.isfinite(v) for s in steps for v in s.values()):
+        raise AssertionError(f"vit_small steps not all finite: {steps}")
+    if result.get("count") != VIT_EVAL_BATCHES * VIT_BATCH or not all(
+            np.isfinite(result.get(k, np.nan))
+            for k in ("loss", "top1", "top5")):
+        raise AssertionError(f"vit_small validation: {result}")
+    dispatches = VIT_STEPS + VIT_EVAL_BATCHES
+    phase(f"main path: {VIT_STEPS} train steps + {VIT_EVAL_BATCHES} "
+          f"eval batches of {VIT_BATCH}, {launches} flash_attention "
+          f"launches (depth {depth}); val loss={result['loss']:.4f} "
+          f"top1={result['top1']:.4f}; run_classification {wall:.1f}s")
+    if launches != depth * dispatches:
+        raise AssertionError(f"flash_attention ran {launches} times for "
+                             f"{dispatches} forward passes of depth "
+                             f"{depth}")
+    step_ms = statistics.median(s["step_ms"] for s in steps[1:])
+    phase(f"vit_small train step (batch {VIT_BATCH}, 224 px, bf16): "
+          f"step_ms={step_ms:.3f} (median after the first; first "
+          f"{steps[0]['step_ms']:.3f}) images_per_sec="
+          f"{VIT_BATCH / step_ms * 1e3:.2f} peak_memory_allocated="
+          f"{peak / 2**30:.3f} GiB")
 
-        fresh = Trainer(ran, device="cuda", workdir=workdir)
-        fresh.init_state()
-        if fresh.resume() != 1:
-            raise AssertionError("the epoch-1 checkpoint did not restore")
-        want, got = trainer.state.state_dict(), fresh.state.state_dict()
-        equal = same_tree(want, got)
-        fresh.close()
-        phase(f"checkpoint round trip: {len(want['model'])} tensors and the "
-              f"optimizer state (count {got['optimizer']['count']}), step "
-              f"{got['step']}, equal={equal}")
-        if not equal:
-            raise AssertionError("the restored state differs from the "
-                                 "trained")
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+    fresh = Trainer(ran, device="cuda", workdir=workdir)
+    fresh.init_state()
+    if fresh.resume() != 1:
+        raise AssertionError("the epoch-1 checkpoint did not restore")
+    want, got = trainer.state.state_dict(), fresh.state.state_dict()
+    equal = same_tree(want, got)
+    fresh.close()
+    phase(f"checkpoint round trip: {len(want['model'])} tensors and the "
+          f"optimizer state (count {got['optimizer']['count']}), step "
+          f"{got['step']}, equal={equal}")
+    if not equal:
+        raise AssertionError("the restored state differs from the "
+                             "trained")
 
     model = build_model(cfg.replace(dtype="float32", model_kwargs={
         **cfg.model_kwargs, "dropout_rate": 0.0}))
@@ -1100,7 +1126,8 @@ def check_vit_training() -> dict:
             and grad_rel <= VIT_CPU_RTOL):
         raise AssertionError(f"card and CPU differ: loss {loss_rel:g}, "
                              f"gradients {grad_rel:g}")
-    return {"launches": launches, "step_ms": step_ms, "peak_bytes": peak}
+    return {"launches": launches, "step_ms": step_ms, "peak_bytes": peak,
+            "workdir": workdir}
 
 
 def check_lenet_training() -> dict:
@@ -3191,44 +3218,43 @@ def check_cyclegan() -> dict:
     round trip, a batch translated both ways, the step alone; one f64 step
     of each phase at 64 px on the card against the CPU (the
     discriminators' BatchNorm statistics after the generator phase
-    included)."""
+    included). The run dir stays until the script ends: phase 21 converts
+    its a2b generator."""
     cfg = get_config("cyclegan")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_cyclegan_")
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        trainer = CycleGANTrainer(cfg.replace(total_epochs=1),
-                                  workdir=workdir, device="cuda",
-                                  n_blocks=P14_CG_BLOCKS,
-                                  steps_per_epoch=P14_CG_STEPS)
-        metrics = trainer.fit(lambda epoch: synthetic_two_domain_batches(
-            P14_CG_BATCH, image_size=P14_CG_SIZE, steps=P14_CG_STEPS,
-            seed=epoch))
-        peak = torch.cuda.max_memory_allocated()
-        steps = trainer.last_epoch_steps
-        for i, s in enumerate(steps):
-            phase(f"14d cyclegan step {i + 1}: " + " ".join(
-                f"{k}={v:.4f}" for k, v in s.items()))
-        if len(steps) != P14_CG_STEPS or not all(
-                np.isfinite(v) for s in steps for v in s.values()):
-            raise AssertionError(f"cyclegan steps not all finite: {steps}")
-        fresh = CycleGANTrainer(cfg, workdir=workdir, device="cuda",
-                                n_blocks=P14_CG_BLOCKS)
-        equal = gan_round_trip(trainer, fresh)
-        fresh.close()
-        a, b = next(synthetic_two_domain_batches(
-            P14_CG_BATCH, image_size=P14_CG_SIZE, steps=1, seed=26))
-        translated = [trainer.translate(x, d) for x, d in ((a, "a2b"),
-                                                           (b, "b2a"))]
-        alone_ms, _ = event_ms(lambda: trainer.train_batch(a, b), warmup=1,
-                               iters=3)
-        kernels, busy = device_profile(lambda: trainer.train_batch(a, b))
-        one = torch.from_numpy(a[:1]).cuda()
-        gen, disc = trainer.generators["a2b"], trainer.discriminators["a"]
-        gflop = conv_gflop(gen, lambda: gen.eval()(one))
-        d_gflop = conv_gflop(disc, lambda: disc.eval()(one))
-        trainer.close()
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+    atexit.register(shutil.rmtree, workdir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = CycleGANTrainer(cfg.replace(total_epochs=1),
+                              workdir=workdir, device="cuda",
+                              n_blocks=P14_CG_BLOCKS,
+                              steps_per_epoch=P14_CG_STEPS)
+    metrics = trainer.fit(lambda epoch: synthetic_two_domain_batches(
+        P14_CG_BATCH, image_size=P14_CG_SIZE, steps=P14_CG_STEPS,
+        seed=epoch))
+    peak = torch.cuda.max_memory_allocated()
+    steps = trainer.last_epoch_steps
+    for i, s in enumerate(steps):
+        phase(f"14d cyclegan step {i + 1}: " + " ".join(
+            f"{k}={v:.4f}" for k, v in s.items()))
+    if len(steps) != P14_CG_STEPS or not all(
+            np.isfinite(v) for s in steps for v in s.values()):
+        raise AssertionError(f"cyclegan steps not all finite: {steps}")
+    fresh = CycleGANTrainer(cfg, workdir=workdir, device="cuda",
+                            n_blocks=P14_CG_BLOCKS)
+    equal = gan_round_trip(trainer, fresh)
+    fresh.close()
+    a, b = next(synthetic_two_domain_batches(
+        P14_CG_BATCH, image_size=P14_CG_SIZE, steps=1, seed=26))
+    translated = [trainer.translate(x, d) for x, d in ((a, "a2b"),
+                                                       (b, "b2a"))]
+    alone_ms, _ = event_ms(lambda: trainer.train_batch(a, b), warmup=1,
+                           iters=3)
+    kernels, busy = device_profile(lambda: trainer.train_batch(a, b))
+    one = torch.from_numpy(a[:1]).cuda()
+    gen, disc = trainer.generators["a2b"], trainer.discriminators["a"]
+    gflop = conv_gflop(gen, lambda: gen.eval()(one))
+    d_gflop = conv_gflop(disc, lambda: disc.eval()(one))
+    trainer.close()
     # a step's convs, per image: 6 generator passes and 6 discriminator
     # passes (2 in the generator phase, 4 in the discriminator phase), each
     # a forward and a backward of twice its FLOPs
@@ -3264,7 +3290,8 @@ def check_cyclegan() -> dict:
                                          f"{P14_F64_SIZE} px,")
     return {"losses": steps, "alone_ms": alone_ms, "kernels": kernels,
             "busy_ms": busy, "bound_ms": bound_ms, "peak_bytes": peak,
-            "step_err": {"gen": gen_err, "disc": disc_err}}
+            "step_err": {"gen": gen_err, "disc": disc_err},
+            "workdir": workdir}
 
 
 def check_segmentation_and_gans(yolo: dict) -> dict:
@@ -5946,7 +5973,7 @@ def check_records_pose_and_gan(paths: dict, device) -> dict:
             metrics.get("loss_gen_total", np.nan)):
         raise AssertionError(f"18e cyclegan: {cg_steps} {metrics}")
     return {"pose_steps": len(steps), "pckh": pckh,
-            "cyclegan_steps": len(cg_steps)}
+            "cyclegan_steps": len(cg_steps), "pose_workdir": wd}
 
 
 def check_real_datasets(yolo_workdir: str) -> dict:
@@ -6700,6 +6727,401 @@ def check_int8_serving(stash: str) -> dict:
     return out
 
 
+# -- phase 21: model export and the checkpoint importer ----------------------
+
+P21_DEVICE = "cuda"
+P21_VIT = MODEL                    # 21a, from phase 6's run
+P21_BATCH = 8                      # 21a's static batch
+P21_CG_SIZE = 256                  # 21b, from phase 14d's run
+P21_IMPORT = "resnet50"            # 21d
+P21_IMPORT_SIZE = None             # the config's own size
+P21_IMPORT_EPOCH = 3
+P21_BUCKET = 8
+P21_ITERS = 10                     # ms a call: median of 10 after 2
+P21_VERSION = "0.0.19"
+P21_COMPILE_TIMEOUT = 900
+# both exports run beside host-bound phases (21a beside 7-20, 21b beside
+# 15-20): two inductor compile workers each, and a lower CPU priority
+# (nice +P21_NICE, inherited by the workers and the C++ compiler), so the
+# phases they run beside keep the host's cores
+P21_EXPORT_THREADS = 2
+P21_NICE = 10
+# 21a: the program and the package (bf16, K1 on the card) against the
+# eager forward on the same weights, relative to the largest logit. The
+# program runs the eager ops, so it must match bit for bit; the package
+# fuses elementwise work and keeps f32 where eager rounds to bf16 after
+# every op (measured 0.0119 on the H100 80GB HBM3 at 700 W, 8.2e-3 for
+# vit_tiny on the CPU; tests/test_torch_export_package.py holds that at
+# 2e-2 too)
+P21_PROGRAM_RTOL = 0.0
+P21_PACKAGE_RTOL = 2e-2
+# 21b: the cyclegan package (f32, TF32 off) against the eager generator,
+# relative to the largest value: only summation order differs
+P21_CG_RTOL = 1e-4
+P21_SECONDS = re.compile(r"\[export\] (program exported|package compiled) "
+                         r"in ([0-9.]+)s")
+
+
+def p21_stop(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def p21_start(tag: str, cmd: list) -> dict:
+    """Start one export as a process on the card, on P21_EXPORT_THREADS
+    compile workers at nice +P21_NICE, its output to a log in a directory
+    of its own; `p21_wait` collects it. A script that ends first kills
+    it."""
+    root = tempfile.mkdtemp(prefix=f"chip_smoke_p21{tag}_")
+    atexit.register(shutil.rmtree, root, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
+        TORCHINDUCTOR_COMPILE_THREADS=str(P21_EXPORT_THREADS))
+    log = os.path.join(root, "log")
+    with open(log, "w") as fh:
+        proc = subprocess.Popen([c.format(root=root) for c in cmd], env=env,
+                                stdout=fh, stderr=subprocess.STDOUT, cwd=HERE)
+    atexit.register(p21_stop, proc)
+    # the child is still importing torch: its workers inherit the value
+    try:
+        os.setpriority(os.PRIO_PROCESS, proc.pid,
+                       os.getpriority(os.PRIO_PROCESS, 0) + P21_NICE)
+    except ProcessLookupError:   # it failed already; p21_wait says how
+        pass
+    return {"root": root, "log": log, "proc": proc,
+            "t0": time.perf_counter()}
+
+
+def p21_wait(run: dict, what: str) -> dict:
+    """The export's seconds (what phase 21 waited for it, and the
+    program's export and the package's compile from its log); fails with
+    the log's tail unless it exited 0 within P21_COMPILE_TIMEOUT of its
+    start."""
+    t0 = time.perf_counter()
+    try:
+        rc = run["proc"].wait(timeout=max(
+            1.0, P21_COMPILE_TIMEOUT - (t0 - run["t0"])))
+    except subprocess.TimeoutExpired:
+        p21_stop(run["proc"])
+        rc = None
+    with open(run["log"]) as fh:
+        text = fh.read()
+    if rc != 0:
+        raise AssertionError(f"{what} exited {rc}:\n{text[-3000:]}")
+    found = {m.group(1): float(m.group(2))
+             for m in P21_SECONDS.finditer(text)}
+    return {"waited_s": time.perf_counter() - t0,
+            "export_s": found.get("program exported"),
+            "compile_s": found.get("package compiled")}
+
+
+def start_p21_export(vit_workdir: str) -> dict:
+    """21a's `python -m deepvision_tpu_torch.tools.export` of phase 6's
+    vit_small run at batch P21_BATCH, program and package, started as
+    soon as the run exists."""
+    return p21_start("a", [
+        sys.executable, "-m", "deepvision_tpu_torch.tools.export",
+        "-m", P21_VIT, "--workdir", vit_workdir,
+        "--batch-size", str(P21_BATCH), "--saved-model", "{root}/program",
+        "--tflite", "{root}/vit.pt2", "--device", P21_DEVICE])
+
+
+def start_p21_convert(cyclegan_workdir: str) -> dict:
+    """21b's `CycleGAN/torch/convert.py` of phase 14d's cyclegan run at
+    P21_CG_SIZE px, the program kept beside the package, started when
+    phase 14 ends so its compile runs beside phases 15-20."""
+    return p21_start("b", [
+        sys.executable, os.path.join(HERE, "CycleGAN", "torch",
+                                     "convert.py"),
+        "--workdir", cyclegan_workdir, "--direction", "a2b",
+        "--image-size", str(P21_CG_SIZE), "--output", "{root}/a2b.pt2",
+        "--saved-model-dir", "{root}/program", "--device", P21_DEVICE])
+
+
+def p21_rel(got: torch.Tensor, want) -> float:
+    want = torch.as_tensor(want).float().cpu()
+    return float((got.float().cpu() - want).abs().max()
+                 / max(float(want.abs().max()), 1e-30))
+
+
+def p21_ms(fn) -> float:
+    with torch.inference_mode():
+        return event_ms(fn, warmup=2, iters=P21_ITERS)[0]
+
+
+def check_p21_export(run: dict, vit_workdir: str) -> dict:
+    """21a: the exported vit_small program and its package on the card,
+    K1's launches counted in a window of one call each, both against the
+    engine's eager answer on the same restored weights."""
+    seconds = p21_wait(run, "21a tools/export.py")
+    device = torch.device(P21_DEVICE)
+    depth = get_config(P21_VIT).model_kwargs["depth"]
+    program_dir, package = (os.path.join(run["root"], "program"),
+                            os.path.join(run["root"], "vit.pt2"))
+    sig = model_export.load_signature(program_dir)
+    t0 = time.perf_counter()
+    program = model_export.load_program(program_dir)
+    module = program.module()
+    seconds["program_load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runner = model_export.load_package(package)
+    seconds["package_load_s"] = time.perf_counter() - t0
+    nodes = model_export.flash_attention_nodes(program)
+    recorded = model_export.package_operators(package).count(
+        model_export.FLASH_ATTENTION_TARGET)
+    if sig["input"] != "images" or sig["shape"][0] != P21_BATCH \
+            or nodes != depth or recorded != depth:
+        raise AssertionError(f"21a: signature {sig}, {nodes} K1 nodes, "
+                             f"{recorded} K1 calls in the package")
+    engine = PredictEngine.from_config(P21_VIT, workdir=vit_workdir,
+                                       device=device, buckets=(P21_BATCH,),
+                                       verbose=False)
+    x = np.random.RandomState(21).randn(*sig["shape"]).astype(np.float32)
+    want = engine.reference(x)
+    xd = torch.from_numpy(x).to(device)
+    launches = {}
+    with torch.inference_mode():
+        flash_attention.launches = 0
+        got_program = module(xd)
+        sync(device)
+        launches["program"] = flash_attention.launches
+        flash_attention.launches = 0
+        got_package = runner(xd)
+        sync(device)
+        launches["package"] = flash_attention.launches
+    errs = {"program": p21_rel(got_program, want),
+            "package": p21_rel(got_package, want)}
+    phase(f"21a {P21_VIT} exported at batch {P21_BATCH} (epoch "
+          f"{engine.provenance['checkpoint_epoch']} of phase 6's run): "
+          f"signature {sig['input']} {sig['shape']} {sig['dtype']}; "
+          f"{nodes} deepvision.flash_attention nodes, {recorded} proxy "
+          f"calls in the package; K1 launches in one call: {launches} "
+          f"(depth {depth}); against the engine's eager answer, relative "
+          f"to the largest logit: {errs} (bounds program "
+          f"{P21_PROGRAM_RTOL:g}, package {P21_PACKAGE_RTOL:g})")
+    if launches != {"program": depth, "package": depth} \
+            or tuple(got_package.shape) != want.shape \
+            or not errs["program"] <= P21_PROGRAM_RTOL \
+            or not errs["package"] <= P21_PACKAGE_RTOL:
+        raise AssertionError(f"21a: launches {launches}, errors {errs}")
+    ms = {"eager": p21_ms(lambda: engine.model(xd)),
+          "program": p21_ms(lambda: module(xd)),
+          "package": p21_ms(lambda: runner(xd))}
+    phase("21a seconds: " + " ".join(f"{k}={v:.1f}" for k, v in
+                                     seconds.items() if v is not None)
+          + "; ms a call at batch {}: ".format(P21_BATCH) + " ".join(
+              f"{k}={v:.3f}" for k, v in ms.items()))
+    return {"launches": launches, "depth": depth, "errors": errs,
+            "seconds": seconds, "ms": ms}
+
+
+def check_p21_convert(run: dict, cyclegan_workdir: str) -> dict:
+    """21b: the cyclegan a2b package against the eager generator on the
+    card; no transposed convolution in its program, K1 and K2 idle; the
+    rewrite's cost, the raw export against the rewritten one."""
+    seconds = p21_wait(run, "21b CycleGAN/torch/convert.py")
+    device = torch.device(P21_DEVICE)
+    program = model_export.load_program(os.path.join(run["root"],
+                                                     "program"))
+    package = os.path.join(run["root"], "a2b.pt2")
+    left = model_export.transposed_convs(program)
+    operators = model_export.package_operators(package)
+    trainer = CycleGANTrainer(get_config("cyclegan"),
+                              workdir=cyclegan_workdir, device=device)
+    try:
+        epoch = trainer.resume()
+        gen = trainer.generators["a2b"].eval()
+        x = torch.from_numpy(np.random.RandomState(22).rand(
+            1, P21_CG_SIZE, P21_CG_SIZE, 3).astype(np.float32) * 2 - 1).to(
+            device)
+        raw = torch.export.export(gen, (x,), strict=False)
+        raw_transposed = model_export.transposed_convs(raw)
+        runner = model_export.load_package(package)
+        rewritten, unrewritten = program.module(), raw.module()
+        with torch.inference_mode():
+            flash_attention.launches = best_iou.launches = 0
+            want = gen(x)
+            got = runner(x)
+            got_program = rewritten(x)
+            sync(device)
+            counts = (flash_attention.launches, best_iou.launches)
+        errs = {"package": p21_rel(got, want),
+                "program": p21_rel(got_program, want)}
+        ms = {"eager": p21_ms(lambda: gen(x)),
+              "export": p21_ms(lambda: unrewritten(x)),
+              "rewritten": p21_ms(lambda: rewritten(x)),
+              "package": p21_ms(lambda: runner(x))}
+    finally:
+        trainer.close()
+    phase(f"21b cyclegan a2b (epoch {epoch} of phase 14d's run) at "
+          f"{P21_CG_SIZE} px: transposed convs {raw_transposed} exported, "
+          f"{left} after the rewrite; proxy calls {operators}; K1 and K2 "
+          f"launches {counts}; against the eager generator, relative to "
+          f"the largest value: {errs} (bound {P21_CG_RTOL:g})")
+    phase("21b seconds: " + " ".join(f"{k}={v:.1f}" for k, v in
+                                     seconds.items() if v is not None)
+          + "; ms a call: " + " ".join(f"{k}={v:.3f}" for k, v in
+                                       ms.items())
+          + f"; the rewrite costs {ms['rewritten'] - ms['export']:+.3f} ms "
+          f"a call, eagerly")
+    if epoch is None or raw_transposed == 0 or left or operators \
+            or counts != (0, 0) or tuple(got.shape) != (
+                1, P21_CG_SIZE, P21_CG_SIZE, 3) \
+            or not all(e <= P21_CG_RTOL for e in errs.values()):
+        raise AssertionError(f"21b: epoch {epoch}, transposed "
+                             f"{raw_transposed} -> {left}, {operators}, "
+                             f"counts {counts}, errors {errs}")
+    return {"counts": counts, "errors": errs, "seconds": seconds, "ms": ms}
+
+
+def check_p21_hourglass(pose_workdir: str) -> dict:
+    """21c: `Hourglass/torch/main.py` on phase 18e's hourglass104 run with
+    `--checkpoint latest` and the epochs it has (nothing more trains):
+    the best (else latest) epoch's directory copied file for file, and
+    output.txt naming it."""
+    ckpt = CheckpointManager(os.path.join(pose_workdir, "ckpt"))
+    try:
+        latest = ckpt.latest_epoch()
+        best = ckpt.best_epoch() or latest
+    finally:
+        ckpt.close()
+    export_dir = tempfile.mkdtemp(prefix="chip_smoke_p21c_")
+    atexit.register(shutil.rmtree, export_dir, ignore_errors=True)
+    main = runpy.run_path(os.path.join(HERE, "Hourglass", "torch",
+                                       "main.py"), run_name="chip_smoke")[
+        "main"]
+    t0 = time.perf_counter()
+    flash_attention.launches = best_iou.launches = 0
+    dst = main(["--epochs", str(latest), "--checkpoint", "latest",
+                "--synthetic", "--workdir", pose_workdir, "--export-dir",
+                export_dir, "--version", P21_VERSION, "--device",
+                P21_DEVICE])
+    wall = time.perf_counter() - t0
+    counts = (flash_attention.launches, best_iou.launches)
+    src = os.path.join(pose_workdir, "ckpt", str(best))
+    names = sorted(os.listdir(src))
+    equal = sorted(os.listdir(dst)) == names and all(
+        filecmp.cmp(os.path.join(src, n), os.path.join(dst, n),
+                    shallow=False) for n in names)
+    with open(os.path.join(tempfile.gettempdir(), "output.txt")) as fh:
+        named = fh.read()
+    phase(f"21c Hourglass/torch/main.py: epoch {best} (latest {latest}) "
+          f"copied to {os.path.basename(dst)}, {len(names)} files equal="
+          f"{equal}; output.txt names it: {named == dst + chr(10)}; K1 and "
+          f"K2 launches {counts}; {wall:.1f}s")
+    if dst != os.path.join(export_dir, f"hourglass-v{P21_VERSION}-epoch-"
+                                       f"{best}") \
+            or not equal or named != dst + "\n" or counts != (0, 0):
+        raise AssertionError(f"21c: {dst} equal={equal} {named!r} {counts}")
+    return {"epoch": best, "files": len(names), "seconds": wall}
+
+
+def p21_reference_resnet50(seed: int) -> dict:
+    """A ResNet-50 state dict in the reference's naming
+    (`ResNet/pytorch/models/resnet50.py:20-44,99-165`: conv1/bn1,
+    conv{2,3,4,5}x.<i>.conv<j>/bn<j> with the stride on conv1, a
+    projection on each stage's first block, linear), seeded: He-scaled
+    convs, BatchNorm scales of 0.5 and statistics away from their init."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(key, cout, cin, k):
+        sd[key] = torch.randn(cout, cin, k, k, generator=gen) * (
+            2.0 / (cin * k * k)) ** 0.5
+
+    def bn(prefix, c):
+        sd[f"{prefix}.weight"] = 0.5 + 0.1 * torch.randn(c, generator=gen)
+        sd[f"{prefix}.bias"] = 0.1 * torch.randn(c, generator=gen)
+        sd[f"{prefix}.running_mean"] = 0.1 * torch.randn(c, generator=gen)
+        sd[f"{prefix}.running_var"] = 1 + torch.rand(c, generator=gen)
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(100)
+
+    conv("conv1.weight", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for s, (stage, n) in enumerate(zip(("conv2x", "conv3x", "conv4x",
+                                        "conv5x"), (3, 4, 6, 3))):
+        mid = 64 * 2 ** s
+        for i in range(n):
+            t = f"{stage}.{i}"
+            conv(f"{t}.conv1.weight", mid, cin, 1)
+            bn(f"{t}.bn1", mid)
+            conv(f"{t}.conv2.weight", mid, mid, 3)
+            bn(f"{t}.bn2", mid)
+            conv(f"{t}.conv3.weight", 4 * mid, mid, 1)
+            bn(f"{t}.bn3", 4 * mid)
+            if i == 0:
+                conv(f"{t}.projection.0.weight", 4 * mid, cin, 1)
+                bn(f"{t}.projection.1", 4 * mid)
+            cin = 4 * mid
+    sd["linear.weight"] = torch.randn(1000, cin, generator=gen) / cin ** 0.5
+    sd["linear.bias"] = 0.01 * torch.randn(1000, generator=gen)
+    return sd
+
+
+def check_p21_import() -> dict:
+    """21d: a reference-named ResNet-50 `.pt` made from seeded tensors,
+    imported by the port's tool, served in process on the card at bucket
+    P21_BUCKET and on the CPU from the same workdir."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_p21d_")
+    atexit.register(shutil.rmtree, root, ignore_errors=True)
+    path, wd = os.path.join(root, "resnet50.pt"), os.path.join(root, "wd")
+    torch.save({"epoch": P21_IMPORT_EPOCH,
+                "model": p21_reference_resnet50(23),
+                "optimizer": {"state": {}, "param_groups": []}}, path)
+    t0 = time.perf_counter()
+    got = import_torch_checkpoint.main(["-m", P21_IMPORT, "--torch-ckpt",
+                                        path, "--workdir", wd,
+                                        "--device", P21_DEVICE])
+    import_s = time.perf_counter() - t0
+    engines = {d: PredictEngine.from_config(
+        P21_IMPORT, workdir=wd, device=d, buckets=(P21_BUCKET,),
+        image_size=P21_IMPORT_SIZE, verbose=False)
+        for d in (P21_DEVICE, "cpu")}
+    card = engines[P21_DEVICE]
+    x = np.random.RandomState(24).randn(P21_BUCKET, *card.example_shape
+                                        ).astype(np.float32)
+    flash_attention.launches = best_iou.launches = 0
+    served = card.predict(x)
+    counts = (flash_attention.launches, best_iou.launches)
+    want = engines["cpu"].predict(x)
+    err = float(np.abs(served - want).max() / max(np.abs(want).max(),
+                                                  1e-30))
+    batch_ms = card.measure_batch_ms(P21_BUCKET, P21_ITERS)
+    prov = card.provenance
+    phase(f"21d {P21_IMPORT} imported from a reference-named .pt in "
+          f"{import_s:.1f}s: pins {got['pins']}, epoch {got['epoch']}; "
+          f"served from the workdir: provenance epoch "
+          f"{prov['checkpoint_epoch']} verified {prov['verified']}; bucket "
+          f"{P21_BUCKET} on the card vs the CPU engine, relative to the "
+          f"largest logit: {err:.3g} (logit scale {np.abs(want).max():.3g}; "
+          f"bound {CPU_RTOL:g}); K1 and K2 launches {counts}; "
+          f"measure_batch_ms {batch_ms:.3f}")
+    if got["pins"] != {"stride_on_first": True} \
+            or prov["checkpoint_epoch"] != P21_IMPORT_EPOCH \
+            or not prov["verified"] or served.shape != (P21_BUCKET, 1000) \
+            or not np.isfinite(want).all() or not err <= CPU_RTOL \
+            or counts != (0, 0):
+        raise AssertionError(f"21d: {got} {prov} err {err} {counts}")
+    return {"error": err, "import_s": import_s, "batch_ms": batch_ms}
+
+
+def check_export(export_run: dict, convert_run: dict, vit_workdir: str,
+                 cyclegan_workdir: str, pose_workdir: str) -> dict:
+    """Phase 21, slice 19: model export and the PyTorch checkpoint
+    importer. 21a the vit_small program and package (K1 counted in a
+    window of one call each), 21b the cyclegan package, 21c the Hourglass
+    train-then-export wrapper, 21d the imported ResNet-50 served."""
+    t0 = time.perf_counter()
+    out = {"21a": check_p21_export(export_run, vit_workdir)}
+    out["21c"] = check_p21_hourglass(pose_workdir)
+    out["21d"] = check_p21_import()
+    out["21b"] = check_p21_convert(convert_run, cyclegan_workdir)
+    phase(f"21: phase 21 took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def keep_bytecode() -> None:
     """Keep the bytecode Python compiles, for this process and every one
     it starts, under the checkout's .cache/: where the interpreter's
@@ -6873,8 +7295,10 @@ def main() -> int:
           f"{yolo['step_ms']:.3f} ms ({100 * k2_ms / yolo['step_ms']:.4f}%, "
           f"one fused launch, its device time from phase 3)")
 
-    # 6. slice 5: vit_small training, K1 under autograd
+    # 6. slice 5: vit_small training, K1 under autograd; its run is
+    # exported in the background from here on, for phase 21
     vit = check_vit_training()
+    p21_export = start_p21_export(vit["workdir"])
     grad_err = {str(dt).split(".")[-1]: check_attention_grad(
         VIT_GRAD_SHAPE, dt, gen) for dt in (torch.float32, torch.bfloat16)}
     train_k1 = check_attention((VIT_BATCH, heads, n, d), torch.bfloat16, gen,
@@ -6925,7 +7349,9 @@ def main() -> int:
     # engine, DCGAN and CycleGAN (no kernel on these paths: the launch
     # counts, zeroed at each sub-phase, must stay 0)
     torch.cuda.empty_cache()
-    check_segmentation_and_gans(yolo)
+    seg_gan = check_segmentation_and_gans(yolo)
+    # phase 14d's cyclegan run converted in the background, for phase 21
+    p21_convert = start_p21_convert(seg_gan["14d"]["workdir"])
 
     ended("phase 14")
     # 15. slice 12: resilient training (K2 on its main path, 15a: the
@@ -6967,6 +7393,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     int8 = check_int8_serving(ops["stash"])
     ended("phase 20")
+    # 21. slice 19: model export and the checkpoint importer (K1 in 21a's
+    # program and package: the count zeroed just before each call, read
+    # just after; K1 and K2 idle in 21b-d)
+    torch.cuda.empty_cache()
+    export = check_export(p21_export, p21_convert, vit["workdir"],
+                          seg_gan["14d"]["workdir"],
+                          real["18e"]["pose_workdir"])
+    ended("phase 21")
 
     # the card again, next to the numbers: a tail of the output keeps it
     print(smi, flush=True)
@@ -7008,6 +7442,11 @@ def main() -> int:
         "int8_launches": {
             "launches": int8["20a"]["counts"]["flash_attention"],
             "dispatches": int8["20a"]["counts"]["dispatches"]["int8"]},
+        "export_launches": {
+            "program": export["21a"]["launches"]["program"],
+            "package": export["21a"]["launches"]["package"],
+            "calls": 1, "depth": export["21a"]["depth"],
+            "ms": export["21a"]["ms"]},
         "backward": "the VJP of naive_attention (autograd), as the JAX "
                     "package's _fused_bwd: no backward kernel",
         "grad_max_abs_err": grad_err}, {
@@ -7029,6 +7468,7 @@ def main() -> int:
             "eval_only_launches")},
         "epoch_on_device_launches": {k: levers["19c"][k] for k in (
             "launches", "train_steps", "eval_batches", "overflow_launches")},
+        "export_launches": {"cyclegan_package": export["21b"]["counts"][1]},
         "resilience_launches": {
             "launches": resil["15a"]["launches"],
             "train_steps": resil["15a"]["train_steps"],

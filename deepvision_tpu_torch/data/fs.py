@@ -8,7 +8,8 @@ and the package that serves its protocol must be installed: `gs://`
 without `gcsfs` is refused by name (`RemotePathError`), as is every
 protocol fsspec does not know. Globs come back as URLs of the same
 protocol, sorted, so a remote pattern lists in the order a local one
-does.
+does. `copytree` is the export's upload (`gsutil cp -r` in the JAX
+package's Hourglass/jax/main.py).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import builtins
 import glob as _glob
 import importlib
 import os
+import shutil
 from typing import IO, List, Tuple
 
 
@@ -105,3 +107,20 @@ def join(base: str, *parts: str) -> str:
 def basename(path: str) -> str:
     return path.rstrip("/").rsplit("/", 1)[-1] if is_remote(path) \
         else os.path.basename(path)
+
+
+def copytree(src: str, dst: str) -> str:
+    """Copy the local directory `src`, file for file, to `dst` (a local
+    path or a URL), directories made as needed; returns `dst`."""
+    if not is_remote(dst):
+        shutil.copytree(src, dst, dirs_exist_ok=True)
+        return dst
+    fs, root = filesystem(dst)
+    for here, _, files in os.walk(src):
+        rel = os.path.relpath(here, src)
+        target = root if rel == "." else "/".join(
+            [root.rstrip("/"), *rel.split(os.sep)])
+        fs.makedirs(target, exist_ok=True)
+        for name in sorted(files):
+            fs.put_file(os.path.join(here, name), f"{target}/{name}")
+    return dst

@@ -13,11 +13,16 @@ Port of deepvision_tpu/ops/attention.py. Three versions of one function:
   (csrc/flash_attention.cu, which replaces the Pallas kernel
   deepvision_tpu/ops/attention.py:73). A CUDA tensor launches the kernel
   or raises; only a CPU tensor takes the plain version. There is no
-  fallback and no switch that takes the kernel off the path. Under
-  autograd it is a `torch.autograd.Function` whose backward is the VJP of
-  `naive_attention`, recomputed from the saved q, k and v, as the JAX
-  package's `fused_attention` custom_vjp does (`_fused_bwd`): the JAX
-  package has no backward kernel, so the port has none either.
+  fallback and no switch that takes the kernel off the path. Every call
+  goes through one registered operator, `deepvision::flash_attention`
+  (`flash_attention_op`): its CUDA implementation launches the kernel,
+  its CPU implementation is the plain version, its fake gives the
+  kernel's output strides, so `torch.export` records one node per call
+  and an AOTInductor package calls the operator, never an inlined plain
+  version. Its autograd formula is the VJP of `naive_attention`,
+  recomputed from the saved q, k and v, as the JAX package's
+  `fused_attention` custom_vjp does (`_fused_bwd`): the JAX package has
+  no backward kernel, so the port has none either.
 
 `attention(impl="auto")` — what the ViT calls — goes to `flash_attention`.
 """
@@ -159,14 +164,21 @@ def _kernel():
     return fn
 
 
+def _output_like(q: torch.Tensor) -> torch.Tensor:
+    """The kernel's output for `q`'s (B, H, N, D): a (B, N, H, D) tensor
+    seen as (B, H, N, D), so merging the heads back is a view. The CPU
+    implementation and the fake return the same strides, so a traced graph
+    and the tensor it runs on agree on the layout."""
+    b, h, n, d = q.shape
+    return q.new_empty((b, n, h, d)).permute(0, 2, 1, 3)
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             scale: float) -> torch.Tensor:
     """One launch of the kernel on the current stream, counted in
-    `flash_attention.launches`; the output is allocated as a (B, N, H, D)
-    tensor and returned as its (B, H, N, D) view."""
+    `flash_attention.launches`, into `_output_like(q)`."""
     b, h, n, d = q.shape
-    out = torch.empty((b, n, h, d), dtype=q.dtype,
-                      device=q.device).permute(0, 2, 1, 3)
+    out = _output_like(q)
     # a size-1 dim's stride never moves a pointer: pass 0 so the kernel's
     # own alignment check agrees with _vector_copies_ok
     strides = [st if sz > 1 else 0 for t in (q, k, v, out)
@@ -194,31 +206,58 @@ def _like(t: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(t).copy_(grad)
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Forward: the kernel on a CUDA tensor, its plain version on a CPU
-    tensor. Backward: the VJP of `naive_attention` at the saved q, k, v
-    (the scores recomputed, contractions at the operand dtype, only the
-    softmax in f32), as the JAX package's `_fused_bwd`."""
+@torch.library.custom_op("deepvision::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float) -> torch.Tensor:
+    """The registered operator `deepvision::flash_attention`, which every
+    call of `flash_attention` goes through: a traced or exported graph
+    holds it as one opaque node, and an AOTInductor package calls it
+    through its proxy executor. On a CPU tensor (this implementation) it
+    returns the plain version; on a CUDA tensor it launches the kernel
+    (`_cuda_impl`); no other device has an implementation. Each
+    implementation checks its inputs (`_check`) once a call."""
+    _check(q, k, v)
+    out = _output_like(q)
+    out.copy_(flash_attention_reference(q, k, v, scale=scale))
+    return out
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        ctx.save_for_backward(q, k, v)
-        ctx.scale = scale
-        if q.device.type == "cpu":
-            return flash_attention_reference(q, k, v, scale=scale)
-        return _launch(q, k, v, scale)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        saved = ctx.saved_tensors
-        inputs = [t.detach().requires_grad_(need) for t, need
-                  in zip(saved, ctx.needs_input_grad[:3])]
-        wanted = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad():
-            out = naive_attention(*inputs, scale=ctx.scale)
-            grads = iter(torch.autograd.grad(out, wanted, grad_out))
-        return (*(_like(t, next(grads)) if t.requires_grad else None
-                  for t in inputs), None)
+@flash_attention_op.register_kernel("cuda")
+def _cuda_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               scale: float) -> torch.Tensor:
+    _check(q, k, v)
+    return _launch(q, k, v, scale)
+
+
+@flash_attention_op.register_fake
+def _fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          scale: float) -> torch.Tensor:
+    _check(q, k, v)          # a trace refuses what the kernel would
+    return _output_like(q)
+
+
+def _setup_context(ctx, inputs, output) -> None:
+    q, k, v, scale = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.scale = scale
+
+
+def _backward(ctx, grad_out):
+    """The VJP of `naive_attention` at the saved q, k, v (the scores
+    recomputed, contractions at the operand dtype, only the softmax in
+    f32), as the JAX package's `_fused_bwd`; it launches no kernel."""
+    inputs = [t.detach().requires_grad_(need) for t, need
+              in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+    wanted = [t for t in inputs if t.requires_grad]
+    with torch.enable_grad():
+        out = naive_attention(*inputs, scale=ctx.scale)
+        grads = iter(torch.autograd.grad(out, wanted, grad_out))
+    return (*(_like(t, next(grads)) if t.requires_grad else None
+              for t in inputs), None)
+
+
+flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -231,18 +270,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, N, H, D) tensor returned as its (B, H, N, D) view, so merging the
     heads back is free. bf16 copies rows with 16-byte `cp.async` where
     `_vector_copies_ok` allows it, else with scalar copies in the same
-    kernel. On a CPU tensor it returns `flash_attention_reference`. Any
-    other device raises. The backward is the naive VJP and launches no
-    kernel of its own. A torch function mode sees each call as one call
-    of this function (the int8 plan counts it as fused attention)."""
+    kernel. On a CPU tensor it returns `flash_attention_reference` in the
+    same layout. Both go through the operator
+    `deepvision::flash_attention`, which checks the inputs and has no
+    implementation for any other device. The backward is the naive VJP and
+    launches no kernel of its own. A torch function mode sees each call
+    as one call of this function (the int8 plan counts it as fused
+    attention)."""
     if has_torch_function((q, k, v)):
         return handle_torch_function(flash_attention, (q, k, v), q, k, v,
                                      scale=scale)
-    _check(q, k, v)
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash_attention runs on cuda or cpu, got "
-                         f"{q.device}")
-    return _FlashAttention.apply(q, k, v, _default_scale(q, scale))
+    return flash_attention_op(q, k, v, _default_scale(q, scale))
 
 
 flash_attention.launches = 0

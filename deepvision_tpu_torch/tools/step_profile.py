@@ -6,9 +6,9 @@ and sums each device kernel's own duration into the first family of
 kernels; BatchNorm's separate `var_mean` pass for the running statistics,
 a Welford reduction, is `bn_var_mean`). Kernels launched inside one of the
 host ranges of `RANGES` are also counted apart, split by the same
-families: the backward of the flash-attention `autograd.Function` (the
-naive VJP, which the autograd engine runs inside a range named after its
-node), the EMA update and the device augmentation (the trainer's and the
+families: the backward of the flash-attention operator (the naive VJP,
+which the autograd engine runs inside a range named after the node that
+`register_autograd` generates), the EMA update and the device augmentation (the trainer's and the
 step's `record_function` ranges). `print_report` prints a step's split,
 the device's busy and idle share of the wall time, and the kernels with
 the most device time. Under a process group (a torchrun launch) the
@@ -47,7 +47,8 @@ FAMILIES = (
 #: host ranges whose kernels are counted apart: the autograd engine's
 #: range around the attention backward, the trainer's around the EMA
 #: update, the train step's around the device augmentation
-RANGES = {"attention_backward": "_FlashAttentionBackward",
+RANGES = {"attention_backward":   # the node's, not its forward's range
+          "GeneratedBackwardFor_deepvision_flash_attention_defaultBackward",
           "ema": "ema_update", "augment": "device_augment"}
 
 

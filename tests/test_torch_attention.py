@@ -195,3 +195,47 @@ def test_gradients_keep_the_head_split_layout():
     for v, p in zip(views, plain):
         assert v.grad.stride() == v.stride()
         torch.testing.assert_close(v.grad, p.grad, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_every_call_goes_through_the_registered_operator(dtype):
+    """`flash_attention` on a CPU tensor is one call of the operator
+    `deepvision::flash_attention`, whose CPU implementation returns the
+    plain version in the kernel's (B, N, H, D) layout, the strides its
+    fake gives a traced graph."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    q, k, v = (torch.from_numpy(a).to(getattr(torch, dtype))
+               for a in _qkv((2, 3, 17, 16), seed=7))
+    with torch.profiler.profile() as prof:
+        out = port.flash_attention(q, k, v)
+    calls = [e.name for e in prof.events()
+             if e.name == "deepvision::flash_attention"]
+    assert len(calls) == 1
+    assert out.permute(0, 2, 1, 3).is_contiguous()
+    torch.testing.assert_close(out, port.flash_attention_reference(q, k, v),
+                               rtol=0, atol=0)
+    with FakeTensorMode() as mode:
+        fake = torch.ops.deepvision.flash_attention(
+            *(mode.from_tensor(t) for t in (q, k, v)), 0.25)
+    assert fake.shape == out.shape and fake.stride() == out.stride()
+
+
+def test_the_backward_runs_in_the_range_the_step_profile_reads():
+    """tools/step_profile.py counts the attention backward's kernels by
+    the autograd node's range: the backward runs inside it, the forward
+    does not."""
+    from deepvision_tpu_torch.tools.step_profile import RANGES
+    q = torch.randn(1, 2, 9, 8, requires_grad=True)
+    with torch.profiler.profile() as prof:
+        port.flash_attention(q, q, q).sum().backward()
+    names = [e.name for e in prof.events()
+             if RANGES["attention_backward"] in e.name]
+    assert names and all("Backward" in n for n in names)
+    forward = [e for e in prof.events()
+               if e.name == "deepvision::flash_attention"]
+    assert len(forward) == 1
+    parents, e = [], forward[0].cpu_parent
+    while e is not None:
+        parents.append(e.name)
+        e = e.cpu_parent
+    assert not any(RANGES["attention_backward"] in n for n in parents)

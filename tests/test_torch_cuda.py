@@ -278,6 +278,57 @@ def test_vit_forward_on_the_card_launches_once_per_block(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_registered_operator_launches_the_kernel(card, dtype):
+    """`deepvision::flash_attention` called as an operator on CUDA tensors
+    launches the kernel once, in the kernel's (B, N, H, D) layout."""
+    q, k, v = _qkv((2, 6, 197, 64), dtype, seed=19)
+    before = port.flash_attention.launches
+    out = torch.ops.deepvision.flash_attention(q, k, v, 0.125)
+    assert port.flash_attention.launches == before + 1
+    assert out.permute(0, 2, 1, 3).is_contiguous()
+    ref = port.flash_attention_reference(q, k, v, scale=0.125)
+    assert (out.float() - ref.float()).abs().max().item() <= BOUND[dtype]
+    with pytest.raises(TypeError, match="unsupported"):
+        torch.ops.deepvision.flash_attention(q.half(), k.half(), v.half(),
+                                             0.125)
+    with pytest.raises(ValueError, match="unit stride"):
+        torch.ops.deepvision.flash_attention(q.transpose(-1, -2), k, v, 0.1)
+    assert port.flash_attention.launches == before + 1
+
+
+def test_exported_vit_program_on_the_card_launches_once_per_block(card):
+    """A vit_tiny program exported on the card holds one K1 node a block
+    and launches the kernel once for each."""
+    from deepvision_tpu_torch.core import export
+    cfg = get_config("vit_tiny")
+    model = build_model(cfg).eval().cast_compute_weights_().to("cuda")
+    program = export.export_program(model, (32, 32, 3), batch_size=3)
+    depth = cfg.model_kwargs["depth"]
+    assert export.flash_attention_nodes(program) == depth
+    x = torch.randn(3, 32, 32, 3, device="cuda")
+    before = port.flash_attention.launches
+    with torch.inference_mode():
+        out = program.module()(x)
+        want = model(x)
+    assert port.flash_attention.launches - before == 2 * depth
+    assert (out - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+
+
+def test_k1_dispatch_times_each_layer_of_a_call(card):
+    """tools/k1_dispatch.py times the wrapper, the operator and the bare
+    launch at every bucket, each a launch of the kernel."""
+    from deepvision_tpu_torch.tools import k1_dispatch
+    before = port.flash_attention.launches
+    got = k1_dispatch.measure(repeats=1)
+    assert [r["bucket"] for r in got["rows"]] == list(k1_dispatch.BUCKETS)
+    for row in got["rows"]:
+        assert all(row[f"{name}_ms"] > 0 and row[f"{name}_min_ms"] > 0
+                   for name in ("wrapper", "operator", "launch"))
+        assert row["device_ms"] > 0
+    assert port.flash_attention.launches > before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("shape", [(2, 3, 9, 16), (4, 6, 197, 64)], ids=str)
 def test_kernel_gradients_match_naive_attention(card, shape, dtype):
     """Under autograd the kernel runs the forward (one launch per call)

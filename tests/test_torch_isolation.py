@@ -22,7 +22,7 @@ FAMILIES = ("AlexNet", "Hourglass", "Inception", "LeNet", "MobileNet",
             "YOLO")
 # the GANs' entry points, named as in the JAX package
 GAN_FAMILIES = {"DCGAN": ("main.py", "inference.py"),
-                "CycleGAN": ("train.py", "inference.py")}
+                "CycleGAN": ("train.py", "inference.py", "convert.py")}
 ENTRY_POINTS = [os.path.join(REPO, "chip_smoke.py")] + sorted(
     path for family in FAMILIES + tuple(GAN_FAMILIES)
     for path in glob.glob(os.path.join(REPO, family, "torch", "*.py")))
@@ -71,7 +71,7 @@ print(len(names))
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.split()[-1]) >= 122
+    assert int(proc.stdout.split()[-1]) >= 127
 
 
 def test_every_family_has_its_entry_points():
@@ -82,7 +82,8 @@ def test_every_family_has_its_entry_points():
         assert os.path.join(family, "torch", "profile_step.py") in names
     for family, scripts in (("YOLO", ("detect.py", "evaluate.py")),
                             ("ObjectsAsPoints", ("detect.py", "evaluate.py")),
-                            ("Hourglass", ("evaluate.py", "infer.py")),
+                            ("Hourglass", ("evaluate.py", "infer.py",
+                                           "main.py")),
                             *GAN_FAMILIES.items()):
         for script in scripts:
             assert os.path.join(family, "torch", script) in names
