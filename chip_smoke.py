@@ -387,6 +387,30 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    `python -m deepvision_tpu_torch.tools.import_torch_checkpoint`, served
    in process at bucket 8 from the workdir on the card and on the CPU:
    the pins, the verified epoch, card against CPU.
+22. slice 20: the Keras, call-order and GAN checkpoint importers, their
+   files written by the script's own HDF5 and tensor-bundle writers (the
+   card's machine has neither h5py nor TensorFlow; a CPU test reads both
+   writers' files back with h5py and TensorFlow). 22a: yolov3 at full
+   width (80 classes) as seeded weights in the reference's layer names,
+   an h5 of the reference's layout, `python -m deepvision_tpu_torch.tools.
+   import_keras_checkpoint -m yolov3 --epoch 40` on the card: every
+   imported leaf equal to the file's, the raw heads of the workdir's
+   weights on the card against the CPU in f32 at batch 1, 416 px; then
+   `YOLO/torch/train.py` (phase 15's arguments) resumes it with `-c
+   latest` for 2 steps and its 2 eval batches, K2's launches zeroed just
+   before and counted just after: one a step and an eval batch. 22b:
+   hourglass104 at full width as auto-named `conv2d_<k>` /
+   `batch_normalization_<k>` groups in the port model's call order (on
+   the card this checks the reader and the tool; the order itself is held
+   to JAX's on the CPU), imported with `-m hourglass104`, served one batch
+   in process on the card against the CPU. 22c: dcgan and cyclegan (9
+   blocks, 256 px) as `tf.train` bundles in TF 2.1's
+   `layer_with_weights-N` names with their `step` / `epoch` counters,
+   through `python -m deepvision_tpu_torch.tools.import_gan_checkpoint`
+   on the card (the decoder library's CRC32C): the counter's epoch, every
+   leaf equal to the bundle's, one generator call on the card against the
+   CPU. K1 and K2 idle in 22b-c. The write, import, resume and compare
+   seconds of each.
 
 The line before the last is a JSON object with one record per kernel; the
 last is `{"ok": true, "device": {...}}`.
@@ -407,6 +431,7 @@ import runpy
 import shutil
 import signal
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -496,13 +521,18 @@ from deepvision_tpu_torch.serve.quantize import arm_int8
 from deepvision_tpu_torch.serve.server import InferenceServer
 from deepvision_tpu_torch.utils.device import resolve_device
 from deepvision_tpu_torch.utils.faults import FaultInjector
-from deepvision_tpu_torch.tools import import_torch_checkpoint
+from deepvision_tpu_torch.tools import (import_gan_checkpoint,
+                                        import_keras_checkpoint,
+                                        import_torch_checkpoint)
 from deepvision_tpu_torch.tools.gan_images import tile_grid
 from deepvision_tpu_torch.tools.build_report import (count_opcodes,
                                                      demangle, loop_report,
                                                      ptxas_by_function,
                                                      sass_by_function)
 from deepvision_tpu_torch.utils.timing import graph_ms, loop_ms
+from deepvision_tpu_torch.utils import order_convert
+from deepvision_tpu_torch.utils.keras_convert import stage_blocks_of
+from deepvision_tpu_torch.utils.tf_checkpoint import crc32c_np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 MODEL = "vit_small"
@@ -3885,7 +3915,7 @@ P16_TRAIN_BATCH = 32
 P16_TRAIN_STEPS = 2            # per epoch
 P16_GATE = -0.02               # the candidate may score 2 points lower
 P16_CANARY_FRAC = 0.5
-P16_CANARY_WINDOW = 3.0
+P16_CANARY_WINDOW = 1.0          # as 17b's
 P16_CLIENTS = 3                # closed-loop in-process clients of 16a
 P16_HTTP_PAUSE = 0.1           # between 16a's HTTP client's requests
 P16_INPUTS = 4                 # distinct images the 16a clients send
@@ -7122,6 +7152,658 @@ def check_export(export_run: dict, convert_run: dict, vit_workdir: str,
     return out
 
 
+# -- phase 22: the Keras, call-order and GAN checkpoint importers ------------
+#
+# The fixture writers below are test tooling, not features of the port: the
+# card's machine has neither h5py nor TensorFlow, so the script writes the
+# reference's files itself. tests/test_torch_h5.py and tests/test_torch_tf_
+# checkpoint.py read what they write back with h5py and TensorFlow.
+
+P22_DEVICE = "cuda"
+P22_EPOCH = 40                      # 22a's --epoch, as the reference names it
+P22_STEPS = 2                       # 22a's resumed train steps
+P22_HG = "hourglass104"             # 22b
+P22_HG_SIZE = None                  # 22b served at the config's 256 px
+P22_CG_BLOCKS = 9                   # 22c
+P22_CG_SIZE = None                  # 22c at the config's 256 px
+P22_PINS = {}                       # {model: kwargs} pinned in 22a-b's workdirs
+P22_COUNTERS = {"dcgan": ("step", 12), "cyclegan": ("epoch", 7)}
+P22_HEADS_RTOL = 1e-3               # 22a: f32 heads, card vs CPU (phase 12's)
+P22_SERVE_TOL = P13_SERVE_TOL       # 22b: bf16 heatmaps, card vs CPU
+P22_GAN_TOL = 1e-3                  # 22c: f32 tanh images (at most 1), card
+                                    # vs CPU: as 22a, 1e-3 of the largest
+
+H5_LEAF_K, H5_NODE_K = 4, 16        # h5py's: 8 names a symbol node, 32
+H5_UNDEF = 0xFFFFFFFFFFFFFFFF       # children a B-tree node
+
+
+def _h5_message(mtype: int, body: bytes) -> bytes:
+    body += b"\0" * (-len(body) % 8)
+    return struct.pack("<HHB3x", mtype, len(body), 0) + body
+
+
+def _h5_header(messages) -> bytes:
+    """A version-1 object header: the 16-byte prefix, then its messages."""
+    block = b"".join(messages)
+    return struct.pack("<BBHII4x", 1, 0, len(messages), 1,
+                       len(block)) + block
+
+
+def _h5_datatype(dtype: np.dtype) -> bytes:
+    size = dtype.itemsize
+    if dtype.kind == "f":
+        exp_at, exp_size, mant, bias = {2: (10, 5, 10, 15),
+                                        4: (23, 8, 23, 127),
+                                        8: (52, 11, 52, 1023)}[size]
+        bits = 0x20 | (8 * size - 1) << 8      # implied msb, the sign bit
+        return (struct.pack("<B3sI", 0x11, bits.to_bytes(3, "little"), size)
+                + struct.pack("<HHBBBBI", 0, 8 * size, exp_at, exp_size, 0,
+                              mant, bias))
+    if dtype.kind in "iu":
+        bits = 0x08 if dtype.kind == "i" else 0
+        return (struct.pack("<B3sI", 0x10, bits.to_bytes(3, "little"), size)
+                + struct.pack("<HH", 0, 8 * size))
+    raise ValueError(f"no HDF5 datatype written for {dtype}")
+
+
+class H5Writer:
+    """A minimal writer of h5py's default layout: superblock 0, version-1
+    object headers, symbol-table groups (a v1 B-tree of any depth, a local
+    heap, symbol nodes) and contiguous little-endian datasets."""
+
+    def __init__(self, fp):
+        self.fp = fp
+        self.at = 96                            # after the superblock
+
+    def _put(self, data: bytes) -> int:
+        address = self.at
+        self.fp.seek(address)
+        self.fp.write(data)
+        self.at += len(data) + (-len(data) % 8)
+        return address
+
+    def dataset(self, array) -> int:
+        array = np.asarray(array)
+        if array.dtype.itemsize > 1:
+            array = array.astype(array.dtype.newbyteorder("<"), copy=False)
+        address = self._put(array.tobytes()) if array.nbytes else H5_UNDEF
+        space = struct.pack("<BBB5x", 1, array.ndim, 0) + b"".join(
+            struct.pack("<Q", d) for d in array.shape)
+        return self._put(_h5_header([
+            _h5_message(0x0001, space),
+            _h5_message(0x0003, _h5_datatype(array.dtype)),
+            _h5_message(0x0008, struct.pack("<BBQQ", 3, 1, address,
+                                            array.nbytes))]))
+
+    def group(self, members: dict) -> tuple:
+        """Write `members` (name: a dict for a group, an array for a
+        dataset), then the group: (its header, B-tree, heap addresses)."""
+        entries = []
+        for name, value in members.items():
+            if isinstance(value, dict):
+                header, btree, heap = self.group(value)
+                entries.append((name.encode(), header, 1, btree, heap))
+            else:
+                entries.append((name.encode(), self.dataset(value), 0, 0, 0))
+        entries.sort(key=lambda e: e[0])
+        heap_data, offsets = bytearray(8), {}   # offset 0: the empty name
+        for e in entries:
+            offsets[e[0]] = len(heap_data)
+            heap_data += e[0] + b"\0" * (8 - len(e[0]) % 8)
+        data_at = self._put(bytes(heap_data))
+        heap = self._put(b"HEAP" + struct.pack(
+            "<B3xQQQ", 0, len(heap_data), 1, data_at))  # 1: no free block
+        # symbol nodes of up to 2K names, then B-tree levels of up to 2K
+        # children, each key the last name below the child before it
+        children = []
+        for i in range(0, len(entries), 2 * H5_LEAF_K):
+            chunk = entries[i:i + 2 * H5_LEAF_K]
+            body = b"".join(struct.pack("<QQIIQQ", offsets[n], h, cache, 0,
+                                        bt, hp)
+                            for n, h, cache, bt, hp in chunk)
+            body += b"\0" * (40 * 2 * H5_LEAF_K - len(body))
+            children.append((self._put(
+                b"SNOD" + struct.pack("<BBH", 1, 0, len(chunk)) + body),
+                offsets[chunk[-1][0]]))
+        level = 0
+        while True:
+            nodes = []
+            for i in range(0, max(len(children), 1), 2 * H5_NODE_K):
+                chunk = children[i:i + 2 * H5_NODE_K]
+                body = struct.pack("<Q", 0) + b"".join(
+                    struct.pack("<QQ", child, key) for child, key in chunk)
+                body += b"\0" * (8 + 16 * 2 * H5_NODE_K - len(body))
+                nodes.append((self._put(
+                    b"TREE" + struct.pack("<BBHQQ", 0, level, len(chunk),
+                                          H5_UNDEF, H5_UNDEF) + body),
+                    chunk[-1][1] if chunk else 0))
+            if len(nodes) == 1:
+                break
+            children, level = nodes, level + 1
+        btree = nodes[0][0]
+        header = self._put(_h5_header([_h5_message(
+            0x0011, struct.pack("<QQ", btree, heap))]))
+        return header, btree, heap
+
+    def finish(self, root: tuple) -> None:
+        header, btree, heap = root
+        self.fp.seek(0)
+        self.fp.write(b"\x89HDF\r\n\x1a\n" + struct.pack(
+            "<8BHHI", 0, 0, 0, 0, 0, 8, 8, 0, H5_LEAF_K, H5_NODE_K, 0)
+            + struct.pack("<QQQQ", 0, H5_UNDEF, self.at, H5_UNDEF)
+            + struct.pack("<QQIIQQ", 0, header, 1, 0, btree, heap))
+        self.fp.truncate(self.at)
+
+
+def write_h5(path: str, tree: dict) -> int:
+    """Write nested dicts of arrays as an HDF5 file in h5py's default
+    layout; returns its size in bytes."""
+    with open(path, "wb") as fp:
+        w = H5Writer(fp)
+        w.finish(w.group(tree))
+        return w.at
+
+
+# the DataType enum of what the bundle writer writes
+TF_DTYPES = {np.dtype("<f4"): 1, np.dtype("<f8"): 2, np.dtype("<i4"): 3,
+             np.dtype("<i8"): 9, np.dtype("bool"): 10, np.dtype("<f2"): 19}
+TABLE_RESTART = 16                  # LevelDB's restart interval
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b, n = n & 0x7F, n >> 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _pb(number: int, value) -> bytes:
+    """One protobuf field: an int as a varint, bytes length-delimited."""
+    if isinstance(value, bytes):
+        return _varint(number << 3 | 2) + _varint(len(value)) + value
+    return _varint(number << 3) + _varint(value)
+
+
+def _table_block(items, restart: int) -> bytes:
+    """A LevelDB block: prefix-compressed entries, a restart point every
+    `restart` entries, the restart array and its count."""
+    out, restarts, last = bytearray(), [], b""
+    for i, (key, value) in enumerate(items):
+        shared = 0
+        if i % restart:
+            while (shared < min(len(key), len(last))
+                   and key[shared] == last[shared]):
+                shared += 1
+        else:
+            restarts.append(len(out))
+        out += (_varint(shared) + _varint(len(key) - shared)
+                + _varint(len(value)) + key[shared:] + value)
+        last = key
+    restarts = restarts or [0]
+    return (bytes(out) + struct.pack(f"<{len(restarts)}I", *restarts)
+            + struct.pack("<I", len(restarts)))
+
+
+def write_tf_checkpoint(prefix: str, tensors: dict, crc,
+                        block_size: int = 4096) -> str:
+    """Write `tensors` ({name: array}) as a V2 tensor bundle: one data
+    shard, an uncompressed index table of about `block_size`-byte data
+    blocks with their CRC32Cs (`crc` computes them), and the directory's
+    `checkpoint` state file naming it. Returns the prefix."""
+    entries, offset = [], 0
+    with open(f"{prefix}.data-00000-of-00001", "wb") as fp:
+        for name in sorted(tensors):
+            array = np.asarray(tensors[name])
+            data = array.tobytes()
+            shape = b"".join(_pb(2, _pb(1, d)) for d in array.shape)
+            entries.append((name.encode(), (
+                _pb(1, TF_DTYPES[array.dtype]) + _pb(2, shape)
+                + _pb(4, offset) + _pb(5, len(data)) + _varint(6 << 3 | 5)
+                + struct.pack("<I", recs.masked_crc(crc(data))))))
+            fp.write(data)
+            offset += len(data)
+    header = _pb(1, 1) + _pb(3, _pb(1, 1))      # one shard; producer 1
+    items = [(b"", header)] + entries
+    out, index = bytearray(), []
+
+    def put(block: bytes) -> bytes:
+        handle = _varint(len(out)) + _varint(len(block))
+        out.extend(block + b"\0" + struct.pack(
+            "<I", recs.masked_crc(crc(block + b"\0"))))
+        return handle
+
+    start = 0
+    for i in range(1, len(items) + 1):
+        size = sum(len(k) + len(v) + 3 for k, v in items[start:i])
+        if i == len(items) or size >= block_size:
+            index.append((items[i - 1][0],
+                          put(_table_block(items[start:i], TABLE_RESTART))))
+            start = i
+    footer = put(_table_block([], TABLE_RESTART))        # the meta-index
+    footer += put(_table_block(index, 1))
+    out += footer + b"\0" * (40 - len(footer)) + struct.pack(
+        "<Q", 0xDB4775248B80FB57)
+    with open(f"{prefix}.index", "wb") as fp:
+        fp.write(bytes(out))
+    directory, base = os.path.split(prefix)
+    with open(os.path.join(directory, "checkpoint"), "w") as fp:
+        fp.write(f'model_checkpoint_path: "{base}"\n'
+                 f'all_model_checkpoint_paths: "{base}"\n')
+    return prefix
+
+
+def p22_root(tag: str) -> str:
+    root = tempfile.mkdtemp(prefix=f"chip_smoke_p22{tag}_")
+    atexit.register(shutil.rmtree, root, ignore_errors=True)
+    return root
+
+
+def p22_pinned(name: str, workdir: str):
+    """`name`'s config with its P22_PINS, which also go to `workdir`'s
+    `model_kwargs.json` (none at full width)."""
+    cfg, pins = get_config(name), P22_PINS.get(name)
+    if not pins:
+        return cfg
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, "model_kwargs.json"), "w") as fp:
+        json.dump(pins, fp)
+    return cfg.replace(model_kwargs={**cfg.model_kwargs, **pins})
+
+
+def keras_weights(module, kind: str, rng) -> dict:
+    """Seeded Keras weights of a layer like the port's `module` of `kind`
+    (Conv, ConvTranspose, Dense, BatchNorm) in Keras's layouts: HWIO,
+    (kh, kw, out, in), (in, out). He-normal kernels; scales, shifts and
+    moving statistics in ranges that keep a deep stack finite."""
+    if kind == "BatchNorm":
+        c = module.num_features
+        u = lambda lo, hi: rng.uniform(lo, hi, c).astype(np.float32)  # noqa: E731
+        return {"gamma": u(0.7, 1.3), "beta": u(-0.3, 0.3),
+                "moving_mean": u(-0.3, 0.3), "moving_variance": u(0.5, 2.0)}
+    o, i, *hw = module.weight.shape
+    shape = {"Conv": (*hw, i, o), "ConvTranspose": (*hw, o, i),
+             "Dense": (i, o)}[kind]
+    fan = int(np.prod(hw, dtype=np.int64)) * i
+    out = {"kernel": rng.standard_normal(shape, dtype=np.float32)
+           * np.float32(np.sqrt(2.0 / fan))}
+    if module.bias is not None:
+        out["bias"] = rng.uniform(-0.3, 0.3, o).astype(np.float32)
+    return out
+
+
+def port_weights(kind: str, w: dict) -> dict:
+    """The port's leaves (models/common.py's layouts) that Keras weights
+    `w` of a `kind` layer must become."""
+    if kind == "BatchNorm":
+        return {"weight": w["gamma"], "bias": w["beta"],
+                "running_mean": w["moving_mean"],
+                "running_var": w["moving_variance"]}
+    k = w["kernel"]
+    if kind == "Conv":
+        out = {"weight": k.transpose(3, 2, 0, 1)}        # HWIO -> OIHW
+    elif kind == "ConvTranspose":   # Keras's is the conv's gradient: flip
+        out = {"weight": k[::-1, ::-1].transpose(2, 3, 0, 1)}
+    else:
+        out = {"weight": k.T}                            # (in, out)
+    if "bias" in w:
+        out["bias"] = w["bias"]
+    return out
+
+
+def unequal_leaves(state: dict, expected: dict) -> list:
+    """The names of `expected` whose arrays `state` does not hold bit for
+    bit."""
+    return [k for k, v in expected.items()
+            if k not in state or not np.array_equal(
+                state[k].detach().float().cpu().numpy(), v)]
+
+
+def yolo_reference_tree(model, rng) -> tuple:
+    """Seeded weights of `model` (a port YoloV3) in the reference's layer
+    names (`deepvision_tpu_torch/utils/keras_convert.py`'s grammar), laid
+    out as the reference's h5: Darknet-53's layers inside the
+    `darknet_53` group, every other layer in a group of its name holding
+    a group of its name. Returns (the tree, the state_dict entries it
+    must become)."""
+    names = {"darknet53.ConvBNLeaky_0": "conv2d_0"}
+    r = 0
+    for stage, blocks in enumerate(stage_blocks_of(model)):
+        names[f"darknet53.ConvBNLeaky_{stage + 1}"] = f"conv2d_{stage + 1}"
+        for j in range(blocks):
+            for k, tap in enumerate(("1x1", "3x3")):
+                names[f"darknet53.DarknetResidual_{r}.ConvBNLeaky_{k}"] = \
+                    f"residual_{stage}_{j}_{tap}"
+            r += 1
+    for scale in ("large", "medium", "small"):
+        for k, tap in enumerate(("1x1_1", "3x3_1", "1x1_2", "3x3_2",
+                                 "1x1_3", "3x3_3")):
+            names[f"tower_{scale}.ConvBNLeaky_{k}"] = \
+                f"detector_scale_{scale}_{tap}"
+    for scale in ("medium", "small"):
+        names[f"lateral_{scale}"] = f"detector_scale_{scale}_1x1_0"
+    layers = [(f"{port}.{sub}", f"{ref}_{suffix}", kind)
+              for port, ref in names.items()
+              for sub, suffix, kind in (("Conv_0", "conv2d", "Conv"),
+                                        ("BatchNorm_0", "bn", "BatchNorm"))]
+    layers += [(f"tower_{scale}.final_conv",
+                f"detector_scale_{scale}_final_conv2d", "Conv")
+               for scale in ("large", "medium", "small")]
+    mods = dict(model.named_modules())
+    tree, expected = {}, {}
+    for port, layer, kind in layers:
+        w = keras_weights(mods[port], kind, rng)
+        outer = "darknet_53" if port.startswith("darknet53.") else layer
+        tree.setdefault(outer, {})[layer] = {f"{k}:0": v
+                                             for k, v in w.items()}
+        expected.update({f"{port}.{leaf}": a
+                         for leaf, a in port_weights(kind, w).items()})
+    return tree, expected
+
+
+def check_p22_yolo() -> dict:
+    """22a: yolov3 at full width from a reference-named h5 through
+    `import_keras_checkpoint` on the card, then trained on by
+    `YOLO/torch/train.py -c latest` with K2 counted."""
+    root = p22_root("a")
+    h5_path, wd = os.path.join(root, "yolov3_best.h5"), os.path.join(root,
+                                                                     "wd")
+    cfg = p22_pinned(YOLO_MODEL, wd)
+    with torch.device("meta"):          # the layout: shapes, no weights
+        layout = build_model(cfg)
+    t0 = time.perf_counter()
+    tree, expected = yolo_reference_tree(layout, np.random.default_rng(2201))
+    nbytes = write_h5(h5_path, tree)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = import_keras_checkpoint.main([
+        "-m", YOLO_MODEL, "--h5", h5_path, "--workdir", wd, "--epoch",
+        str(P22_EPOCH), "--device", P22_DEVICE])
+    import_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, prov, _ = load_checkpoint_weights(YOLO_MODEL, wd, verbose=False)
+    state = model.state_dict()
+    unequal = unequal_leaves(state, expected)
+    x = torch.from_numpy(np.random.RandomState(2202).rand(
+        1, P15_SIZE, P15_SIZE, cfg.data.channels).astype(np.float32))
+    heads = {}
+    for device in (P22_DEVICE, "cpu"):
+        with torch.device("meta"):
+            m = build_model(cfg.replace(dtype="float32"))
+        m.load_state_dict(state, assign=True)
+        with torch.inference_mode():
+            heads[device] = [h.float().cpu() for h in m.to(device).eval()(
+                x.to(device), decode=False)]
+    err = max(p21_rel(g, w) for g, w in zip(heads[P22_DEVICE], heads["cpu"]))
+    finite = all(bool(torch.isfinite(h).all()) for h in heads["cpu"])
+    compare_s = time.perf_counter() - t0
+    flash_attention.launches = best_iou.launches = 0
+    t0 = time.perf_counter()
+    trainer, result = run_detection("YOLO", [YOLO_MODEL], p15_argv(
+        wd, P22_EPOCH + 1, "-c", "latest", "--steps-per-epoch",
+        str(P22_STEPS)))
+    resume_s = time.perf_counter() - t0
+    launches = (flash_attention.launches, best_iou.launches)
+    losses = [s["loss"] for s in trainer.last_epoch_steps]
+    committed = verified_epochs(os.path.join(wd, "ckpt"))
+    want = P22_STEPS + P15_EVAL_BATCHES
+    phase(f"22a {YOLO_MODEL} ({sum(v.size for v in expected.values()):,} "
+          f"weights, {len(expected)} leaves) as a reference-named h5 of "
+          f"{nbytes / 1e6:.1f} MB written in {write_s:.1f}s, imported on "
+          f"the card in {import_s:.1f}s (epoch {got['epoch']}); restored "
+          f"from the workdir (verified {prov['verified']}, epoch "
+          f"{prov['checkpoint_epoch']}): {len(unequal)} leaves differ from "
+          f"the file's; raw heads at 1 x {P15_SIZE} px in f32, card vs CPU, "
+          f"relative to the largest: {err:.3g} (bound {P22_HEADS_RTOL:g}) "
+          f"in {compare_s:.1f}s; resumed by YOLO/torch/train.py -c latest "
+          f"for {P22_STEPS} steps in {resume_s:.1f}s: losses {losses}, "
+          f"val {result.get('loss')}, committed epochs {committed}; "
+          f"launches (flash_attention, best_iou) {launches} for "
+          f"{P22_STEPS} train steps and {P15_EVAL_BATCHES} eval batches")
+    if unequal or not prov["verified"] \
+            or prov["checkpoint_epoch"] != P22_EPOCH \
+            or not finite or not err <= P22_HEADS_RTOL:
+        raise AssertionError(f"22a: import: unequal {unequal[:5]}, {prov}, "
+                             f"heads err {err}")
+    if launches != (0, want) or len(losses) != P22_STEPS \
+            or not all(np.isfinite(losses)) \
+            or committed != [P22_EPOCH, P22_EPOCH + 1] \
+            or trainer.state.step != P22_STEPS:
+        raise AssertionError(f"22a: resume: launches {launches} (want "
+                             f"{want}), losses {losses}, committed "
+                             f"{committed}, step {trainer.state.step}")
+    return {"launches": launches[1], "train_steps": P22_STEPS,
+            "eval_batches": P15_EVAL_BATCHES, "heads_err": err,
+            "seconds": {"write": write_s, "import": import_s,
+                        "compare": compare_s, "resume": resume_s}}
+
+
+def auto_named_layers(model, *inputs) -> list:
+    """[(module name, kind, Keras auto-name)] of `model`'s weighted
+    modules in its call order, named per kind as Keras counts them
+    (`conv2d`, `conv2d_1`, ..., `batch_normalization`, ...)."""
+    prefix = {"Conv": "conv2d", "ConvTranspose": "conv2d_transpose",
+              "Dense": "dense", "BatchNorm": "batch_normalization"}
+    counts: dict = {}
+    out = []
+    for name, kind in order_convert.modules_in_call_order(model, *inputs):
+        k = counts.get(kind, 0)
+        counts[kind] = k + 1
+        out.append((name, kind, prefix[kind] + (f"_{k}" if k else "")))
+    return out
+
+
+def check_p22_hourglass() -> dict:
+    """22b: hourglass104 at full width from auto-named h5 groups in the
+    port model's call order through `import_keras_checkpoint` on the card,
+    served one batch in process on the card and on the CPU."""
+    root = p22_root("b")
+    h5_path, wd = os.path.join(root, "hourglass.h5"), os.path.join(root,
+                                                                   "wd")
+    cfg = p22_pinned(P22_HG, wd)
+    size = cfg.data.image_size
+    with torch.device("meta"):
+        layout = build_model(cfg)
+        layers = auto_named_layers(layout, torch.zeros(
+            (1, size, size, cfg.data.channels)))
+    rng = np.random.default_rng(2203)
+    t0 = time.perf_counter()
+    mods = dict(layout.named_modules())
+    tree, expected = {}, {}
+    for i in rng.permutation(len(layers)):      # on-disk order shuffled
+        name, kind, lname = layers[i]
+        w = keras_weights(mods[name], kind, rng)
+        tree[lname] = {lname: {f"{k}:0": v for k, v in w.items()}}
+        expected.update({f"{name}.{leaf}": a
+                         for leaf, a in port_weights(kind, w).items()})
+    nbytes = write_h5(h5_path, tree)
+    write_s = time.perf_counter() - t0
+    flash_attention.launches = best_iou.launches = 0
+    t0 = time.perf_counter()
+    import_keras_checkpoint.main(["-m", P22_HG, "--h5", h5_path,
+                                  "--workdir", wd, "--epoch", "1",
+                                  "--device", P22_DEVICE])
+    import_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engines = {d: PredictEngine.from_config(P22_HG, workdir=wd, device=d,
+                                            buckets=(1,),
+                                            image_size=P22_HG_SIZE,
+                                            verbose=False)
+               for d in (P22_DEVICE, "cpu")}
+    x = np.random.RandomState(2204).randn(
+        1, *engines["cpu"].example_shape).astype(np.float32)
+    served = engines[P22_DEVICE].predict(x)
+    counts = (flash_attention.launches, best_iou.launches)
+    want = engines["cpu"].predict(x)
+    err = leaf_rel_err(served, want)
+    compare_s = time.perf_counter() - t0
+    model, prov, _ = load_checkpoint_weights(P22_HG, wd, verbose=False,
+                                             image_size=P22_HG_SIZE)
+    unequal = unequal_leaves(model.state_dict(), expected)
+    kinds = {k: sum(1 for _, kk, _ in layers if kk == k)
+             for k in ("Conv", "BatchNorm")}
+    phase(f"22b {P22_HG} ({kinds['Conv']} conv2d and {kinds['BatchNorm']} "
+          f"batch_normalization groups in call order, shuffled on disk; "
+          f"{nbytes / 1e6:.1f} MB) written in {write_s:.1f}s, imported on "
+          f"the card in {import_s:.1f}s; {len(unequal)} leaves differ from "
+          f"the file's (verified {prov['verified']}); served at 1 x "
+          f"{engines['cpu'].example_shape[0]} px, card vs CPU engine, worst leaf relative to its largest "
+          f"value: {err:.3g} (bound {P22_SERVE_TOL:g}) in {compare_s:.1f}s; "
+          f"launches (flash_attention, best_iou) {counts}")
+    if unequal or not prov["verified"] or not err <= P22_SERVE_TOL \
+            or counts != (0, 0) or not all(
+                np.isfinite(leaf).all() for leaf in _leaves(want)):
+        raise AssertionError(f"22b: unequal {unequal[:5]}, {prov}, err "
+                             f"{err}, counts {counts}")
+    return {"err": err, "seconds": {"write": write_s, "import": import_s,
+                                    "compare": compare_s}}
+
+
+_P22_SUBLAYERS = {"Conv_0": "conv1", "BatchNorm_0": "bn1", "Conv_1": "conv2",
+                  "BatchNorm_1": "bn2"}
+
+
+def gan_reference_tensors(obj: str, module, sample, rng) -> tuple:
+    """Seeded weights of a port GAN network under the reference's object
+    name `obj` in TF 2.1's checkpoint keys: `<obj>/layer_with_weights-<N>/
+    <attr>/.ATTRIBUTES/VARIABLE_VALUE`, N counting weighted layers in call
+    order, a CycleGAN residual block one layer whose sublayers are conv1,
+    bn1, conv2, bn2. Returns (tensors, the state_dict entries they must
+    become)."""
+    mods = dict(module.named_modules())
+    tensors, expected, blocks = {}, {}, {}
+    n = -1
+    for name, kind in order_convert.modules_in_call_order(module, sample):
+        parent, _, child = name.rpartition(".")
+        if parent.startswith("CycleGANResBlock_"):
+            if parent not in blocks:
+                n += 1
+                blocks[parent] = n
+            base = (f"{obj}/layer_with_weights-{blocks[parent]}/"
+                    f"{_P22_SUBLAYERS[child]}")
+        else:
+            n += 1
+            base = f"{obj}/layer_with_weights-{n}"
+        w = keras_weights(mods[name], kind, rng)
+        tensors.update({f"{base}/{k}/.ATTRIBUTES/VARIABLE_VALUE": v
+                        for k, v in w.items()})
+        expected.update({f"{name}.{leaf}": a
+                         for leaf, a in port_weights(kind, w).items()})
+    return tensors, expected
+
+
+def p22_gan_networks(family: str) -> dict:
+    """{reference object name: (port trainer's network key, a layout
+    module on meta, a sample input)} of a GAN family."""
+    if family == "dcgan":
+        with torch.device("meta"):
+            return {"generator": ("", DCGANGenerator(),
+                                  torch.zeros((1, 100))),
+                    "discriminator": ("", DCGANDiscriminator(),
+                                      torch.zeros((1, 28, 28, 1)))}
+    size = P22_CG_SIZE or get_config("cyclegan").data.image_size
+    with torch.device("meta"):
+        image = torch.zeros((1, size, size, 3))
+        return {**{f"generator_{k}": (k, CycleGANGenerator(P22_CG_BLOCKS),
+                                      image) for k in ("a2b", "b2a")},
+                **{f"discriminator_{k}": (k, PatchGANDiscriminator(), image)
+                   for k in ("a", "b")}}
+
+
+def check_p22_gan(family: str) -> dict:
+    """22c: a GAN family's `tf.train` bundle in TF 2.1's names through
+    `import_gan_checkpoint` on the card: the counter's epoch, the weights,
+    one generator call on the card against the CPU."""
+    root = p22_root(f"c_{family}")
+    rng = np.random.default_rng(2205 if family == "dcgan" else 2206)
+    counter, value = P22_COUNTERS[family]
+    t0 = time.perf_counter()
+    tensors = {f"{counter}/.ATTRIBUTES/VARIABLE_VALUE": np.array(value,
+                                                                 np.int64)}
+    expected = {"gen": {}, "disc": {}}
+    for obj, (key, module, sample) in p22_gan_networks(family).items():
+        got, want = gan_reference_tensors(obj, module, sample, rng)
+        tensors.update(got)
+        side = "gen" if obj.startswith("generator") else "disc"
+        expected[side].update({f"{key}.{k}" if key else k: v
+                               for k, v in want.items()})
+    ckpt_dir, wd = os.path.join(root, "ref"), os.path.join(root, "wd")
+    os.makedirs(ckpt_dir)
+    device = torch.device(P22_DEVICE)
+    write_tf_checkpoint(os.path.join(ckpt_dir, "ckpt-1"), tensors,
+                        jpeg.host_crc32c(device) if device.type == "cuda"
+                        else crc32c_np)
+    nbytes = sum(v.nbytes for v in tensors.values())
+    write_s = time.perf_counter() - t0
+    flash_attention.launches = best_iou.launches = 0
+    t0 = time.perf_counter()
+    argv = ["--family", family, "--ckpt", ckpt_dir, "--workdir", wd,
+            "--device", P22_DEVICE]
+    if family == "cyclegan":
+        argv += ["--n-blocks", str(P22_CG_BLOCKS)]
+    got = import_gan_checkpoint.main(argv)
+    import_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = get_config(family)
+    outs, unequal, epochs = {}, [], {}
+    rs = np.random.RandomState(2207)
+    size = P22_CG_SIZE or cfg.data.image_size
+    x = (rs.randn(2, 100) if family == "dcgan"
+         else rs.uniform(-1, 1, (1, size, size, 3))).astype(np.float32)
+    for device in (P22_DEVICE, "cpu"):
+        if family == "dcgan":
+            trainer = DCGANTrainer(cfg, workdir=wd, device=device)
+        else:
+            trainer = CycleGANTrainer(cfg, workdir=wd, device=device,
+                                      n_blocks=P22_CG_BLOCKS)
+        try:
+            epochs[device] = trainer.resume(verify="strict")
+            if device == "cpu":
+                unequal = (unequal_leaves(trainer.gen_state.model.state_dict(),
+                                          expected["gen"])
+                           + unequal_leaves(
+                               trainer.disc_state.model.state_dict(),
+                               expected["disc"]))
+            if family == "dcgan":
+                with torch.inference_mode():
+                    outs[device] = trainer.generator.eval()(
+                        torch.from_numpy(x).to(device)).cpu().numpy()
+            else:
+                outs[device] = trainer.translate(x, "a2b")
+        finally:
+            trainer.close()
+    err = float(np.abs(outs[P22_DEVICE] - outs["cpu"]).max())
+    compare_s = time.perf_counter() - t0
+    counts = (flash_attention.launches, best_iou.launches)
+    phase(f"22c {family}: a tf.train bundle of {len(tensors)} tensors "
+          f"({nbytes / 1e6:.1f} MB, TF 2.1 names, {counter} {value}) "
+          f"written in {write_s:.1f}s, imported on the card in "
+          f"{import_s:.1f}s as epoch {got['epoch']} (resumed: {epochs}); "
+          f"{len(unequal)} leaves differ from the bundle's; one generator "
+          f"call {outs['cpu'].shape}, card vs CPU max_abs_err {err:.3g} "
+          f"(bound {P22_GAN_TOL:g}) in {compare_s:.1f}s; launches "
+          f"(flash_attention, best_iou) {counts}")
+    if got["epoch"] != value or set(epochs.values()) != {value} or unequal \
+            or not np.isfinite(outs["cpu"]).all() \
+            or not err <= P22_GAN_TOL or counts != (0, 0):
+        raise AssertionError(f"22c {family}: epoch {got['epoch']} "
+                             f"{epochs}, unequal {unequal[:5]}, err {err}, "
+                             f"counts {counts}")
+    return {"err": err, "seconds": {"write": write_s, "import": import_s,
+                                    "compare": compare_s}}
+
+
+def check_importers() -> dict:
+    """Phase 22, slice 20: the Keras, call-order and GAN checkpoint
+    importers (K2 in 22a's resumed run; K1 and K2 idle in 22b-c)."""
+    t0 = time.perf_counter()
+    out = {"22a": check_p22_yolo(), "22b": check_p22_hourglass(),
+           "22c": {f: check_p22_gan(f) for f in ("dcgan", "cyclegan")}}
+    phase(f"22: phase 22 took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def keep_bytecode() -> None:
     """Keep the bytecode Python compiles, for this process and every one
     it starts, under the checkout's .cache/: where the interpreter's
@@ -7401,6 +8083,12 @@ def main() -> int:
                           seg_gan["14d"]["workdir"],
                           real["18e"]["pose_workdir"])
     ended("phase 21")
+    # 22. slice 20: the Keras, call-order and GAN checkpoint importers (K2
+    # in 22a's resumed run: the count zeroed just before it, read just
+    # after; K1 and K2 idle in 22b-c)
+    torch.cuda.empty_cache()
+    imports = check_importers()
+    ended("phase 22")
 
     # the card again, next to the numbers: a tail of the output keeps it
     print(smi, flush=True)
@@ -7469,6 +8157,8 @@ def main() -> int:
         "epoch_on_device_launches": {k: levers["19c"][k] for k in (
             "launches", "train_steps", "eval_batches", "overflow_launches")},
         "export_launches": {"cyclegan_package": export["21b"]["counts"][1]},
+        "keras_import_launches": {k: imports["22a"][k] for k in (
+            "launches", "train_steps", "eval_batches")},
         "resilience_launches": {
             "launches": resil["15a"]["launches"],
             "train_steps": resil["15a"]["train_steps"],
