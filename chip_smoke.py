@@ -108,7 +108,9 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    one checkpoint from rank 0; then one f64 resnet50_tpu step at global
    batch 4 against the one-process step on the same images on the card,
    loss, gradients, weights and BatchNorm statistics within the DDP_F64_*
-   bounds. A worker's failure fails the phase;
+   bounds. 11b's ranks are started when 11a ends and train beside
+   phases 12-13 (which run workers of their own on the card too); they
+   are collected after phase 13. A worker's failure fails the phase;
 12. slice 9: yolov3 inference on phase 5's checkpoint (416 px, 80
    classes). 12a: `make_predict_step` at batch 16 (bf16, NMS at IoU 0.5
    and score 0.05, 100 picks), its time split into the decoded forward
@@ -236,7 +238,7 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    after the cooldown a probe that closes the circuit. 16c: closed-loop
    overload at bucket 8 from one worker: the autoscaler grows the pool
    and shrinks it back when the load stops, the parameter storage
-   unchanged; images/s and p99 at one worker and at the peak, in turns;
+   unchanged; images/s and p99 at one worker, then at the peak;
    a client whose accepted request is unanswered after P16_PROBE_S prints
    the batcher's counts and every thread's stack once (the probe of
    ROADMAP Queue C), then waits out its 60 s deadline.
@@ -411,6 +413,20 @@ JAX and nothing of the JAX package. Phases, one line each or more:
    leaf equal to the bundle's, one generator call on the card against the
    CPU. K1 and K2 idle in 22b-c. The write, import, resume and compare
    seconds of each.
+23. slice 21: the IR audit (`deepvision_tpu_torch/check`). 23a: `python
+   -m deepvision_tpu_torch.check vit_small yolov3 attn quant --format
+   json`, started at the script's start as a process of its own on the
+   CPU (fake tensors, no card) at nice +10 and collected here: exit 0, its
+   FLOPs equal to the committed CHECK_COST_TORCH.json's, its bytes and op
+   counts within the audit's tolerance (the baseline is written on
+   another PyTorch release). 23b: phase 21a's vit_small program (exported
+   on the card at batch 8) called once under the audit's recorder: 8 K1
+   nodes and 8 K1 launches, each node's output against the plain version
+   on its own inputs, FLOPs equal to the `vit_small/serve` row. 23c: one
+   real yolov3 train step at 416 px on the card at the audit's batch,
+   under the same recorder: 1 `deepvision.best_iou` node and 1 K2 launch,
+   its output bit for bit against `best_iou_reference`, FLOPs equal to
+   the fake-traced `yolov3/train` row.
 
 The line before the last is a JSON object with one record per kernel; the
 last is `{"ok": true, "device": {...}}`.
@@ -529,6 +545,7 @@ from deepvision_tpu_torch.tools.build_report import (count_opcodes,
                                                      demangle, loop_report,
                                                      ptxas_by_function,
                                                      sass_by_function)
+from deepvision_tpu_torch.check.walk import Recorder
 from deepvision_tpu_torch.utils.timing import graph_ms, loop_ms
 from deepvision_tpu_torch.utils import order_convert
 from deepvision_tpu_torch.utils.keras_convert import stage_blocks_of
@@ -702,8 +719,22 @@ def abs_err(out: torch.Tensor, ref: torch.Tensor) -> float:
     return torch.where(agree, 0.0, (out - ref).abs()).max().item()
 
 
+T_IMPORTED = time.perf_counter()
+
+
+# what else trains on the card while a line is printed (11b's ranks run
+# beside phases 12-13): such a line's times do not compare with a run
+# that had the card alone
+BESIDE: set = set()
+
+
 def phase(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """One line of the script's log, stamped with the seconds since the
+    script was imported (where the whole run's time goes) and with what
+    else is training on the card."""
+    beside = "".join(f" beside {b}" for b in sorted(BESIDE))
+    print(f"[chip_smoke +{time.perf_counter() - T_IMPORTED:.1f}s{beside}] "
+          f"{msg}", flush=True)
 
 
 # the bf16 flash-attention kernels, (DMAX, 16-byte copies), as their
@@ -1706,11 +1737,26 @@ def run_workers(commands: list, envs: list, logs: list,
     """Start every command at once (each with its environment, its output
     to its log) and wait for all; fails, with each failing log's tail,
     if any exits non-zero or outlives `timeout` (then all are killed)."""
+    wait_workers(start_workers(commands, envs, logs), logs, timeout)
+
+
+def start_workers(commands: list, envs: list, logs: list) -> list:
+    """Start every command at once, each with its environment and its
+    output to its log; a script that ends first kills them."""
     procs = []
     for cmd, env, log in zip(commands, envs, logs):
         with open(log, "w") as fh:
             procs.append(subprocess.Popen(cmd, env=env, stdout=fh,
                                           stderr=subprocess.STDOUT))
+        atexit.register(p21_stop, procs[-1])
+    return procs
+
+
+def wait_workers(procs: list, logs: list,
+                 timeout: float = DDP_WORKER_TIMEOUT) -> None:
+    """Wait for every worker of `start_workers`; fails, with each failing
+    log's tail, if any exits non-zero or outlives `timeout` (then all are
+    killed)."""
     deadline = time.monotonic() + timeout
     try:
         codes = [p.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -1733,16 +1779,38 @@ def run_workers(commands: list, envs: list, logs: list,
 
 def ddp_phase(tag: str, spec: dict, commands: list, envs: list) -> list:
     """Run one phase's workers on `spec`; the ranks' records, by rank."""
+    return wait_ddp_phase(tag, start_ddp_phase(spec, commands, envs))
+
+
+def start_ddp_phase(spec: dict, commands: list, envs: list) -> dict:
+    """Write `spec` and start one worker a command on it (`--ddp-worker`),
+    left running; `wait_ddp_phase` collects them."""
     spec_path = f"{spec['out']}/spec.json"
     with open(spec_path, "w") as fh:
         json.dump(spec, fh)
     logs = [f"{spec['out']}/worker{i}.log" for i in range(len(commands))]
+    procs = start_workers([c + ["--ddp-worker", spec_path]
+                           for c in commands], envs, logs)
+    return {"spec": spec, "procs": procs, "logs": logs,
+            "t0": time.perf_counter()}
+
+
+def wait_ddp_phase(tag: str, run: dict) -> list:
+    """The ranks' records of a `start_ddp_phase` run, once its workers
+    end (the timeout counted from their start)."""
     t0 = time.perf_counter()
-    run_workers([c + ["--ddp-worker", spec_path] for c in commands], envs,
-                logs)
-    phase(f"{tag}: workers done in {time.perf_counter() - t0:.1f}s")
+    wait_workers(run["procs"], run["logs"], max(
+        1.0, DDP_WORKER_TIMEOUT - (t0 - run["t0"])))
+    phase(f"{tag}: workers done {time.perf_counter() - run['t0']:.1f}s "
+          f"after their start (waited {time.perf_counter() - t0:.1f}s "
+          f"here)")
+    return ddp_ranks(run["spec"], len(run["procs"]))
+
+
+def ddp_ranks(spec: dict, n: int) -> list:
+    """The records the `n` ranks of `spec` wrote, by rank."""
     ranks = []
-    for r in range(len(commands)):
+    for r in range(n):
         with open(f"{spec['out']}/rank{r}.json") as fh:
             ranks.append(json.load(fh))
     return ranks
@@ -1810,42 +1878,54 @@ def ddp_plans(root: str, port: int) -> dict:
 
 
 def check_data_parallel(smi: str, yolo: dict, resnet: dict) -> dict:
-    """Phase 11: 11a, the yolov3 and resnet50_tpu entry points under a
-    torchrun launch of one process (NCCL), beside phases 5 and 8; 11b,
-    two ranks on the one card over gloo: yolov3 (K2 on every rank),
-    resnet50_tpu with the device augment and EMA, and the f64 step
-    against the one-process step."""
+    """Phase 11a: the yolov3 and resnet50_tpu entry points under a
+    torchrun launch of one process (NCCL), beside phases 5 and 8. Then
+    11b's two ranks are started, to train beside phases 12-13 (whose own
+    workers share the card too) until `collect_data_parallel`."""
     out = {}
     root = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
-    try:
-        plans = ddp_plans(root, free_port())
-        (rank,) = ddp_phase("phase 11a", *plans["11a"])
-        phase(f"phase 11a: world={rank['world']} backend={rank['backend']} "
-              f"device_count={rank['device_count']} card: {smi}")
-        ms = [check_ddp_run("phase 11a", rec, rank, n, eval_batches, batch)
-              for rec, n, eval_batches, batch in zip(
-                  rank["runs"], (DDP_YOLO_STEPS, DDP_RESNET_STEPS),
-                  (YOLO_EVAL_BATCHES, RESNET_EVAL_BATCHES),
-                  (YOLO_BATCH, RESNET_BATCH))]
-        phase(f"phase 11a: step_ms under DDP at world 1 ({rank['backend']}) "
-              f"against the one-process step of phases 5 and 8 in this "
-              f"run: yolov3 "
-              f"{ms[0]:.3f} vs {yolo['step_ms']:.3f} "
-              f"({ms[0] / yolo['step_ms']:.3f}x), resnet50_tpu {ms[1]:.3f} "
-              f"vs {resnet['step_ms']:.3f} ({ms[1] / resnet['step_ms']:.3f}x)")
-        out["11a"] = {"world": rank["world"], "backend": rank["backend"],
-                      "yolo_step_ms": ms[0], "resnet_step_ms": ms[1],
-                      "yolo_launches": rank["runs"][0]["best_iou_launches"],
-                      "one_process_step_ms": [yolo["step_ms"],
-                                              resnet["step_ms"]]}
+    atexit.register(shutil.rmtree, root, ignore_errors=True)
+    plans = ddp_plans(root, free_port())
+    (rank,) = ddp_phase("phase 11a", *plans["11a"])
+    phase(f"phase 11a: world={rank['world']} backend={rank['backend']} "
+          f"device_count={rank['device_count']} card: {smi}")
+    ms = [check_ddp_run("phase 11a", rec, rank, n, eval_batches, batch)
+          for rec, n, eval_batches, batch in zip(
+              rank["runs"], (DDP_YOLO_STEPS, DDP_RESNET_STEPS),
+              (YOLO_EVAL_BATCHES, RESNET_EVAL_BATCHES),
+              (YOLO_BATCH, RESNET_BATCH))]
+    phase(f"phase 11a: step_ms under DDP at world 1 ({rank['backend']}) "
+          f"against the one-process step of phases 5 and 8 in this "
+          f"run: yolov3 "
+          f"{ms[0]:.3f} vs {yolo['step_ms']:.3f} "
+          f"({ms[0] / yolo['step_ms']:.3f}x), resnet50_tpu {ms[1]:.3f} "
+          f"vs {resnet['step_ms']:.3f} ({ms[1] / resnet['step_ms']:.3f}x)")
+    out["11a"] = {"world": rank["world"], "backend": rank["backend"],
+                  "yolo_step_ms": ms[0], "resnet_step_ms": ms[1],
+                  "yolo_launches": rank["runs"][0]["best_iou_launches"],
+                  "one_process_step_ms": [yolo["step_ms"],
+                                          resnet["step_ms"]]}
+    os.makedirs(plans["11b"][0]["out"])
+    out["11b_run"] = start_ddp_phase(*plans["11b"])
+    BESIDE.add("11b's 2 training ranks")
+    out["root"] = root
+    return out
 
-        root2 = plans["11b"][0]["out"]
-        os.makedirs(root2)
-        ranks = ddp_phase("phase 11b", *plans["11b"])
+
+def collect_data_parallel(ddp: dict, smi: str) -> dict:
+    """Phase 11b, collected: two ranks on the one card over gloo, yolov3
+    (K2 on every rank), resnet50_tpu with the device augment and EMA, a
+    checkpoint from rank 0, and the f64 step against the one-process
+    step. Their step_ms is not a scaling number (both ranks on one card,
+    beside phases 12-13)."""
+    root2 = ddp["11b_run"]["spec"]["out"]
+    try:
+        ranks = wait_ddp_phase("phase 11b", ddp.pop("11b_run"))
         phase(f"phase 11b: world={ranks[0]['world']} backend="
               f"{ranks[0]['backend']} device_count="
               f"{ranks[0]['device_count']} (both ranks on "
-              f"{ranks[0]['device']}: not a scaling number) card: {smi}")
+              f"{ranks[0]['device']} beside phases 12-13: not a scaling "
+              f"number) card: {smi}")
         launches, ms2 = [], []
         for rank in ranks:
             ms2.append([check_ddp_run("phase 11b", rec, rank, n, 2, batch)
@@ -1881,13 +1961,14 @@ def check_data_parallel(smi: str, yolo: dict, resnet: dict) -> dict:
               f"statistics {err['stat']:.3g} of the largest (bound "
               f"{DDP_F64_STAT_RTOL:g}), counters equal={err['counters']}")
         check_f64_step_errors(err)
-        out["11b"] = {"world": ranks[0]["world"],
+        ddp["11b"] = {"world": ranks[0]["world"],
                       "backend": ranks[0]["backend"],
                       "yolo_launches": launches, "step_ms": ms2,
                       "f64": err}
     finally:
-        shutil.rmtree(root, ignore_errors=True)
-    return out
+        BESIDE.clear()
+        shutil.rmtree(ddp.pop("root"), ignore_errors=True)
+    return ddp
 
 
 # -- phase 12: yolov3 inference ----------------------------------------------
@@ -6943,7 +7024,7 @@ def check_p21_export(run: dict, vit_workdir: str) -> dict:
           + "; ms a call at batch {}: ".format(P21_BATCH) + " ".join(
               f"{k}={v:.3f}" for k, v in ms.items()))
     return {"launches": launches, "depth": depth, "errors": errs,
-            "seconds": seconds, "ms": ms}
+            "seconds": seconds, "ms": ms, "program": (module, xd)}
 
 
 def check_p21_convert(run: dict, cyclegan_workdir: str) -> dict:
@@ -7804,6 +7885,204 @@ def check_importers() -> dict:
     return out
 
 
+# -- phase 23: the IR audit ----------------------------------------------------
+
+P23_UNITS = ("vit_small", "yolov3", "attn", "quant")
+P23_NICE = 10
+P23_TIMEOUT = 900                  # from the script's start
+P23_BASELINE = os.path.join(HERE, "CHECK_COST_TORCH.json")
+
+
+def start_p23_audit() -> dict:
+    """23a's audit as a process of its own, started at the script's
+    start: fake tensors on the CPU, one thread at nice +P23_NICE, no card
+    (CUDA_VISIBLE_DEVICES empty); its JSON report to a file. A script
+    that ends first kills it."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_p23_")
+    atexit.register(shutil.rmtree, root, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
+        OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    out, log = os.path.join(root, "audit.json"), os.path.join(root, "log")
+    with open(out, "w") as fo, open(log, "w") as fe:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "deepvision_tpu_torch.check", *P23_UNITS,
+             "--format", "json"], env=env, stdout=fo, stderr=fe, cwd=HERE)
+    atexit.register(p21_stop, proc)
+    try:
+        os.setpriority(os.PRIO_PROCESS, proc.pid,
+                       os.getpriority(os.PRIO_PROCESS, 0) + P23_NICE)
+    except ProcessLookupError:   # it failed already; 23a says how
+        pass
+    return {"proc": proc, "out": out, "log": log, "t0": time.perf_counter()}
+
+
+def p23_baseline() -> dict:
+    with open(P23_BASELINE) as fp:
+        return json.load(fp)
+
+
+def check_p23_audit(run: dict, baseline: dict) -> dict:
+    """23a: the audit exits 0 with no finding; every row's FLOPs equal the
+    baseline's, bytes and op counts within its tolerance (the audit's own
+    COST check; their drift printed here)."""
+    from deepvision_tpu_torch.check.rules import COST_TOLERANCE
+    t0 = time.perf_counter()
+    try:
+        rc = run["proc"].wait(timeout=max(
+            1.0, P23_TIMEOUT - (t0 - run["t0"])))
+    except subprocess.TimeoutExpired:
+        p21_stop(run["proc"])
+        rc = None
+    waited = time.perf_counter() - t0
+    with open(run["out"]) as fh:
+        text = fh.read()
+    with open(run["log"]) as fh:
+        log = fh.read()
+    if rc != 0:
+        raise AssertionError(f"23a audit exited {rc}:\n{text[-3000:]}\n"
+                             f"{log[-3000:]}")
+    report = json.loads(text)
+    rows, base = report["cost"], baseline["units"]
+    prefixes = tuple(u if u in ("attn", "quant") else u + "/"
+                     for u in P23_UNITS)
+    expected = {u for u in base if u.startswith(prefixes)}
+    drift = {f: max(abs(r[f] - base[u][f]) / max(abs(base[u][f]), 1)
+                    for u, r in rows.items())
+             for f in ("flops", "bytes", "eqns")}
+    unequal = [u for u, r in rows.items() if r["flops"] != base[u]["flops"]]
+    phase(f"23a audit of {' '.join(P23_UNITS)} (torch "
+          f"{torch.__version__}, no jax, fake tensors on the CPU): rc {rc}, "
+          f"{report['summary']['units']} units, "
+          f"{report['summary']['findings']} findings, "
+          f"{report['summary']['seconds']} s beside phases 1-22 (waited "
+          f"{waited:.1f} s); {len(rows)} cost rows against "
+          f"CHECK_COST_TORCH.json (torch {baseline['torch']}): FLOPs unequal "
+          f"{unequal}; largest drift bytes {drift['bytes']:.3%} eqns "
+          f"{drift['eqns']:.3%} (tolerance {COST_TOLERANCE['bytes']:.0%}, "
+          f"{COST_TOLERANCE['eqns']:.0%})")
+    if report["findings"] or unequal or set(rows) != expected:
+        raise AssertionError(f"23a: findings {report['findings']}, FLOPs "
+                             f"unequal {unequal}, rows {sorted(rows)}")
+    return {"rc": rc, "units": report["summary"]["units"], "drift": drift,
+            "seconds": report["summary"]["seconds"], "waited_s": waited}
+
+
+class P23Capture(Recorder):
+    """The audit's recorder, which also keeps each K1 and K2 call's
+    inputs and outputs, to hold them against the plain versions."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if str(func.overloadpacket) in ("deepvision.flash_attention",
+                                        "deepvision.best_iou"):
+            self.calls.append((str(func.overloadpacket), args, out))
+        return out
+
+
+def check_p23_program(module, x: torch.Tensor, baseline: dict) -> dict:
+    """23b: one call of phase 21a's vit_small program under the recorder:
+    K1's nodes and launches, each node's output against the plain
+    version on its own inputs, FLOPs against the `vit_small/serve` row."""
+    depth = get_config(P21_VIT).model_kwargs["depth"]
+    rec = P23Capture()
+    flash_attention.launches = 0
+    with torch.inference_mode():
+        with rec:
+            logits = module(x)
+        torch.cuda.synchronize()
+        launches = flash_attention.launches
+        errs = [(out.float() - flash_attention_reference(
+            q, k, v, scale=scale).float()).abs().max().item()
+            for _, (q, k, v, scale), out in rec.calls]
+    nodes = rec.trace.count("deepvision.flash_attention")
+    want = baseline["units"][f"{P21_VIT}/serve"]["flops"]
+    phase(f"23b {P21_VIT} program (21a, batch {x.shape[0]}) under the "
+          f"recorder: {nodes} deepvision.flash_attention nodes, {launches} "
+          f"K1 launches (depth {depth}); each node against "
+          f"flash_attention_reference on its inputs: max_abs_err="
+          f"{max(errs):.3g} (bound {TOL[torch.bfloat16]:g}); FLOPs "
+          f"{rec.trace.flops} vs the {P21_VIT}/serve row {want}; "
+          f"{rec.trace.eqns} ops, {rec.trace.bytes} bytes")
+    if nodes != depth or launches != depth or len(errs) != depth \
+            or not max(errs) <= TOL[torch.bfloat16] \
+            or rec.trace.flops != want \
+            or not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"23b: nodes {nodes}, launches {launches}, "
+                             f"errors {errs}, FLOPs {rec.trace.flops}")
+    return {"nodes": nodes, "launches": launches, "max_abs_err": max(errs),
+            "flops": rec.trace.flops}
+
+
+def check_p23_yolo_step(baseline: dict) -> dict:
+    """23c: one real yolov3 train step at 416 px on the card at the
+    audit's batch, under the recorder (the backward on the calling
+    thread): one K2 node and one launch, its output bit for bit against
+    `best_iou_reference`, FLOPs against the fake-traced row."""
+    from deepvision_tpu_torch.check.harness import AUDIT_BATCH
+    from deepvision_tpu_torch.core.detection import (boxes_calibration_batch,
+                                                     make_yolo_train_step)
+    from deepvision_tpu_torch.core.optim import build_optimizer
+    from deepvision_tpu_torch.core.train_state import TrainState
+
+    t0 = time.perf_counter()
+    cfg = get_config(YOLO_MODEL)
+    size = cfg.data.image_size
+    device = torch.device("cuda")
+    model = build_model(cfg).to(device)
+    state = TrainState(model, build_optimizer(
+        model.parameters(), cfg.optimizer, cfg.schedule, 1,
+        cfg.total_epochs), seed=cfg.seed)
+    step = make_yolo_train_step(num_classes=cfg.data.num_classes,
+                                grid_sizes=yolo_grid_sizes(size),
+                                compute_dtype=getattr(torch, cfg.dtype))
+    batch = [torch.from_numpy(a).to(device) for a in boxes_calibration_batch(
+        cfg, (size, size, cfg.data.channels), AUDIT_BATCH, seed=23)]
+    rec = P23Capture()
+    best_iou.launches = 0
+    with torch.autograd.set_multithreading_enabled(False), rec:
+        metrics = step(state, *batch)
+    torch.cuda.synchronize()
+    launches = best_iou.launches
+    nodes = rec.trace.count("deepvision.best_iou")
+    exact, err = True, 0.0
+    for _, (preds, gt), outs in rec.calls:
+        refs = best_iou_reference(list(preds), gt)
+        exact &= all(same(o, r) for o, r in zip(outs, refs))
+        err = max([err] + [abs_err(o, r) for o, r in zip(outs, refs)])
+    want = baseline["units"][f"{YOLO_MODEL}/train"]["flops"]
+    loss = float(metrics["loss"])
+    phase(f"23c {YOLO_MODEL} train step on the card ({size} px, batch "
+          f"{AUDIT_BATCH}, bf16) under the recorder: {nodes} "
+          f"deepvision.best_iou node, {launches} K2 launch; its output "
+          f"against best_iou_reference on its inputs: max_abs_err={err:.3g} "
+          f"bit_for_bit={exact}; FLOPs {rec.trace.flops} vs the fake-traced "
+          f"{YOLO_MODEL}/train row {want}; {rec.trace.eqns} ops; loss "
+          f"{loss:.4f}; {time.perf_counter() - t0:.1f}s with the build")
+    if nodes != 1 or launches != 1 or len(rec.calls) != 1 or not exact \
+            or rec.trace.flops != want or not np.isfinite(loss):
+        raise AssertionError(f"23c: nodes {nodes}, launches {launches}, "
+                             f"exact {exact}, FLOPs {rec.trace.flops}")
+    return {"nodes": nodes, "launches": launches, "max_abs_err": err,
+            "flops": rec.trace.flops}
+
+
+def check_audit(run: dict, program) -> dict:
+    """Phase 23: the audit's counts on the card (23b, 23c), then the
+    background audit collected (23a)."""
+    t0 = time.perf_counter()
+    baseline = p23_baseline()
+    out = {"23b": check_p23_program(*program, baseline),
+           "23c": check_p23_yolo_step(baseline),
+           "23a": check_p23_audit(run, baseline)}
+    phase(f"23: phase 23 took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def keep_bytecode() -> None:
     """Keep the bytecode Python compiles, for this process and every one
     it starts, under the checkout's .cache/: where the interpreter's
@@ -7826,8 +8105,9 @@ def main() -> int:
     t_start = time.perf_counter()
 
     def ended(what: str) -> None:
-        phase(f"timing: {what} ended at "
-              f"{time.perf_counter() - t_start:.1f}s")
+        beside = "".join(f" (beside {b})" for b in sorted(BESIDE))
+        print(f"[chip_smoke] timing: {what} ended at "
+              f"{time.perf_counter() - t_start:.1f}s{beside}", flush=True)
 
     # 1. the card
     smi = subprocess.run(
@@ -7835,6 +8115,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    # 23a's audit: fake traces on the CPU, beside every phase of the card
+    p23_audit = start_p23_audit()
     phase(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} "
           f"device {torch.cuda.get_device_name(0)}")
@@ -8014,7 +8296,7 @@ def main() -> int:
     torch.cuda.empty_cache()        # the workers share the card
     ddp = check_data_parallel(smi, yolo, resnet)
 
-    ended("phase 11")
+    ended("phase 11a (11b's ranks run on beside phases 12-13)")
     # 12. slice 9: yolov3 inference on phase 5's checkpoint (no kernel on
     # this path: the launch counts, zeroed there, must stay 0)
     torch.cuda.empty_cache()
@@ -8025,8 +8307,10 @@ def main() -> int:
     # these paths: the launch counts, zeroed there, must stay 0)
     torch.cuda.empty_cache()
     check_centernet_and_pose()
-
     ended("phase 13")
+    collect_data_parallel(ddp, smi)
+
+    ended("phase 11b, collected")
     # 14. slice 11: U-Net segmentation, checkpoint restore into the
     # engine, DCGAN and CycleGAN (no kernel on these paths: the launch
     # counts, zeroed at each sub-phase, must stay 0)
@@ -8089,6 +8373,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     imports = check_importers()
     ended("phase 22")
+    # 23. slice 21: the IR audit (K1 in 23b's program call, K2 in 23c's
+    # train step: each count zeroed just before, read just after)
+    torch.cuda.empty_cache()
+    audit = check_audit(p23_audit, export["21a"]["program"])
+    ended("phase 23")
 
     # the card again, next to the numbers: a tail of the output keeps it
     print(smi, flush=True)
@@ -8135,6 +8424,8 @@ def main() -> int:
             "package": export["21a"]["launches"]["package"],
             "calls": 1, "depth": export["21a"]["depth"],
             "ms": export["21a"]["ms"]},
+        "audit": {k: audit["23b"][k] for k in ("nodes", "launches",
+                                               "flops")},
         "backward": "the VJP of naive_attention (autograd), as the JAX "
                     "package's _fused_bwd: no backward kernel",
         "grad_max_abs_err": grad_err}, {
@@ -8159,6 +8450,8 @@ def main() -> int:
         "export_launches": {"cyclegan_package": export["21b"]["counts"][1]},
         "keras_import_launches": {k: imports["22a"][k] for k in (
             "launches", "train_steps", "eval_batches")},
+        "audit": {k: audit["23c"][k] for k in ("nodes", "launches",
+                                               "flops")},
         "resilience_launches": {
             "launches": resil["15a"]["launches"],
             "train_steps": resil["15a"]["train_steps"],

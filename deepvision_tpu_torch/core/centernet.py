@@ -33,7 +33,7 @@ from ..parallel import mesh
 from ..utils.device import to_device, to_host
 from .config import UNIT_RANGE_NORM, TrainConfig
 from .detection import boxes_calibration_batch
-from .steps import maybe_grad_norm, normalize_input
+from .steps import annotate_step, maybe_grad_norm, normalize_input
 from .train_state import TrainState
 from .trainer import LossWatchedTrainer
 
@@ -65,7 +65,7 @@ def make_centernet_train_step(*, num_classes: int, grid: int,
             **{f"{k}_loss": v.detach().mean() for k, v in comp.items()
                if k != "total"}, **norm})
 
-    return step
+    return annotate_step(step, compute_dtype=compute_dtype, kind="train")
 
 
 def make_centernet_eval_step(*, num_classes: int, grid: int,
@@ -82,7 +82,7 @@ def make_centernet_eval_step(*, num_classes: int, grid: int,
         comp = cn_ops.centernet_loss(state.model(images), targets)
         return {"loss": comp["total"].mean()}
 
-    return step
+    return annotate_step(step, compute_dtype=compute_dtype, kind="eval")
 
 
 class CenterNetTrainer(LossWatchedTrainer):
@@ -132,7 +132,7 @@ def make_centernet_predict_step(*, compute_dtype: torch.dtype = torch.bfloat16,
             return cn_ops.decode(predict_heads(model, images, compute_dtype),
                                  max_detections=max_detections)
 
-    return step
+    return annotate_step(step, compute_dtype=compute_dtype, kind="predict")
 
 
 def evaluate_map(state: TrainState, batches: Iterable, *, num_classes: int,

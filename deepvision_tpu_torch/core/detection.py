@@ -37,7 +37,7 @@ from ..ops.nms import batched_nms
 from ..parallel import mesh
 from ..utils.device import to_device, to_host
 from .config import UNIT_RANGE_NORM, TrainConfig
-from .steps import maybe_grad_norm, normalize_input
+from .steps import annotate_step, maybe_grad_norm, normalize_input
 from .train_state import TrainState
 from .trainer import LossWatchedTrainer
 
@@ -102,7 +102,7 @@ def make_yolo_train_step(*, num_classes: int, grid_sizes: Sequence[int],
             **{f"{k}_loss": v.detach().mean() for k, v in comp.items()
                if k != "total"}, **norm})
 
-    return step
+    return annotate_step(step, compute_dtype=compute_dtype, kind="train")
 
 
 def make_yolo_eval_step(*, num_classes: int, grid_sizes: Sequence[int],
@@ -119,7 +119,7 @@ def make_yolo_eval_step(*, num_classes: int, grid_sizes: Sequence[int],
         comp = yolo_ops.yolo_loss(y_trues, outputs, boxes, valid, num_classes)
         return {"loss": comp["total"].mean()}
 
-    return step
+    return annotate_step(step, compute_dtype=compute_dtype, kind="eval")
 
 
 def predict_candidates(model: torch.nn.Module, images: torch.Tensor,
@@ -159,7 +159,7 @@ def make_predict_step(*, compute_dtype: torch.dtype = torch.bfloat16,
                                score_thresh=score_thresh,
                                max_detection=max_detection)
 
-    return step
+    return annotate_step(step, compute_dtype=compute_dtype, kind="predict")
 
 
 def evaluate_map(state: TrainState, batches: Iterable, *, num_classes: int,

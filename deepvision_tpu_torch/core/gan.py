@@ -62,6 +62,7 @@ from .metrics import MetricsLogger
 from .optim import build_optimizer
 from .resilience import (GracefulShutdown, PreemptionExit, RetryPolicy,
                          log_resilience_event, resilient_batches)
+from .steps import annotate_step
 from .train_state import TrainState
 from .trainer import _StepClock, divergence_halt, say
 
@@ -326,7 +327,7 @@ def make_dcgan_train_step(noise_dim: int) -> Callable:
         _apply(disc_state, d_loss)
         return {"gen_loss": g_loss.detach(), "disc_loss": d_loss.detach()}
 
-    return step
+    return annotate_step(step, compute_dtype=torch.float32, kind="train")
 
 
 class DCGANTrainer(AdversarialTrainer):
@@ -404,7 +405,7 @@ def make_cyclegan_generator_step() -> Callable:
         return ({k: v.detach() for k, v in metrics.items()},
                 fake_a2b.detach(), fake_b2a.detach())
 
-    return step
+    return annotate_step(step, compute_dtype=torch.float32, kind="train")
 
 
 def make_cyclegan_discriminator_step() -> Callable:
@@ -425,7 +426,7 @@ def make_cyclegan_discriminator_step() -> Callable:
                 "loss_dis_b": loss_dis_b.detach(),
                 "loss_dis_total": total.detach()}
 
-    return step
+    return annotate_step(step, compute_dtype=torch.float32, kind="train")
 
 
 class CycleGANTrainer(AdversarialTrainer):

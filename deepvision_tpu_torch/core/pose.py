@@ -27,7 +27,7 @@ from ..models.common import at_least_f32
 from ..ops.heatmap import render_gaussian_heatmaps
 from ..parallel import mesh
 from .config import UNIT_RANGE_NORM, TrainConfig
-from .steps import maybe_grad_norm, normalize_input
+from .steps import annotate_step, maybe_grad_norm, normalize_input
 from .train_state import TrainState
 from .trainer import LossWatchedTrainer
 
@@ -69,7 +69,7 @@ def make_pose_train_step(*, heatmap_size: Tuple[int, int],
         state.step += 1
         return mesh.global_means({"loss": loss.detach(), **norm})
 
-    return step
+    return annotate_step(step, compute_dtype=compute_dtype, kind="train")
 
 
 def make_pose_eval_step(*, heatmap_size: Tuple[int, int],
@@ -85,7 +85,7 @@ def make_pose_eval_step(*, heatmap_size: Tuple[int, int],
         state.model.eval()
         return {"loss": weighted_mse_loss(labels, state.model(images))}
 
-    return step
+    return annotate_step(step, compute_dtype=compute_dtype, kind="eval")
 
 
 class PoseTrainer(LossWatchedTrainer):

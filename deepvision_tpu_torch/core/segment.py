@@ -39,7 +39,8 @@ from ..models.common import at_least_f32
 from ..parallel import mesh
 from . import metrics as metrics_lib
 from .config import TrainConfig
-from .steps import _check_norm, maybe_grad_norm, normalize_input
+from .steps import (_check_norm, annotate_step, maybe_grad_norm,
+                    normalize_input)
 from .train_state import TrainState
 from .trainer import Trainer
 
@@ -128,7 +129,7 @@ def make_segmentation_train_step(*, compute_dtype: torch.dtype = torch.bfloat16,
                 **{f"{k}_loss": v.detach() for k, v in comp.items()
                    if k != "total"}, **norm})
 
-    return step
+    return annotate_step(step, compute_dtype=compute_dtype, kind="train")
 
 
 def make_segmentation_eval_step(*, num_classes: int,
@@ -154,7 +155,7 @@ def make_segmentation_eval_step(*, num_classes: int,
                 "confusion": metrics_lib.confusion_matrix(
                     logits.argmax(dim=-1), masks, num_classes)}
 
-    return step
+    return annotate_step(step, compute_dtype=compute_dtype, kind="eval")
 
 
 def make_segmentation_predict_step(*, compute_dtype: torch.dtype =
@@ -171,7 +172,7 @@ def make_segmentation_predict_step(*, compute_dtype: torch.dtype =
             x = normalize_input(images, input_norm, compute_dtype)
             return model(x).argmax(dim=-1).to(torch.int32)
 
-    return step
+    return annotate_step(step, compute_dtype=compute_dtype, kind="predict")
 
 
 class SegmentationTrainer(Trainer):

@@ -63,6 +63,23 @@ from .train_state import TrainState
 Step = Callable[..., Dict[str, torch.Tensor]]
 
 
+def annotate_step(fn: Callable, **claim) -> Callable:
+    """Attach the factory's own declaration to the step it returns: the
+    compute dtype and the kind (train, eval or predict), as
+    `audit_claim`. The IR audit (deepvision_tpu_torch/check) traces the
+    step and holds what it ran to exactly this claim, so the claim
+    cannot drift from the construction site (JAX: `annotate_step`'s
+    `_jaxvet`). Inert everywhere else."""
+    fn.audit_claim = claim
+    return fn
+
+
+def _claimed_dtype(step_fn: Callable) -> Optional[torch.dtype]:
+    """The compute dtype an inner step's factory declared (a wrapper of
+    k steps or an epoch declares its inner step's)."""
+    return getattr(step_fn, "audit_claim", {}).get("compute_dtype")
+
+
 def normalize_input(images: torch.Tensor,
                     input_norm: Optional[Tuple[Sequence[float],
                                                Sequence[float]]],
@@ -235,7 +252,7 @@ def make_classification_train_step(
                 "loss": loss.detach(),
                 **losses.topk_accuracies(outputs, labels), **norm})
 
-    return step
+    return annotate_step(step, compute_dtype=compute_dtype, kind="train")
 
 
 def step_and_ema(step_fn: Step, state: TrainState, batch: tuple
@@ -267,7 +284,8 @@ def make_multistep_train_step(step_fn: Step, k: int) -> Callable:
         return per_step, {k: torch.stack([m[k].float() for m in per_step])
                           .mean() for k in per_step[0]}
 
-    return multi
+    return annotate_step(multi,
+                         compute_dtype=_claimed_dtype(step_fn), kind="train")
 
 
 def draw_epoch_permutation(seed: int, epoch: int, n: int,
@@ -318,7 +336,8 @@ def make_epoch_train_step(step_fn: Step) -> Callable:
                 on_step()
         return per_step
 
-    return epoch
+    return annotate_step(epoch,
+                         compute_dtype=_claimed_dtype(step_fn), kind="train")
 
 
 def make_classification_eval_step(
@@ -343,4 +362,4 @@ def make_classification_eval_step(
                 **{k: (v * mask).sum() for k, v in correct.items()},
                 "count": mask.sum()}
 
-    return step
+    return annotate_step(step, compute_dtype=compute_dtype, kind="eval")

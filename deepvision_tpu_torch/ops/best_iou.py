@@ -16,7 +16,11 @@ against one (B, M, 4) GT tensor:
   kernel or raises — a sequence of up to `MAX_SEGMENTS` segments in one
   launch, with no concatenation copy; only a CPU tensor takes the plain
   version. There is no fallback and no switch that takes the kernel off
-  the path.
+  the path. Every call goes through one registered operator,
+  `deepvision::best_iou` (`best_iou_op`): its CUDA implementation
+  launches the kernel, its CPU implementation is the plain version, its
+  fake gives the output shapes, so a traced step holds one node per
+  call and a trace under fake tensors launches nothing.
 
 Both work on detached inputs: the YOLO loss consumes the result through a
 `<` (the JAX package wraps it in stop_gradient), so it has no gradient.
@@ -113,27 +117,13 @@ def _kernel():
     return fn
 
 
-def best_iou(pred_boxes: Boxes, gt_boxes: torch.Tensor
-             ) -> Union[torch.Tensor, List[torch.Tensor]]:
-    """max_m IoU(pred_n, gt_m): (B, N, 4) x (B, M, 4) corner boxes → (B, N)
-    f32; a sequence of 1 to MAX_SEGMENTS (B, N_s, 4) segments gives the
-    list of their (B, N_s) results. Padded GT rows must be zeroed by the
-    caller (zero area → IoU 0).
-
-    On a CUDA tensor this launches the kernel once on the current stream
-    of the tensor's card (whatever card is current), for all segments,
-    and counts the launch in `best_iou.launches`. On a CPU tensor it
-    returns `best_iou_reference`. Any other device raises."""
-    single = isinstance(pred_boxes, torch.Tensor)
-    preds = [pred_boxes] if single else list(pred_boxes)
-    _check(preds, gt_boxes)
+def _launch(preds: List[torch.Tensor], gt_boxes: torch.Tensor
+            ) -> List[torch.Tensor]:
+    """One launch of the kernel for all segments on the current stream
+    of the tensors' card, counted in `best_iou.launches`."""
     device = gt_boxes.device
-    if device.type == "cpu":
-        return best_iou_reference(pred_boxes, gt_boxes)
-    if device.type != "cuda":
-        raise ValueError(f"best_iou runs on cuda or cpu, got {device}")
-    preds = [p.detach().float().contiguous() for p in preds]
-    gt = gt_boxes.detach().float().contiguous()
+    preds = [p.float().contiguous() for p in preds]
+    gt = gt_boxes.float().contiguous()
     b, k = gt.shape[0], len(preds)
     outs = [torch.empty((b, p.shape[1]), dtype=torch.float32, device=device)
             for p in preds]
@@ -152,6 +142,58 @@ def best_iou(pred_boxes: Boxes, gt_boxes: torch.Tensor
                            f"{tuple(gt.shape)}")
     with _launches_lock:
         best_iou.launches += 1
+    return outs
+
+
+@torch.library.custom_op("deepvision::best_iou", mutates_args=(),
+                         device_types="cpu")
+def best_iou_op(preds: List[torch.Tensor], gt_boxes: torch.Tensor
+                ) -> List[torch.Tensor]:
+    """The registered operator `deepvision::best_iou`, which every call
+    of `best_iou` goes through, so a trace holds one node per call (the
+    YOLO loss's three scales in one). On CPU tensors (this
+    implementation) it returns the plain version; on CUDA tensors it
+    launches the kernel (`_cuda_impl`); no other device has an
+    implementation. Each implementation checks its inputs (`_check`)."""
+    _check(preds, gt_boxes)
+    return best_iou_reference(list(preds), gt_boxes)
+
+
+@best_iou_op.register_kernel("cuda")
+def _cuda_impl(preds: List[torch.Tensor], gt_boxes: torch.Tensor
+               ) -> List[torch.Tensor]:
+    _check(preds, gt_boxes)
+    return _launch(preds, gt_boxes)
+
+
+@best_iou_op.register_fake
+def _fake(preds: List[torch.Tensor], gt_boxes: torch.Tensor
+          ) -> List[torch.Tensor]:
+    _check(preds, gt_boxes)          # a trace refuses what the kernel would
+    return [gt_boxes.new_empty((gt_boxes.shape[0], p.shape[1]),
+                               dtype=torch.float32) for p in preds]
+
+
+def best_iou(pred_boxes: Boxes, gt_boxes: torch.Tensor
+             ) -> Union[torch.Tensor, List[torch.Tensor]]:
+    """max_m IoU(pred_n, gt_m): (B, N, 4) x (B, M, 4) corner boxes → (B, N)
+    f32; a sequence of 1 to MAX_SEGMENTS (B, N_s, 4) segments gives the
+    list of their (B, N_s) results. Padded GT rows must be zeroed by the
+    caller (zero area → IoU 0).
+
+    Every call goes through the operator `deepvision::best_iou` on
+    detached inputs (the result has no gradient). On a CUDA tensor it
+    launches the kernel once on the current stream of the tensor's card
+    (whatever card is current), for all segments, and counts the launch
+    in `best_iou.launches`. On a CPU tensor it returns
+    `best_iou_reference`. Any other device raises. The operator checks
+    the inputs (`_check`), once a call."""
+    single = isinstance(pred_boxes, torch.Tensor)
+    preds = [pred_boxes] if single else list(pred_boxes)
+    for t in [gt_boxes] + preds:      # before .detach() meets a non-tensor
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"best_iou takes tensors, got {type(t)}")
+    outs = best_iou_op([p.detach() for p in preds], gt_boxes.detach())
     return outs[0] if single else outs
 
 

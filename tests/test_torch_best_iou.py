@@ -178,6 +178,17 @@ def test_wrapper_refuses_bad_segments(segments, gt_shape, error):
                       torch.zeros(gt_shape))
 
 
+@pytest.mark.parametrize("pred,gt", [
+    ([[0.0, 0.0, 1.0, 1.0]], torch.zeros(1, 3, 4)),
+    (torch.zeros(1, 5, 4), [[0.0, 0.0, 1.0, 1.0]]),
+], ids=["pred", "gt"])
+def test_wrapper_refuses_a_non_tensor(pred, gt):
+    """The operator checks the inputs; the wrapper only refuses what it
+    could not detach."""
+    with pytest.raises(TypeError, match="takes tensors"):
+        port.best_iou(pred, gt)
+
+
 def test_zero_overlap_division_identity_in_f32():
     """csrc/best_iou.cu divides 2^-24 instead of a zero overlap (which
     would leave __fdiv_rn's fast path) and scales the quotient by 0. In

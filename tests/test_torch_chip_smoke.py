@@ -7,6 +7,7 @@ phase, and the f64 step comparison with its bounds on CPU tensors. Phases
 12 and 13 rehearse on the CPU at small sizes, the card stood in for by the
 CPU."""
 
+import json
 import os
 import subprocess
 import sys
@@ -332,6 +333,57 @@ def test_a_worker_that_outlives_its_time_is_killed_and_fails(tmp_path):
     logs = [str(tmp_path / "w.log")]
     with pytest.raises(AssertionError, match="exit codes None"):
         chip_smoke.run_workers([slow], [None], logs, timeout=1.0)
+
+
+def test_workers_started_early_are_collected_later(tmp_path):
+    """11b's way: the workers start, run on beside later phases, and are
+    waited for afterwards; a failure still fails the phase with its log's
+    tail."""
+    ok = [sys.executable, "-c", "import time; time.sleep(0.5)"]
+    bad = [sys.executable, "-c", "import sys; print('boom'); sys.exit(3)"]
+    logs = [str(tmp_path / f"w{i}.log") for i in range(2)]
+    procs = chip_smoke.start_workers([ok, ok], [None, None], logs)
+    assert all(p.poll() is None for p in procs)
+    chip_smoke.wait_workers(procs, logs)
+    procs = chip_smoke.start_workers([ok, bad], [None, None], logs)
+    with pytest.raises(AssertionError,
+                       match=r"(?s)exit codes \[0, 3\].*boom"):
+        chip_smoke.wait_workers(procs, logs)
+
+
+def test_a_ddp_phase_started_early_yields_each_ranks_record(tmp_path):
+    """`start_ddp_phase` writes the spec and starts one worker a rank with
+    `--ddp-worker <spec>`; `wait_ddp_phase` returns the records the ranks
+    wrote beside it, by rank."""
+    write = ("import json, os, sys; r = os.environ['RANK']; "
+             "out = os.path.dirname(sys.argv[2]); "
+             "json.dump({'rank': int(r)}, "
+             "open(os.path.join(out, f'rank{r}.json'), 'w'))")
+    spec = {"out": str(tmp_path), "backend": "gloo"}
+    envs = [dict(os.environ, RANK=str(r)) for r in range(2)]
+    run = chip_smoke.start_ddp_phase(
+        spec, [[sys.executable, "-c", write]] * 2, envs)
+    ranks = chip_smoke.wait_ddp_phase("phase 11b", run)
+    assert [r["rank"] for r in ranks] == [0, 1]
+    with open(tmp_path / "spec.json") as fh:
+        assert json.load(fh) == spec
+    # 11a's way, started and waited for in one call, on the same path
+    assert chip_smoke.ddp_phase(
+        "phase 11a", spec, [[sys.executable, "-c", write]] * 2, envs) == ranks
+
+
+def test_lines_printed_beside_11b_say_so(capsys, monkeypatch):
+    """While 11b's ranks train on the card, every log line says so, so
+    that its times are not read as taken on a card of its own."""
+    monkeypatch.setattr(chip_smoke, "BESIDE", set())
+    chip_smoke.phase("alone")
+    chip_smoke.BESIDE.add("11b's 2 training ranks")
+    chip_smoke.phase("12a step 55.9 ms")
+    chip_smoke.BESIDE.clear()
+    chip_smoke.phase("alone again")
+    alone, shared, again = capsys.readouterr().out.splitlines()
+    assert "beside" not in alone and "beside" not in again
+    assert shared.endswith("beside 11b's 2 training ranks] 12a step 55.9 ms")
 
 
 def test_an_exception_exits_the_script_non_zero(tmp_path):
